@@ -1,0 +1,11 @@
+"""GNN-PE in PyTorch for NVIDIA Hopper: the port of the JAX package ``repro``.
+
+The main path is ``GnnPeEngine(cfg).build(g)`` then ``.match_many(queries)``
+(``repro_torch.core``).  It runs on the card unless it is given
+``device="cpu"``; the fused dominance verdict is a hand-written CUDA
+kernel (``repro_torch.kernels.dominance_scan``).  This package imports
+neither JAX nor ``repro``.
+"""
+from .device import default_device
+
+__all__ = ["default_device"]

@@ -1,0 +1,45 @@
+from .baselines import gql_match, match_count, quicksi_match, vf2_match
+from .encoder import EncoderConfig, GATEncoder, MonotoneEncoder, make_encoder
+from .engine import GnnPeConfig, GnnPeEngine, PartitionModel, QueryStats
+from .index import PackedIndex, build_index, query_index_batch_multi, reset_pair_counters
+from .matcher import join_candidates, match_from_candidates, refine, sort_matches
+from .paths import concat_path_embeddings, enumerate_paths
+from .planner import QueryPlan, candidate_plan_paths, canonical_form, plan_query
+from .stars import build_pair_dataset, build_star_tensors, subset_table
+from .training import TrainConfig, TrainResult, dominance_violations, train_dominance
+
+__all__ = [
+    "GnnPeConfig",
+    "GnnPeEngine",
+    "PartitionModel",
+    "QueryStats",
+    "EncoderConfig",
+    "GATEncoder",
+    "MonotoneEncoder",
+    "make_encoder",
+    "TrainConfig",
+    "TrainResult",
+    "train_dominance",
+    "dominance_violations",
+    "PackedIndex",
+    "build_index",
+    "query_index_batch_multi",
+    "reset_pair_counters",
+    "QueryPlan",
+    "plan_query",
+    "candidate_plan_paths",
+    "canonical_form",
+    "enumerate_paths",
+    "concat_path_embeddings",
+    "build_star_tensors",
+    "build_pair_dataset",
+    "subset_table",
+    "join_candidates",
+    "refine",
+    "match_from_candidates",
+    "sort_matches",
+    "vf2_match",
+    "quicksi_match",
+    "gql_match",
+    "match_count",
+]

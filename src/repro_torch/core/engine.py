@@ -1,0 +1,533 @@
+"""GNN-PE engine, the paper's Algorithm 1 end to end, in PyTorch.
+
+Offline:  partition → per-partition dominance GNNs (main + n multi-GNNs
+over randomized labels) → node/label embeddings → path enumeration →
+packed block indexes, all tensors on the engine's device.
+
+Online (``match_many``): a batch of queries goes through ONE pass per
+stage:
+
+  1. the star tensors of every query concatenate into one batch, and the
+     partitions' models stack on a leading partition dim, so one call
+     embeds every query vertex under every partition's GNNs;
+  2. every (query, plan path) probe against every partition descends the
+     packed indexes level-synchronously, and the leaf pairs of all
+     partitions go through ONE fused dominance verdict (the hand-written
+     CUDA kernel on the card, its plain version on the CPU);
+  3. a per-query sort-merge join + exact refine on the device.
+
+The engine runs on the card unless it is given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..device import default_device
+from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
+from .encoder import EncoderConfig, make_encoder
+from .index import PackedIndex, build_index, query_index_batch_multi
+from .matcher import match_from_candidates
+from .paths import concat_path_embeddings, enumerate_paths
+from .planner import QueryPlan, canonical_form, plan_query
+from .stars import build_pair_dataset, build_star_tensors
+from .training import TrainConfig, train_dominance
+
+__all__ = ["GnnPeConfig", "PartitionModel", "GnnPeEngine", "QueryStats"]
+
+# plan-cache bound: one QueryPlan per canonical query signature; FIFO
+# eviction keeps a long-lived engine from growing without limit
+_PLAN_CACHE_MAX = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class GnnPeConfig:
+    """The JAX package's config fields and defaults, so one dict builds
+    both engines.  Values that later slices of the port bring raise
+    ``NotImplementedError`` when the engine is made."""
+
+    path_length: int = 2  # l  (paper default 2)
+    emb_dim: int = 2  # d  (paper default 2)
+    n_multi: int = 2  # n  multi-GNNs (paper default 2)
+    theta: int = 10  # degree threshold (paper default 10)
+    n_partitions: int = 2  # m
+    encoder: str = "gat"  # "gat" (paper) | "monotone" (beyond-paper)
+    feat_dim: int = 8
+    hidden_dim: int = 8
+    heads: int = 3  # K = 3 (paper default)
+    block_size: int = 128
+    index_fanout: int = 16
+    index_kind: str = "path"
+    group_size: int = 16
+    group_size_mode: str = "fixed"
+    plan_strategy: str = "aip"
+    plan_weight: str = "deg"
+    induced: bool = False
+    quantize_index: bool = False
+    online_impl: str = "batched"
+    probe_impl: str = "loop"
+    join_impl: str = "numpy"
+    cache: bool = False
+    cache_capacity: int = 2048
+    delta_compact_frac: float = 0.25
+    delta_compact_min: int = 512
+    stacked_leaf_pair_cap: int = 1 << 21
+    seed: int = 0
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+# config values of later slices → the ROADMAP queue-1 item that brings them
+_LATER = {
+    ("index_kind", "grouped"): "item 9 (GNN-PGE grouped index)",
+    ("group_size_mode", "auto"): "item 9 (GNN-PGE grouped index)",
+    ("probe_impl", "stacked"): "item 10 (stacked probe)",
+    ("join_impl", "device"): "item 11 (device join)",
+    ("quantize_index", True): "item 5 (int8 + label-hash leaf sidecar)",
+    ("plan_weight", "dr"): "item 6 (dr plan weights)",
+    ("cache", True): "item 12 (result cache)",
+    ("online_impl", "scalar"): "item 8 (scalar match)",
+}
+
+
+def _check_config(cfg: GnnPeConfig) -> None:
+    for (name, value), item in _LATER.items():
+        if getattr(cfg, name) == value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}"
+            )
+    allowed = {
+        "index_kind": ("path",), "probe_impl": ("loop",), "join_impl": ("numpy",),
+        "group_size_mode": ("fixed",), "plan_weight": ("deg",), "online_impl": ("batched",),
+    }
+    for name, ok in allowed.items():
+        if getattr(cfg, name) not in ok:
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
+
+
+@dataclasses.dataclass
+class PartitionModel:
+    """Trained artifacts for one partition G_j (tensors on the engine device)."""
+
+    members: np.ndarray  # vertices of G_j
+    vertex_set: np.ndarray  # l-hop expanded vertex set (embedding support)
+    params: dict  # main GNN params
+    multi_params: list  # params of the n extra GNNs
+    label_perms: np.ndarray  # (n, n_labels) randomized label maps
+    node_emb: torch.Tensor  # (n_vertices_G, d): rows valid on vertex_set
+    node_emb0: torch.Tensor  # (n_vertices_G, d)
+    node_emb_multi: torch.Tensor  # (n, n_vertices_G, d)
+    index: PackedIndex
+    train_epochs: int = 0
+    n_fallback: int = 0
+    part_id: int = -1
+    fallback: np.ndarray | None = None  # star indices forced to all-ones (main)
+    fallback_multi: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class QueryStats:
+    plan: QueryPlan | None = None
+    n_candidates: dict = dataclasses.field(default_factory=dict)
+    total_paths: int = 0
+    candidate_paths: int = 0
+    pruning_power: float = 0.0
+    filter_time: float = 0.0
+    join_time: float = 0.0
+    n_matches: int = 0
+
+
+class GnnPeEngine:
+    def __init__(self, cfg: GnnPeConfig, device=None):
+        _check_config(cfg)
+        self.cfg = cfg
+        self.device = default_device(device)
+        self.graph: Graph | None = None
+        self.dgraph = None
+        self.partitioning: Partitioning | None = None
+        self.models: list[PartitionModel] = []
+        self.n_labels: int = 0
+        self.label_perms = None
+        self.offline_stats: dict = {}
+        self._encoder = None
+        self._stacked_cache = None  # per-partition params stacked on a partition dim
+        self._plan_cache: dict = {}  # canonical query key -> canonical QueryPlan
+
+    @property
+    def encoder(self):
+        if self._encoder is None:
+            self._encoder = make_encoder(self._encoder_cfg())
+        return self._encoder
+
+    def _encoder_cfg(self) -> EncoderConfig:
+        cfg = self.cfg
+        return EncoderConfig(
+            n_labels=self.n_labels,
+            feat_dim=cfg.feat_dim,
+            hidden_dim=cfg.hidden_dim,
+            heads=cfg.heads,
+            out_dim=cfg.emb_dim,
+            theta=cfg.theta,
+            kind=cfg.encoder,
+        )
+
+    # ------------------------------------------------------------------
+    # Offline pre-computation (Alg. 1 lines 1-5)
+    # ------------------------------------------------------------------
+    def build(self, g: Graph, params: list | None = None) -> "GnnPeEngine":
+        """Partition, train (or take ``params``), embed and index ``g``.
+
+        ``params`` is the per-partition state of another build, as
+        ``repro_torch.convert.partition_state_from_reference`` makes it
+        from the JAX engine: those weights are used as they are and
+        nothing is trained.
+        """
+        cfg = self.cfg
+        dev = self.device
+        t0 = time.perf_counter()
+        self.graph = g
+        self.dgraph = dg = device_graph(g, dev)
+        self.n_labels = int(g.labels.max()) + 1 if g.n_vertices else 1
+        self._encoder = None
+        self._stacked_cache = None
+        self._plan_cache.clear()
+        self.partitioning = partition_graph(g, cfg.n_partitions, seed=cfg.seed)
+        rng = np.random.default_rng(cfg.seed)
+        # randomized label maps shared across partitions (query side needs them)
+        self.label_perms = np.stack(
+            [rng.permutation(self.n_labels) for _ in range(cfg.n_multi)]
+        ) if cfg.n_multi else np.zeros((0, self.n_labels), np.int64)
+        given = {int(s["part_id"]): s for s in params} if params is not None else None
+        if given:
+            self.label_perms = np.asarray(next(iter(given.values()))["label_perms"])
+        perms = torch.as_tensor(self.label_perms.astype(np.int64), device=dev)
+        ecfg = self._encoder_cfg()
+        train_time = embed_time = index_time = 0.0
+        self.models = []
+        for j in range(self.partitioning.n_parts):
+            members = self.partitioning.members(j)
+            vset = expanded_partition(g, self.partitioning, j, cfg.path_length)
+            if vset.size == 0:
+                continue
+            # ---- train main + multi GNNs over the expanded vertex set ----
+            t1 = time.perf_counter()
+            stars = build_star_tensors(dg, vset, cfg.theta)
+            stars_multi = [self._relabel_stars(stars, perms[i]) for i in range(cfg.n_multi)]
+            if given is None:
+                pairs = build_pair_dataset(stars, rng=np.random.default_rng(cfg.seed + j))
+                res = train_dominance(ecfg, stars, pairs, cfg.train)
+                res_multi = [
+                    train_dominance(
+                        ecfg, stars_multi[i], pairs,
+                        dataclasses.replace(cfg.train, seed=cfg.train.seed + 101 + i),
+                    )
+                    for i in range(cfg.n_multi)
+                ]
+                main_p, fb = res.params, res.fallback_vertices
+                multi_p = [r.params for r in res_multi]
+                fb_multi = [r.fallback_vertices for r in res_multi]
+                epochs = res.epochs
+            else:
+                st = given[j]
+                main_p = _to_tensors(st["params"], dev)
+                multi_p = [_to_tensors(p, dev) for p in st["multi_params"]]
+                fb, fb_multi = st["fallback"], list(st["fallback_multi"])
+                epochs = 0
+            train_time += time.perf_counter() - t1
+            # ---- node embeddings (with safe fallbacks) --------------------
+            t2 = time.perf_counter()
+            node_emb, node_emb0 = self._node_embeddings(vset, stars, main_p, fb)
+            node_emb_multi = torch.stack(
+                [
+                    self._node_embeddings(vset, stars_multi[i], multi_p[i], fb_multi[i])[0]
+                    for i in range(cfg.n_multi)
+                ]
+            ) if cfg.n_multi else node_emb.new_zeros((0, g.n_vertices, cfg.emb_dim))
+            embed_time += time.perf_counter() - t2
+            # ---- paths + index -------------------------------------------
+            t3 = time.perf_counter()
+            paths = enumerate_paths(dg, members, cfg.path_length)
+            index = build_index(
+                paths,
+                concat_path_embeddings(paths, node_emb),
+                concat_path_embeddings(paths, node_emb0),
+                torch.stack([concat_path_embeddings(paths, e) for e in node_emb_multi])
+                if cfg.n_multi
+                else None,
+                block_size=cfg.block_size,
+                fanout=cfg.index_fanout,
+            )
+            index_time += time.perf_counter() - t3
+            self.models.append(
+                PartitionModel(
+                    members=members,
+                    vertex_set=vset,
+                    params=main_p,
+                    multi_params=multi_p,
+                    label_perms=self.label_perms,
+                    node_emb=node_emb,
+                    node_emb0=node_emb0,
+                    node_emb_multi=node_emb_multi,
+                    index=index,
+                    train_epochs=epochs,
+                    n_fallback=len(fb),
+                    part_id=j,
+                    fallback=np.asarray(fb, np.int64),
+                    fallback_multi=[np.asarray(f, np.int64) for f in fb_multi],
+                )
+            )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.offline_stats = {
+            "total_time": time.perf_counter() - t0,
+            "train_time": train_time,
+            "embed_time": embed_time,
+            "index_time": index_time,
+            "n_paths": int(sum(m.index.n_paths for m in self.models)),
+            "edge_cut": int(self.partitioning.edge_cut(g)),
+        }
+        return self
+
+    def _relabel_stars(self, stars, perm: torch.Tensor):
+        """The star tensors under one randomized label map (multi-GNN input)."""
+        return dataclasses.replace(
+            stars,
+            center_labels=perm[stars.center_labels],
+            leaf_labels=self._relabel_leaves(stars.leaf_labels, stars.leaf_mask, perm),
+        )
+
+    @staticmethod
+    def _relabel_leaves(leaf_labels, leaf_mask, perm: torch.Tensor):
+        return torch.where(leaf_mask, perm[leaf_labels], 0)
+
+    def _node_embeddings(self, vset, stars, params, fallback_vertices):
+        """Embed every vertex of the expanded set; all-ones for overflow/fallback."""
+        cfg = self.cfg
+        enc = self.encoder
+        with torch.no_grad():
+            o = enc.embed_stars(params, stars.center_labels, stars.leaf_labels, stars.leaf_mask)
+            o0 = enc.embed_isolated(params, stars.center_labels)
+        # paper: high-degree → all-ones; ours: unverified vertices too
+        o[stars.overflow] = 1.0
+        if len(fallback_vertices):
+            o[torch.as_tensor(np.asarray(fallback_vertices, np.int64), device=o.device)] = 1.0
+        n = self.graph.n_vertices
+        node_emb = o.new_zeros((n, cfg.emb_dim))
+        node_emb0 = o.new_zeros((n, cfg.emb_dim))
+        vs = torch.as_tensor(vset.astype(np.int64), device=o.device)
+        node_emb[vs] = o
+        node_emb0[vs] = o0
+        return node_emb, node_emb0
+
+    # ------------------------------------------------------------------
+    # Plans: weight="deg" under a canonical-signature cache
+    # ------------------------------------------------------------------
+    def _deg_plan_cached(self, q: Graph) -> QueryPlan:
+        """``plan_query(weight="deg")`` cached in canonical vertex ids, so
+        repeated (even relabeled-isomorphic) queries reuse one planner run."""
+        cfg = self.cfg
+        perm, key = canonical_form(q)
+        full_key = (key, cfg.path_length, cfg.plan_strategy, cfg.seed)
+        hit = self._plan_cache.get(full_key)
+        if hit is not None:
+            paths = [tuple(int(perm[v]) for v in p) for p in hit.paths]
+            return QueryPlan(paths=paths, cost=hit.cost, strategy=hit.strategy)
+        plan = plan_query(
+            q, cfg.path_length, strategy=cfg.plan_strategy, weight="deg", seed=cfg.seed
+        )
+        inv = np.empty(q.n_vertices, np.int64)
+        inv[perm] = np.arange(q.n_vertices)
+        while len(self._plan_cache) >= _PLAN_CACHE_MAX:
+            self._plan_cache.pop(next(iter(self._plan_cache)))
+        self._plan_cache[full_key] = QueryPlan(
+            paths=[tuple(int(inv[v]) for v in p) for p in plan.paths],
+            cost=plan.cost,
+            strategy=plan.strategy,
+        )
+        return plan
+
+    # ------------------------------------------------------------------
+    # Batched online matching: the fused multi-query path
+    # ------------------------------------------------------------------
+    def match(self, q: Graph, return_stats: bool = False):
+        """Exact subgraph matching of one query (a batch of one)."""
+        out = self.match_many([q], return_stats=return_stats)
+        if return_stats:
+            return out[0][0], out[1][0]
+        return out[0]
+
+    def _stacked_model_params(self):
+        """Per-partition GNN params stacked on a leading partition dim, so
+        one call embeds a star batch under every partition's model."""
+        if self._stacked_cache is None:
+            def stack(dicts):
+                return {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+            main = stack([m.params for m in self.models])
+            multi = [
+                stack([m.multi_params[i] for m in self.models]) for i in range(self.cfg.n_multi)
+            ]
+            self._stacked_cache = (main, multi)
+        return self._stacked_cache
+
+    @torch.no_grad()
+    def _query_node_embeddings_many(self, queries: list):
+        """Embed ALL queries' stars with every partition's GNNs.
+
+        Star tensors concatenate across queries and the partition models
+        stack on a partition dim, so the whole (partition × query vertex)
+        grid is 2 + n_multi calls.  Returns ``(cat, spans)``: ``cat[mi] =
+        (o, o0, o_multi)`` concatenated over queries, with query ``qi``'s
+        rows at ``spans[qi]:spans[qi+1]``.  Overflow query vertices embed
+        to 0⃗ so they prune nothing.
+        """
+        cfg = self.cfg
+        enc = self.encoder
+        star_list = [
+            build_star_tensors(device_graph(q, self.device), np.arange(q.n_vertices), cfg.theta)
+            for q in queries
+        ]
+        spans = np.concatenate([[0], np.cumsum([q.n_vertices for q in queries])]).astype(np.int64)
+        if not self.models:
+            return [], spans
+        centers = torch.cat([s.center_labels for s in star_list])
+        leaf_labels = torch.cat([s.leaf_labels for s in star_list])
+        leaf_mask = torch.cat([s.leaf_mask for s in star_list])
+        overflow = torch.cat([s.overflow for s in star_list])
+        main, multi = self._stacked_model_params()
+        o_all = enc.embed_stars(main, centers, leaf_labels, leaf_mask)  # (m, n, d)
+        o0_all = enc.embed_isolated(main, centers)
+        o_all[:, overflow] = 0.0
+        perms = torch.as_tensor(self.label_perms.astype(np.int64), device=self.device)
+        om = []
+        for i in range(cfg.n_multi):
+            oi = enc.embed_stars(
+                multi[i],
+                perms[i][centers],
+                self._relabel_leaves(leaf_labels, leaf_mask, perms[i]),
+                leaf_mask,
+            )
+            oi[:, overflow] = 0.0
+            om.append(oi)
+        om_all = torch.stack(om) if om else o_all.new_zeros((0,) + tuple(o_all.shape))
+        cat = [(o_all[mi], o0_all[mi], om_all[:, mi]) for mi in range(len(self.models))]
+        return cat, spans
+
+    def _probe_batch(self, requests: list, q_embs, memo: dict) -> None:
+        """One fused index probe for many (query, path) pairs × partitions.
+
+        ``requests`` is a list of (qi, path) pairs; results land in
+        ``memo[(mi, qi, path)]``: row tensors of partition ``mi``'s index,
+        from ONE ``query_index_batch_multi`` (and hence one fused leaf
+        verdict) covering every partition.
+        """
+        cfg = self.cfg
+        cat, spans = q_embs
+        reqs = list(dict.fromkeys(requests))
+        by_len: dict = {}
+        for qi, p in reqs:
+            by_len.setdefault(len(p), []).append((qi, p))
+        layouts = {}
+        for L, sel in by_len.items():
+            qi_arr = np.asarray([qi for qi, _ in sel], dtype=np.int64)
+            pv_arr = np.asarray([p for _, p in sel], dtype=np.int64)  # (B, L)
+            gidx = torch.as_tensor(spans[qi_arr][:, None] + pv_arr, device=self.device)
+            layouts[L] = (sel, gidx)
+        items = []
+        sels = []
+        for mi, model in enumerate(self.models):
+            L = model.index.paths.shape[1]
+            if model.index.n_paths == 0 or L not in layouts:
+                continue
+            sel, gidx = layouts[L]
+            B = len(sel)
+            o, o0, om = cat[mi]
+            items.append(
+                (
+                    model.index,
+                    o[gidx].reshape(B, -1),
+                    o0[gidx].reshape(B, -1),
+                    om[:, gidx].reshape(cfg.n_multi, B, -1) if cfg.n_multi else None,
+                )
+            )
+            sels.append((mi, sel))
+        if not items:
+            return
+        results = query_index_batch_multi(items)
+        for (mi, sel), rows_list in zip(sels, results):
+            for b, (qi, p) in enumerate(sel):
+                memo[(mi, qi, p)] = rows_list[b]
+
+    def match_many(self, queries: list, return_stats: bool = False):
+        """Exact subgraph matching for a batch of queries (fused Alg. 3).
+
+        Returns one match list per query, each a list of tuples
+        ``(f(0), …, f(|V(q)|−1))`` in the JAX engine's order.
+        """
+        assert self.graph is not None, "call build() first"
+        if not queries:
+            return ([], []) if return_stats else []
+        results, stats = self._match_many_core(queries)
+        return (results, stats) if return_stats else results
+
+    def _match_many_core(self, queries: list):
+        cfg = self.cfg
+        nq = len(queries)
+        stats = [QueryStats() for _ in range(nq)]
+        t0 = time.perf_counter()
+        q_embs = self._query_node_embeddings_many(queries)
+        plans = [self._deg_plan_cached(q) for q in queries]
+        # ---- retrieval: one fused probe for all plans × partitions ------
+        memo: dict = {}
+        self._probe_batch(
+            [(qi, p) for qi, plan in enumerate(plans) for p in plan.paths], q_embs, memo
+        )
+        filter_time = time.perf_counter() - t0
+        # ---- per-query candidate assembly -------------------------------
+        per_query_cands = []
+        for qi, plan in enumerate(plans):
+            st = stats[qi]
+            st.plan = plan
+            candidates = [[] for _ in plan.paths]
+            total_paths = 0
+            for mi, model in enumerate(self.models):
+                if model.index.n_paths <= 0:
+                    continue
+                total_paths += model.index.n_paths
+                for pi, p in enumerate(plan.paths):
+                    rows = memo.get((mi, qi, p))
+                    if rows is not None and rows.numel():
+                        candidates[pi].append(model.index.paths[rows])
+            cand_arrays = [
+                torch.cat(parts)
+                if parts
+                else torch.zeros((0, len(p)), dtype=torch.int64, device=self.device)
+                for p, parts in zip(plan.paths, candidates)
+            ]
+            for p, arr in zip(plan.paths, cand_arrays):
+                st.n_candidates[p] = int(arr.shape[0])
+            per_query_cands.append(cand_arrays)
+            st.filter_time = filter_time / nq  # batch stage, amortized
+            st.total_paths = total_paths * max(len(plan.paths), 1)
+            st.candidate_paths = sum(int(arr.shape[0]) for arr in cand_arrays)
+            st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
+        # ---- join + refine ----------------------------------------------
+        # per-path candidates are duplicate-free (partitions are
+        # root-disjoint), so the join may skip its dedup sorts
+        results = []
+        for qi, (q, plan) in enumerate(zip(queries, plans)):
+            t1 = time.perf_counter()
+            matches = match_from_candidates(
+                self.graph, self.dgraph, q, plan.paths, per_query_cands[qi],
+                induced=cfg.induced, assume_unique=True,
+            )
+            stats[qi].join_time = time.perf_counter() - t1
+            stats[qi].n_matches = len(matches)
+            results.append(matches)
+        return results, stats
+
+
+def _to_tensors(params: dict, device) -> dict:
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in params.items()}

@@ -1,0 +1,68 @@
+"""K1-pairs, the fused dominance verdict: the port's plain version and its
+CPU wrapper path are bit-equal to the JAX package's reference and to its
+Pallas kernel (interpret mode), ties at eps and +inf rows included.  The
+CUDA kernel itself is held against the plain version on the card
+(``test_torch_cuda.py``)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.dominance_scan.kernel import dominance_scan_pairs_pallas  # noqa: E402
+from repro.kernels.dominance_scan.ops import dominance_scan_pairs as jax_pairs  # noqa: E402
+from repro.kernels.dominance_scan.ref import dominance_scan_pairs_ref as jax_ref  # noqa: E402
+from repro_torch.kernels.dominance_scan import ops  # noqa: E402
+from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref, make_pairs  # noqa: E402
+
+EPS32 = np.float32(1e-6)
+
+
+def _torch(arrs):
+    return [torch.from_numpy(a.copy()) for a in arrs]
+
+
+@pytest.mark.parametrize("T", [0, 1, 7, 1037])
+def test_plain_version_bit_equal_to_reference(T):
+    arrs = make_pairs(T, seed=T)
+    want = np.asarray(jax_ref(*arrs, eps=1e-6)).astype(bool)
+    got = dominance_scan_pairs_ref(*_torch(arrs), eps=1e-6).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the JAX wrapper (padding, bucketing) agrees with its own reference too
+    np.testing.assert_array_equal(np.asarray(jax_pairs(*arrs, eps=1e-6)).astype(bool), want)
+    if T:
+        assert 0 < want.sum() < T or T == 1
+
+
+@pytest.mark.parametrize("T", [1, 1037])
+def test_cpu_wrapper_bit_equal_to_pallas_interpret(T):
+    arrs = make_pairs(T, seed=100 + T)
+    want = np.asarray(dominance_scan_pairs_pallas(*arrs, block_t=T, eps=1e-6, interpret=True))
+    before = ops.LAUNCHES
+    got = ops.dominance_scan_pairs(*_torch(arrs), eps=1e-6)
+    assert got.dtype == torch.bool and got.shape == (T,)
+    np.testing.assert_array_equal(got.numpy(), want.astype(bool))
+    assert ops.LAUNCHES == before, "no kernel launch may be counted for CPU tensors"
+
+
+def test_ties_decide_as_the_reference():
+    e = np.float32([[0.5, 0.25]])
+    q0 = np.zeros((1, 1), np.float32)
+    cases = [
+        (e + EPS32, True),  # exactly at the tie
+        (np.nextafter(e + EPS32, np.float32(1)), False),
+        (np.nextafter(e + EPS32, np.float32(0)), True),
+    ]
+    for q, keep in cases:
+        arrs = [q.astype(np.float32), q0, e, q0]
+        assert bool(np.asarray(jax_ref(*arrs))[0]) is keep
+        assert bool(ops.dominance_scan_pairs(*_torch(arrs))[0]) is keep
+
+
+def test_wrapper_rejects_bad_operands():
+    qg, q0g, eg, e0g = _torch(make_pairs(8, seed=1))
+    with pytest.raises(TypeError):
+        ops.dominance_scan_pairs(qg.double(), q0g, eg, e0g)
+    with pytest.raises(ValueError):
+        ops.dominance_scan_pairs(qg[:, :5], q0g, eg, e0g)
+    with pytest.raises(ValueError):
+        ops.dominance_scan_pairs(qg.t().contiguous().t(), q0g, eg, e0g)

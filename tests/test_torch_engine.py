@@ -1,0 +1,121 @@
+"""The slice as a whole: ``build`` → ``match_many`` on the CPU.
+
+With the JAX engine's weights carried across, the port returns the JAX
+engine's match lists (same order) for both encoders; with its own
+weights, the match sets equal VF2's."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import GnnPeConfig as RefConfig  # noqa: E402
+from repro.core import GnnPeEngine as RefEngine  # noqa: E402
+from repro.core import TrainConfig as RefTrainConfig  # noqa: E402
+from repro.graphs import newman_watts_strogatz, random_connected_query  # noqa: E402
+from repro_torch.convert import partition_state_from_reference  # noqa: E402
+from repro_torch.core import GnnPeConfig, GnnPeEngine, TrainConfig, vf2_match  # noqa: E402
+from repro_torch.core.index import PAIR_METRIC  # noqa: E402
+from repro_torch.graphs import Graph  # noqa: E402
+from repro_torch.kernels.dominance_scan import ops  # noqa: E402
+
+CONFIGS = {
+    "monotone": dict(n_partitions=3, theta=10, n_multi=2, encoder="monotone", seed=0),
+    # a short training budget: some vertices fall back to all-ones, so the
+    # fallback indices are carried across too
+    "gat": dict(n_partitions=2, theta=10, n_multi=1, encoder="gat", seed=0),
+}
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return newman_watts_strogatz(120, k=4, p=0.15, n_labels=5, seed=7)
+
+
+def port_graph(g) -> Graph:
+    return Graph(g.offsets, g.nbrs, g.labels)
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def engines(request, graph):
+    kind = request.param
+    ref = RefEngine(
+        RefConfig(**CONFIGS[kind], train=RefTrainConfig(max_epochs=8, check_every=4))
+    ).build(graph)
+    state = partition_state_from_reference(ref.models)
+    port = GnnPeEngine(GnnPeConfig(**CONFIGS[kind]), device="cpu").build(
+        port_graph(graph), params=state
+    )
+    return kind, ref, port
+
+
+def queries(graph, n: int, seed0: int):
+    return [random_connected_query(graph, 5 + s % 3, seed=seed0 + s) for s in range(n)]
+
+
+def test_injected_params_give_the_reference_match_lists(graph, engines):
+    kind, ref, port = engines
+    qs = queries(graph, 8, seed0=0)
+    launches = ops.LAUNCHES
+    pairs_before = PAIR_METRIC.get(kind="leaf_pairs")
+    got = port.match_many(qs)
+    assert ops.LAUNCHES == launches, "the CPU path launches no kernel"
+    assert PAIR_METRIC.get(kind="leaf_pairs") > pairs_before
+    want = ref.match_many(qs)
+    assert got == want
+    assert sum(len(m) for m in got) > 0
+    for q, m in zip(qs, got):
+        assert set(m) == set(vf2_match(port_graph(graph), q))
+    if kind == "gat":
+        assert sum(m.n_fallback for m in port.models) > 0
+
+
+def test_injected_params_give_the_reference_index(engines):
+    _, ref, port = engines
+    for rm, pm in zip(ref.models, port.models):
+        np.testing.assert_array_equal(pm.index.paths.numpy(), rm.index.paths)
+        np.testing.assert_allclose(pm.index.emb.numpy(), rm.index.emb, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(pm.members, rm.members)
+
+
+def test_stats_and_single_match(graph, engines):
+    _, ref, port = engines
+    q = random_connected_query(graph, 6, seed=42)
+    got, st = port.match(q, return_stats=True)
+    want, rst = ref.match(q, return_stats=True)
+    assert got == want
+    assert st.plan.paths == rst.plan.paths
+    assert st.n_candidates == rst.n_candidates
+    assert (st.total_paths, st.candidate_paths, st.n_matches) == (
+        rst.total_paths, rst.candidate_paths, rst.n_matches,
+    )
+
+
+@pytest.mark.parametrize("encoder", ["monotone", "gat"])
+def test_own_params_match_vf2(graph, encoder):
+    cfg = GnnPeConfig(
+        n_partitions=2, n_multi=1, encoder=encoder, seed=3,
+        train=TrainConfig(max_epochs=6, check_every=3),
+    )
+    g = port_graph(graph)
+    eng = GnnPeEngine(cfg, device="cpu").build(g)
+    qs = queries(graph, 5, seed0=300)
+    for q, m in zip(qs, eng.match_many(qs)):
+        assert set(m) == set(vf2_match(g, q))
+        assert len(m) == len(set(m))
+
+
+@pytest.mark.parametrize(
+    "field,value,item",
+    [
+        ("index_kind", "grouped", "item 9"),
+        ("probe_impl", "stacked", "item 10"),
+        ("join_impl", "device", "item 11"),
+        ("quantize_index", True, "item 5"),
+        ("plan_weight", "dr", "item 6"),
+        ("cache", True, "item 12"),
+        ("online_impl", "scalar", "item 8"),
+    ],
+)
+def test_later_slices_raise(field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        GnnPeEngine(GnnPeConfig(**{field: value}), device="cpu")

@@ -1,0 +1,40 @@
+"""The port runs without JAX and without the JAX package: a fresh process
+imports ``repro_torch``, builds and matches on the CPU, and no ``jax*``
+or ``repro`` module is loaded."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+SCRIPT = """
+import sys
+from repro_torch.core import GnnPeConfig, GnnPeEngine, vf2_match
+from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+g = newman_watts_strogatz(150, k=4, p=0.15, n_labels=5, seed=1)
+eng = GnnPeEngine(GnnPeConfig(encoder="monotone", n_partitions=2), device="cpu").build(g)
+qs = [random_connected_query(g, 5, seed=s) for s in range(3)]
+for q, m in zip(qs, eng.match_many(qs)):
+    assert set(m) == set(vf2_match(g, q))
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")
+)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
