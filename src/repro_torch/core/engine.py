@@ -14,7 +14,11 @@ stage:
      packed indexes level-synchronously, and the leaf pairs of all
      partitions go through ONE fused dominance verdict (the hand-written
      CUDA kernel on the card, its plain version on the CPU);
-  3. a per-query sort-merge join + exact refine on the device.
+  3. the join + exact refine on the device: per query in the host join's
+     order (``join_impl="numpy"``), or the batched device join
+     (``join_impl="device"``), one program per join step for each group
+     of same-plan queries, its injectivity verdict the hand-written CUDA
+     kernel K2 on the card.
 
 The engine runs on the card unless it is given ``device="cpu"``.
 """
@@ -30,7 +34,7 @@ from ..device import default_device
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
 from .encoder import EncoderConfig, make_encoder
 from .index import PackedIndex, build_index, query_index_batch_multi
-from .matcher import match_from_candidates
+from .matcher import match_from_candidates, match_from_candidates_many
 from .paths import concat_path_embeddings, enumerate_paths
 from .planner import QueryPlan, canonical_form, plan_query
 from .stars import build_pair_dataset, build_star_tensors
@@ -84,7 +88,6 @@ _LATER = {
     ("index_kind", "grouped"): "item 9 (GNN-PGE grouped index)",
     ("group_size_mode", "auto"): "item 9 (GNN-PGE grouped index)",
     ("probe_impl", "stacked"): "item 10 (stacked probe)",
-    ("join_impl", "device"): "item 11 (device join)",
     ("quantize_index", True): "item 5 (int8 + label-hash leaf sidecar)",
     ("plan_weight", "dr"): "item 6 (dr plan weights)",
     ("cache", True): "item 12 (result cache)",
@@ -99,7 +102,7 @@ def _check_config(cfg: GnnPeConfig) -> None:
                 f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}"
             )
     allowed = {
-        "index_kind": ("path",), "probe_impl": ("loop",), "join_impl": ("numpy",),
+        "index_kind": ("path",), "probe_impl": ("loop",), "join_impl": ("numpy", "device"),
         "group_size_mode": ("fixed",), "plan_weight": ("deg",), "online_impl": ("batched",),
     }
     for name, ok in allowed.items():
@@ -351,9 +354,9 @@ class GnnPeEngine:
     # ------------------------------------------------------------------
     # Batched online matching: the fused multi-query path
     # ------------------------------------------------------------------
-    def match(self, q: Graph, return_stats: bool = False):
+    def match(self, q: Graph, return_stats: bool = False, join_impl: str | None = None):
         """Exact subgraph matching of one query (a batch of one)."""
-        out = self.match_many([q], return_stats=return_stats)
+        out = self.match_many([q], return_stats=return_stats, join_impl=join_impl)
         if return_stats:
             return out[0][0], out[1][0]
         return out[0]
@@ -460,19 +463,25 @@ class GnnPeEngine:
             for b, (qi, p) in enumerate(sel):
                 memo[(mi, qi, p)] = rows_list[b]
 
-    def match_many(self, queries: list, return_stats: bool = False):
+    def match_many(
+        self, queries: list, return_stats: bool = False, join_impl: str | None = None
+    ):
         """Exact subgraph matching for a batch of queries (fused Alg. 3).
 
         Returns one match list per query, each a list of tuples
-        ``(f(0), …, f(|V(q)|−1))`` in the JAX engine's order.
+        ``(f(0), …, f(|V(q)|−1))`` in the JAX engine's order for the same
+        ``join_impl`` (which overrides ``cfg.join_impl``).
         """
         assert self.graph is not None, "call build() first"
+        jimpl = join_impl or self.cfg.join_impl
+        if jimpl not in ("numpy", "device"):
+            raise ValueError(f"unknown join_impl {jimpl!r}; use 'numpy' or 'device'")
         if not queries:
             return ([], []) if return_stats else []
-        results, stats = self._match_many_core(queries)
+        results, stats = self._match_many_core(queries, jimpl)
         return (results, stats) if return_stats else results
 
-    def _match_many_core(self, queries: list):
+    def _match_many_core(self, queries: list, join_impl: str):
         cfg = self.cfg
         nq = len(queries)
         stats = [QueryStats() for _ in range(nq)]
@@ -516,6 +525,19 @@ class GnnPeEngine:
         # ---- join + refine ----------------------------------------------
         # per-path candidates are duplicate-free (partitions are
         # root-disjoint), so the join may skip its dedup sorts
+        if join_impl == "device":
+            # one batched device program per join step for every group of
+            # same-plan queries; the candidates are already device tensors
+            t1 = time.perf_counter()
+            results = match_from_candidates_many(
+                self.graph, self.dgraph, queries, [plan.paths for plan in plans],
+                per_query_cands, induced=cfg.induced, join_impl="device", assume_unique=True,
+            )
+            join_time = time.perf_counter() - t1
+            for st, matches in zip(stats, results):
+                st.join_time = join_time / nq  # batch stage, amortized
+                st.n_matches = len(matches)
+            return results, stats
         results = []
         for qi, (q, plan) in enumerate(zip(queries, plans)):
             t1 = time.perf_counter()

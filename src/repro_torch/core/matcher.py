@@ -2,12 +2,26 @@
 
 Candidates per query path come back from the packed indexes as tensors
 on the engine's device; this module joins them into full embeddings and
-verifies them exactly, with torch ops on that device.  The join is a
-sort-merge over one key per row: a row of ``cols`` vertex ids packs into
-one int64 while ``cols · ceil(log2 n)`` ≤ 63, and past that the rows are
-ranked by successive stable sorts, whose order is the same lexicographic
-order.  Every sort is stable, as NumPy's ``argsort(kind="stable")``, so
-the tables (and the match lists) come out in the JAX package's order.
+verifies them exactly, with torch ops on that device.  Two joins sit
+behind ``join_impl``, as in the JAX package:
+
+  * ``"numpy"`` — the host-order join: a sort-merge over one key per row
+    (a row of ``cols`` vertex ids packs into one int64 while ``cols ·
+    ceil(log2 n)`` ≤ 63; past that the rows are ranked by successive
+    stable sorts), one query at a time, in the reference's host-join
+    order.  The name is the reference's; the tensors are the engine's.
+  * ``"device"`` — the reference's device join: multi-word int32 keys
+    (``kernels/merge_join``), per step a sort → run lookup → run-length
+    pair expansion → injectivity verdict (the hand-written CUDA kernel K2
+    on the card) → optional keyed dedup, on power-of-two row buckets with
+    sentinel padding, for a whole group of same-plan queries at once (a
+    leading batch axis where the reference ``vmap``s).  The table stays
+    on the device through a batched edge-membership refine; only the
+    verified rows come back to the host.
+
+Every sort is stable, so both joins give the JAX package's tables and
+match lists in its order.  Match SETS agree between the two joins; list
+order differs (``sort_matches`` canonicalizes).
 """
 from __future__ import annotations
 
@@ -17,11 +31,14 @@ import numpy as np
 import torch
 
 from ..graphs import DeviceGraph, Graph
+from ..kernels.merge_join import ops as mj
+from ..kernels.merge_join.ops import take_rows
 
 __all__ = [
     "join_candidates",
     "refine",
     "match_from_candidates",
+    "match_from_candidates_many",
     "sort_matches",
 ]
 
@@ -267,9 +284,506 @@ def match_from_candidates(
     candidates: list,
     induced: bool = False,
     assume_unique: bool = False,
+    join_impl: str = "numpy",
 ) -> list[tuple[int, ...]]:
-    """Join per-path candidates and verify exactly → the match list."""
+    """Join per-path candidates and verify exactly → the match list.
+
+    ``join_impl="device"`` keeps the table on the device through join and
+    refine; candidates may be tensors or NumPy arrays.  Match sets equal
+    the host-order join's; list order differs.
+    """
+    if join_impl == "device":
+        table, count, cols = _join_candidates_device(
+            plan_paths, candidates, g.n_vertices, dg.device, assume_unique=assume_unique
+        )
+        return _refine_device(g, q, table, count, cols, induced=induced)
+    if join_impl != "numpy":
+        raise ValueError(f"unknown join impl {join_impl!r}; use 'numpy' or 'device'")
     table, cols = join_candidates(
         plan_paths, candidates, n_values=g.n_vertices, assume_unique=assume_unique
     )
     return refine(g, dg, q, table, cols, induced=induced)
+
+
+# --------------------------------------------------------------------------
+# Device join: the same multi-way sort-merge join over the merge_join ops,
+# for B same-plan queries at once.
+#
+# Shape discipline: every table/candidate tensor is padded to a power-of-
+# two row bucket.  Rows at index ≥ count carry the sentinel id
+# ``n_values`` (tables) or ``n_values + 1`` (candidates): sentinels sort
+# after every real key, never equal one another across the two sides,
+# and therefore probe empty runs, so no validity masks cross the merge.
+# One small read-back per join step (pair totals → output bucket, row
+# counts) reaches the host; tables stay on the device until the refine's
+# verdict.  The batch axis leads every tensor: (B, rows, cols).
+# --------------------------------------------------------------------------
+
+
+def _pow2(n: int, floor: int = 16) -> int:
+    out = floor
+    while out < n:
+        out *= 2
+    return out
+
+
+def _device_key_bits(n_values: int) -> int:
+    """Bits per id column of the device join, covering its two pad
+    sentinels (``n_values``, ``n_values + 1``) too."""
+    return max(int(np.ceil(np.log2(n_values + 2))), 1)
+
+
+def _stack_candidates(rows_list: list, cap: int, width: int, device):
+    """Per-member candidate rows → ONE (B, cap, width) int32 tensor on
+    ``device``, zero-filled (every step re-sentinels its padding from the
+    count)."""
+    out = torch.zeros((len(rows_list), cap, width), dtype=torch.int32, device=device)
+    for b, r in enumerate(rows_list):
+        if r.shape[0]:
+            out[b, : r.shape[0]] = torch.as_tensor(r, device=device)
+    return out
+
+
+def _arange_lt(n: int, counts: torch.Tensor) -> torch.Tensor:
+    """(B, n) mask: row index < the member's count."""
+    return torch.arange(n, device=counts.device)[None, :] < counts[:, None]
+
+
+def _settle(merged, valid, bits: int, n_values: int, dedup: bool):
+    """Shared join-step tail → ``(table, valid, count)``.
+
+    Every invalid row is overwritten with the sentinel id: sentinel rows
+    probe empty runs in the next step, so the table needs no compaction
+    between steps.  ``dedup`` (candidates not promised duplicate-free)
+    drops duplicate rows by a keyed stable sort and compacts."""
+    merged = torch.where(valid[..., None], merged, n_values)
+    if not dedup:
+        return merged, valid, valid.sum(dim=-1)
+    order, keep = mj.dedup_mask(mj.pack_words(merged, bits), valid)
+    out = take_rows(take_rows(merged, order), _valid_first(keep))
+    count = keep.sum(dim=-1)
+    live = _arange_lt(out.shape[1], count)
+    return torch.where(live[..., None], out, n_values), live, count
+
+
+def _valid_first(valid: torch.Tensor) -> torch.Tensor:
+    """Stable order that moves the valid rows of each member to its front."""
+    return torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+
+
+def _cols(x: torch.Tensor, idx: tuple) -> torch.Tensor:
+    """Columns ``idx`` of (..., C) ``x`` (an empty tuple gives (..., 0))."""
+    return x[..., list(idx)] if idx else x[..., :0]
+
+
+def _init_body(cand, count, *, bits: int, n_values: int, dedup: bool):
+    """First table: normalize padding, per-row injectivity, dedup (a
+    simple path repeats no vertex, so its columns must be distinct)."""
+    ok = _arange_lt(cand.shape[1], count)
+    for a in range(cand.shape[2]):
+        for b in range(a + 1, cand.shape[2]):
+            ok &= cand[..., a] != cand[..., b]
+    return _settle(cand, ok, bits, n_values, dedup)
+
+
+def _bounds_body(table, cand, count_c, *, t_idx, c_idx, bits: int, n_values: int):
+    """Group the candidate side by its shared-column key and locate every
+    table row's run of equal keys (the sort-merge core).
+
+    A single-column key is a vertex id < n_values + 2, so while the
+    per-vertex run table is no larger than the candidate bucket allows
+    (``n_values + 2 ≤ 8·cap``), the run bounds come from a dense count +
+    exclusive cumsum over the id space.  Other keys take the packed-word
+    sort and ``run_lookup``."""
+    cand = torch.where(_arange_lt(cand.shape[1], count_c)[..., None], cand, n_values + 1)
+    if len(c_idx) == 1 and n_values + 2 <= 8 * cand.shape[1]:
+        ckey = cand[..., c_idx[0]].to(torch.int64)
+        order_c = torch.argsort(ckey, dim=-1, stable=True)
+        counts = torch.zeros((cand.shape[0], n_values + 2), dtype=torch.int64, device=cand.device)
+        counts.scatter_add_(1, ckey, torch.ones_like(ckey))
+        starts = torch.cumsum(counts, dim=1) - counts
+        tkey = table[..., t_idx[0]].to(torch.int64)
+        lo = torch.gather(starts, 1, tkey)
+        hi = lo + torch.gather(counts, 1, tkey)
+    else:
+        ck = mj.pack_words(_cols(cand, c_idx), bits)
+        order_c = mj.lex_order(ck)
+        lo, hi = mj.run_lookup(take_rows(ck, order_c), mj.pack_words(_cols(table, t_idx), bits))
+    return take_rows(cand, order_c), lo, hi, (hi - lo).sum(dim=-1)
+
+
+def _verdict(merged, valid, old_w: int):
+    """AND the injectivity verdict (K2 on the card) of every member's
+    merged rows into ``valid``: one launch for the whole (B·rows) table,
+    its old and new column slices handed in as strided views."""
+    flat = merged.reshape(-1, merged.shape[-1])
+    keep = mj.injectivity_mask(flat[:, :old_w], flat[:, old_w:])
+    return valid & keep.view(valid.shape)
+
+
+def _merge_body(table, cand_s, lo, hi, *, cap: int, n_idx, bits: int, n_values: int, dedup: bool):
+    """Run-length pair expansion → merged rows → injectivity → settle."""
+    r, c, valid = mj.expand_pairs(lo, hi, cap)
+    old_w = table.shape[-1]
+    merged = torch.cat([take_rows(table, r), take_rows(_cols(cand_s, n_idx), c)], dim=-1)
+    if n_idx:
+        valid = _verdict(merged, valid, old_w)
+    return _settle(merged, valid, bits, n_values, dedup)
+
+
+def _joinstep_body(
+    table, cand, count_c, *, cap: int, t_idx, c_idx, n_idx, bits: int, n_values: int, dedup: bool,
+):
+    """Bounds + merge at a guessed pair bucket ``cap``; the returned
+    per-member ``total`` lets the calling loop detect a too-small guess (a
+    truncated expansion) and run the step again at the exact bucket."""
+    cand_s, lo, hi, total = _bounds_body(
+        table, cand, count_c, t_idx=t_idx, c_idx=c_idx, bits=bits, n_values=n_values
+    )
+    merged, valid, count = _merge_body(
+        table, cand_s, lo, hi, cap=cap, n_idx=n_idx, bits=bits, n_values=n_values, dedup=dedup,
+    )
+    return merged, valid, count, total
+
+
+def _cartesian_body(table, valid_t, cand, n_c, *, n_idx, bits: int, n_values: int, dedup: bool):
+    """No shared columns: every (table row, candidate row) pair (the
+    paper joins connected paths, so this branch is rare and small)."""
+    rt, rc = table.shape[1], cand.shape[1]
+    idx = torch.arange(rt * rc, device=table.device)
+    r, c = idx // rc, idx % rc
+    valid = valid_t[:, r] & (c[None, :] < n_c[:, None])
+    merged = torch.cat([table[:, r], _cols(cand, n_idx)[:, c]], dim=-1)
+    if n_idx:
+        valid = _verdict(merged, valid, table.shape[-1])
+    return _settle(merged, valid, bits, n_values, dedup)
+
+
+def _compact_body(table, valid, *, n_values: int):
+    """Move every valid row to the front, in order, once per join (before
+    refine), so refine and the host fetch touch tight prefixes."""
+    count = valid.sum(dim=-1)
+    out = take_rows(table, _valid_first(valid))
+    return torch.where(_arange_lt(out.shape[1], count)[..., None], out, n_values), count
+
+
+# pair-bucket guesses per join-step signature (see _joinstep_body); a
+# warm serving loop that repeats a step signature never runs a step twice
+_CAP_GUESS: dict = {}
+
+
+def _join_candidates_device_batch(
+    plan_paths: list, cand_groups: list, n_values: int, device, assume_unique: bool = False
+):
+    """Drive the join steps for B same-plan queries (host control, device
+    data).
+
+    ``cand_groups[b]`` is the list of candidate arrays (tensors or NumPy)
+    of query b, aligned with ``plan_paths``.  Join order is shared across the group
+    (mean candidate count, shared-column preference).  Returns ``(tables
+    (B, cap, C) int32 on device, counts (B,) host, cols)``.
+    """
+    bits = _device_key_bits(n_values)
+    dedup = not assume_unique
+    B = len(cand_groups)
+    cnt = np.asarray([[c.shape[0] for c in grp] for grp in cand_groups], np.int64)  # (B, P)
+    order = np.argsort(cnt.mean(axis=0), kind="stable")
+    first = int(order[0])
+
+    def stack(i: int):
+        cap = _pow2(int(cnt[:, i].max()))
+        rows = _stack_candidates([grp[i] for grp in cand_groups], cap, len(plan_paths[i]), device)
+        return rows, torch.as_tensor(cnt[:, i], device=device)
+
+    tables, valids, counts_dev = _init_body(*stack(first), bits=bits, n_values=n_values, dedup=dedup)
+    counts = counts_dev.cpu().numpy()
+    cols = list(plan_paths[first])
+    remaining = [int(i) for i in order[1:]]
+    while remaining and counts.max() > 0:
+        nxt = None
+        for i in remaining:
+            if set(plan_paths[i]) & set(cols):
+                nxt = i
+                break
+        if nxt is None:
+            nxt = remaining[0]
+        remaining.remove(nxt)
+        cand_cols = list(plan_paths[nxt])
+        shared = [c for c in cand_cols if c in cols]
+        new_cols = [c for c in cand_cols if c not in cols]
+        t_idx = tuple(cols.index(c) for c in shared)
+        c_idx = tuple(cand_cols.index(c) for c in shared)
+        n_idx = tuple(cand_cols.index(c) for c in new_cols)
+        cstack, ccounts = stack(nxt)
+        if shared:
+            guess_key = (
+                n_values, t_idx, c_idx, n_idx, tuple(tables.shape[1:]), tuple(cstack.shape[1:])
+            )
+            cap = _pow2(_CAP_GUESS.get(guess_key, cstack.shape[1]))
+            for _ in range(2):  # second pass only on a cold/overflowed guess
+                tables2, valids2, counts_dev, totals = _joinstep_body(
+                    tables, cstack, ccounts, cap=cap, t_idx=t_idx, c_idx=c_idx, n_idx=n_idx,
+                    bits=bits, n_values=n_values, dedup=dedup,
+                )
+                synced = torch.stack([totals, counts_dev]).cpu().numpy()
+                tmax = int(synced[0].max())
+                if tmax <= cap:
+                    break
+                cap = _pow2(tmax)
+            _CAP_GUESS[guess_key] = tmax
+            if len(_CAP_GUESS) > 4096:
+                _CAP_GUESS.pop(next(iter(_CAP_GUESS)))
+            if tmax == 0:
+                # no key matches anywhere in the batch: the join is empty
+                cols = cols + new_cols
+                empty = torch.full((B, 1, len(cols)), n_values, dtype=torch.int32, device=device)
+                return empty, np.zeros(B, np.int64), cols
+            tables, valids = tables2, valids2
+            counts = synced[1]
+        else:
+            tables, valids, counts_dev = _cartesian_body(
+                tables, valids, cstack, ccounts, n_idx=n_idx, bits=bits, n_values=n_values,
+                dedup=dedup,
+            )
+            counts = counts_dev.cpu().numpy()
+        cols = cols + new_cols
+    # one end-of-join compaction: refine/fetch work scales with the real
+    # row counts from here on, not the last pair bucket
+    tables, counts_dev = _compact_body(tables, valids, n_values=n_values)
+    counts = counts_dev.cpu().numpy().astype(np.int64)
+    return tables[:, : _pow2(int(max(counts.max(), 1)))], counts, cols
+
+
+def _join_candidates_device(
+    plan_paths: list, candidates: list, n_values: int, device, assume_unique: bool = False
+):
+    """Single-query form (a batch of one) → ``(table (cap, C), count, cols)``."""
+    tables, counts, cols = _join_candidates_device_batch(
+        plan_paths, [candidates], n_values, device, assume_unique
+    )
+    return tables[0], int(counts[0]), cols
+
+
+# ---- device refine: batched edge membership ------------------------------
+
+_DEV_EDGE_CACHE: dict = {}  # id(graph) -> (device, variant, ops, steps, labels)
+
+# adjacency rows at or below this width use the dense padded-neighbor
+# table (one gather + compare-reduce); hub-heavy graphs above it take the
+# CSR binary search instead, whose memory stays O(E)
+_DENSE_ADJ_MAX_DEG = 64
+
+
+def _edge_tensors_device(g: Graph, device):
+    """Adjacency + vertex labels on ``device``, cached per graph.
+
+    Two membership layouts, picked by max degree at build:
+
+      * dense — a (n, max_deg) −1-padded neighbor table; membership is
+        ``any(adj[du] == dv)``;
+      * csr — (row_start, sorted nbrs) + a row-local binary search of
+        ``log2(max_degree)`` steps, for graphs whose hubs would make the
+        dense table too wide.
+    """
+    cached = _DEV_EDGE_CACHE.get(id(g))
+    if cached is None or cached[0] != device:
+        max_deg = int(g.degrees.max()) if g.n_vertices else 0
+        if max_deg <= _DENSE_ADJ_MAX_DEG:
+            adj = np.full((g.n_vertices, max(max_deg, 1)), -1, np.int32)
+            row = np.repeat(np.arange(g.n_vertices), g.degrees)
+            col = np.arange(g.nbrs.shape[0]) - np.repeat(
+                np.cumsum(g.degrees) - g.degrees, g.degrees
+            )
+            adj[row, col] = g.nbrs
+            variant, ops = "dense", {"adj": torch.from_numpy(adj).to(device)}
+        else:
+            row_start = np.zeros(g.n_vertices + 1, np.int64)
+            np.cumsum(g.degrees, out=row_start[1:])
+            variant, ops = "csr", {
+                "row_start": torch.from_numpy(row_start).to(device),
+                "nbrs": torch.from_numpy(g.nbrs.astype(np.int32)).to(device),
+            }
+        labels = torch.from_numpy(g.labels.astype(np.int32)).to(device)
+        if id(g) not in _DEV_EDGE_CACHE:
+            weakref.finalize(g, _DEV_EDGE_CACHE.pop, id(g), None)
+        cached = (device, variant, ops, max(max_deg, 1).bit_length(), labels)
+        _DEV_EDGE_CACHE[id(g)] = cached
+    return cached[1:]
+
+
+def _edges_member(variant: str, ops: dict, deg_steps: int, du, dv):
+    """Membership of (du[i], dv[i]) in G's adjacency (see layouts above)."""
+    if variant == "dense":
+        return (ops["adj"][du] == dv[..., None]).any(dim=-1)
+    row_start, nbrs = ops["row_start"], ops["nbrs"]
+    E = nbrs.shape[0]
+    if E == 0:
+        return torch.zeros(du.shape, dtype=torch.bool, device=du.device)
+    lo = row_start[du]
+    end = row_start[du + 1]
+    hi = end
+    for _ in range(deg_steps):
+        mid = (lo + hi) // 2
+        adv = (nbrs[mid.clamp(0, E - 1)] < dv) & (lo < hi)
+        lo, hi = torch.where(adv, mid + 1, lo), torch.where(adv, hi, mid)
+    return (lo < end) & (nbrs[lo.clamp(0, E - 1)] == dv)
+
+
+def _query_edge_arrays(q: Graph, induced: bool):
+    """(labels, edges, non_edges) of a query as int32 arrays."""
+    nq = q.n_vertices
+    lab = q.labels.astype(np.int32)
+    e = q.edge_array().astype(np.int32).reshape(-1, 2)
+    non = np.zeros((0, 2), np.int32)
+    if induced:
+        adj = q.adjacency_sets()
+        pairs = [(u, v) for u in range(nq) for v in range(u + 1, nq) if v not in adj[u]]
+        non = np.asarray(pairs, np.int32).reshape(-1, 2)
+    return lab, e, non
+
+
+def _refine_body(table, count, qlab, qedges, n_qe, qnon, n_qn, inv, ops, labels, *, variant, deg_steps):
+    """Exact verification on device: label equality per column, one
+    batched edge-membership search over every (row, query edge) pair,
+    and (``induced``) one over every (row, query non-edge) pair.
+
+    ``inv`` (B, nq) both undoes the join's column order and maps canonical
+    vertex space back to each member query's own numbering, so verified
+    rows come off the device in each query's match-tuple order."""
+    B, cap, _ = table.shape
+    nq = inv.shape[1]
+    rows = torch.gather(table, 2, inv[:, None, :].expand(B, cap, nq))
+    ok = _arange_lt(cap, count)
+    rc = rows.clamp(0, labels.shape[0] - 1).to(torch.int64)  # sentinel rows: masked by ok
+    ok &= (labels[rc] == qlab[:, None, :]).all(dim=-1)
+    for pairs, n_pairs, want in ((qedges, n_qe, True), (qnon, n_qn, False)):
+        if not pairs.shape[1]:
+            continue
+        idx = pairs.to(torch.int64)
+        du = torch.gather(rc, 2, idx[:, None, :, 0].expand(B, cap, idx.shape[1]))
+        dv = torch.gather(rc, 2, idx[:, None, :, 1].expand(B, cap, idx.shape[1]))
+        member = _edges_member(variant, ops, deg_steps, du, dv)
+        pad = torch.arange(idx.shape[1], device=table.device)[None, :] >= n_pairs[:, None]
+        ok &= ((member == want) | pad[:, None, :]).all(dim=-1)
+    return rows, ok
+
+
+def _refine_device_batch(
+    g: Graph,
+    qlab: np.ndarray,  # (B, nq) int32 per-query vertex labels
+    edges: list,  # per query: (E_b, 2) int32
+    non_edges: list,  # per query: (N_b, 2) int32 (induced; else empty)
+    tables,
+    counts: np.ndarray,
+    cols: list,
+    colperms: np.ndarray | None = None,  # (B, nq): per-member column maps
+) -> list:
+    """Batched device refine for B same-plan queries; one host fetch of
+    the verified rows.  Returns per-query (M_b, nq) int32 arrays.
+
+    ``colperms[b, v]`` names the table column holding query b's vertex v
+    (grouped joins run in canonical space, so isomorphic members need
+    different maps); default = undo the join column order only."""
+    B, nq = qlab.shape
+    if not counts.max():
+        return [np.zeros((0, nq), np.int32) for _ in range(B)]
+    assert sorted(cols) == list(range(nq)), f"join must cover all query vertices, got {cols}"
+    if colperms is None:
+        colperms = np.broadcast_to(np.argsort(np.asarray(cols)), (B, nq))
+    dev = tables.device
+    variant, ops, deg_steps, labels = _edge_tensors_device(g, dev)
+
+    def padded(arrs: list, floor: int):
+        n_max = max(a.shape[0] for a in arrs)
+        out = np.zeros((B, _pow2(n_max, floor=floor) if n_max else 0, 2), np.int32)
+        for b, a in enumerate(arrs):
+            out[b, : a.shape[0]] = a
+        n = np.asarray([a.shape[0] for a in arrs], np.int64)
+        return torch.from_numpy(out).to(dev), torch.from_numpy(n).to(dev)
+
+    qe, n_qe = padded(edges, 4)
+    qnon, n_qn = padded(non_edges, 4)
+    rows, ok = _refine_body(
+        tables, torch.from_numpy(counts).to(dev), torch.from_numpy(np.ascontiguousarray(qlab)).to(dev),
+        qe, n_qe, qnon, n_qn,
+        torch.from_numpy(np.ascontiguousarray(colperms).astype(np.int64)).to(dev),
+        ops, labels, variant=variant, deg_steps=deg_steps,
+    )
+    per = ok.sum(dim=1).cpu().tolist()
+    return list(torch.split(rows[ok].cpu(), per))
+
+
+def _refine_device(
+    g: Graph, q: Graph, table, count: int, cols: list, induced: bool = False
+) -> list[tuple[int, ...]]:
+    """Single-query device refine (a batch of one)."""
+    if count == 0:
+        return []
+    lab, e, non = _query_edge_arrays(q, induced)
+    out = _refine_device_batch(
+        g, lab[None], [e], [non], table[None], np.asarray([count], np.int64), cols
+    )[0]
+    return list(map(tuple, out.numpy().tolist()))
+
+
+def match_from_candidates_many(
+    g: Graph,
+    dg: DeviceGraph,
+    queries: list,
+    plan_paths_list: list,
+    candidates_list: list,
+    induced: bool = False,
+    join_impl: str = "numpy",
+    assume_unique: bool = False,
+) -> list:
+    """Batched ``match_from_candidates`` over many queries.
+
+    With ``join_impl="device"`` queries are grouped by their WL-canonical
+    signature + canonical plan shape, and each group's multi-way join +
+    refine runs in canonical vertex space as ONE batched device program
+    per step.  Relabeled-isomorphic queries therefore share one group even
+    though their plan paths carry different vertex ids; each member's
+    match columns map back through its own canonical permutation at the
+    end.  The host-order join loops per query.
+    """
+    if join_impl != "device":
+        return [
+            match_from_candidates(
+                g, dg, q, pp, cl, induced=induced, assume_unique=assume_unique,
+                join_impl=join_impl,
+            )
+            for q, pp, cl in zip(queries, plan_paths_list, candidates_list)
+        ]
+    from .planner import canonical_form
+
+    results: list = [None] * len(queries)
+    groups: dict = {}
+    invs: list = []
+    for qi, (q, pp) in enumerate(zip(queries, plan_paths_list)):
+        perm, ckey = canonical_form(q)
+        inv = np.empty(q.n_vertices, np.int64)
+        inv[perm] = np.arange(q.n_vertices)
+        invs.append(inv)
+        canon_pp = tuple(tuple(int(inv[v]) for v in p) for p in pp)
+        groups.setdefault((ckey, canon_pp), []).append(qi)
+    for (_, canon_pp), idxs in groups.items():
+        tables, counts, cols = _join_candidates_device_batch(
+            [list(p) for p in canon_pp], [candidates_list[qi] for qi in idxs], g.n_vertices,
+            dg.device, assume_unique=assume_unique,
+        )
+        nq = queries[idxs[0]].n_vertices
+        if counts.max():
+            # member b's vertex v lives at the table column holding
+            # canonical id invs[b][v]; the refine applies the map on device
+            col_pos = np.argsort(np.asarray(cols))
+            colperms = np.stack([col_pos[invs[qi]] for qi in idxs])
+            arrs = [_query_edge_arrays(queries[qi], induced) for qi in idxs]
+            rows = _refine_device_batch(
+                g, np.stack([a[0] for a in arrs]), [a[1] for a in arrs], [a[2] for a in arrs],
+                tables, counts, cols, colperms=colperms,
+            )
+        else:
+            rows = [torch.zeros((0, nq), dtype=torch.int32) for _ in idxs]
+        for k, qi in enumerate(idxs):
+            results[qi] = list(map(tuple, rows[k].numpy().tolist()))
+    return results

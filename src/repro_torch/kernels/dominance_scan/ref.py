@@ -1,10 +1,17 @@
-"""Plain PyTorch version of the fused dominance verdict (K1-pairs)."""
+"""Plain PyTorch versions of the dominance verdicts: K1-pairs on packed
+pairs, K3-single and K3-batch as dense scans."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["dominance_scan_pairs_ref", "make_pairs"]
+__all__ = [
+    "dominance_scan_pairs_ref",
+    "dominance_scan_ref",
+    "dominance_scan_batch_ref",
+    "make_pairs",
+    "make_scan",
+]
 
 
 def dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps: float = 1e-6) -> torch.Tensor:
@@ -16,6 +23,20 @@ def dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps: float = 1e-6) -> torch.Tenso
     """
     e = torch.tensor(eps, dtype=torch.float32, device=qg.device)
     return (qg <= eg + e).all(dim=1) & ((e0g - q0g).abs() <= e).all(dim=1)
+
+
+def dominance_scan_ref(q, q0, emb, emb0, eps: float = 1e-6) -> torch.Tensor:
+    """One query: q (D,), q0 (D0,) against emb (N, D), emb0 (N, D0) → (N,) bool."""
+    e = torch.tensor(eps, dtype=torch.float32, device=emb.device)
+    return (q[None, :] <= emb + e).all(dim=1) & ((emb0 - q0[None, :]).abs() <= e).all(dim=1)
+
+
+def dominance_scan_batch_ref(q, q0, emb, emb0, eps: float = 1e-6) -> torch.Tensor:
+    """Dense Q × N: q (Q, D), q0 (Q, D0) against emb (N, D), emb0 (N, D0) → (Q, N) bool."""
+    e = torch.tensor(eps, dtype=torch.float32, device=emb.device)
+    dom = (q[:, None, :] <= (emb + e)[None, :, :]).all(dim=2)
+    lab = ((emb0[None, :, :] - q0[:, None, :]).abs() <= e).all(dim=2)
+    return dom & lab
 
 
 def make_pairs(T: int, seed: int, D: int = 18, D0: int = 6):
@@ -48,3 +69,30 @@ def make_pairs(T: int, seed: int, D: int = 18, D0: int = 6):
     q0g[rows[T // 8 + T // 64 : T // 8 + T // 32]] = np.inf  # inf - inf = NaN
     qg[rows[T // 5 : T // 5 + T // 64], 0] = np.nan
     return qg, q0g, eg, e0g
+
+
+def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6):
+    """Seeded NumPy operands (q (Q, D), q0 (Q, D0), emb (N, D), emb0 (N,
+    D0)) for the dense scans.  The queries are ``make_pairs`` query rows;
+    each data row copies the partner row of a random query, so the row
+    meets that query at its ties (exactly at ``e + eps``), and then moves
+    single entries one ulp up or down or labels by ±eps; a quarter of the
+    rows are fresh random rows, and some are +inf or carry NaN labels."""
+    qg, q0g, eg, e0g = make_pairs(max(Q, 1), seed, D=D, D0=D0)
+    rng = np.random.default_rng(seed + 1)
+    eps = np.float32(1e-6)
+    k = rng.integers(0, max(Q, 1), N)
+    emb, emb0 = eg[k].copy(), e0g[k].copy()
+    up = rng.random((N, D)) < 0.05
+    emb[up] = np.nextafter(emb[up], np.float32(np.inf))
+    down = rng.random((N, D)) < 0.05
+    emb[down] = np.nextafter(emb[down], np.float32(-np.inf))
+    lab = rng.random((N, D0)) < 0.05
+    emb0[lab] += np.where(rng.random(int(lab.sum())) < 0.5, eps, -eps).astype(np.float32)
+    fresh = rng.random(N) < 0.25
+    emb[fresh] = rng.random((int(fresh.sum()), D), dtype=np.float32)
+    emb0[fresh] = rng.integers(0, 4, (int(fresh.sum()), D0)).astype(np.float32) / np.float32(4)
+    rows = rng.permutation(N)
+    emb[rows[: N // 32]] = np.inf  # +inf data rows: dominance holds
+    emb0[rows[N // 32 : N // 16], 0] = np.nan
+    return qg[:Q], q0g[:Q], emb, emb0

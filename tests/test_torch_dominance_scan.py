@@ -66,3 +66,60 @@ def test_wrapper_rejects_bad_operands():
         ops.dominance_scan_pairs(qg[:, :5], q0g, eg, e0g)
     with pytest.raises(ValueError):
         ops.dominance_scan_pairs(qg.t().contiguous().t(), q0g, eg, e0g)
+
+
+# ---- K3: the dense scans (one query, and Q queries × N rows) -------------
+
+from repro.kernels.dominance_scan.ops import dominance_scan as jax_scan  # noqa: E402
+from repro.kernels.dominance_scan.ref import dominance_scan_batch_ref as jax_batch_ref  # noqa: E402
+from repro.kernels.dominance_scan.ref import dominance_scan_ref as jax_single_ref  # noqa: E402
+from repro_torch.kernels.dominance_scan.ref import (  # noqa: E402
+    dominance_scan_batch_ref,
+    dominance_scan_ref,
+    make_scan,
+)
+
+
+@pytest.mark.parametrize("N", [0, 1, 37, 1037])
+@pytest.mark.parametrize("Q", [0, 1, 7])
+@pytest.mark.parametrize("D,D0", [(18, 6), (5, 3)])
+def test_dense_scans_bit_equal_to_reference(N, Q, D, D0):
+    """The batch form (2-D q) and the single form (each q row alone) equal
+    the reference's oracle and its Pallas kernels in interpret mode, ties
+    at eps, ulps either side, +inf rows and NaNs included (``make_scan``);
+    the port returns bool, the reference int32 0/1."""
+    q, q0, emb, emb0 = make_scan(Q, N, seed=N + 7 * Q + D, D=D, D0=D0)
+    want = np.asarray(jax_batch_ref(q, q0, emb, emb0, eps=1e-6)).astype(bool)
+    assert want.shape == (Q, N)
+    if Q and N:
+        pallas = np.asarray(jax_scan(q, q0, emb, emb0, eps=1e-6, block_n=128, interpret=True))
+        np.testing.assert_array_equal(pallas.astype(bool), want)
+    tq, tq0, te, te0 = _torch((q, q0, emb, emb0))
+    before = (ops.SINGLE_LAUNCHES, ops.BATCH_LAUNCHES)
+    got = ops.dominance_scan(tq, tq0, te, te0, eps=1e-6)
+    assert got.dtype == torch.bool and got.shape == (Q, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(dominance_scan_batch_ref(tq, tq0, te, te0).numpy(), want)
+    for k in range(Q):
+        single = np.asarray(jax_single_ref(q[k], q0[k], emb, emb0)).astype(bool)
+        np.testing.assert_array_equal(single, want[k])
+        if N:
+            pallas = np.asarray(jax_scan(q[k], q0[k], emb, emb0, block_n=128, interpret=True))
+            np.testing.assert_array_equal(pallas.astype(bool), want[k])
+        got_k = ops.dominance_scan(tq[k].contiguous(), tq0[k].contiguous(), te, te0)
+        assert got_k.shape == (N,)
+        np.testing.assert_array_equal(got_k.numpy(), want[k])
+        np.testing.assert_array_equal(dominance_scan_ref(tq[k], tq0[k], te, te0).numpy(), want[k])
+    assert (ops.SINGLE_LAUNCHES, ops.BATCH_LAUNCHES) == before, "CPU tensors launch nothing"
+    if Q == 7 and N == 1037:
+        assert 0 < want.sum() < want.size
+
+
+def test_dense_scan_rejects_bad_operands():
+    q, q0, emb, emb0 = _torch(make_scan(3, 40, seed=2))
+    with pytest.raises(TypeError):
+        ops.dominance_scan(q.double(), q0, emb, emb0)
+    with pytest.raises(ValueError):
+        ops.dominance_scan(q[:, :5].contiguous(), q0, emb, emb0)
+    with pytest.raises(ValueError):
+        ops.dominance_scan(q[0].contiguous(), q0[0].contiguous(), emb.t().contiguous().t(), emb0)

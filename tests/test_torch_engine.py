@@ -109,7 +109,6 @@ def test_own_params_match_vf2(graph, encoder):
     [
         ("index_kind", "grouped", "item 9"),
         ("probe_impl", "stacked", "item 10"),
-        ("join_impl", "device", "item 11"),
         ("quantize_index", True, "item 5"),
         ("plan_weight", "dr", "item 6"),
         ("cache", True, "item 12"),

@@ -1,6 +1,6 @@
 """The port runs without JAX and without the JAX package: a fresh process
-imports ``repro_torch``, builds and matches on the CPU, and no ``jax*``
-or ``repro`` module is loaded."""
+imports ``repro_torch``, builds and matches on the CPU through both joins,
+runs the dense scan, and no ``jax*`` or ``repro`` module is loaded."""
 import os
 import subprocess
 import sys
@@ -20,8 +20,13 @@ from repro_torch.graphs import newman_watts_strogatz, random_connected_query
 g = newman_watts_strogatz(150, k=4, p=0.15, n_labels=5, seed=1)
 eng = GnnPeEngine(GnnPeConfig(encoder="monotone", n_partitions=2), device="cpu").build(g)
 qs = [random_connected_query(g, 5, seed=s) for s in range(3)]
-for q, m in zip(qs, eng.match_many(qs)):
-    assert set(m) == set(vf2_match(g, q))
+for q, m, d in zip(qs, eng.match_many(qs), eng.match_many(qs, join_impl="device")):
+    assert set(m) == set(vf2_match(g, q)) == set(d)
+import torch
+from repro_torch.kernels.dominance_scan import ops
+idx = eng.models[0].index
+assert ops.dominance_scan(idx.emb[:3].contiguous(), idx.emb0[:3].contiguous(), idx.emb, idx.emb0).shape == (3, idx.n_paths)
+assert ops.dominance_scan(idx.emb[0].contiguous(), idx.emb0[0].contiguous(), idx.emb, idx.emb0)[0]
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")
