@@ -26,7 +26,21 @@ Phases, each printing its seconds:
      12K-vertex, 3-label NWS graph (the configuration of
      ``benchmarks/bench_join.py --full``), device join against the host
      join and VF2; K2's verdicts on the real join steps equal the plain
-     version's, and K2 is timed at the largest step.
+     version's, and K2 is timed at the largest step;
+  6. DCN-v2 serving at the published width (26 tables of 1M x 16, cross
+     width 429, MLP 1024-1024-512), params from a seeded CUDA generator,
+     through ``repro_torch.configs``: K4 (embedding bag) and K5 (cross
+     layer) first on seeded edge shapes against their plain versions,
+     then the cells ``serve_p99`` (B = 512), ``serve_bulk`` (B = 262,144)
+     and ``retrieval_cand`` (1 query x 1M candidates, top-100), each
+     driven once through ``build_step``: K4 must launch once and K5 three
+     times per forward, K4 on the forward's real operands must equal its
+     plain version bit for bit and each K5 call its plain version within
+     1e-4, and the logits (all of ``serve_p99``, the first 4,096 rows of
+     ``serve_bulk``) and the top-100 must equal the port's CPU run of the
+     same params and batch; warm step ms, rows/s and the step's device
+     time split into K4, K5 and the rest per cell; K4 and K5 timed at
+     ``serve_bulk`` beside their plain versions and library calls.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -110,6 +124,19 @@ def k3_bound_ms(Q: int, N: int, D: int, D0: int) -> tuple[float, str]:
     return bound_ms((Q + N) * 4 * (D + D0) + Q * N, Q * N * (2 * D + 3 * D0))
 
 
+def k4_bound_ms(N: int, K: int, E: int, n_set: int, n_nonempty: int) -> tuple[float, str]:
+    """N bags of K slots: ids and mask bytes once, one E-float table row for
+    each set slot (what this run's data reads), the (N, E) output once;
+    one add per float past each bag's first set slot."""
+    return bound_ms(N * K * 5 + n_set * E * 4 + N * E * 4, (n_set - n_nonempty) * E)
+
+
+def k5_bound_ms(B: int, D: int) -> tuple[float, str]:
+    """x0, x and the output (B, D), w (D, D) and b once; a multiply-add (2
+    operations) per (row, k, column), bias, multiply and add per output."""
+    return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D + 3 * B * D)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -117,21 +144,26 @@ def require(cond: bool, msg: str) -> None:
 
 def counters():
     """The launch counts of every kernel, by name."""
+    from repro_torch.kernels.cross_interact import ops as ci
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.merge_join import ops as mj
+    from repro_torch.kernels.star_agg import ops as sa
 
     return {
         "K1": ds.LAUNCHES, "K2": mj.LAUNCHES,
         "K3-single": ds.SINGLE_LAUNCHES, "K3-batch": ds.BATCH_LAUNCHES,
+        "K4": sa.LAUNCHES, "K5": ci.LAUNCHES,
     }
 
 
 def reset_counters() -> None:
+    from repro_torch.kernels.cross_interact import ops as ci
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.merge_join import ops as mj
+    from repro_torch.kernels.star_agg import ops as sa
 
     ds.LAUNCHES = ds.SINGLE_LAUNCHES = ds.BATCH_LAUNCHES = 0
-    mj.LAUNCHES = 0
+    mj.LAUNCHES = sa.LAUNCHES = ci.LAUNCHES = 0
 
 
 def iso_batch(g, size: int, n: int, seed: int = 0):
@@ -566,6 +598,245 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     return out
 
 
+# ---- phase 6 ----------------------------------------------------------------
+
+
+def step_breakdown(step, args, what: str, wall_ms: float, reps: int = 5) -> None:
+    """Device ms of one warm step, split into K4, K5 and the rest by CUDA
+    events around the kernel calls, with the card held busy by a long spin
+    while the host enqueues the whole step (so the events see device time
+    only); the idle share is that device time against the warm wall ms.
+    (``torch.profiler`` listed only some of this step's kernels on the
+    card, so events time it.)"""
+    import torch
+
+    from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.star_agg import ops as sa
+
+    marks: list = []
+    star_agg, cross = sa.star_agg, ci.cross_interact
+
+    def timed(key, fn):
+        def run(*a):
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            res = fn(*a)
+            e_.record()
+            marks.append((key, s_, e_))
+            return res
+        return run
+
+    spent = {"step": 0.0, "K4": 0.0, "K5": 0.0}
+    sa.star_agg, ci.cross_interact = timed("K4", star_agg), timed("K5", cross)
+    try:
+        for _ in range(reps):
+            marks.clear()
+            torch.cuda._sleep(SPIN_CYCLES * 20)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(*args)
+            end.record()
+            end.synchronize()
+            spent["step"] += start.elapsed_time(end) / reps
+            for key, s_, e_ in marks:
+                spent[key] += s_.elapsed_time(e_) / reps
+    finally:
+        sa.star_agg, ci.cross_interact = star_agg, cross
+    rest = spent["step"] - spent["K4"] - spent["K5"]
+    log(f"{what}, device time of a warm step (CUDA events, host enqueue hidden): "
+        f"{spent['step']:.3f} ms = K4 embedding bag {spent['K4']:.3f} + K5 cross stack "
+        f"{spent['K5']:.3f} + dense features, MLP, head and the rest {rest:.3f}; against the "
+        f"warm wall median {wall_ms:.3f} ms the card is {100 * (1 - spent['step'] / wall_ms):.1f} % idle")
+
+
+def dcn_edge_checks(dev) -> tuple[float, float]:
+    """K4 and K5 against their plain versions on seeded edge shapes → max |err|."""
+    import torch
+
+    from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.cross_interact.ref import cross_interact_ref, make_cross
+    from repro_torch.kernels.star_agg import ops as sa
+    from repro_torch.kernels.star_agg.ref import make_bags, star_agg_ref
+
+    err4 = err5 = 0.0
+    for N, K, V, E in ((1, 1, 7, 16), (4099, 1, 1000, 16), (1, 8, 50, 16), (4099, 8, 1000, 16),
+                       (777, 3, 50, 6)):
+        idx, mask, table = (torch.from_numpy(a).to(dev) for a in make_bags(N, K, V, E, seed=N + K))
+        if K == 1:  # single-hot: every slot set, a bit-equal row copy
+            mask = torch.ones_like(mask)
+            idx = torch.randint(0, V, (N, 1), dtype=torch.int32, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(N))
+        got = sa.star_agg(idx, mask, table)
+        want = star_agg_ref(idx, mask, table)
+        sync(dev)
+        if K == 1:
+            require(torch.equal(got, want), f"K4 single-hot at N={N} differs from its plain version")
+        else:
+            require(bool((got[0] == 0).all()), f"K4 all-masked row at N={N}, K={K} is not 0")
+            require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                    f"K4 at N={N}, K={K}, E={E} differs from its plain version")
+        err4 = max(err4, float((got - want).abs().max()))
+    log("K4 edge shapes (N, K, V, E) (1, 1, 7, 16), (4099, 1, 1000, 16) bit-equal; (1, 8, 50, 16), "
+        "(4099, 8, 1000, 16), (777, 3, 50, 6) with masked -1 / out-of-range ids and an "
+        f"all-masked row within 1e-5: max |err| {err4:.3g}")
+    for B, D in ((1, 429), (513, 429), (1000, 130), (7, 1)):
+        x0, x, w, b = (torch.from_numpy(a).to(dev) for a in make_cross(B, D, seed=B + D))
+        got = ci.cross_interact(x0, x, w, b)
+        want = cross_interact_ref(x0, x, w, b)
+        sync(dev)
+        require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                f"K5 at B={B}, D={D} differs from its plain version")
+        err5 = max(err5, float((got - want).abs().max()))
+    log(f"K5 edge shapes (B, D) (1, 429), (513, 429), (1000, 130), (7, 1) within 1e-4: "
+        f"max |err| {err5:.3g}")
+    return err4, err5
+
+
+def phase6_dcn_serving(dev, flush) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
+    from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.cross_interact.ref import cross_interact_ref
+    from repro_torch.kernels.star_agg import ops as sa
+    from repro_torch.kernels.star_agg.ref import star_agg_ref
+    from repro_torch.models import dcn_forward
+
+    out: dict = {"K4": 0, "K5": 0}
+    out["K4_err"], out["K5_err"] = dcn_edge_checks(dev)
+    arch = get_arch("dcn-v2")
+    cfg = resolve_config(arch, arch.cell("serve_p99"), smoke=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = init_params(arch, cfg, torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    leaves = [params["tables"], params["head"], params["retrieval_proj"]] + [
+        t_ for layer in params["cross"] + params["mlp"] for t_ in layer.values()
+    ]
+    log(f"dcn-v2 params: {sum(x.numel() for x in leaves)} floats on the card, "
+        f"init {time.perf_counter() - t:.3f} s")
+    cpu_params = {
+        k: [{n: x.cpu() for n, x in d.items()} for d in v] if isinstance(v, list) else v.cpu()
+        for k, v in params.items()
+    }
+    star_agg, cross = sa.star_agg, ci.cross_interact
+    for name, seed in (("serve_p99", 1), ("serve_bulk", 2), ("retrieval_cand", 3)):
+        cell = arch.cell(name)
+        t = time.perf_counter()
+        batch = make_batch(arch, cell, cfg, seed=seed, smoke=False, device=dev)
+        step, _ = build_step(arch, cell, cfg)
+        log(f"{name}: batch {', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())} "
+            f"made in {time.perf_counter() - t:.3f} s")
+        seen: dict = {"K4": [], "K5": []}
+
+        def rec4(*a):
+            res = star_agg(*a)
+            seen["K4"].append((a, res))
+            return res
+
+        def rec5(*a):
+            res = cross(*a)
+            seen["K5"].append((a, res))
+            return res
+
+        sa.star_agg, ci.cross_interact = rec4, rec5
+        reset_counters()  # counts from here to the end of the cell's forward
+        try:
+            t = time.perf_counter()
+            got = step(params, batch)
+            sync(dev)
+            cold_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            sa.star_agg, ci.cross_interact = star_agg, cross
+        launched = counters()
+        require(launched["K4"] == 1 and len(seen["K4"]) == 1,
+                f"{name}: K4 launched {launched['K4']} times in one forward, not once")
+        require(launched["K5"] == cfg.n_cross_layers == len(seen["K5"]),
+                f"{name}: K5 launched {launched['K5']} times in one forward, not "
+                f"{cfg.n_cross_layers}")
+        out["K4"] += launched["K4"]
+        out["K5"] += launched["K5"]
+        # the kernels on the forward's real operands against their plain versions
+        (idx, mask, table), res4 = seen["K4"][0]
+        require(torch.equal(res4, star_agg_ref(idx, mask, table)),
+                f"{name}: K4 on the forward's operands differs from its plain version")
+        for k, (a, res5) in enumerate(seen["K5"]):
+            want5 = cross_interact_ref(*a)
+            require(torch.allclose(res5, want5, rtol=1e-4, atol=1e-4),
+                    f"{name}: K5 call {k} differs from its plain version")
+            out["K5_err"] = max(out["K5_err"], float((res5 - want5).abs().max()))
+        # end to end against the port's CPU run of the same params and batch
+        rows = 4096 if name == "serve_bulk" else None
+        cpu_batch = {k: v.cpu() if k == "cand_emb" else v[:rows].cpu() for k, v in batch.items()}
+        want = step(cpu_params, cpu_batch)
+        if cell.kind == "serve":
+            mine = got[:rows].cpu()
+            require(mine.shape == want.shape and bool(torch.isfinite(mine).all()),
+                    f"{name}: logits of shape {tuple(mine.shape)} are not finite")
+            require(torch.allclose(mine, want, rtol=1e-4, atol=1e-5),
+                    f"{name}: the card's logits differ from the CPU's")
+            log(f"{name}: K4 x{launched['K4']} (bit-equal to its plain version on the "
+                f"forward's {idx.shape[0]} bags), K5 x{launched['K5']} (max |err| vs plain "
+                f"{out['K5_err']:.3g}); logits of {mine.shape[0]} rows equal the CPU's within "
+                f"rtol 1e-4 / atol 1e-5, max |diff| {float((mine - want).abs().max()):.3g}")
+        else:
+            vals, top = (x.cpu() for x in got)
+            want_vals, want_top = want
+            # every CPU score of the 1M candidates: the card's picks must carry the
+            # CPU's top-100 scores rank by rank (ranks may swap only within a tie)
+            _, user = dcn_forward(cpu_params, cpu_batch["dense"], cpu_batch["sparse"], cfg,
+                                  return_emb=True)
+            cpu_scores = (user @ cpu_batch["cand_emb"].T)[0]
+            same = int((top[0] == want_top[0]).sum())
+            require(torch.allclose(vals, want_vals, rtol=1e-4, atol=1e-5),
+                    f"{name}: the card's top-100 scores differ from the CPU's")
+            require(torch.allclose(cpu_scores[top[0]], want_vals[0], rtol=1e-4, atol=1e-5),
+                    f"{name}: the card's top-100 candidates are not the CPU's")
+            log(f"{name}: K4 x{launched['K4']}, K5 x{launched['K5']}; top-100 of "
+                f"{batch['cand_emb'].shape[0]} candidates: scores equal the CPU's within rtol "
+                f"1e-4 / atol 1e-5 (max |diff| {float((vals - want_vals).abs().max()):.3g}, "
+                f"top score {float(want_vals[0, 0]):.6g}, 100th {float(want_vals[0, -1]):.6g}), "
+                f"the CPU scores the card's picks as its own top-100, {same} of 100 ranks hold "
+                f"the same candidate")
+        warm = warm_ms(lambda: step(params, batch), dev, runs=7)
+        med = float(np.median(warm))
+        B = batch["dense"].shape[0]
+        out[f"{name}_ms"] = med
+        log(f"{name}: cold step {cold_ms:.3f} ms; warm {fmt(warm)} ms, median {med:.3f} ms, "
+            f"{B / med * 1e3:.1f} rows/s")
+        step_breakdown(step, (params, batch), name, med)
+        if name == "serve_bulk":
+            N, K = idx.shape
+            E = table.shape[1]
+            out["K4_ms"] = time_ms(sa.star_agg, (idx, mask, table), 20, flush)
+            out["K4_plain_ms"] = time_ms(star_agg_ref, (idx, mask, table), 10, flush)
+            ids64, weights = idx.long(), mask.to(torch.float32)
+
+            def bag(i, t_, w):
+                return F.embedding_bag(i, t_, mode="sum", per_sample_weights=w)
+
+            require(torch.allclose(bag(ids64, table, weights), res4),
+                    "embedding_bag (the K4 yardstick) computes another function")
+            out["K4_library_ms"] = time_ms(bag, (ids64, table, weights), 20, flush)
+            out["K4_bound"] = k4_bound_ms(N, K, E, int(mask.sum()), int(mask.any(1).sum()))
+            x0, x, w, b = seen["K5"][0][0]
+            out["K5_ms"] = time_ms(ci.cross_interact, (x0, x, w, b), 10, flush)
+            out["K5_plain_ms"] = time_ms(cross_interact_ref, (x0, x, w, b), 10, flush)
+            out["K5_library_ms"] = time_ms(torch.addmm, (b, x, w), 10, flush)
+            out["K5_bound"] = k5_bound_ms(*x.shape)
+            log(f"K4 at N={N}, K={K}, E={E} (serve_bulk): {out['K4_ms']:.6f} ms, bound "
+                f"{out['K4_bound'][0]:.6f} ms ({out['K4_bound'][1]}), plain version "
+                f"{out['K4_plain_ms']:.6f} ms, F.embedding_bag {out['K4_library_ms']:.6f} ms")
+            log(f"K5 at B={x.shape[0]}, D={x.shape[1]} (serve_bulk): {out['K5_ms']:.6f} ms, "
+                f"bound {out['K5_bound'][0]:.6f} ms ({out['K5_bound'][1]}), plain version "
+                f"{out['K5_plain_ms']:.6f} ms, torch.addmm (GEMM and bias only) "
+                f"{out['K5_library_ms']:.6f} ms")
+        del seen, got, want, batch
+    log(f"dcn-v2 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -610,12 +881,19 @@ def main() -> int:
     log(f"phase 5 join-heavy batch, 12K vertices / 8 isomorphic queries: "
         f"{time.perf_counter() - t:.3f} s")
 
-    def record(name, kid, source, replaces, launches, ms, plain_ms, bound):
+    t = time.perf_counter()
+    p6 = phase6_dcn_serving(dev, flush)
+    errs["K4"], errs["K5"] = p6["K4_err"], p6["K5_err"]
+    log(f"phase 6 dcn-v2 serving, serve_p99 / serve_bulk / retrieval_cand: "
+        f"{time.perf_counter() - t:.3f} s")
+
+    def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": errs[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None,  # no single PyTorch call computes this verdict
+            # None where no single PyTorch call computes the function
+            "library_ms": library_ms,
         }
 
     scan_cu = f"{SRC}/dominance_scan/csrc/dominance_scan.cu"
@@ -630,6 +908,13 @@ def main() -> int:
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),
         record("dominance_scan_batch", "K3-batch", scan_cu, f"{scan_py}:58", p3["K3-batch"],
                p3["K3b_ms"], p3["K3b_plain_ms"], p3["K3b_bound"]),
+        record("star_agg", "K4", f"{SRC}/star_agg/csrc/star_agg.cu",
+               "src/repro/kernels/star_agg/kernel.py:39", p6["K4"], p6["K4_ms"],
+               p6["K4_plain_ms"], p6["K4_bound"], p6["K4_library_ms"]),
+        # library_ms of K5 is torch.addmm: the GEMM and bias only, not the fused layer
+        record("cross_interact", "K5", f"{SRC}/cross_interact/csrc/cross_interact.cu",
+               "src/repro/kernels/cross_interact/kernel.py:28", p6["K5"], p6["K5_ms"],
+               p6["K5_plain_ms"], p6["K5_bound"], p6["K5_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -1,0 +1,21 @@
+"""Architecture and shape-cell entry points of the port (recsys serving so far)."""
+from .base import (
+    ArchDef,
+    ShapeCell,
+    build_step,
+    init_params,
+    input_specs,
+    make_batch,
+)
+from .registry import get_arch, resolve_config
+
+__all__ = [
+    "ArchDef",
+    "ShapeCell",
+    "build_step",
+    "init_params",
+    "input_specs",
+    "make_batch",
+    "get_arch",
+    "resolve_config",
+]

@@ -1,16 +1,19 @@
-"""Carry a JAX-package engine's weights across to the port.
+"""Carry a JAX-package model's weights across to the port.
 
 ``jax.random`` initialisation cannot be reproduced in torch, so a parity
-check builds the port from the reference's trained per-partition state
-(``GnnPeEngine.build(g, params=...)``).  This module only reads the
-reference objects' attributes and turns arrays into NumPy; it imports
-neither JAX nor the JAX package.
+check builds the port from the reference's state: an engine's trained
+per-partition state (``GnnPeEngine.build(g, params=...)``) or a DCN-v2
+params tree.  This module only reads the reference objects' attributes
+and turns arrays into NumPy; it imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["partition_state_from_reference"]
+from .device import default_device
+
+__all__ = ["partition_state_from_reference", "dcn_params_from_reference"]
 
 
 def _numpy_params(params: dict) -> dict:
@@ -44,3 +47,22 @@ def partition_state_from_reference(models) -> list[dict]:
             }
         )
     return out
+
+
+def dcn_params_from_reference(params: dict, device=None) -> dict:
+    """The JAX package's DCN-v2 params tree (``tables``, ``cross`` and
+    ``mlp`` lists of ``{"w", "b"}``, ``head``, ``retrieval_proj``) → the
+    port's dict of float32 tensors on ``device`` (the card unless told
+    otherwise)."""
+    dev = default_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    return {
+        "tables": t(params["tables"]),
+        "cross": [{"w": t(c["w"]), "b": t(c["b"])} for c in params["cross"]],
+        "mlp": [{"w": t(m["w"]), "b": t(m["b"])} for m in params["mlp"]],
+        "head": t(params["head"]),
+        "retrieval_proj": t(params["retrieval_proj"]),
+    }

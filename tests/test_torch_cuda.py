@@ -21,6 +21,10 @@ from repro_torch.kernels.dominance_scan.ref import (  # noqa: E402
 )
 from repro_torch.kernels.merge_join import ops as mj  # noqa: E402
 from repro_torch.kernels.merge_join.ref import injectivity_mask_ref, make_join_rows  # noqa: E402
+from repro_torch.kernels.star_agg import ops as sa  # noqa: E402
+from repro_torch.kernels.star_agg.ref import make_bags, star_agg_ref  # noqa: E402
+from repro_torch.kernels.cross_interact import ops as ci  # noqa: E402
+from repro_torch.kernels.cross_interact.ref import cross_interact_ref, make_cross  # noqa: E402
 
 
 @pytest.fixture
@@ -136,3 +140,64 @@ def test_device_join_on_the_card_equals_the_cpu(cuda):
     got = GnnPeEngine(cfg, device=cuda).build(g).match_many(qs)
     assert mj.LAUNCHES > before
     assert got == want and sum(map(len, got)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,V,E", [(1, 1, 7, 16), (4099, 1, 1000, 16), (1000, 8, 300, 16),
+                                     (777, 3, 50, 6), (2048, 8, 64, 128)])
+def test_star_agg_against_plain_version(cuda, N, K, V, E):
+    """K = 1 bit-equal (a row copy); multi-hot with masked −1 / out-of-range
+    ids and an all-masked row within float32 rounding of the plain sum."""
+    idx, mask, table = make_bags(N, K, V, E, seed=N + K)
+    if K == 1:
+        mask[:] = True
+        idx = np.random.default_rng(N).integers(0, V, (N, 1)).astype(np.int32)
+    idx, mask, table = (torch.from_numpy(a).to(cuda) for a in (idx, mask, table))
+    before = sa.LAUNCHES
+    got = sa.star_agg(idx, mask, table)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES == before + 1
+    assert got.shape == (N, E) and got.dtype == torch.float32
+    if K == 1:
+        assert torch.equal(got, table[idx[:, 0].long()])
+    else:
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        torch.testing.assert_close(got, star_agg_ref(idx, mask, table), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(1, 429), (1, 1), (513, 429), (300, 64), (1000, 130)])
+def test_cross_interact_against_plain_version(cuda, B, D):
+    """Ragged B and D (429 divides no tile) within float32 rounding."""
+    x0, x, w, b = (torch.from_numpy(a).to(cuda) for a in make_cross(B, D, seed=B + D))
+    before = ci.LAUNCHES
+    got = ci.cross_interact(x0, x, w, b)
+    torch.cuda.synchronize()
+    assert ci.LAUNCHES == before + 1
+    torch.testing.assert_close(got, cross_interact_ref(x0, x, w, b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dcn_serve_on_the_card_equals_the_cpu(cuda):
+    """The smoke DCN-v2 serve and retrieval steps on the card equal the CPU's,
+    through one K4 launch and three K5 launches per forward."""
+    from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
+
+    arch = get_arch("dcn-v2")
+    for name in ("serve_p99", "retrieval_cand"):
+        cell = arch.cell(name)
+        cfg = resolve_config(arch, cell, smoke=True)
+        params = init_params(arch, cfg, torch.Generator(device=cuda).manual_seed(0))
+        cpu_params = {k: ([{n: t.cpu() for n, t in d.items()} for d in v] if isinstance(v, list)
+                          else v.cpu()) for k, v in params.items()}
+        step, _ = build_step(arch, cell, cfg)
+        before = (sa.LAUNCHES, ci.LAUNCHES)
+        got = step(params, make_batch(arch, cell, cfg, seed=1, device=cuda))
+        torch.cuda.synchronize()
+        assert (sa.LAUNCHES, ci.LAUNCHES) == (before[0] + 1, before[1] + 3)
+        want = step(cpu_params, make_batch(arch, cell, cfg, seed=1, device="cpu"))
+        if name == "serve_p99":
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        else:
+            torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+            assert torch.equal(got[1].cpu(), want[1])

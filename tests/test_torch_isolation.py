@@ -1,6 +1,7 @@
 """The port runs without JAX and without the JAX package: a fresh process
 imports ``repro_torch``, builds and matches on the CPU through both joins,
-runs the dense scan, and no ``jax*`` or ``repro`` module is loaded."""
+runs the dense scan and the DCN-v2 serve and retrieval steps through
+``repro_torch.configs``, and no ``jax*`` or ``repro`` module is loaded."""
 import os
 import subprocess
 import sys
@@ -27,6 +28,15 @@ from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index
 assert ops.dominance_scan(idx.emb[:3].contiguous(), idx.emb0[:3].contiguous(), idx.emb, idx.emb0).shape == (3, idx.n_paths)
 assert ops.dominance_scan(idx.emb[0].contiguous(), idx.emb0[0].contiguous(), idx.emb, idx.emb0)[0]
+from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
+arch = get_arch("dcn-v2")
+for name in ("serve_p99", "retrieval_cand"):
+    cell = arch.cell(name)
+    cfg = resolve_config(arch, cell, smoke=True)
+    params = init_params(arch, cfg, torch.Generator().manual_seed(0))
+    out = build_step(arch, cell, cfg)[0](params, make_batch(arch, cell, cfg, device="cpu"))
+    logits = out if name == "serve_p99" else out[0]
+    assert logits.shape[0] == (8 if name == "serve_p99" else 1) and torch.isfinite(logits).all()
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")
