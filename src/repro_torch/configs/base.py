@@ -7,7 +7,7 @@ shape cells.  Per (arch × cell) this module builds
   * ``input_specs`` — the batch's (shape, dtype) by name, no allocation;
   * ``make_batch``  — the batch itself, the same NumPy draws in the same
     order as the JAX package's, as tensors on the device;
-  * ``init_params`` — seeded random params on a ``torch.Generator``'s device;
+  * ``init_params`` — random params from a seeded ``torch.Generator`` on the device;
   * ``build_step``  — the step function of the cell's kind.
 
 So far only the recsys family's serving kinds (``serve``, ``retrieval``)
@@ -42,7 +42,6 @@ class ShapeCell:
     name: str
     kind: str  # train | prefill | decode | serve | retrieval | train_blocks | train_mol
     meta: dict
-    skip: str | None = None  # reason if this (arch, shape) is skipped
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +51,6 @@ class ArchDef:
     make_config: Callable[[bool], Any]  # smoke: bool → model config
     shapes: tuple
     source: str = ""
-    notes: str = ""
 
     def cell(self, shape_name: str) -> ShapeCell:
         for c in self.shapes:
@@ -136,13 +134,15 @@ def make_batch(arch: ArchDef, cell: ShapeCell, cfg, seed: int = 0, smoke: bool =
     return batch
 
 
-def init_params(arch: ArchDef, cfg, generator: torch.Generator) -> dict:
-    """Seeded random params on ``generator``'s device."""
+def init_params(arch: ArchDef, cfg, seed: int = 0, device=None) -> dict:
+    """Random params on ``device`` (the card unless told otherwise), drawn
+    from a ``torch.Generator`` on that device seeded with ``seed``."""
     if arch.family != "recsys":
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: ROADMAP queue 1 item 17"
         )
-    return init_dcn_params(generator, cfg)
+    dev = default_device(device)
+    return init_dcn_params(torch.Generator(device=dev).manual_seed(seed), cfg)
 
 
 def build_step(arch: ArchDef, cell: ShapeCell, cfg):

@@ -8,9 +8,8 @@ import torch
 __all__ = ["dense_init"]
 
 
-def dense_init(generator: torch.Generator, shape, scale: float | None = None,
-               dtype=torch.float32) -> torch.Tensor:
-    """Truncated-normal fan-in init on ``generator``'s device: a standard
+def dense_init(generator: torch.Generator, shape, scale: float | None = None) -> torch.Tensor:
+    """Float32 truncated-normal fan-in init on ``generator``'s device: a standard
     normal cut to [−2, 2], times ``scale`` or else 1/√fan_in, where fan_in
     is ``shape[-2]`` (``shape[-1]`` for a vector).  The same distribution
     as the JAX package's ``dense_init``; not the same numbers."""
@@ -19,4 +18,4 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None,
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)
-    return t.mul_(s).to(dtype)  # in place: the recsys tables are 1.66 GB
+    return t.mul_(s)  # in place: the recsys tables are 1.66 GB

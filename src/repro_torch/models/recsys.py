@@ -29,6 +29,7 @@ __all__ = [
 ]
 
 _INT32_MAX = 2**31 - 1
+_TOP_K = 100  # candidates kept per query by ``retrieval_scores``
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,17 +40,11 @@ class RecsysConfig:
     vocab_per_field: int = 1_000_000
     n_cross_layers: int = 3
     mlp_dims: tuple = (1024, 1024, 512)
-    multi_hot: int = 1  # bag size (1 = single-valued fields)
     retrieval_dim: int = 64
-    dtype: str = "float32"
 
     @property
     def x0_dim(self) -> int:
         return self.n_dense + self.n_sparse * self.embed_dim
-
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        return getattr(torch, self.dtype)
 
 
 def init_dcn_params(generator: torch.Generator, cfg: RecsysConfig) -> dict:
@@ -102,33 +97,30 @@ def embedding_bag(tables, ids, mask=None) -> torch.Tensor:
 
 def _cross_layer(x0, x, w, b) -> torch.Tensor:
     """DCN-v2 cross: x₀ ⊙ (x W + b) + x, one K5 launch on the card."""
-    return ci.cross_interact(x0, x, w.to(x.dtype), b.to(x.dtype))
+    return ci.cross_interact(x0, x, w, b)
 
 
 def dcn_forward(params, dense, sparse_ids, cfg: RecsysConfig, sparse_mask=None,
                 return_emb: bool = False):
     """Logits (B,) of a batch; with ``return_emb`` also the retrieval
-    embedding (B, retrieval_dim) of the last MLP layer."""
-    dtype = cfg.compute_dtype
-    dense = dense.to(dtype)
-    emb = embedding_bag(params["tables"].to(dtype), sparse_ids, sparse_mask)  # (B, F, E)
+    embedding (B, retrieval_dim) of the last MLP layer.  Float32 throughout."""
+    emb = embedding_bag(params["tables"], sparse_ids, sparse_mask)  # (B, F, E)
     x0 = torch.cat([torch.log1p(dense.abs()), emb.reshape(emb.shape[0], -1)], dim=-1)
     x = x0
     for c in params["cross"]:
         x = _cross_layer(x0, x, c["w"], c["b"])
     h = x
     for layer in params["mlp"]:
-        h = torch.relu(h @ layer["w"].to(dtype) + layer["b"].to(dtype))
-    logit = (h @ params["head"].to(dtype))[:, 0]
+        h = torch.relu(h @ layer["w"] + layer["b"])
+    logit = (h @ params["head"])[:, 0]
     if return_emb:
-        return logit, h @ params["retrieval_proj"].to(dtype)
+        return logit, h @ params["retrieval_proj"]
     return logit
 
 
-def retrieval_scores(params, dense, sparse_ids, cand_emb, cfg: RecsysConfig, top_k: int = 100):
+def retrieval_scores(params, dense, sparse_ids, cand_emb, cfg: RecsysConfig):
     """Score the query rows against every candidate (N_cand, retrieval_dim)
-    → (top values, top indices), each (B, top_k), best first."""
+    → (top values, top indices), each (B, 100), best first."""
     _, user = dcn_forward(params, dense, sparse_ids, cfg, return_emb=True)
-    scores = user @ cand_emb.to(user.dtype).T  # (B, N_cand)
-    vals, idx = torch.topk(scores, top_k, dim=-1)
-    return vals, idx
+    scores = user @ cand_emb.T  # (B, N_cand)
+    return torch.topk(scores, _TOP_K, dim=-1)

@@ -187,7 +187,7 @@ def test_dcn_serve_on_the_card_equals_the_cpu(cuda):
     for name in ("serve_p99", "retrieval_cand"):
         cell = arch.cell(name)
         cfg = resolve_config(arch, cell, smoke=True)
-        params = init_params(arch, cfg, torch.Generator(device=cuda).manual_seed(0))
+        params = init_params(arch, cfg, seed=0, device=cuda)
         cpu_params = {k: ([{n: t.cpu() for n, t in d.items()} for d in v] if isinstance(v, list)
                           else v.cpu()) for k, v in params.items()}
         step, _ = build_step(arch, cell, cfg)

@@ -33,7 +33,7 @@ arch = get_arch("dcn-v2")
 for name in ("serve_p99", "retrieval_cand"):
     cell = arch.cell(name)
     cfg = resolve_config(arch, cell, smoke=True)
-    params = init_params(arch, cfg, torch.Generator().manual_seed(0))
+    params = init_params(arch, cfg, seed=0, device="cpu")
     out = build_step(arch, cell, cfg)[0](params, make_batch(arch, cell, cfg, device="cpu"))
     logits = out if name == "serve_p99" else out[0]
     assert logits.shape[0] == (8 if name == "serve_p99" else 1) and torch.isfinite(logits).all()

@@ -126,14 +126,25 @@ def test_retrieval_step_matches_reference(seed):
 def test_init_params_shapes_and_seeding():
     (jarch, _, jc), (tarch, _, tc) = _setup("serve_p99")
     jp = jax.tree.map(np.shape, jcfg.init_params(jarch, jc, jax.random.PRNGKey(0)))
-    tp = tcfg.init_params(tarch, tc, torch.Generator().manual_seed(0))
+    tp = tcfg.init_params(tarch, tc, seed=0, device="cpu")
     assert jax.tree.map(lambda t: tuple(t.shape), tp) == jp
-    again = tcfg.init_params(tarch, tc, torch.Generator().manual_seed(0))
-    other = tcfg.init_params(tarch, tc, torch.Generator().manual_seed(1))
+    again = tcfg.init_params(tarch, tc, seed=0, device="cpu")
+    other = tcfg.init_params(tarch, tc, seed=1, device="cpu")
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32
+               for t in jax.tree.leaves(tp, is_leaf=torch.is_tensor))
     assert torch.equal(again["tables"], tp["tables"])
     assert not torch.equal(other["tables"], tp["tables"])
     assert torch.count_nonzero(tp["cross"][0]["b"]) == 0
     assert tp["tables"].abs().max() <= 2 * 0.02
+
+
+def test_init_params_goes_to_the_card_unless_told():
+    (_, _, _), (tarch, _, tc) = _setup("serve_p99")
+    if torch.cuda.is_available():
+        assert tcfg.init_params(tarch, tc)["tables"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcfg.init_params(tarch, tc)
 
 
 def test_dense_init_is_a_truncated_fan_in_normal():
