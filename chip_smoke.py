@@ -40,7 +40,19 @@ Phases, each printing its seconds:
      ``serve_bulk``) and the top-100 must equal the port's CPU run of the
      same params and batch; warm step ms, rows/s and the step's device
      time split into K4, K5 and the rest per cell; K4 and K5 timed at
-     ``serve_bulk`` beside their plain versions and library calls.
+     ``serve_bulk`` beside their plain versions and library calls;
+  7. gemma3-1b serving at the published width (26 layers, d_model 1152,
+     4 query heads and 1 KV head of 256, vocab 262,144; bf16 over seeded
+     params), through ``repro_torch.configs``: K6 (flash attention) first
+     on seeded edge shapes against its plain version; ``prefill_32k`` cut
+     to B = 2 (S = 32,768): K6 must launch 26 times per forward and equal
+     the plain ``chunked_attention`` on every layer's real q, k, v; warm
+     step ms, tokens/s and the device time split into K6 and the rest;
+     logits at B = 1, S = 640 equal to the port's CPU run; ``decode_32k``
+     cut to B = 64 (warm steps at the cell's cur_len, one check step at
+     S − 2 against the CPU on rows 0–1); ``long_500k`` uncut; the
+     ``DecodeEngine`` on 12 requests through 8 slots; K6 timed at a global
+     and a local layer beside its plain version and SDPA.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -48,6 +60,7 @@ without a card, outside the repository, or if any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +74,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/kernels"
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock
 
@@ -137,6 +151,17 @@ def k5_bound_ms(B: int, D: int) -> tuple[float, str]:
     return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D + 3 * B * D)
 
 
+def k6_bound_ms(B: int, S: int, Hq: int, Hkv: int, dh: int, window) -> tuple[float, str]:
+    """Causal attention of B sequences: q and the output (Hq heads), k and v
+    (Hkv heads) once in bf16; 4·dh operations (two multiply-adds) for each
+    unmasked (query, key) pair, at the bf16 tensor-core rate."""
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w  # row i keeps min(i + 1, w) keys
+    bytes_ms = 2 * dh * B * S * (2 * Hq + 2 * Hkv) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * dh * pairs * B * Hq / BF16_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -146,24 +171,26 @@ def counters():
     """The launch counts of every kernel, by name."""
     from repro_torch.kernels.cross_interact import ops as ci
     from repro_torch.kernels.dominance_scan import ops as ds
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.merge_join import ops as mj
     from repro_torch.kernels.star_agg import ops as sa
 
     return {
         "K1": ds.LAUNCHES, "K2": mj.LAUNCHES,
         "K3-single": ds.SINGLE_LAUNCHES, "K3-batch": ds.BATCH_LAUNCHES,
-        "K4": sa.LAUNCHES, "K5": ci.LAUNCHES,
+        "K4": sa.LAUNCHES, "K5": ci.LAUNCHES, "K6": fa.LAUNCHES,
     }
 
 
 def reset_counters() -> None:
     from repro_torch.kernels.cross_interact import ops as ci
     from repro_torch.kernels.dominance_scan import ops as ds
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.merge_join import ops as mj
     from repro_torch.kernels.star_agg import ops as sa
 
     ds.LAUNCHES = ds.SINGLE_LAUNCHES = ds.BATCH_LAUNCHES = 0
-    mj.LAUNCHES = sa.LAUNCHES = ci.LAUNCHES = 0
+    mj.LAUNCHES = sa.LAUNCHES = ci.LAUNCHES = fa.LAUNCHES = 0
 
 
 def iso_batch(g, size: int, n: int, seed: int = 0):
@@ -601,33 +628,35 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
 # ---- phase 6 ----------------------------------------------------------------
 
 
-def step_breakdown(step, args, what: str, wall_ms: float, reps: int = 5) -> None:
-    """Device ms of one warm step, split into K4, K5 and the rest by CUDA
-    events around the kernel calls, with the card held busy by a long spin
-    while the host enqueues the whole step (so the events see device time
-    only); the idle share is that device time against the warm wall ms.
-    (``torch.profiler`` listed only some of this step's kernels on the
-    card, so events time it.)"""
+def step_breakdown(step, args, what: str, wall_ms: float, kernels: list, rest: str,
+                   reps: int = 5) -> dict:
+    """Device ms of one warm step, split into the kernels' calls and the
+    rest by CUDA events around each call of ``kernels`` ((label, module,
+    function name) triples), with the card held busy by a long spin while
+    the host enqueues the whole step (so the events see device time only,
+    as long as the step's launches fit in the launch queue: not so for
+    the some 2,000 of an LM decode step, timed by ``top_kernels``);
+    the idle share is that device time against the warm wall ms.
+    (``torch.profiler`` listed only some of a DCN-v2 step's kernels on the
+    card, so events time it.)  → {"step": ms, label: ms, ...}."""
     import torch
 
-    from repro_torch.kernels.cross_interact import ops as ci
-    from repro_torch.kernels.star_agg import ops as sa
-
     marks: list = []
-    star_agg, cross = sa.star_agg, ci.cross_interact
+    originals = [getattr(mod, name) for _, mod, name in kernels]
 
     def timed(key, fn):
-        def run(*a):
+        def run(*a, **kw):
             s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s_.record()
-            res = fn(*a)
+            res = fn(*a, **kw)
             e_.record()
             marks.append((key, s_, e_))
             return res
         return run
 
-    spent = {"step": 0.0, "K4": 0.0, "K5": 0.0}
-    sa.star_agg, ci.cross_interact = timed("K4", star_agg), timed("K5", cross)
+    spent = {"step": 0.0, **{label: 0.0 for label, _, _ in kernels}}
+    for (label, mod, name), fn in zip(kernels, originals):
+        setattr(mod, name, timed(label, fn))
     try:
         for _ in range(reps):
             marks.clear()
@@ -641,12 +670,36 @@ def step_breakdown(step, args, what: str, wall_ms: float, reps: int = 5) -> None
             for key, s_, e_ in marks:
                 spent[key] += s_.elapsed_time(e_) / reps
     finally:
-        sa.star_agg, ci.cross_interact = star_agg, cross
-    rest = spent["step"] - spent["K4"] - spent["K5"]
+        for (_, mod, name), fn in zip(kernels, originals):
+            setattr(mod, name, fn)
+    other = spent["step"] - sum(spent[label] for label, _, _ in kernels)
+    parts = " + ".join([f"{label} {spent[label]:.3f}" for label, _, _ in kernels]
+                       + [f"{rest} {other:.3f}"])
     log(f"{what}, device time of a warm step (CUDA events, host enqueue hidden): "
-        f"{spent['step']:.3f} ms = K4 embedding bag {spent['K4']:.3f} + K5 cross stack "
-        f"{spent['K5']:.3f} + dense features, MLP, head and the rest {rest:.3f}; against the "
-        f"warm wall median {wall_ms:.3f} ms the card is {100 * (1 - spent['step'] / wall_ms):.1f} % idle")
+        f"{spent['step']:.3f} ms = {parts}; against the "
+        f"warm wall median {wall_ms:.3f} ms the card is "
+        f"{100 * (1 - spent['step'] / wall_ms):.1f} % idle")
+    return spent
+
+
+def top_kernels(fn, dev, what: str, wall_ms: float, n: int = 8) -> None:
+    """The kernels of one call of ``fn`` under ``torch.profiler``, by device
+    time: their count and sum against the warm wall ms (the idle share),
+    and the ``n`` largest."""
+    import torch
+
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        fn()
+        sync(dev)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"{what} under the profiler: {sum(e.count for e in kernels)} kernel launches, "
+        f"{busy:.3f} ms of kernel time; against the warm wall median {wall_ms:.3f} ms the card is "
+        f"{100 * (1 - busy / wall_ms):.1f} % idle")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]:
+        log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
 
 
 def dcn_edge_checks(dev) -> tuple[float, float]:
@@ -818,7 +871,10 @@ def phase6_dcn_serving(dev, flush) -> dict:
         out[f"{name}_ms"] = med
         log(f"{name}: cold step {cold_ms:.3f} ms; warm {fmt(warm)} ms, median {med:.3f} ms, "
             f"{B / med * 1e3:.1f} rows/s")
-        step_breakdown(step, (params, batch), name, med)
+        step_breakdown(step, (params, batch), name, med,
+                       [("K4 embedding bag", sa, "star_agg"),
+                        ("K5 cross stack", ci, "cross_interact")],
+                       "dense features, MLP, head and the rest")
         if name == "serve_bulk":
             N, K = idx.shape
             E = table.shape[1]
@@ -847,6 +903,347 @@ def phase6_dcn_serving(dev, flush) -> dict:
                 f"{out['K5_library_ms']:.6f} ms")
         del seen, got, want, batch
     log(f"dcn-v2 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return out
+
+
+# ---- phase 7 ----------------------------------------------------------------
+
+# the card against the CPU through 26 bf16 layers (elementwise, and the relative L2 norm
+# of the difference): every op rounds to bf16, in another order on each side
+LM_TOL = dict(rtol=0.05, atol=0.25)
+LM_REL_L2 = 0.05
+
+
+def k6_check(got, q, k, v, causal=True, window=None, chunk=1024, what="K6") -> dict:
+    """K6's output against its plain version on the same operands, within
+    ``ref.k6_agreement``'s tolerance (per element 2^-7 · (|want| + the
+    attention over |v|), relative L2 5e-3) → its readings; fails beyond it."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_scale,
+        flash_attention_plain,
+        k6_agreement,
+    )
+
+    sync(got.device)
+    res = k6_agreement(got, flash_attention_plain(q, k, v, causal, window, chunk),
+                       attention_scale(q, k, v, causal, window, chunk))
+    require(res["ok"], f"{what} differs from its plain version: max |err| "
+            f"{res['max_abs_err']:.3g}, worst |err| / limit {res['worst']:.3g}, relative L2 "
+            f"{res['rel_l2']:.3g} (limit 5e-3), rms of the plain output {res['rms']:.3g}")
+    return res
+
+
+def k6_control(got, wrong, q, k, v, causal, window, what: str) -> dict:
+    """A planted fault: ``wrong`` is the plain version with a fault, which
+    must fail the tolerance against K6's ``got`` → the readings."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_scale,
+        flash_attention_plain,
+        k6_agreement,
+    )
+
+    sync(got.device)
+    scale = attention_scale(q, k, v, causal, window)
+    res = k6_agreement(got, wrong, scale)
+    require(not res["ok"], f"control {what}: a faulty plain version passed the K6 tolerance "
+            f"(worst {res['worst']:.3g}, relative L2 {res['rel_l2']:.3g})")
+    ok = k6_agreement(got, flash_attention_plain(q, k, v, causal, window), scale)
+    require(ok["ok"], f"control {what}: K6 fails against the faultless plain version")
+    log(f"K6 control, {what}: rejected (worst |err| / limit {res['worst']:.3g}, relative L2 "
+        f"{res['rel_l2']:.3g}, max |err| {res['max_abs_err']:.3g}; the faultless plain version "
+        f"{ok['worst']:.3g}, {ok['rel_l2']:.3g})")
+    return res
+
+
+def lm_close(got, want, what: str) -> tuple[float, float]:
+    """``got`` (the card's) against ``want`` (the CPU's), both on the host →
+    (max |diff|, relative L2 of the difference); fails beyond LM_TOL / LM_REL_L2."""
+    import torch
+
+    g, w = got.float(), want.float()
+    require(g.shape == w.shape and bool(torch.isfinite(g).all()), f"{what}: not finite")
+    mx = float((g - w).abs().max())
+    rel = float((g - w).norm() / w.norm())
+    require(torch.allclose(g, w, **LM_TOL) and rel <= LM_REL_L2,
+            f"{what}: the card differs from the CPU, max |diff| {mx:.4g}, relative L2 {rel:.4g}")
+    return mx, rel
+
+
+def k6_edge_checks(dev) -> float:
+    """K6 against its plain version on seeded edge shapes → max |err|; one
+    planted fault (the padded keys of the last plain chunk counted as keys)
+    must fail the same check."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain, make_attn
+
+    err, worst, rel, n = 0.0, 0.0, 0.0, 0
+    for S in (1, 127, 1000, 4096):
+        for dh in (64, 80, 128, 256):
+            for G in (1, 4):
+                q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                           for a in make_attn(2, S, 2 * G, 2, dh, seed=S + dh + G))
+                for causal, window in ((True, None), (True, 512), (True, S + 7), (False, None),
+                                       (False, 100)):
+                    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+                    res = k6_check(got, q, k, v, causal, window, what=f"K6 at S={S}, dh={dh}, "
+                                   f"G={G}, causal={causal}, window={window}")
+                    err, worst = max(err, res["max_abs_err"]), max(worst, res["worst"])
+                    rel, n = max(rel, res["rel_l2"]), n + 1
+                    if (S, dh, G, causal, window) == (1000, 256, 4, False, None):
+                        pad = [F.pad(t, (0, 0, 0, 0, 0, 24)) for t in (q, k, v)]
+                        k6_control(got, flash_attention_plain(*pad, causal=False)[:, :S], q, k, v,
+                                   False, None, "the 24 padded keys of the last chunk counted "
+                                   "(S = 1000, dh = 256, G = 4, non-causal)")
+    # strided operands: q, k and v as head slices of one fused projection
+    qkv = torch.randn((2, 777, 8, 128), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0)).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    res = k6_check(fa.flash_attention(q, k, v, window=300), q, k, v, window=300,
+                   what="K6 on strided head slices")
+    err, worst, rel = max(err, res["max_abs_err"]), max(worst, res["worst"]), max(rel, res["rel_l2"])
+    log(f"K6 edge shapes: {n + 1} calls (S in 1, 127, 1000, 4096; dh in 64, 80, 128, 256; G in 1, "
+        f"4; causal with no window, window 512 and window > S, non-causal with and without a "
+        f"window; strided head slices) within the K6 tolerance: max |err| {err:.3g}, worst "
+        f"|err| / limit {worst:.3g}, largest relative L2 {rel:.3g}")
+    return err
+
+
+def phase7_lm_serving(dev, flush) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import (
+        build_step,
+        get_arch,
+        init_params,
+        input_specs,
+        make_batch,
+        resolve_config,
+    )
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import chunked_attention, flash_attention_plain
+    from repro_torch.models import cast_params
+    from repro_torch.serve import DecodeEngine, ServeConfig
+
+    out: dict = {"K6_err": k6_edge_checks(dev)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    arch = get_arch("gemma3-1b")
+    cfg = resolve_config(arch, arch.cell("prefill_32k"), smoke=False)
+    t = time.perf_counter()
+    params = init_params(arch, cfg, seed=0, device=dev)
+    sync(dev)
+    tensors = [params["embed"], params["final_norm"]] + [
+        x for layer in params["layers"] for x in layer.values()]
+    log(f"gemma3-1b params: {sum(x.numel() for x in tensors)} (float32 from a seeded CUDA "
+        f"generator, cast once to {cfg.dtype}), {time.perf_counter() - t:.3f} s")
+    cpu_params = {"embed": params["embed"].cpu(), "final_norm": params["final_norm"].cpu(),
+                  "layers": [{n: x.cpu() for n, x in layer.items()} for layer in params["layers"]]}
+
+    # ---- prefill_32k, B cut to 2 --------------------------------------------
+    cell = arch.cell("prefill_32k")
+    full = make_batch(arch, cell, cfg, seed=1, smoke=False, device=dev)
+    batch = {"tokens": full["tokens"][:2]}  # B = 32 would return 550 GB of logits
+    B, S = batch["tokens"].shape
+    step, _ = build_step(arch, cell, cfg)
+    seen: list = []
+    flash = fa.flash_attention
+
+    def rec(q, k, v, causal=True, window=None, chunk=1024):
+        res = flash(q, k, v, causal=causal, window=window, chunk=chunk)
+        seen.append((q, k, v, window, res))
+        return res
+
+    fa.flash_attention = rec
+    reset_counters()  # counts from here to the end of the forward
+    try:
+        t = time.perf_counter()
+        logits = step(params, batch)
+        sync(dev)
+        cold_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        fa.flash_attention = flash
+    out["K6"] = counters()["K6"]
+    require(out["K6"] == cfg.n_layers == len(seen),
+            f"prefill_32k: K6 launched {out['K6']} times in one forward, not {cfg.n_layers}")
+    require(logits.shape == (B, S, cfg.vocab) and logits.dtype == cfg.compute_dtype,
+            f"prefill_32k: logits of shape {tuple(logits.shape)}, {logits.dtype}")
+    require(all(bool(torch.isfinite(logits[b, i:i + 4096]).all())
+                for b in range(B) for i in range(0, S, 4096)), "prefill_32k: logits not finite")
+    del logits
+    layer_res = []
+    for li, (q, k, v, window, res) in enumerate(seen):
+        kind = "global" if window is None else "local"
+        layer_res.append(k6_check(res, q, k, v, window=window, chunk=cfg.kv_chunk,
+                                  what=f"prefill_32k layer {li} ({kind})"))
+    out["K6_err"] = max(out["K6_err"], *(r["max_abs_err"] for r in layer_res))
+    log(f"prefill_32k (B = {B}, S = {S}): K6 x{out['K6']} in one forward, each equal to the plain "
+        f"chunked_attention on its layer's real q, k, v within the K6 tolerance; logits finite")
+    for key, what in (("max_abs_err", "max |err|"), ("worst", "worst |err| / limit"),
+                      ("rel_l2", "relative L2"), ("rms", "rms of the plain output")):
+        log(f"  by layer, {what}: {', '.join(f'{r[key]:.3g}' for r in layer_res)}")
+    glob = next(i for i in range(cfg.n_layers) if cfg.is_global(i))
+    gq, gk, gv, _, gres = seen[glob]
+    lq, lk, lv, lw, lres = seen[0]
+    seen.clear()
+    # planted faults on the real operands, each of which the K6 check must reject
+    k6_control(lres, flash_attention_plain(lq, lk, lv, window=lw + 1), lq, lk, lv, True, lw,
+               f"window {lw + 1} for {lw} (local layer 0)")
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kv_pos = torch.where((pos >= 64) & (pos < 128), 2**30, pos)  # keys 64-127 never seen
+    k6_control(gres, chunked_attention(
+        gq.reshape(B, S, gk.shape[2], -1, gq.shape[3]), gk, gv, pos, kv_pos, None,
+        cfg.kv_chunk).reshape(gq.shape), gq, gk, gv, True, None,
+        f"one 64-key tile dropped (global layer {glob})")
+    del pos, kv_pos
+    warm = warm_ms(lambda: step(params, batch), dev, runs=3)
+    med = float(np.median(warm))
+    log(f"prefill_32k: cold step {cold_ms:.3f} ms; warm {fmt(warm)} ms, median {med:.3f} ms, "
+        f"{B * S / med * 1e3:.1f} tokens/s")
+    step_breakdown(step, (params, batch), "prefill_32k", med,
+                   [("K6 attention", fa, "flash_attention")],
+                   "embedding, norms, QKV and RoPE, wo, MLP, head and the rest", reps=2)
+
+    # ---- K6 at the real shapes, beside its plain version and SDPA ------------
+    Hq, Hkv, dh = gq.shape[2], gk.shape[2], gq.shape[3]
+
+    def sdpa(q, k, v, mask=None):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=mask is None, enable_gqa=True).transpose(1, 2)
+
+    out["K6_ms"] = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), (gq, gk, gv), 10, flush)
+    out["K6_plain_ms"] = time_ms(flash_attention_plain, (gq, gk, gv), 2, flush)
+    out["K6_bound"] = k6_bound_ms(B, S, Hq, Hkv, dh, None)
+    k6_check(sdpa(gq, gk, gv), gq, gk, gv, what="SDPA (the K6 yardstick), global layer,")
+    out["K6_library_ms"] = time_ms(sdpa, (gq, gk, gv), 10, flush)
+    local_ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v, window=lw), (lq, lk, lv), 10,
+                       flush)
+    local_plain = time_ms(lambda q, k, v: flash_attention_plain(q, k, v, window=lw),
+                          (lq, lk, lv), 2, flush)
+    local_bound = k6_bound_ms(B, S, Hq, Hkv, dh, lw)
+    try:  # the band mask is S x S bytes, and SDPA may widen it
+        band = torch.ones((S, S), dtype=torch.bool, device=dev).tril_().triu_(-(lw - 1))
+        k6_check(sdpa(lq, lk, lv, band), lq, lk, lv, window=lw,
+                 what="SDPA (the K6 yardstick), local layer,")
+        local_lib = f"{time_ms(sdpa, (lq, lk, lv, band), 3, flush):.6f} ms"
+    except torch.OutOfMemoryError as e:
+        local_lib = f"not measured: out of memory ({str(e).splitlines()[0]})"
+    band = None
+    log(f"K6 global layer (B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, dh={dh}, causal): "
+        f"{out['K6_ms']:.6f} ms, bound {out['K6_bound'][0]:.6f} ms ({out['K6_bound'][1]}), plain "
+        f"version {out['K6_plain_ms']:.6f} ms, SDPA (is_causal, enable_gqa) "
+        f"{out['K6_library_ms']:.6f} ms")
+    log(f"K6 local layer (window {lw}): {local_ms:.6f} ms, bound {local_bound[0]:.6f} ms "
+        f"({local_bound[1]}), plain version {local_plain:.6f} ms, SDPA with the boolean band "
+        f"mask {local_lib}")
+    del gq, gk, gv, gres, lq, lk, lv, lres
+
+    # ---- the card's logits against the CPU's ---------------------------------
+    tok = batch["tokens"][:1, :640].contiguous()  # a prompt past the 512-token window
+    card = step(params, {"tokens": tok}).cpu()
+    t = time.perf_counter()
+    want = step(cpu_params, {"tokens": tok.cpu()})
+    cpu_s = time.perf_counter() - t
+    mx, rel = lm_close(card, want, "prefill logits at B = 1, S = 640")
+    log(f"prefill logits at B = 1, S = 640 equal the CPU's (CPU run {cpu_s:.3f} s) within rtol "
+        f"{LM_TOL['rtol']} / atol {LM_TOL['atol']} and relative L2 {LM_REL_L2}: max |diff| "
+        f"{mx:.4g}, relative L2 {rel:.4g}, largest |logit| {float(want.abs().max()):.4g}")
+    del card, want, full, batch
+
+    # ---- decode_32k, B cut to 64 -----------------------------------------------
+    def decode_batch(cell, B: int, seed: int):
+        """The cell's decode batch at B rows: the cache filled on the card from a
+        seeded generator (as make_batch fills it, standard normal), tokens from
+        NumPy, cur_len as make_batch sets it."""
+        (L, _, S, Hkv, dh), dtype = input_specs(arch, cell, cfg)["cache"]["k"]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cache = {n: torch.randn((L, B, S, Hkv, dh), generator=g, device=dev, dtype=dtype)
+                 for n in ("k", "v")}
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (B,)).astype(np.int32)
+        return {"cache": cache, "tokens": torch.from_numpy(tokens).to(dev),
+                "cur_len": torch.tensor(min(5, S - 1), dtype=torch.int32)}
+
+    for name, B, seed in (("decode_32k", 64, 2), ("long_500k", 1, 3)):
+        cell = arch.cell(name)
+        step, _ = build_step(arch, cell, cfg)
+        t = time.perf_counter()
+        batch = decode_batch(cell, B, seed)
+        sync(dev)
+        S = batch["cache"]["k"].shape[2]
+        log(f"{name}: cache 2 x {tuple(batch['cache']['k'].shape)} bf16 "
+            f"({2 * batch['cache']['k'].numel() * 2 / 1e9:.1f} GB) filled in "
+            f"{time.perf_counter() - t:.3f} s")
+        logits, _ = step(params, batch)
+        sync(dev)
+        require(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                f"{name}: logits of shape {tuple(logits.shape)} are not finite")
+        warm = warm_ms(lambda: step(params, batch), dev, runs=5)
+        med = float(np.median(warm))
+        log(f"{name} (B = {B}, cur_len {int(batch['cur_len'])}): warm {fmt(warm)} ms, median "
+            f"{med:.3f} ms, {B / med * 1e3:.1f} tokens/s; logits finite")
+        top_kernels(lambda: step(params, batch), dev, f"{name}, one warm step", med)
+        if name == "decode_32k":
+            cpu_batch = {"cache": {n: c[:, :2].cpu() for n, c in batch["cache"].items()},
+                         "tokens": batch["tokens"][:2].cpu(),
+                         "cur_len": torch.tensor(S - 2, dtype=torch.int32)}
+            batch["cur_len"] = cpu_batch["cur_len"]
+            t = time.perf_counter()
+            logits, cache = step(params, batch)
+            sync(dev)
+            chk_ms = (time.perf_counter() - t) * 1e3
+            top_kernels(lambda: step(params, batch), dev, "decode_32k check step", chk_ms)
+            f32_batch = dict(cpu_batch, cache={n: c.float() for n, c in cpu_batch["cache"].items()})
+            want, want_cache = step(cpu_params, cpu_batch)
+            mx, rel = lm_close(logits[:2].cpu(), want, "decode_32k check step, logits rows 0-1")
+            # bf16's own error: both runs against a float32 run of the same (bf16) weights
+            f32 = build_step(arch, cell, dataclasses.replace(cfg, dtype="float32"))[0](
+                cast_params(cpu_params, torch.float32), f32_batch)[0]
+            noise = [float((x.float() - f32).norm() / f32.norm()) for x in (logits[:2].cpu(), want)]
+            del f32_batch
+            rows = [lm_close(cache[n][:, :2, S - 2].cpu(), want_cache[n][:, :, S - 2],
+                             f"decode_32k check step, cache {n} rows") for n in ("k", "v")]
+            log(f"decode_32k check step at cur_len {S - 2} (global layers over {S - 1} rows, local "
+                f"over {cfg.window}): {chk_ms:.3f} ms; rows 0-1 equal the CPU's decode_step: "
+                f"logits max |diff| {mx:.4g} (relative L2 {rel:.4g}), written k rows "
+                f"{rows[0][0]:.4g} ({rows[0][1]:.4g}), v rows {rows[1][0]:.4g} ({rows[1][1]:.4g}); "
+                f"relative L2 against a float32 CPU run: card {noise[0]:.4g}, CPU {noise[1]:.4g}")
+            del cache, cpu_batch, want_cache
+        del batch, logits
+
+    # ---- DecodeEngine: 12 requests through 8 slots --------------------------
+    scfg = ServeConfig(max_batch=8, max_len=1024, eos_token=-1)
+    eng = DecodeEngine(params, cfg, scfg, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist() for _ in range(12)]
+    for p in prompts:
+        eng.submit(p, max_new=32)
+    t = time.perf_counter()
+    done = eng.run_until_drained()
+    wall = time.perf_counter() - t
+    require(sorted(done) == list(range(12)), f"DecodeEngine finished {sorted(done)}, not all 12")
+    require(all(len(ts) == 32 and all(0 <= x < cfg.vocab for x in ts) for ts in done.values()),
+            "DecodeEngine: a request did not get 32 ids in [0, V)")
+    prefill, _ = build_step(arch, arch.cell("prefill_32k"), cfg)
+    gaps, same = [], 0
+    for i in range(scfg.max_batch):  # the first wave starts at cur_len 0, as a prefill does
+        last = prefill(params, {"tokens": torch.tensor([prompts[i]], device=dev)})[0, -1].float()
+        top = torch.topk(last, 2).values
+        tok = done[i][0]
+        gaps.append(float(top[0] - last[tok]))
+        require(gaps[-1] <= LM_TOL["atol"], f"DecodeEngine request {i}: its first token's prefill "
+                f"logit is {gaps[-1]:.4g} below the prefill's max")
+        same += tok == int(last.argmax())
+    log(f"DecodeEngine (8 slots, max_len 1024): 12 requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} prompt tokens, 32 new each, 4 of them in reused slots; "
+        f"{eng.cur_len} ticks in {wall:.3f} s, {wall / eng.cur_len * 1e3:.3f} ms per tick, "
+        f"{12 * 32 / wall:.1f} generated tokens/s; first wave: each first token's prefill logit "
+        f"within {LM_TOL['atol']} of the prefill's max (gaps "
+        f"{', '.join(f'{g:.3g}' for g in gaps)}), {same} of 8 the prefill's argmax")
+    log(f"gemma3-1b peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
     return out
 
 
@@ -900,6 +1297,12 @@ def main() -> int:
     log(f"phase 6 dcn-v2 serving, serve_p99 / serve_bulk / retrieval_cand: "
         f"{time.perf_counter() - t:.3f} s")
 
+    t = time.perf_counter()
+    p7 = phase7_lm_serving(dev, flush)
+    errs["K6"] = p7["K6_err"]
+    log(f"phase 7 gemma3-1b serving, prefill_32k / decode_32k / long_500k / DecodeEngine: "
+        f"{time.perf_counter() - t:.3f} s")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -928,6 +1331,10 @@ def main() -> int:
         record("cross_interact", "K5", f"{SRC}/cross_interact/csrc/cross_interact.cu",
                "src/repro/kernels/cross_interact/kernel.py:28", p6["K5"], p6["K5_ms"],
                p6["K5_plain_ms"], p6["K5_bound"], p6["K5_library_ms"]),
+        # K6 at a global layer of prefill_32k; its local-layer times are in the log
+        record("flash_attention", "K6", f"{SRC}/flash_attention/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"], p7["K6_ms"],
+               p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -1,4 +1,4 @@
-"""Architecture and shape-cell entry points of the port (recsys serving so far)."""
+"""Architecture and shape-cell entry points of the port (DCN-v2 and gemma3-1b serving so far)."""
 from .base import (
     ArchDef,
     ShapeCell,

@@ -10,9 +10,10 @@ shape cells.  Per (arch × cell) this module builds
   * ``init_params`` — random params from a seeded ``torch.Generator`` on the device;
   * ``build_step``  — the step function of the cell's kind.
 
-So far only the recsys family's serving kinds (``serve``, ``retrieval``)
-are ported; other kinds and families raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+So far the recsys family's serving kinds (``serve``, ``retrieval``) and
+the LM family's (``prefill``, ``decode``) are ported; other kinds and
+families raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -23,12 +24,22 @@ import numpy as np
 import torch
 
 from ..device import default_device
-from ..models import dcn_forward, init_dcn_params, retrieval_scores
+from ..models import (
+    cast_params,
+    dcn_forward,
+    decode_step,
+    init_dcn_params,
+    init_lm_params,
+    lm_forward,
+    retrieval_scores,
+)
 
 __all__ = [
     "ShapeCell",
     "ArchDef",
+    "LM_SHAPES",
     "RECSYS_SHAPES",
+    "lm_cells",
     "recsys_cells",
     "input_specs",
     "make_batch",
@@ -59,6 +70,12 @@ class ArchDef:
         raise KeyError(f"{self.name} has no shape {shape_name}")
 
 
+LM_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65536, kind="train"),
     "serve_p99": dict(batch=512, kind="serve"),
@@ -69,24 +86,37 @@ RECSYS_SHAPES = {
 # (family, kind) not ported yet → the ROADMAP item that brings it
 _LATER_KINDS = {
     ("recsys", "train"): "ROADMAP queue 1 item 17 (recsys training: train/optimizer.py)",
+    ("lm", "train"): "ROADMAP queue 1 item 17 (LM training: lm_loss, train/optimizer.py)",
 }
+_STEP_KINDS = {"recsys": ("serve", "retrieval"), "lm": ("prefill", "decode")}
 
 
-def recsys_cells() -> tuple:
+def _cells(shapes: dict) -> tuple:
     out = []
-    for name, m in RECSYS_SHAPES.items():
+    for name, m in shapes.items():
         meta = dict(m)
         kind = meta.pop("kind")
         out.append(ShapeCell(name, kind, meta))
     return tuple(out)
 
 
+def lm_cells() -> tuple:
+    return _cells(LM_SHAPES)
+
+
+def recsys_cells() -> tuple:
+    return _cells(RECSYS_SHAPES)
+
+
 def _scale_meta(cell: ShapeCell, smoke: bool) -> dict:
-    """Smoke tests reuse the same cell kinds at toy sizes (the recsys keys
-    of the JAX package's ``_scale_meta``)."""
+    """Smoke tests reuse the same cell kinds at toy sizes (the LM and recsys
+    keys of the JAX package's ``_scale_meta``)."""
     m = dict(cell.meta)
     if not smoke:
         return m
+    if "seq_len" in m:
+        m["seq_len"] = 64
+        m["global_batch"] = 2
     if "batch" in m:
         m["batch"] = min(m["batch"], 8)
     if "n_candidates" in m:
@@ -98,14 +128,23 @@ def _ported(arch: ArchDef, cell: ShapeCell) -> None:
     later = _LATER_KINDS.get((arch.family, cell.kind))
     if later is not None:
         raise NotImplementedError(f"{arch.name}/{cell.name} ({cell.kind}) is not ported yet: {later}")
-    if arch.family != "recsys" or cell.kind not in ("serve", "retrieval"):
+    if cell.kind not in _STEP_KINDS.get(arch.family, ()):
         raise ValueError(f"no step for {arch.name}/{cell.name}")
 
 
 def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dict:
-    """{name: (shape, NumPy dtype)} of the cell's batch, in draw order."""
+    """{name: (shape, dtype)} of the cell's batch, in draw order: NumPy
+    dtypes for what is drawn as such, the compute dtype (a torch dtype)
+    for the LM's KV cache {"k", "v"}."""
     _ported(arch, cell)
     m = _scale_meta(cell, smoke)
+    if arch.family == "lm":
+        B, S = m["global_batch"], m["seq_len"]
+        if cell.kind == "prefill":
+            return {"tokens": ((B, S), np.int32)}
+        kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
+        return {"cache": {"k": kv, "v": kv}, "tokens": ((B,), np.int32),
+                "cur_len": ((), np.int32)}
     B = m["batch"]
     spec = {
         "dense": ((B, cfg.n_dense), np.float32),
@@ -119,30 +158,51 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
 def make_batch(arch: ArchDef, cell: ShapeCell, cfg, seed: int = 0, smoke: bool = True,
                device=None) -> dict:
     """The cell's batch as tensors on ``device`` (the card unless told
-    otherwise): ids uniform in [0, vocab_per_field), floats standard
-    normal, drawn from ``np.random.default_rng(seed)`` in the JAX
-    package's order, so both packages build identical batches."""
+    otherwise): ids uniform in [0, vocab) (``vocab_per_field`` for recsys),
+    floats standard normal, drawn from ``np.random.default_rng(seed)`` in
+    the JAX package's order, so both packages build identical batches.
+    A decode batch's ``cur_len`` is min(5, S − 1), as there, and stays a
+    host scalar (a 0-d int32 CPU tensor).  The LM cache is drawn in float64
+    on the host: smoke sizes only (gemma3's ``decode_32k`` cache would be
+    28 G values)."""
     dev = default_device(device)
     rng = np.random.default_rng(seed)
-    batch = {}
-    for name, (shape, dtype) in input_specs(arch, cell, cfg, smoke=smoke).items():
+    hi = max(cfg.vocab if arch.family == "lm" else cfg.vocab_per_field, 1)
+
+    def draw(spec):
+        if isinstance(spec, dict):
+            return {k: draw(s) for k, s in spec.items()}
+        shape, dtype = spec
         if dtype == np.int32:
-            arr = rng.integers(0, max(cfg.vocab_per_field, 1), shape).astype(np.int32)
-        else:
-            arr = rng.normal(size=shape).astype(dtype)
-        batch[name] = torch.from_numpy(arr).to(dev)
+            return torch.from_numpy(np.asarray(rng.integers(0, hi, shape), np.int32))
+        if isinstance(dtype, torch.dtype):
+            return torch.from_numpy(rng.normal(size=shape)).to(dtype)
+        return torch.from_numpy(rng.normal(size=shape).astype(dtype))
+
+    def place(t):
+        return {k: place(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+
+    batch = place(draw(input_specs(arch, cell, cfg, smoke=smoke)))
+    if "cur_len" in batch:  # a host scalar
+        batch["cur_len"] = torch.tensor(min(5, _scale_meta(cell, smoke)["seq_len"] - 1),
+                                        dtype=torch.int32)
     return batch
 
 
 def init_params(arch: ArchDef, cfg, seed: int = 0, device=None) -> dict:
     """Random params on ``device`` (the card unless told otherwise), drawn
-    from a ``torch.Generator`` on that device seeded with ``seed``."""
-    if arch.family != "recsys":
+    from a ``torch.Generator`` on that device seeded with ``seed``; the LM's
+    are drawn in float32 and cast once to ``cfg.compute_dtype``, the dtype
+    its steps take."""
+    if arch.family not in _STEP_KINDS:
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: ROADMAP queue 1 item 17"
         )
     dev = default_device(device)
-    return init_dcn_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if arch.family == "lm":
+        return cast_params(init_lm_params(gen, cfg), cfg.compute_dtype)
+    return init_dcn_params(gen, cfg)
 
 
 def build_step(arch: ArchDef, cell: ShapeCell, cfg):
@@ -150,8 +210,23 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg):
 
     serve:      step(params, batch) → logits (B,)
     retrieval:  step(params, batch) → (top values, top indices), each (B, 100)
+    prefill:    step(params, batch) → logits (B, S, V)
+    decode:     step(params, batch) → (logits (B, V), cache), the cache updated in place
+
+    The LM steps take params in ``cfg.compute_dtype``, as ``init_params``
+    returns them (carried float32 params go through ``models.cast_params``
+    once), and raise on another dtype.
     """
     _ported(arch, cell)
+    if cell.kind == "prefill":
+        return (lambda params, batch: lm_forward(params, batch["tokens"], cfg)[0]), False
+    if cell.kind == "decode":
+        return (
+            lambda params, batch: decode_step(
+                params, batch["cache"], batch["tokens"], batch["cur_len"], cfg
+            ),
+            False,
+        )
     if cell.kind == "serve":
         return (lambda params, batch: dcn_forward(params, batch["dense"], batch["sparse"], cfg)), False
     return (

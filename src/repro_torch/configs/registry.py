@@ -2,17 +2,17 @@
 from __future__ import annotations
 
 from .base import ArchDef, ShapeCell
+from .lm_archs import GEMMA3
 from .recsys_archs import DCN_V2
 
 __all__ = ["get_arch", "resolve_config"]
 
-_ARCHS = {a.name: a for a in [DCN_V2]}
+_ARCHS = {a.name: a for a in [DCN_V2, GEMMA3]}
 # the JAX package's other architectures → the ROADMAP item that ports them
-_LM = "ROADMAP queue 1 item 17 (LM: models/transformer.py, moe.py)"
+_LM = "ROADMAP queue 1 item 17 (LM: MLA and MoE in models/transformer.py, moe.py)"
 _GNN = "ROADMAP queue 1 item 17 (GNN zoo: models/gnn.py)"
 _LATER = {
     "minitron-4b": _LM,
-    "gemma3-1b": _LM,
     "command-r-plus-104b": _LM,
     "deepseek-v2-lite-16b": _LM,
     "qwen3-moe-235b-a22b": _LM,

@@ -2,8 +2,8 @@
 
 ``jax.random`` initialisation cannot be reproduced in torch, so a parity
 check builds the port from the reference's state: an engine's trained
-per-partition state (``GnnPeEngine.build(g, params=...)``) or a DCN-v2
-params tree.  This module only reads the reference objects' attributes
+per-partition state (``GnnPeEngine.build(g, params=...)``), a DCN-v2
+params tree or a dense LM's.  This module only reads the reference objects' attributes
 and turns arrays into NumPy; it imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -13,7 +13,11 @@ import torch
 
 from .device import default_device
 
-__all__ = ["partition_state_from_reference", "dcn_params_from_reference"]
+__all__ = [
+    "partition_state_from_reference",
+    "dcn_params_from_reference",
+    "lm_params_from_reference",
+]
 
 
 def _numpy_params(params: dict) -> dict:
@@ -65,4 +69,23 @@ def dcn_params_from_reference(params: dict, device=None) -> dict:
         "mlp": [{"w": t(m["w"]), "b": t(m["b"])} for m in params["mlp"]],
         "head": t(params["head"]),
         "retrieval_proj": t(params["retrieval_proj"]),
+    }
+
+
+def lm_params_from_reference(params: dict, device=None) -> dict:
+    """The JAX package's dense LM params tree (``embed``, ``final_norm`` and
+    ``layers``, a dict of arrays stacked over layers) → the port's dict of
+    tensors on ``device`` (the card unless told otherwise), one dict per
+    layer, float32 as the reference stores them."""
+    dev = default_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    stacked = {k: np.asarray(v, np.float32) for k, v in params["layers"].items()}
+    n_layers = next(iter(stacked.values())).shape[0]
+    return {
+        "embed": t(params["embed"]),
+        "final_norm": t(params["final_norm"]),
+        "layers": [{k: t(v[i]) for k, v in stacked.items()} for i in range(n_layers)],
     }

@@ -1,12 +1,20 @@
 """The seed substrate's models, ported as plain functions over dicts of
-tensors.  So far the recsys family (DCN-v2) for serving."""
-from .common import dense_init
+tensors: the recsys family (DCN-v2) and the dense LM (gemma3-1b) for serving."""
+from .common import apply_rope, dense_init, rms_norm, rope_freqs
 from .recsys import (
     RecsysConfig,
     dcn_forward,
     embedding_bag,
     init_dcn_params,
     retrieval_scores,
+)
+from .transformer import (
+    TransformerConfig,
+    cast_params,
+    decode_step,
+    init_cache,
+    init_lm_params,
+    lm_forward,
 )
 
 __all__ = [
@@ -15,5 +23,14 @@ __all__ = [
     "embedding_bag",
     "dcn_forward",
     "retrieval_scores",
+    "TransformerConfig",
+    "init_lm_params",
+    "cast_params",
+    "lm_forward",
+    "init_cache",
+    "decode_step",
     "dense_init",
+    "rms_norm",
+    "rope_freqs",
+    "apply_rope",
 ]

@@ -5,7 +5,7 @@ import math
 
 import torch
 
-__all__ = ["dense_init"]
+__all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope"]
 
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None) -> torch.Tensor:
@@ -19,3 +19,28 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None) ->
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)
     return t.mul_(s)  # in place: the recsys tables are 1.66 GB
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm as the JAX package computes it: the variance in float32, its
+    rsqrt cast to ``x``'s dtype, then ``x · inv · (1 + γ)`` in that dtype."""
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + gamma.to(x.dtype))
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    """(head_dim/2,) float32 rotary frequencies ``θ^(−2i/head_dim)``."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, H, dh) rotated on its last dim by ``positions`` (..., S),
+    in float32, cast back to ``x``'s dtype (halves rotated, not interleaved)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)
+    angles = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,0 +1,204 @@
+"""Decoder-only transformer LM for serving: the dense-GQA half of the JAX
+package's ``models/transformer.py``, as gemma3-1b runs it.
+
+Every sixth layer attends causally over the whole sequence, the others
+within a sliding ``window`` (gemma3's 5:1 pattern); RoPE (base 10,000) on
+q and k, RMSNorm with (1 + γ), a SiLU GLU MLP, the embedding tied to the
+head.  Compute runs in ``cfg.dtype``.  The reference keeps float32 params
+and casts each weight at each use; here the params must already be in
+``cfg.dtype`` (``cast_params`` makes that copy once, exact to the per-use
+casts, and ``configs.init_params`` returns them so), and the forward and
+the decode step raise on any other dtype.
+
+Prefill (``lm_forward``) runs its attention through K6
+(``kernels/flash_attention``): one launch per layer on the card, the
+plain ``chunked_attention`` on the CPU.  Decode (``decode_step``) scores
+one new token against the KV cache with plain PyTorch, as the JAX package
+leaves it to XLA; it writes the new rows into the cache in place.  The
+MLA and MoE variants and the training loss wait for their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..device import default_device
+from ..kernels.flash_attention import ops as fa
+from .common import apply_rope, dense_init, rms_norm
+
+__all__ = [
+    "TransformerConfig",
+    "init_lm_params",
+    "cast_params",
+    "lm_forward",
+    "init_cache",
+    "decode_step",
+]
+
+
+_ROPE_THETA = 10000.0
+_GLOBAL_PERIOD = 6  # layer i is global iff (i + 1) % 6 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    head_dim: int = 64
+    d_ff: int = 1024
+    vocab: int = 1024
+    window: int = 1024  # of the local layers
+    kv_chunk: int = 1024  # KV chunk of the plain attention
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    def is_global(self, layer: int) -> bool:
+        return (layer + 1) % _GLOBAL_PERIOD == 0
+
+
+def init_lm_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
+    """Random float32 params on ``generator``'s device, drawn from it in the
+    order embedding, then per layer wq, wk, wv, wo, w1, w3, w2; norms zero."""
+    D, kv = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+    dev = generator.device
+    params = {
+        "embed": dense_init(generator, (cfg.vocab, D), scale=0.02),
+        "final_norm": torch.zeros(D, device=dev),
+    }
+    layers = []
+    for _ in range(cfg.n_layers):
+        p = {"norm1": torch.zeros(D, device=dev), "norm2": torch.zeros(D, device=dev)}
+        for name, shape in (("wq", (D, cfg.q_dim)), ("wk", (D, kv)), ("wv", (D, kv)),
+                            ("wo", (cfg.q_dim, D)), ("w1", (D, cfg.d_ff)),
+                            ("w3", (D, cfg.d_ff)), ("w2", (cfg.d_ff, D))):
+            p[name] = dense_init(generator, shape)
+        layers.append(p)
+    params["layers"] = layers
+    return params
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """The params with every tensor in ``dtype``: the per-use casts of the
+    forward, made once (exact to them)."""
+    return {
+        "embed": params["embed"].to(dtype),
+        "final_norm": params["final_norm"].to(dtype),
+        "layers": [{k: t.to(dtype) for k, t in p.items()} for p in params["layers"]],
+    }
+
+
+def _require_compute_dtype(params: dict, cfg: TransformerConfig) -> None:
+    tensors = [params["embed"], params["final_norm"]] + [
+        t for p in params["layers"] for t in p.values()]
+    bad = sorted({str(t.dtype) for t in tensors if t.dtype != cfg.compute_dtype})
+    if bad:
+        raise ValueError(f"params in {', '.join(bad)}, the model computes in {cfg.dtype}: "
+                         "cast them once with cast_params(params, cfg.compute_dtype)")
+
+
+def _gqa_qkv(x, p, cfg: TransformerConfig, positions):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).view(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions[None, :], _ROPE_THETA)
+    k = apply_rope(k, positions[None, :], _ROPE_THETA)
+    return q, k, v
+
+
+def _attn_train(x, p, cfg: TransformerConfig, positions, is_global: bool):
+    """Full-sequence causal attention (windowed on local layers): one K6 call."""
+    B, S, _ = x.shape
+    q, k, v = _gqa_qkv(x, p, cfg, positions)
+    out = fa.flash_attention(q, k, v, causal=True, window=None if is_global else cfg.window,
+                             chunk=cfg.kv_chunk)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def _mlp(x, p):
+    """SiLU GLU, ``silu(x W1) ⊙ (x W3) W2``, each product rounded to x's dtype."""
+    a = x @ p["w1"]
+    h = a * torch.sigmoid(a) * (x @ p["w3"])
+    return h @ p["w2"]
+
+
+def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool):
+    x = x + _attn_train(rms_norm(x, p["norm1"]), p, cfg, positions, is_global)
+    return x + _mlp(rms_norm(x, p["norm2"]), p)
+
+
+def lm_forward(params, tokens, cfg: TransformerConfig):
+    """tokens (B, S) int → (logits (B, S, V) in the compute dtype, aux 0.0):
+    the aux loss is the MoE router's, zero for a dense stack."""
+    _require_compute_dtype(params, cfg)
+    S = tokens.shape[1]
+    embed = params["embed"]
+    x = embed[tokens]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    for i, p in enumerate(params["layers"]):
+        x = _layer(x, p, cfg, positions, cfg.is_global(i))
+    x = rms_norm(x, params["final_norm"])
+    return x @ embed.T, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None):
+    """Zero KV cache {"k", "v"} in the compute dtype, each (L, batch, max_len,
+    Hkv, dh), on ``device`` (the card unless told otherwise)."""
+    device = default_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device) for n in ("k", "v")}
+
+
+def _decode_attn_gqa(x, p, cfg: TransformerConfig, cache_k, cache_v, cur_len: int,
+                     is_global: bool):
+    """x (B, 1, D); cache_k/v (B, Smax, Hkv, dh), row ``cur_len`` written in
+    place.  Scores are float32 products of the bf16 operands over the rows
+    the mask keeps (positions ≤ cur_len, within the window on local layers):
+    the rows it drops would get exactly zero weight.  The kept rows are
+    copied to float32 for the products, a transient of that layer only."""
+    B, Smax = x.shape[0], cache_k.shape[1]
+    pos = torch.full((1,), cur_len, dtype=torch.int32, device=x.device)
+    q = (x @ p["wq"]).view(B, 1, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, pos[None, :], _ROPE_THETA)
+    k = apply_rope(k, pos[None, :], _ROPE_THETA)
+    at = min(cur_len, Smax - 1)  # as dynamic_update_slice clamps its start
+    cache_k[:, at] = k[:, 0]
+    cache_v[:, at] = v[:, 0]
+    lo = 0 if is_global else max(0, cur_len - cfg.window + 1)
+    hi = min(cur_len + 1, Smax)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.view(B, cfg.n_kv_heads, G, cfg.head_dim).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, cache_k[:, lo:hi].float())
+    a = torch.softmax(s * (1.0 / math.sqrt(cfg.head_dim)), dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", a, cache_v[:, lo:hi].float())
+    return out.to(x.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig):
+    """One-token decode: tokens (B,) int at position ``cur_len`` (an int or
+    a host scalar tensor) → (logits (B, V), cache), the cache updated in place."""
+    cur = int(cur_len)
+    if cur < 0:
+        raise ValueError(f"decode_step: cur_len {cur} is negative")
+    _require_compute_dtype(params, cfg)
+    embed = params["embed"]
+    x = embed[tokens][:, None, :]
+    for i, p in enumerate(params["layers"]):
+        x = x + _decode_attn_gqa(rms_norm(x, p["norm1"]), p, cfg, cache["k"][i],
+                                 cache["v"][i], cur, cfg.is_global(i))
+        x = x + _mlp(rms_norm(x, p["norm2"]), p)
+    x = rms_norm(x, params["final_norm"])
+    return (x @ embed.T)[:, 0, :], cache

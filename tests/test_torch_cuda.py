@@ -25,6 +25,13 @@ from repro_torch.kernels.star_agg import ops as sa  # noqa: E402
 from repro_torch.kernels.star_agg.ref import make_bags, star_agg_ref  # noqa: E402
 from repro_torch.kernels.cross_interact import ops as ci  # noqa: E402
 from repro_torch.kernels.cross_interact.ref import cross_interact_ref, make_cross  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_scale,
+    flash_attention_plain,
+    k6_agreement,
+    make_attn,
+)
 
 
 @pytest.fixture
@@ -201,3 +208,78 @@ def test_dcn_serve_on_the_card_equals_the_cpu(cuda):
         else:
             torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
             assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,dh,G", [(1, 64, 1), (127, 128, 4), (1000, 256, 4), (1000, 80, 2),
+                                    (300, 16, 1)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None), (False, 50)])
+def test_flash_attention_against_plain_version(cuda, S, dh, G, causal, window):
+    """Any S (the ragged tail masked), dh a multiple of 16 up to 256, GQA
+    without a repeat copy, within ``ref.k6_agreement``'s tolerance (K6
+    feeds P to P·V in bf16)."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in make_attn(2, S, 2 * G, 2, dh, seed=S + dh))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    res = k6_agreement(got, flash_attention_plain(q, k, v, causal, window),
+                       attention_scale(q, k, v, causal, window))
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_flash_attention_strided_operands_and_limits(cuda):
+    qkv = torch.randn((2, 333, 8, 64), device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]  # head slices, no copy
+    res = k6_agreement(fa.flash_attention(q, k, v, window=40),
+                       flash_attention_plain(q, k, v, window=40),
+                       attention_scale(q, k, v, window=40))
+    assert res["ok"], res
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(torch.cat([q, q], -1)[..., ::2], k, v)  # a stride of 2 on dh
+    before = fa.LAUNCHES
+    assert fa.flash_attention(q[:, :0], k[:, :0], v[:, :0]).shape == (2, 0, 4, 64)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_lm_serving_on_the_card_equals_the_cpu(cuda):
+    """The smoke gemma3 prefill (bf16) on the card, one K6 launch a layer,
+    against the CPU run of the same params; a decode step and a short
+    DecodeEngine run as well."""
+    import dataclasses
+
+    from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
+    from repro_torch.serve import DecodeEngine, ServeConfig
+
+    arch = get_arch("gemma3-1b")
+    cell = arch.cell("prefill_32k")
+    cfg = dataclasses.replace(resolve_config(arch, cell, smoke=True), dtype="bfloat16")
+    params = init_params(arch, cfg, seed=0, device=cuda)
+    cpu_params = {"embed": params["embed"].cpu(), "final_norm": params["final_norm"].cpu(),
+                  "layers": [{n: t.cpu() for n, t in p.items()} for p in params["layers"]]}
+    step, _ = build_step(arch, cell, cfg)
+    before = fa.LAUNCHES
+    got = step(params, make_batch(arch, cell, cfg, seed=1, device=cuda))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + cfg.n_layers
+    want = step(cpu_params, make_batch(arch, cell, cfg, seed=1, device="cpu"))
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0.05, atol=0.05)
+    dcell = arch.cell("decode_32k")
+    dstep, _ = build_step(arch, dcell, cfg)
+    logits, _ = dstep(params, make_batch(arch, dcell, cfg, seed=2, device=cuda))
+    want, _ = dstep(cpu_params, make_batch(arch, dcell, cfg, seed=2, device="cpu"))
+    torch.testing.assert_close(logits.float().cpu(), want.float(), rtol=0.05, atol=0.05)
+    eng = DecodeEngine(params, cfg, ServeConfig(max_batch=2, max_len=32, eos_token=-1),
+                       device=cuda)
+    for p in ([1, 2, 3], [4, 5], [6, 7, 8, 9]):
+        eng.submit(p, max_new=4)
+    done = eng.run_until_drained()
+    assert sorted(done) == [0, 1, 2] and all(len(t) == 4 for t in done.values())

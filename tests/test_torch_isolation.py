@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: a fresh process
 imports ``repro_torch``, builds and matches on the CPU through both joins,
-runs the dense scan and the DCN-v2 serve and retrieval steps through
-``repro_torch.configs``, and no ``jax*`` or ``repro`` module is loaded."""
+runs the dense scan, the DCN-v2 serve and retrieval steps and the
+gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
+short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
 import subprocess
 import sys
@@ -37,6 +38,19 @@ for name in ("serve_p99", "retrieval_cand"):
     out = build_step(arch, cell, cfg)[0](params, make_batch(arch, cell, cfg, device="cpu"))
     logits = out if name == "serve_p99" else out[0]
     assert logits.shape[0] == (8 if name == "serve_p99" else 1) and torch.isfinite(logits).all()
+arch = get_arch("gemma3-1b")
+for name in ("prefill_32k", "decode_32k"):
+    cell = arch.cell(name)
+    cfg = resolve_config(arch, cell, smoke=True)
+    params = init_params(arch, cfg, seed=0, device="cpu")
+    out = build_step(arch, cell, cfg)[0](params, make_batch(arch, cell, cfg, device="cpu"))
+    logits = out if name == "prefill_32k" else out[0]
+    assert logits.shape[-1] == cfg.vocab and torch.isfinite(logits).all()
+from repro_torch.serve import DecodeEngine, ServeConfig
+eng = DecodeEngine(params, cfg, ServeConfig(max_batch=2, max_len=16, eos_token=-1), device="cpu")
+for p in ([1, 2], [3], [4, 5, 6]):
+    eng.submit(p, max_new=3)
+assert sorted(eng.run_until_drained()) == [0, 1, 2]
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")

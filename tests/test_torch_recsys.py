@@ -167,6 +167,6 @@ def test_unported_kinds_and_archs_raise():
     with pytest.raises(NotImplementedError, match="item 17"):
         tcfg.make_batch(arch, cell, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
-        tcfg.get_arch("gemma3-1b")
+        tcfg.get_arch("deepseek-v2-lite-16b")
     with pytest.raises(KeyError):
         tcfg.get_arch("no-such-arch")
