@@ -43,9 +43,10 @@ Phases, each printing its seconds:
      ``serve_bulk`` beside their plain versions and library calls;
   7. gemma3-1b serving at the published width (26 layers, d_model 1152,
      4 query heads and 1 KV head of 256, vocab 262,144; bf16 over seeded
-     params), through ``repro_torch.configs``: K6 (flash attention) first
-     on seeded edge shapes against its plain version; ``prefill_32k`` cut
-     to B = 2 (S = 32,768): K6 must launch 26 times per forward and equal
+     params), through ``repro_torch.configs``: K6 (flash attention) first:
+     ptxas's report of its three instantiations (no spill, no serialised
+     wgmma), then seeded edge shapes against its plain version; ``prefill_32k``
+     cut to B = 2 (S = 32,768): K6 must launch 26 times per forward and equal
      the plain ``chunked_attention`` on every layer's real q, k, v; warm
      step ms, tokens/s and the device time split into K6 and the rest;
      logits at B = 1, S = 640 equal to the port's CPU run; ``decode_32k``
@@ -151,14 +152,19 @@ def k5_bound_ms(B: int, D: int) -> tuple[float, str]:
     return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D + 3 * B * D)
 
 
-def k6_bound_ms(B: int, S: int, Hq: int, Hkv: int, dh: int, window) -> tuple[float, str]:
-    """Causal attention of B sequences: q and the output (Hq heads), k and v
-    (Hkv heads) once in bf16; 4·dh operations (two multiply-adds) for each
-    unmasked (query, key) pair, at the bf16 tensor-core rate."""
+def k6_flops(B: int, S: int, Hq: int, dh: int, window) -> int:
+    """4·dh operations (two multiply-adds) for each unmasked (query, key) pair
+    of causal attention over B sequences and Hq heads."""
     w = S if window is None else min(window, S)
     pairs = w * (w + 1) // 2 + (S - w) * w  # row i keeps min(i + 1, w) keys
+    return 4 * dh * pairs * B * Hq
+
+
+def k6_bound_ms(B: int, S: int, Hq: int, Hkv: int, dh: int, window) -> tuple[float, str]:
+    """Causal attention of B sequences: q and the output (Hq heads), k and v
+    (Hkv heads) once in bf16, against ``k6_flops`` at the bf16 tensor-core rate."""
     bytes_ms = 2 * dh * B * S * (2 * Hq + 2 * Hkv) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * dh * pairs * B * Hq / BF16_OPS_PER_S * 1e3
+    ops_ms = k6_flops(B, S, Hq, dh, window) / BF16_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -969,6 +975,46 @@ def lm_close(got, want, what: str) -> tuple[float, float]:
     return mx, rel
 
 
+def k6_ptxas_report() -> None:
+    """ptxas's registers, spills and notes for each instantiation of K6 (from
+    this run's build), beside its dynamic shared memory; fails on a spill or
+    on wgmma instructions that ptxas had to serialise (note C7512)."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash_attention.kernel import smem_bytes
+
+    text = kbuild.BUILD_LOG.get("flash_attention")
+    require(text is not None, "K6 was not built in this run: no ptxas report")
+    rep: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"flash_fwd_kernelILi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            cur = int(m.group(1))
+            rep.setdefault(cur, {"notes": []})
+        elif m and "(C75" in line:
+            rep.setdefault(int(m.group(1)), {"notes": []})["notes"].append(
+                re.search(r"\((C75\d+)\)", line).group(1))
+        elif cur is not None and "spill stores" in line:
+            rep[cur]["stack"], rep[cur]["stores"], rep[cur]["loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            rep[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    require(sorted(rep) == [64, 128, 256], f"K6 ptxas report names instantiations {sorted(rep)}")
+    for dhp in sorted(rep):
+        r = rep[dhp]
+        log(f"K6 ptxas, instantiation for dh <= {dhp}: {r['registers']} registers a thread at "
+            f"launch (setmaxnreg then gives the producer 24, the consumers 240), spill stores "
+            f"{r['stores']} bytes, spill loads {r['loads']} bytes, stack {r['stack']} bytes, "
+            f"dynamic shared memory {smem_bytes(dhp)} bytes; notes: "
+            f"{', '.join(sorted(set(r['notes']))) or 'none'}")
+        require(r["stores"] == 0 and r["loads"] == 0,
+                f"K6 at dh <= {dhp} spills ({r['stores']} / {r['loads']} bytes)")
+        require("C7512" not in r["notes"],
+                f"K6 at dh <= {dhp}: ptxas serialised the wgmma instructions (C7512)")
+
+
 def k6_edge_checks(dev) -> float:
     """K6 against its plain version on seeded edge shapes → max |err|; one
     planted fault (the padded keys of the last plain chunk counted as keys)
@@ -980,13 +1026,15 @@ def k6_edge_checks(dev) -> float:
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain, make_attn
 
     err, worst, rel, n = 0.0, 0.0, 0.0, 0
-    for S in (1, 127, 1000, 4096):
+    # S at the edges of a block's 128 query rows and of the 64- and 128-key tiles
+    for S in (1, 63, 64, 65, 127, 128, 129, 1000, 4096):
         for dh in (64, 80, 128, 256):
             for G in (1, 4):
                 q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
                            for a in make_attn(2, S, 2 * G, 2, dh, seed=S + dh + G))
-                for causal, window in ((True, None), (True, 512), (True, S + 7), (False, None),
-                                       (False, 100)):
+                # window 40: shorter than one KV tile
+                for causal, window in ((True, None), (True, 512), (True, S + 7), (True, 40),
+                                       (False, None), (False, 100)):
                     got = fa.flash_attention(q, k, v, causal=causal, window=window)
                     res = k6_check(got, q, k, v, causal, window, what=f"K6 at S={S}, dh={dh}, "
                                    f"G={G}, causal={causal}, window={window}")
@@ -1004,9 +1052,10 @@ def k6_edge_checks(dev) -> float:
     res = k6_check(fa.flash_attention(q, k, v, window=300), q, k, v, window=300,
                    what="K6 on strided head slices")
     err, worst, rel = max(err, res["max_abs_err"]), max(worst, res["worst"]), max(rel, res["rel_l2"])
-    log(f"K6 edge shapes: {n + 1} calls (S in 1, 127, 1000, 4096; dh in 64, 80, 128, 256; G in 1, "
-        f"4; causal with no window, window 512 and window > S, non-causal with and without a "
-        f"window; strided head slices) within the K6 tolerance: max |err| {err:.3g}, worst "
+    log(f"K6 edge shapes: {n + 1} calls (S in 1, 63, 64, 65, 127, 128, 129, 1000, 4096; dh in 64, "
+        f"80, 128, 256; G in 1, 4; causal with no window, window 512, window > S and window 40, "
+        f"non-causal with and without a window; strided head slices) within the K6 tolerance: "
+        f"max |err| {err:.3g}, worst "
         f"|err| / limit {worst:.3g}, largest relative L2 {rel:.3g}")
     return err
 
@@ -1028,6 +1077,7 @@ def phase7_lm_serving(dev, flush) -> dict:
     from repro_torch.models import cast_params
     from repro_torch.serve import DecodeEngine, ServeConfig
 
+    k6_ptxas_report()
     out: dict = {"K6_err": k6_edge_checks(dev)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1133,14 +1183,25 @@ def phase7_lm_serving(dev, flush) -> dict:
     except torch.OutOfMemoryError as e:
         local_lib = f"not measured: out of memory ({str(e).splitlines()[0]})"
     band = None
+    tflops = k6_flops(B, S, Hq, dh, None) / out["K6_ms"] / 1e9
     log(f"K6 global layer (B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, dh={dh}, causal): "
-        f"{out['K6_ms']:.6f} ms, bound {out['K6_bound'][0]:.6f} ms ({out['K6_bound'][1]}), plain "
-        f"version {out['K6_plain_ms']:.6f} ms, SDPA (is_causal, enable_gqa) "
-        f"{out['K6_library_ms']:.6f} ms")
-    log(f"K6 local layer (window {lw}): {local_ms:.6f} ms, bound {local_bound[0]:.6f} ms "
-        f"({local_bound[1]}), plain version {local_plain:.6f} ms, SDPA with the boolean band "
-        f"mask {local_lib}")
-    del gq, gk, gv, gres, lq, lk, lv, lres
+        f"{out['K6_ms']:.6f} ms, {tflops:.1f} TFLOP/s, {out['K6_ms'] / out['K6_bound'][0]:.3f}x "
+        f"its bound {out['K6_bound'][0]:.6f} ms ({out['K6_bound'][1]}); plain version "
+        f"{out['K6_plain_ms']:.6f} ms; SDPA (is_causal, enable_gqa) {out['K6_library_ms']:.6f} ms, "
+        f"{k6_flops(B, S, Hq, dh, None) / out['K6_library_ms'] / 1e9:.1f} TFLOP/s")
+    log(f"K6 local layer (window {lw}): {local_ms:.6f} ms, "
+        f"{k6_flops(B, S, Hq, dh, lw) / local_ms / 1e9:.1f} TFLOP/s, "
+        f"{local_ms / local_bound[0]:.3f}x its bound {local_bound[0]:.6f} ms ({local_bound[1]}); "
+        f"plain version {local_plain:.6f} ms; SDPA with the boolean band mask {local_lib}")
+    # the same shape on seeded standard-normal operands: does the time depend on the data?
+    g = torch.Generator(device=dev).manual_seed(5)
+    nq, nk, nv = (torch.randn(t.shape, generator=g, device=dev).to(torch.bfloat16)
+                  for t in (gq, gk, gv))
+    normal_ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), (nq, nk, nv), 10, flush)
+    normal_lib = time_ms(sdpa, (nq, nk, nv), 10, flush)
+    log(f"K6 global shape on seeded standard-normal operands: {normal_ms:.6f} ms "
+        f"({k6_flops(B, S, Hq, dh, None) / normal_ms / 1e9:.1f} TFLOP/s); SDPA {normal_lib:.6f} ms")
+    del gq, gk, gv, gres, lq, lk, lv, lres, nq, nk, nv
 
     # ---- the card's logits against the CPU's ---------------------------------
     tok = batch["tokens"][:1, :640].contiguous()  # a prompt past the 512-token window

@@ -13,7 +13,7 @@ import torch
 
 from ..build import load_library
 
-__all__ = ["SOURCE", "launch_flash_attention"]
+__all__ = ["SOURCE", "launch_flash_attention", "smem_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -26,7 +26,14 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
     return lib
+
+
+def smem_bytes(dh: int) -> int:
+    """Dynamic shared memory of one block of the kernel at head width ``dh``."""
+    return _lib().flash_attention_smem_bytes(dh)
 
 
 def launch_flash_attention(q, k, v, out, causal: bool, window: int, scale: float) -> None:
@@ -41,4 +48,5 @@ def launch_flash_attention(q, k, v, out, causal: bool, window: int, scale: float
         *strides, int(causal), window, scale, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        what = f"CUDA error {rc}" if rc > 0 else f"tensor map encoding failed, CUresult {-rc}"
+        raise RuntimeError(f"flash_attention kernel launch failed: {what}")

@@ -212,12 +212,16 @@ def test_dcn_serve_on_the_card_equals_the_cpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,dh,G", [(1, 64, 1), (127, 128, 4), (1000, 256, 4), (1000, 80, 2),
-                                    (300, 16, 1)])
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None), (False, 50)])
+                                    (300, 16, 1), (64, 256, 4), (65, 256, 4), (129, 256, 1),
+                                    (4097, 256, 4), (1000, 80, 4)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None), (False, 50),
+                                           (True, 1)])
 def test_flash_attention_against_plain_version(cuda, S, dh, G, causal, window):
-    """Any S (the ragged tail masked), dh a multiple of 16 up to 256, GQA
-    without a repeat copy, within ``ref.k6_agreement``'s tolerance (K6
-    feeds P to P·V in bf16)."""
+    """Any S (the ragged tail masked; S at the edges of the 64-key tile and
+    the 128-row block, where TMA zero-fills the tail), dh a multiple of 16 up
+    to 256 (dh 80 zero-filled to 128 by TMA), GQA without a repeat copy, a
+    window of one key, within ``ref.k6_agreement``'s tolerance (K6 feeds P to
+    P·V in bf16)."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                for a in make_attn(2, S, 2 * G, 2, dh, seed=S + dh))
     before = fa.LAUNCHES

@@ -124,11 +124,14 @@ def test_wrapper_raises_on_what_it_does_not_take():
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
-def _k6_numerics(q, k, v, causal, window, tile=64):
-    """K6's arithmetic on the CPU: float32 scores, max and sum over 64-key
-    tiles, P rounded to bf16 for P·V, the output rounded to bf16 once."""
+def _k6_numerics(q, k, v, causal, window):
+    """K6's arithmetic on the CPU: float32 scores times dh^-1/2 · log2(e), max and
+    sum over KV tiles of 64 keys (dh > 128) or 128, exp2, P rounded to bf16 for P·V,
+    the output rounded to bf16 once."""
     B, S, Hq, dh = q.shape
     G = Hq // k.shape[2]
+    tile = 64 if dh > 128 else 128
+    scale_log2 = torch.tensor(dh**-0.5) * torch.tensor(1.4426950408889634)  # float32, as K6
     qf = q.float().transpose(1, 2)
     kf, vf = (t.float().repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
     pos = torch.arange(S)
@@ -139,29 +142,25 @@ def _k6_numerics(q, k, v, causal, window, tile=64):
         allowed = pc[None] <= (pos[:, None] if causal else S)
         if window is not None:
             allowed &= (pos[:, None] - pc[None]) < window
-        s = torch.where(allowed, qf @ kf[:, :, lo:lo + tile].transpose(-1, -2) / dh**0.5, -1e30)
+        s = torch.where(allowed, qf @ kf[:, :, lo:lo + tile].transpose(-1, -2) * scale_log2,
+                        -1e30)
         mx = torch.maximum(m, s.amax(-1))
-        p = torch.where(allowed, torch.exp(s - mx[..., None]), 0.0)
-        alpha = torch.exp(m - mx)
+        p = torch.where(allowed, torch.exp2(s - mx[..., None]), 0.0)
+        alpha = torch.exp2(m - mx)
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + p.bfloat16().float() @ vf[:, :, lo:lo + tile]
         m = mx
     return (acc / l.clamp_min(1e-30)[..., None]).bfloat16().transpose(1, 2)
 
 
-@pytest.mark.parametrize("fault", ["none", "padded_keys", "window_plus_one", "dropped_tile"])
-def test_k6_agreement_admits_the_kernels_rounding_and_rejects_planted_faults(fault):
-    """The tolerance chip_smoke.py holds K6 to: K6's own rounding passes, and a
-    plain version with a planted fault fails it.  The padded-keys fault is
-    the first plain version's (the zero-padded keys of the last chunk
-    counted as keys): 24 of 1,024 keys, 2.4 % of a non-causal row."""
+def _agreement_case(fault: str, dh: int) -> None:
     from repro_torch.kernels.flash_attention.ref import (
         attention_scale,
         flash_attention_plain,
         k6_agreement,
     )
 
-    q, k, v = _as(torch.bfloat16, *make_attn(1, 1000, 4, 1, 64, seed=3))
+    q, k, v = _as(torch.bfloat16, *make_attn(1, 1000, 4, 1, dh, seed=3))
     causal, window = (False, None) if fault == "padded_keys" else (True, 100)
     want = flash_attention_plain(q, k, v, causal, window)
     scale = attention_scale(q, k, v, causal, window)
@@ -174,7 +173,25 @@ def test_k6_agreement_admits_the_kernels_rounding_and_rejects_planted_faults(fau
     elif fault == "dropped_tile":  # keys 64-127 never seen
         pos = torch.arange(1000, dtype=torch.int32)
         kv_pos = torch.where((pos >= 64) & (pos < 128), 2**30, pos)
-        got = chunked_attention(q.reshape(1, 1000, 1, 4, 64), k, v, pos, kv_pos, window, 1024
+        got = chunked_attention(q.reshape(1, 1000, 1, 4, dh), k, v, pos, kv_pos, window, 1024
                                 ).reshape(q.shape)
     res = k6_agreement(got, want, scale)
     assert res["ok"] == (fault == "none"), res
+
+
+FAULTS = ["none", "padded_keys", "window_plus_one", "dropped_tile"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_k6_agreement_admits_the_kernels_rounding_and_rejects_planted_faults(fault):
+    """The tolerance chip_smoke.py holds K6 to: K6's own rounding passes, and a
+    plain version with a planted fault fails it.  The padded-keys fault is
+    the first plain version's (the zero-padded keys of the last chunk
+    counted as keys): 24 of 1,024 keys, 2.4 % of a non-causal row."""
+    _agreement_case(fault, dh=64)
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_k6_agreement_at_gemma3_head_width(fault):
+    """The same at dh = 256, where K6 walks KV tiles of 64 keys."""
+    _agreement_case(fault, dh=256)
