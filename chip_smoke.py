@@ -36,11 +36,15 @@ Phases, each printing its seconds:
      driven once through ``build_step``: K4 must launch once and K5 three
      times per forward, K4 on the forward's real operands must equal its
      plain version bit for bit and each K5 call its plain version within
-     1e-4, and the logits (all of ``serve_p99``, the first 4,096 rows of
+     rtol = atol = 1e-4 (ptxas's report of K5 first: no spill, no
+     serialised wgmma; two controls on serve_bulk's first cross layer:
+     W's last 5 rows zeroed must fail the check, one TF32 pass must fail
+     it on seeded operands), and the logits (all of ``serve_p99``, the first 4,096 rows of
      ``serve_bulk``) and the top-100 must equal the port's CPU run of the
      same params and batch; warm step ms, rows/s and the step's device
      time split into K4, K5 and the rest per cell; K4 and K5 timed at
-     ``serve_bulk`` beside their plain versions and library calls;
+     ``serve_bulk`` beside their plain versions, library calls and bounds
+     (K5's prep kernel also alone);
   7. gemma3-1b serving at the published width (26 layers, d_model 1152,
      4 query heads and 1 KV head of 256, vocab 262,144; bf16 over seeded
      params), through ``repro_torch.configs``: K6 (flash attention) first:
@@ -76,6 +80,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12  # H100 SXM tf32 tensor cores, dense
 SRC = "src/repro_torch/kernels"
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock
 
@@ -113,11 +118,13 @@ def time_ms(fn, args, reps: int, flush) -> float:
     return total / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate vs operations
-    over the float32 rate (the larger of the two, and which it is)."""
+    over the float32 rate, or ``ops_per_s`` (the larger of the two, and
+    which it is)."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -147,8 +154,16 @@ def k4_bound_ms(N: int, K: int, E: int, n_set: int, n_nonempty: int) -> tuple[fl
 
 
 def k5_bound_ms(B: int, D: int) -> tuple[float, str]:
-    """x0, x and the output (B, D), w (D, D) and b once; a multiply-add (2
-    operations) per (row, k, column), bias, multiply and add per output."""
+    """x0, x and the output (B, D), w (D, D) and b once, against a multiply-add
+    (2 operations) per (row, k, column) at the float32-accurate tensor-core
+    rate: K5 takes three tf32 products (3xTF32) for each, so 495 / 3 TFLOP/s
+    (the epilogue's 3 operations an output run beside them on the other cores)."""
+    return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D, TF32_OPS_PER_S / 3)
+
+
+def k5_simt_bound_ms(B: int, D: int) -> tuple[float, str]:
+    """The same bytes against the GEMM and the epilogue at the float32 rate
+    outside the tensor cores: the bound of a SIMT design, as K5 was first built."""
     return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D + 3 * B * D)
 
 
@@ -738,17 +753,135 @@ def dcn_edge_checks(dev) -> tuple[float, float]:
     log("K4 edge shapes (N, K, V, E) (1, 1, 7, 16), (4099, 1, 1000, 16) bit-equal; (1, 8, 50, 16), "
         "(4099, 8, 1000, 16), (777, 3, 50, 6) with masked -1 / out-of-range ids and an "
         f"all-masked row within 1e-5: max |err| {err4:.3g}")
-    for B, D in ((1, 429), (513, 429), (1000, 130), (7, 1)):
-        x0, x, w, b = (torch.from_numpy(a).to(dev) for a in make_cross(B, D, seed=B + D))
+    worst5 = 0.0
+    # B across the 128-row tile, D across the 216-column tile and the 32-wide k slice;
+    # then non-negative operands (no output cancels) scaled so that rtol governs, and small:
+    # these check the scaling path, not the precision (one tf32 pass would pass them too)
+    for B, D, scale in ((1, 429, None), (513, 429, None), (1000, 130, None), (7, 1, None),
+                        (63, 429, None), (64, 429, None), (65, 429, None), (129, 429, None),
+                        (4099, 429, None), (513, 7, None), (513, 8, None), (513, 432, None),
+                        (513, 429, 1e3), (513, 429, 1e-3)):
+        arrs = make_cross(B, D, seed=B + D)
+        if scale is not None:
+            arrs = [np.abs(a) * np.float32(scale) for a in arrs]
+        x0, x, w, b = (torch.from_numpy(a).to(dev) for a in arrs)
         got = ci.cross_interact(x0, x, w, b)
         want = cross_interact_ref(x0, x, w, b)
         sync(dev)
-        require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-                f"K5 at B={B}, D={D} differs from its plain version")
-        err5 = max(err5, float((got - want).abs().max()))
-    log(f"K5 edge shapes (B, D) (1, 429), (513, 429), (1000, 130), (7, 1) within 1e-4: "
-        f"max |err| {err5:.3g}")
+        err, worst = k5_close(got, want, f"K5 at B={B}, D={D}, scale {scale}")
+        worst5 = max(worst5, worst)
+        if scale is None:  # the record's max |err| is at the operands' own scale
+            err5 = max(err5, err)
+    log("K5 edge shapes (B, D) (1, 429), (513, 429), (1000, 130), (7, 1), B in 63, 64, 65, 129, "
+        "4099 at D = 429, D in 7, 8, 432 at B = 513, and |operands| x 1e3 and x 1e-3 at (513, "
+        f"429) within rtol = atol = 1e-4: max |err| {err5:.3g} (unscaled), worst |err| / limit "
+        f"{worst5:.3g}")
     return err4, err5
+
+
+def k5_close(got, want, what: str, reject: bool = False) -> tuple[float, float]:
+    """K5's check, rtol = atol = 1e-4 against the plain version → (max |err|,
+    worst |err| / (1e-4 + 1e-4 |want|)); fails if ``got`` is outside it, or,
+    with ``reject``, inside it."""
+    import torch
+
+    err = (got - want).abs()
+    res = float(err.max()), float((err / (1e-4 + 1e-4 * want.abs())).max())
+    inside = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+    if reject:
+        require(not inside, f"control {what}: passes the K5 tolerance (max |err| {res[0]:.3g}, "
+                f"worst |err| / limit {res[1]:.3g})")
+    else:
+        require(inside, f"{what} differs from its plain version: max |err| {res[0]:.3g}, "
+                f"worst |err| / limit {res[1]:.3g}")
+    return res
+
+
+def k5_controls(dev, x0, x, w, b, got) -> None:
+    """What the K5 check tells apart, on the first cross layer of serve_bulk
+    (``got`` is K5's result there): W's last 5 rows zeroed must fail it; one
+    TF32 pass (cuBLAS with TF32 allowed for that one call) must fail it on
+    seeded operands of the same shape, and on the real ones be at least 10x
+    further from the plain version than K5 is."""
+    import torch
+
+    from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.cross_interact.ref import cross_interact_ref, make_cross
+
+    def one_pass(x0, x, w, b):
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            res = x0 * torch.addmm(b, x, w) + x
+            sync(dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+        return res
+
+    def reading(got, want):  # (max |err|, worst |err| / limit), whichever side it falls
+        err = (got - want).abs()
+        return float(err.max()), float((err / (1e-4 + 1e-4 * want.abs())).max())
+
+    want = cross_interact_ref(x0, x, w, b)
+    mine = k5_close(got, want, "K5 on the first cross layer of serve_bulk")
+    wz = w.clone()
+    wz[-5:] = 0
+    zero = k5_close(cross_interact_ref(x0, x, wz, b), want, "W's last 5 rows zeroed", reject=True)
+    tf32 = reading(one_pass(x0, x, w, b), want)
+    require(tf32[1] >= 10 * mine[1], f"K5 on the real operands (worst |err| / limit "
+            f"{mine[1]:.3g}) is not 10x closer than one TF32 pass ({tf32[1]:.3g})")
+    B, D = x.shape
+    s0, s, sw, sb = (torch.from_numpy(a).to(dev) for a in make_cross(B, D, seed=5))
+    s_want = cross_interact_ref(s0, s, sw, sb)
+    seeded = k5_close(one_pass(s0, s, sw, sb), s_want, "one TF32 pass on seeded operands",
+                      reject=True)
+    s_mine = k5_close(ci.cross_interact(s0, s, sw, sb), s_want, "K5 on seeded operands")
+    log(f"K5 controls on serve_bulk's first cross layer (B = {B}, D = {D}), max |err| and worst "
+        f"|err| / limit: K5 {mine[0]:.3g}, {mine[1]:.3g}; W's last 5 rows zeroed rejected "
+        f"({zero[0]:.3g}, {zero[1]:.3g}); one TF32 pass {tf32[0]:.3g}, {tf32[1]:.3g} "
+        f"({'rejected' if tf32[1] > 1 else 'inside the tolerance'}; x0 holds embeddings of "
+        f"scale 0.02), {tf32[1] / max(mine[1], 1e-30):.1f}x K5's. On seeded operands of the "
+        f"same shape: one TF32 pass rejected ({seeded[0]:.3g}, {seeded[1]:.3g}), K5 "
+        f"{s_mine[0]:.3g}, {s_mine[1]:.3g}")
+
+
+def k5_ptxas_report() -> None:
+    """ptxas's registers, spills and notes for K5's two kernels (from this run's
+    build); fails on a spill or on wgmma instructions that ptxas had to
+    serialise (note C7512)."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.cross_interact.kernel import smem_bytes
+
+    text = kbuild.BUILD_LOG.get("cross_interact")
+    require(text is not None, "K5 was not built in this run: no ptxas report")
+    rep: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"(cross_kernel|prep_kernel)", line)
+        if m and "Compiling entry function" in line:
+            cur = m.group(1)
+            rep.setdefault(cur, {"notes": []})
+        elif m and "(C75" in line:
+            rep.setdefault(m.group(1), {"notes": []})["notes"].append(
+                re.search(r"\((C75\d+)\)", line).group(1))
+        elif cur is not None and "spill stores" in line:
+            rep[cur]["stack"], rep[cur]["stores"], rep[cur]["loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            rep[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    require(sorted(rep) == ["cross_kernel", "prep_kernel"], f"K5 ptxas report names {sorted(rep)}")
+    for name in sorted(rep):
+        r = rep[name]
+        extra = (f" (setmaxnreg then gives the producer 24, the consumers 240), dynamic shared "
+                 f"memory {smem_bytes()} bytes" if name == "cross_kernel" else "")
+        log(f"K5 ptxas, {name}: {r['registers']} registers a thread at launch{extra}, spill "
+            f"stores {r['stores']} bytes, spill loads {r['loads']} bytes, stack {r['stack']} "
+            f"bytes; notes: {', '.join(sorted(set(r['notes']))) or 'none'}")
+        require(r["stores"] == 0 and r["loads"] == 0,
+                f"K5 {name} spills ({r['stores']} / {r['loads']} bytes)")
+        require("C7512" not in r["notes"], f"K5 {name}: ptxas serialised the wgmma (C7512)")
 
 
 def phase6_dcn_serving(dev, flush) -> dict:
@@ -757,11 +890,13 @@ def phase6_dcn_serving(dev, flush) -> dict:
 
     from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
     from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.cross_interact.kernel import kpad, launch_prep
     from repro_torch.kernels.cross_interact.ref import cross_interact_ref
     from repro_torch.kernels.star_agg import ops as sa
     from repro_torch.kernels.star_agg.ref import star_agg_ref
     from repro_torch.models import dcn_forward
 
+    k5_ptxas_report()
     out: dict = {"K4": 0, "K5": 0}
     out["K4_err"], out["K5_err"] = dcn_edge_checks(dev)
     arch = get_arch("dcn-v2")
@@ -820,11 +955,10 @@ def phase6_dcn_serving(dev, flush) -> dict:
         (idx, mask, table), res4 = seen["K4"][0]
         require(torch.equal(res4, star_agg_ref(idx, mask, table)),
                 f"{name}: K4 on the forward's operands differs from its plain version")
+        worst5 = 0.0
         for k, (a, res5) in enumerate(seen["K5"]):
-            want5 = cross_interact_ref(*a)
-            require(torch.allclose(res5, want5, rtol=1e-4, atol=1e-4),
-                    f"{name}: K5 call {k} differs from its plain version")
-            out["K5_err"] = max(out["K5_err"], float((res5 - want5).abs().max()))
+            err, worst = k5_close(res5, cross_interact_ref(*a), f"{name}: K5 call {k}")
+            out["K5_err"], worst5 = max(out["K5_err"], err), max(worst5, worst)
         # end to end against the port's CPU run of the same params and batch
         rows = 4096 if name == "serve_bulk" else None
         cpu_batch = {k: v.cpu() if k == "cand_emb" else v[:rows].cpu() for k, v in batch.items()}
@@ -836,7 +970,8 @@ def phase6_dcn_serving(dev, flush) -> dict:
             require(torch.allclose(mine, want, rtol=1e-4, atol=1e-5),
                     f"{name}: the card's logits differ from the CPU's")
             log(f"{name}: K4 x{launched['K4']} (bit-equal to its plain version on the "
-                f"forward's {idx.shape[0]} bags), K5 x{launched['K5']} (max |err| vs plain "
+                f"forward's {idx.shape[0]} bags), K5 x{launched['K5']} (each within rtol = atol "
+                f"= 1e-4 of plain, worst |err| / limit {worst5:.3g}; max |err| so far "
                 f"{out['K5_err']:.3g}); logits of {mine.shape[0]} rows equal the CPU's within "
                 f"rtol 1e-4 / atol 1e-5, max |diff| {float((mine - want).abs().max()):.3g}")
         else:
@@ -895,16 +1030,25 @@ def phase6_dcn_serving(dev, flush) -> dict:
                     "embedding_bag (the K4 yardstick) computes another function")
             out["K4_library_ms"] = time_ms(bag, (ids64, table, weights), 20, flush)
             out["K4_bound"] = k4_bound_ms(N, K, E, int(mask.sum()), int(mask.any(1).sum()))
-            x0, x, w, b = seen["K5"][0][0]
+            (x0, x, w, b), res5 = seen["K5"][0]
+            k5_controls(dev, x0, x, w, b, res5)
+            B5, D5 = x.shape
             out["K5_ms"] = time_ms(ci.cross_interact, (x0, x, w, b), 10, flush)
+            wt = torch.empty((2, D5, kpad(D5)), dtype=torch.float32, device=dev)
+            prep_ms = time_ms(launch_prep, (w, wt), 10, flush)
             out["K5_plain_ms"] = time_ms(cross_interact_ref, (x0, x, w, b), 10, flush)
             out["K5_library_ms"] = time_ms(torch.addmm, (b, x, w), 10, flush)
-            out["K5_bound"] = k5_bound_ms(*x.shape)
+            out["K5_bound"] = k5_bound_ms(B5, D5)
+            simt = k5_simt_bound_ms(B5, D5)
             log(f"K4 at N={N}, K={K}, E={E} (serve_bulk): {out['K4_ms']:.6f} ms, bound "
                 f"{out['K4_bound'][0]:.6f} ms ({out['K4_bound'][1]}), plain version "
                 f"{out['K4_plain_ms']:.6f} ms, F.embedding_bag {out['K4_library_ms']:.6f} ms")
-            log(f"K5 at B={x.shape[0]}, D={x.shape[1]} (serve_bulk): {out['K5_ms']:.6f} ms, "
-                f"bound {out['K5_bound'][0]:.6f} ms ({out['K5_bound'][1]}), plain version "
+            log(f"K5 at B={B5}, D={D5} (serve_bulk): {out['K5_ms']:.6f} ms "
+                f"({2 * B5 * D5 * D5 / out['K5_ms'] / 1e9:.1f} TFLOP/s of float32-accurate "
+                f"work), {out['K5_ms'] / out['K5_bound'][0]:.3f}x its bound "
+                f"{out['K5_bound'][0]:.6f} ms ({out['K5_bound'][1]} at 495 / 3 TFLOP/s; a SIMT "
+                f"design's bound {simt[0]:.6f} ms, {simt[1]} at 67 TFLOP/s); the prep kernel "
+                f"{prep_ms:.6f} ms of it ({100 * prep_ms / out['K5_ms']:.2f} %); plain version "
                 f"{out['K5_plain_ms']:.6f} ms, torch.addmm (GEMM and bias only) "
                 f"{out['K5_library_ms']:.6f} ms")
         del seen, got, want, batch

@@ -74,6 +74,11 @@ class GnnPeConfig:
     online_impl: str = "batched"
     probe_impl: str = "loop"
     join_impl: str = "numpy"
+    # the fused leaf verdict: None = the kernel K1 on the card, the plain
+    # version on the CPU; True forces K1 (the engine raises without a
+    # card); False asks for the plain version, which only a CPU engine
+    # runs (the engine raises on a card, where K1 decides the verdict)
+    use_pallas_scan: bool | None = None
     cache: bool = False
     cache_capacity: int = 2048
     delta_compact_frac: float = 0.25
@@ -147,6 +152,16 @@ class GnnPeEngine:
         _check_config(cfg)
         self.cfg = cfg
         self.device = default_device(device)
+        if cfg.use_pallas_scan and self.device.type != "cuda":
+            raise ValueError(
+                f"use_pallas_scan=True forces the kernel K1, which needs a CUDA device, "
+                f"not {self.device}"
+            )
+        if cfg.use_pallas_scan is False and self.device.type == "cuda":
+            raise ValueError(
+                "use_pallas_scan=False asks for the plain verdict, which runs only on "
+                "the CPU: on a CUDA device the kernel K1 decides it"
+            )
         self.graph: Graph | None = None
         self.dgraph = None
         self.partitioning: Partitioning | None = None

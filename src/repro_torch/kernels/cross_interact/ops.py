@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import launch_cross_interact
+from .kernel import kpad, launch_cross_interact
 from .ref import cross_interact_ref
 
 __all__ = ["LAUNCHES", "cross_interact", "cross_interact_ref"]
@@ -40,6 +40,9 @@ def cross_interact(x0, x, w, b) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    launch_cross_interact(x0, x, w, b, out)
+    D = x.shape[1]
+    # W^T's tf32 halves, made anew on every call: a weight changed in place is never stale
+    wt = torch.empty((2, D, kpad(D)), dtype=torch.float32, device=x.device)
+    launch_cross_interact(x0, x, w, b, wt, out)
     LAUNCHES += 1
     return out

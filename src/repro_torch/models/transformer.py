@@ -180,6 +180,13 @@ def _decode_attn_gqa(x, p, cfg: TransformerConfig, cache_k, cache_v, cur_len: in
     lo = 0 if is_global else max(0, cur_len - cfg.window + 1)
     hi = min(cur_len + 1, Smax)
     G = cfg.n_heads // cfg.n_kv_heads
+    if lo >= hi:
+        # Past the cache end a local layer's window keeps no row.  The reference then
+        # masks every row, each score rounds to the mask's -1e30, and its softmax weighs
+        # all Smax rows alike.
+        out = cache_v.float().mean(dim=1)[:, :, None, :].expand(B, cfg.n_kv_heads, G,
+                                                                 cfg.head_dim)
+        return out.to(x.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
     qg = q.view(B, cfg.n_kv_heads, G, cfg.head_dim).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qg, cache_k[:, lo:hi].float())
     a = torch.softmax(s * (1.0 / math.sqrt(cfg.head_dim)), dim=-1)

@@ -150,6 +150,26 @@ def test_device_join_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_use_pallas_scan_on_the_card(cuda):
+    """On the card None and True both take K1 and give the CPU's match
+    lists; False, the plain verdict, is refused there."""
+    from repro_torch.core import GnnPeConfig, GnnPeEngine
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(400, k=4, p=0.15, n_labels=4, seed=3)
+    base = dict(n_partitions=3, encoder="monotone")
+    qs = [random_connected_query(g, 6, seed=s) for s in range(4)]
+    want = GnnPeEngine(GnnPeConfig(**base), device="cpu").build(g).match_many(qs)
+    for value in (None, True):
+        before = ops.LAUNCHES
+        got = GnnPeEngine(GnnPeConfig(**base, use_pallas_scan=value), device=cuda).build(g).match_many(qs)
+        assert ops.LAUNCHES > before
+        assert got == want and sum(map(len, got)) > 0
+    with pytest.raises(ValueError, match="runs only on the CPU"):
+        GnnPeEngine(GnnPeConfig(**base, use_pallas_scan=False), device=cuda)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,K,V,E", [(1, 1, 7, 16), (4099, 1, 1000, 16), (1000, 8, 300, 16),
                                      (777, 3, 50, 6), (2048, 8, 64, 128)])
 def test_star_agg_against_plain_version(cuda, N, K, V, E):
@@ -173,10 +193,23 @@ def test_star_agg_against_plain_version(cuda, N, K, V, E):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,D", [(1, 429), (1, 1), (513, 429), (300, 64), (1000, 130)])
-def test_cross_interact_against_plain_version(cuda, B, D):
-    """Ragged B and D (429 divides no tile) within float32 rounding."""
-    x0, x, w, b = (torch.from_numpy(a).to(cuda) for a in make_cross(B, D, seed=B + D))
+@pytest.mark.parametrize("B,D,scale", [
+    (1, 429, None), (1, 1, None), (513, 429, None), (300, 64, None), (1000, 130, None),
+    # B across the 128-row tile; D across the 216-column tile and the 32-wide k slice
+    (63, 429, None), (64, 429, None), (65, 429, None), (129, 429, None), (4099, 429, None),
+    (513, 7, None), (513, 8, None), (513, 432, None),
+    # non-negative operands, so that no output cancels: at 1e3 rtol governs.  These check
+    # the scaling path, not the precision: on sums of positive terms one tf32 pass would
+    # also pass them; the unscaled cases tell three passes from one
+    (513, 429, 1e3), (513, 429, 1e-3),
+])
+def test_cross_interact_against_plain_version(cuda, B, D, scale):
+    """Ragged B and D (429 divides no tile) within float32 rounding: the
+    3xTF32 products keep rtol = atol = 1e-4."""
+    arrs = make_cross(B, D, seed=B + D)
+    if scale is not None:
+        arrs = [np.abs(a) * np.float32(scale) for a in arrs]
+    x0, x, w, b = (torch.from_numpy(a).to(cuda) for a in arrs)
     before = ci.LAUNCHES
     got = ci.cross_interact(x0, x, w, b)
     torch.cuda.synchronize()

@@ -118,3 +118,37 @@ def test_own_params_match_vf2(graph, encoder):
 def test_later_slices_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         GnnPeEngine(GnnPeConfig(**{field: value}), device="cpu")
+
+
+def test_every_reference_config_field_builds_the_port_config():
+    """One dict builds both engines: every field of the reference's
+    GnnPeConfig and TrainConfig, at its default, is a field of the port's."""
+    import dataclasses
+
+    ref_train = {f.name: getattr(RefTrainConfig(), f.name) for f in dataclasses.fields(RefTrainConfig)}
+    train = TrainConfig(**ref_train)
+    assert dataclasses.asdict(train) == ref_train
+    ref = {f.name: getattr(RefConfig(), f.name) for f in dataclasses.fields(RefConfig)
+           if f.name != "train"}
+    cfg = GnnPeConfig(**ref, train=train)
+    assert {name: getattr(cfg, name) for name in ref} == ref
+    assert {f.name for f in dataclasses.fields(GnnPeConfig)} == set(ref) | {"train"}
+
+
+@pytest.mark.parametrize("value", [None, True, False])
+def test_use_pallas_scan_on_the_cpu(graph, value):
+    """None takes K1's plain version on the CPU, False forces it, True
+    forces K1, which a CPU engine cannot run."""
+    cfg = dict(CONFIGS["monotone"], use_pallas_scan=value)
+    if value:
+        with pytest.raises(ValueError, match="needs a CUDA device"):
+            GnnPeEngine(GnnPeConfig(**cfg), device="cpu")
+        return
+    g = port_graph(graph)
+    qs = queries(graph, 6, seed0=500)
+    launches = ops.LAUNCHES
+    got = GnnPeEngine(GnnPeConfig(**cfg), device="cpu").build(g).match_many(qs)
+    assert ops.LAUNCHES == launches
+    want = GnnPeEngine(GnnPeConfig(**CONFIGS["monotone"]), device="cpu").build(g).match_many(qs)
+    assert got == want
+    assert sum(len(m) for m in got) > 0

@@ -141,6 +141,27 @@ def test_decode_step_logits_and_cache_match_jax(cell_name, cur_len):
         np.testing.assert_allclose(cache[name].numpy(), np.asarray(want_cache[name]), **F32)
 
 
+@pytest.mark.parametrize("cur_len", [46, 47, 132])
+def test_decode_step_past_the_cache_end_matches_jax(cur_len):
+    """Smax 32, window 16: from cur_len 47 = Smax + window − 1 on, a local
+    layer's window keeps no row.  The reference clamps the write to row 31,
+    masks every row and averages all 32; at 46 the window keeps row 31 alone."""
+    (_, _, jc), (_, _, tc) = _setup("decode_32k")
+    jparams, tparams = _carried_params(9)
+    rng = np.random.default_rng(cur_len)
+    shape = (tc.n_layers, 2, 32, tc.n_kv_heads, tc.head_dim)
+    cache = {n: rng.normal(size=shape).astype(np.float32) for n in ("k", "v")}
+    tokens = rng.integers(0, tc.vocab, (2,)).astype(np.int32)
+    want_logits, want_cache = jtr.decode_step(
+        jparams, {n: jnp.asarray(c) for n, c in cache.items()}, jnp.asarray(tokens),
+        jnp.asarray(cur_len, jnp.int32), jc)
+    tcache = {n: torch.from_numpy(c.copy()) for n, c in cache.items()}
+    logits, got_cache = ttr.decode_step(tparams, tcache, torch.from_numpy(tokens), cur_len, tc)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **F32)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(got_cache[name].numpy(), np.asarray(want_cache[name]), **F32)
+
+
 def test_decode_steps_continue_a_prefill():
     """Teacher-forced decode steps from an empty cache give the prefill's logits."""
     _, (_, _, tc) = _setup()
