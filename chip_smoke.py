@@ -96,18 +96,24 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, args, reps: int, flush) -> float:
+def time_ms(fn, args, reps: int, flush, clean: bool = False) -> float:
     """Mean device ms of ``fn(*args)``, with L2 flushed before each call
     (the main path gathers fresh operands that mostly miss L2) and the
     card held busy by a spin while the host enqueues the call, so the
-    host's launch latency stays out of the events."""
+    host's launch latency stays out of the events.  The flush writes
+    ``flush``, which leaves up to 50 MB of dirty lines in L2 for the call
+    to write back as its reads evict them; ``clean`` flushes by reading
+    ``flush`` instead, so that L2 holds clean lines."""
     import torch
 
     for _ in range(3):
         fn(*args)
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -142,8 +148,12 @@ def k2_bound_ms(T: int, Co: int, Cn: int) -> tuple[float, str]:
 
 def k3_bound_ms(Q: int, N: int, D: int, D0: int) -> tuple[float, str]:
     """Q query rows × N data rows: every row once, a (Q, N) byte output;
-    add+cmp per D, sub+abs+cmp per D0 for every cell."""
-    return bound_ms((Q + N) * 4 * (D + D0) + Q * N, Q * N * (2 * D + 3 * D0))
+    the e + eps add once per data element (N·D), then a compare per D and
+    sub+abs+cmp per D0 for every cell.  ``FP32_OPS_PER_S`` counts an FMA
+    as two operations while a compare is one instruction, so where the
+    compares bound a call the floor is up to 2x higher than this, which is
+    why the kernel decides the labels first."""
+    return bound_ms((Q + N) * 4 * (D + D0) + Q * N, N * D + Q * N * (D + 3 * D0))
 
 
 def k4_bound_ms(N: int, K: int, E: int, n_set: int, n_nonempty: int) -> tuple[float, str]:
@@ -257,8 +267,8 @@ def warm_ms(fn, dev, runs: int = 3) -> list:
     return out
 
 
-def fmt(ms: list) -> str:
-    return ", ".join(f"{m:.3f}" for m in ms)
+def fmt(ms: list, digits: int = 3) -> str:
+    return ", ".join(f"{m:.{digits}f}" for m in ms)
 
 
 def device_join_breakdown(eng, queries, dev, what: str) -> None:
@@ -316,6 +326,45 @@ def device_join_breakdown(eng, queries, dev, what: str) -> None:
 # ---- phase 2 ----------------------------------------------------------------
 
 
+def k3_ptxas_report() -> None:
+    """ptxas's registers, spills and shared memory for the two instantiations of
+    K3 (from this run's build) and the dynamic shared memory of the launches the
+    main path makes; fails on a spill."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.dominance_scan.kernel import scan_smem_bytes
+
+    text = kbuild.BUILD_LOG.get("dominance_scan")
+    require(text is not None, "K3 was not built in this run: no ptxas report")
+    rep: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"dominance_scan_batch_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            cur = f"({k.group(1)}, {k.group(2)})" if k else None
+            if cur:
+                rep[cur] = {}
+        elif cur is not None and "spill stores" in line:
+            rep[cur]["stack"], rep[cur]["stores"], rep[cur]["loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            rep[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            rep[cur]["static_smem"] = int(s.group(1)) if s else 0
+    require(sorted(rep) == ["(16, 8)", "(18, 6)"], f"K3 ptxas report names {sorted(rep)}")
+    for name, r in sorted(rep.items()):
+        log(f"K3 ptxas, instantiation (CD, CD0) = {name}: {r['registers']} registers a thread "
+            f"(384 threads a block), static shared memory {r['static_smem']} bytes, spill stores "
+            f"{r['stores']} bytes, spill loads {r['loads']} bytes, stack {r['stack']} bytes")
+        require(r["stores"] == 0 and r["loads"] == 0,
+                f"K3 {name} spills ({r['stores']} / {r['loads']} bytes)")
+    log(f"K3 dynamic shared memory at D = 18, D0 = 6: {scan_smem_bytes(1, 18, 6)} bytes at Q = 1, "
+        f"{scan_smem_bytes(70, 18, 6)} at Q = 70, {scan_smem_bytes(3000, 18, 6)} at Q = 3000 "
+        f"(query tiles); at D = 300, D0 = 12: {scan_smem_bytes(17, 300, 12)} at Q = 17")
+
+
 def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
     """Each kernel against its plain version, bit for bit → max |err| by kernel."""
     import torch
@@ -337,6 +386,7 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
                 f"{what} differs from its plain version")
         return float((got.int() - want.int()).abs().max()) if got.numel() else 0.0
 
+    k3_ptxas_report()
     errs = {"K1": 0.0, "K2": 0.0, "K3-single": 0.0, "K3-batch": 0.0}
     for T in (1, 1000, big):
         args = [torch.from_numpy(a).to(dev) for a in make_pairs(T, seed=T)]
@@ -363,7 +413,49 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
         want = dominance_scan_batch_ref(q, q0, emb, emb0)
         errs["K3-batch"] = max(errs["K3-batch"], err(got, want, f"K3-batch at Q={Q}, N={N}"))
         log(f"K3-batch Q={Q} N={N}: bit-equal to the plain version, kept {int(got.sum())}")
+    # K3's edges: bases one float past 16 bytes (word copies), output rows that start off
+    # a 4-byte word (N % 4 != 0: byte stores), query tiles (more queries than shared
+    # memory holds), wide rows (column chunks), and labels that all match (no vote skips)
+    for what, Q, N, D, D0, match, off in (
+        ("N=1037", 17, 1037, 18, 6, False, False),
+        ("N=4099", 17, 4099, 18, 6, False, False),
+        ("query tiles", 3000, 4099, 18, 6, False, False),
+        ("D=300", 17, 4099, 300, 12, False, False),
+        ("D=300", 3, 100_003, 300, 12, False, False),
+        ("D=5", 17, 4099, 5, 3, False, False),
+        ("all labels matching", 70, big, 18, 6, True, False),
+        ("offset base", 17, 4099, 18, 6, False, True),
+        ("offset base", 17, big, 18, 6, False, True),
+        ("offset base", 17, 4099, 5, 3, False, True),
+    ):
+        arrs = make_scan(Q, N, seed=Q + N + D, D=D, D0=D0, match_labels=match)
+        q, q0, emb, emb0 = (
+            off_by_one_float(t) if off else t for t in (torch.from_numpy(a).to(dev) for a in arrs)
+        )
+        got = ds.dominance_scan(q, q0, emb, emb0)
+        want = dominance_scan_batch_ref(q, q0, emb, emb0)
+        label = f"{what} (Q={Q}, N={N}, D={D}, D0={D0})"
+        errs["K3-batch"] = max(errs["K3-batch"], err(got, want, f"K3-batch at {label}"))
+        for k in range(min(Q, 3)):
+            qk, q0k = (off_by_one_float(t[k]) if off else t[k].contiguous() for t in (q, q0))
+            got1 = ds.dominance_scan(qk, q0k, emb, emb0)
+            errs["K3-single"] = max(errs["K3-single"], err(
+                got1, dominance_scan_ref(qk, q0k, emb, emb0), f"K3-single at {label}, row {k}"))
+        log(f"K3 at {label}: batch and single (rows 0-{min(Q, 3) - 1}) bit-equal to their "
+            f"plain versions, kept {int(got.sum())} of {got.numel()}")
     return errs
+
+
+def off_by_one_float(t):
+    """A contiguous copy of ``t`` whose data start one float past an allocation
+    (so 4 bytes past a 16-byte boundary)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    out = buf[1:].view(t.shape)
+    require(out.is_contiguous() and out.data_ptr() % 16 == 4, "offset copy is not 4 bytes off")
+    return out
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -542,18 +634,37 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     N, D = e_all.shape
     D0 = e0_all.shape[1]
     q1, q01 = qm[0].contiguous(), q0m[0].contiguous()
-    out["K3s_ms"] = time_ms(ds.dominance_scan, (q1, q01, e_all, e0_all), 50, flush)
-    out["K3s_plain_ms"] = time_ms(dominance_scan_ref, (q1, q01, e_all, e0_all), 50, flush)
+    # the same shapes with every label equal: no cell is dismissed by its labels, so
+    # no vote skips a query and every cell pays its dominance compares
+    qz, ez = torch.zeros_like(q0m), torch.zeros_like(e0_all)
+    runs = {
+        "K3s": (ds.dominance_scan, dominance_scan_ref, (q1, q01, e_all, e0_all), 50, 50),
+        "K3b": (ds.dominance_scan, dominance_scan_batch_ref, (qm, q0m, e_all, e0_all), 20, 5),
+        "K3b_match": (ds.dominance_scan, dominance_scan_batch_ref, (qm, qz, e_all, ez), 20, 5),
+    }
+    require(torch.equal(ds.dominance_scan(qm, qz, e_all, ez),
+                        dominance_scan_batch_ref(qm, qz, e_all, ez)),
+            "K3-batch with all labels matching differs from the plain version")
+    for key, (fn, plain, args, reps, plain_reps) in runs.items():
+        # in turns: plain, kernel, kernel, plain
+        p1 = time_ms(plain, args, plain_reps, flush)
+        k1 = time_ms(fn, args, reps, flush)
+        k2 = time_ms(fn, args, reps, flush)
+        p2 = time_ms(plain, args, plain_reps, flush)
+        out[f"{key}_runs"], out[f"{key}_plain_runs"] = [k1, k2], [p1, p2]
+        out[f"{key}_ms"], out[f"{key}_plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+        out[f"{key}_clean_ms"] = time_ms(fn, args, reps, flush, clean=True)
     out["K3s_bound"] = k3_bound_ms(1, N, D, D0)
-    out["K3b_ms"] = time_ms(ds.dominance_scan, (qm, q0m, e_all, e0_all), 20, flush)
-    out["K3b_plain_ms"] = time_ms(dominance_scan_batch_ref, (qm, q0m, e_all, e0_all), 5, flush)
     out["K3b_bound"] = k3_bound_ms(n_req, N, D, D0)
-    log(f"K3-single at N={N}, D={D}, D0={D0}: {out['K3s_ms']:.6f} ms, bound "
-        f"{out['K3s_bound'][0]:.6f} ms ({out['K3s_bound'][1]}), plain version "
-        f"{out['K3s_plain_ms']:.6f} ms")
-    log(f"K3-batch at Q={n_req}, N={N}: {out['K3b_ms']:.6f} ms, bound "
-        f"{out['K3b_bound'][0]:.6f} ms ({out['K3b_bound'][1]}), plain version "
-        f"{out['K3b_plain_ms']:.6f} ms")
+    for key, what in (("K3s", f"K3-single at N={N}, D={D}, D0={D0}"),
+                      ("K3b", f"K3-batch at Q={n_req}, N={N}"),
+                      ("K3b_match", f"K3-batch at Q={n_req}, N={N}, all labels matching")):
+        bound = out["K3s_bound" if key == "K3s" else "K3b_bound"]
+        log(f"{what}: {fmt(out[key + '_runs'], 6)} ms (in turns with the plain version "
+            f"{fmt(out[key + '_plain_runs'], 6)} ms: plain, kernel, kernel, plain), bound "
+            f"{bound[0]:.6f} ms ({bound[1]}), {bound[0] / out[key + '_ms'] * 100:.1f} % of it; "
+            f"with L2 flushed by a read (clean lines, nothing to write back) "
+            f"{out[key + '_clean_ms']:.6f} ms, {bound[0] / out[key + '_clean_ms'] * 100:.1f} %")
     return out
 
 

@@ -19,6 +19,7 @@ __all__ = [
     "launch_dominance_scan_pairs",
     "launch_dominance_scan",
     "launch_dominance_scan_batch",
+    "scan_smem_bytes",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dominance_scan.cu"
@@ -40,6 +41,9 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
+    fn = lib.dominance_scan_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -68,6 +72,12 @@ def launch_dominance_scan(q, q0, emb, emb0, out, eps: float) -> None:
         N, D, emb0.shape[1], eps, stream,
     )
     _raise_on(rc, "dominance_scan")
+
+
+def scan_smem_bytes(Q: int, D: int, D0: int) -> int:
+    """Dynamic shared memory of a K3 launch of Q queries at widths D, D0
+    (0 where it cannot launch): what ``chip_smoke.py`` reports."""
+    return _lib().dominance_scan_smem(Q, D, D0)
 
 
 def launch_dominance_scan_batch(q, q0, emb, emb0, out, eps: float) -> None:

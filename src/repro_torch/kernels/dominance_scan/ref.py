@@ -71,13 +71,19 @@ def make_pairs(T: int, seed: int, D: int = 18, D0: int = 6):
     return qg, q0g, eg, e0g
 
 
-def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6):
+def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6,
+              match_labels: bool = False):
     """Seeded NumPy operands (q (Q, D), q0 (Q, D0), emb (N, D), emb0 (N,
     D0)) for the dense scans.  The queries are ``make_pairs`` query rows;
     each data row copies the partner row of a random query, so the row
     meets that query at its ties (exactly at ``e + eps``), and then moves
     single entries one ulp up or down or labels by ±eps; a quarter of the
-    rows are fresh random rows, and some are +inf or carry NaN labels."""
+    rows are fresh random rows, and some are +inf or carry NaN labels.
+
+    ``match_labels``: the query labels are finite and every data row
+    carries its partner query's labels exactly (no label moves, no NaN
+    labels, fresh rows too), so every row passes the label test for at
+    least its partner and only the dominance columns decide."""
     qg, q0g, eg, e0g = make_pairs(max(Q, 1), seed, D=D, D0=D0)
     rng = np.random.default_rng(seed + 1)
     eps = np.float32(1e-6)
@@ -95,4 +101,7 @@ def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6):
     rows = rng.permutation(N)
     emb[rows[: N // 32]] = np.inf  # +inf data rows: dominance holds
     emb0[rows[N // 32 : N // 16], 0] = np.nan
+    if match_labels:
+        q0g = np.where(np.isfinite(q0g), q0g, np.float32(0)).astype(np.float32)
+        emb0 = q0g[k].copy()
     return qg[:Q], q0g[:Q], emb, emb0

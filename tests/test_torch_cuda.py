@@ -122,6 +122,86 @@ def test_dense_scan_batch_bit_equal_to_plain_version(cuda, Q, N, D, D0):
     assert torch.equal(got, dominance_scan_batch_ref(q, q0, emb, emb0))
 
 
+def _off_by_one_float(t):
+    """A contiguous copy of ``t`` whose data start 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    out = buf[1:].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+def _both_forms_bit_equal(q, q0, emb, emb0, rows=3):
+    """K3-batch on all of q and K3-single on its first ``rows`` rows, each one
+    launch and each bit-equal to its plain version → the batch verdict."""
+    before = (ops.SINGLE_LAUNCHES, ops.BATCH_LAUNCHES)
+    got = ops.dominance_scan(q, q0, emb, emb0)
+    torch.cuda.synchronize()
+    assert ops.BATCH_LAUNCHES == before[1] + 1
+    assert got.dtype == torch.bool and got.shape == (q.shape[0], emb.shape[0])
+    assert torch.equal(got, dominance_scan_batch_ref(q, q0, emb, emb0))
+    for k in range(min(rows, q.shape[0])):
+        qk, q0k = (_off_by_one_float(t[k]) if t.data_ptr() % 16 else t[k].contiguous()
+                   for t in (q, q0))
+        assert torch.equal(ops.dominance_scan(qk, q0k, emb, emb0),
+                           dominance_scan_ref(qk, q0k, emb, emb0))
+    assert ops.SINGLE_LAUNCHES == before[0] + min(rows, q.shape[0])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,D,D0", [(17, 4099, 18, 6), (17, (1 << 20) + 7, 18, 6),
+                                      (17, 4099, 5, 3), (3, 1037, 300, 12)])
+def test_dense_scans_offset_base(cuda, Q, N, D, D0):
+    """Operands that start one float past 16 bytes take the word copies."""
+    arrs = make_scan(Q, N, seed=Q + N + D, D=D, D0=D0)
+    args = [_off_by_one_float(torch.from_numpy(a).to(cuda)) for a in arrs]
+    got = _both_forms_bit_equal(*args)
+    aligned = [torch.from_numpy(a).to(cuda) for a in arrs]
+    assert torch.equal(got, ops.dominance_scan(*aligned))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1037, 4099, 4097, 130])
+def test_dense_scans_packed_store_edges(cuda, N):
+    """Output rows that start off a 4-byte word (N % 4 != 0) and ragged ends."""
+    q, q0, emb, emb0 = (torch.from_numpy(a).to(cuda) for a in make_scan(17, N, seed=N))
+    got = _both_forms_bit_equal(q, q0, emb, emb0, rows=17)
+    assert 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [649, 650, 3000])
+def test_dense_scan_batch_query_tiles(cuda, Q):
+    """More queries than shared memory holds at D = 18: the block walks query
+    tiles (649 fit beside the lane slots) with its data tile in registers."""
+    q, q0, emb, emb0 = (torch.from_numpy(a).to(cuda) for a in make_scan(Q, 4099, seed=Q))
+    _both_forms_bit_equal(q, q0, emb, emb0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,D,D0", [(70, (1 << 20) + 7, 18, 6), (17, 4099, 5, 3)])
+def test_dense_scans_all_labels_match(cuda, Q, N, D, D0):
+    """Every row carries its partner query's labels, so no vote skips the
+    dominance columns of a query its partner row meets."""
+    arrs = make_scan(Q, N, seed=Q + N, D=D, D0=D0, match_labels=True)
+    q, q0, emb, emb0 = (torch.from_numpy(a).to(cuda) for a in arrs)
+    got = _both_forms_bit_equal(q, q0, emb, emb0)
+    labels = dominance_scan_batch_ref(torch.full_like(q, -float("inf")), q0, emb, emb0)
+    assert bool(labels.any(dim=0).all()) and int(got.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N", [(17, 4099), (2, 100_003), (700, 1037)])
+def test_dense_scan_batch_wide_rows(cuda, Q, N):
+    """D = 300, D0 = 12: 19 column chunks, each ANDed into the first one's
+    output words; at Q = 700 with query tiles too.  Labels match, so that
+    the +inf rows are kept."""
+    q, q0, emb, emb0 = (torch.from_numpy(a).to(cuda)
+                        for a in make_scan(Q, N, seed=Q + N, D=300, D0=12, match_labels=True))
+    assert int(_both_forms_bit_equal(q, q0, emb, emb0).sum()) > 0
+
+
 @pytest.mark.cuda
 def test_dense_scans_empty_launch_nothing(cuda):
     q, q0, emb, emb0 = (torch.from_numpy(a).to(cuda) for a in make_scan(3, 0, seed=0))

@@ -123,3 +123,59 @@ def test_dense_scan_rejects_bad_operands():
         ops.dominance_scan(q[:, :5].contiguous(), q0, emb, emb0)
     with pytest.raises(ValueError):
         ops.dominance_scan(q[0].contiguous(), q0[0].contiguous(), emb.t().contiguous().t(), emb0)
+
+
+def _at_offset(a: np.ndarray) -> "torch.Tensor":
+    """``a`` as a contiguous tensor whose data start one float into its storage."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32)
+    buf[1:] = torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+    t = buf[1:].view(a.shape)
+    assert t.is_contiguous() and t.storage_offset() == 1
+    return t
+
+
+def _scans_bit_equal(arrs, tensors):
+    """The port's dense scans on ``tensors`` (both forms, CPU wrapper and plain
+    versions) equal the reference's oracle and its Pallas kernels in
+    interpret mode on ``arrs`` → the verdict."""
+    q, q0, emb, emb0 = arrs
+    tq, tq0, te, te0 = tensors
+    Q, N = q.shape[0], emb.shape[0]
+    want = np.asarray(jax_batch_ref(q, q0, emb, emb0, eps=1e-6)).astype(bool)
+    pallas = np.asarray(jax_scan(q, q0, emb, emb0, eps=1e-6, block_n=128, interpret=True))
+    np.testing.assert_array_equal(pallas.astype(bool), want)
+    before = (ops.SINGLE_LAUNCHES, ops.BATCH_LAUNCHES)
+    np.testing.assert_array_equal(ops.dominance_scan(tq, tq0, te, te0).numpy(), want)
+    np.testing.assert_array_equal(dominance_scan_batch_ref(tq, tq0, te, te0).numpy(), want)
+    for k in range(min(Q, 3)):
+        pallas = np.asarray(jax_scan(q[k], q0[k], emb, emb0, block_n=128, interpret=True))
+        np.testing.assert_array_equal(pallas.astype(bool), want[k])
+        qk, q0k = tq[k].contiguous(), tq0[k].contiguous()
+        np.testing.assert_array_equal(ops.dominance_scan(qk, q0k, te, te0).numpy(), want[k])
+        np.testing.assert_array_equal(dominance_scan_ref(qk, q0k, te, te0).numpy(), want[k])
+    assert (ops.SINGLE_LAUNCHES, ops.BATCH_LAUNCHES) == before, "CPU tensors launch nothing"
+    assert want.shape == (Q, N)
+    return want
+
+
+@pytest.mark.parametrize("Q,N,D,D0", [(1, 37, 18, 6), (7, 1037, 18, 6), (5, 300, 5, 3)])
+def test_dense_scans_all_labels_match(Q, N, D, D0):
+    """``make_scan(match_labels=True)``: every row carries its partner query's
+    labels, so every row passes the label test for some query and the
+    dominance columns (ties, ulps, +inf rows) decide."""
+    arrs = make_scan(Q, N, seed=3 * N + Q, D=D, D0=D0, match_labels=True)
+    q, q0, emb, emb0 = arrs
+    assert np.isfinite(q0).all() and np.isfinite(emb0).all()
+    labels_only = np.asarray(jax_batch_ref(np.full_like(q, -np.inf), q0, emb, emb0)).astype(bool)
+    assert labels_only.any(axis=0).all()
+    want = _scans_bit_equal(arrs, _torch(arrs))
+    assert 0 < want.sum() < want.size
+
+
+@pytest.mark.parametrize("Q,N,D,D0", [(1, 300, 18, 6), (7, 1037, 18, 6), (3, 129, 5, 3)])
+def test_dense_scans_offset_base(Q, N, D, D0):
+    """Operands whose data start one float into their storage (4 bytes past a
+    16-byte boundary, as the card's word-copy path takes them)."""
+    arrs = make_scan(Q, N, seed=5 * N + Q, D=D, D0=D0)
+    want = _scans_bit_equal(arrs, [_at_offset(a) for a in arrs])
+    assert want.any()
