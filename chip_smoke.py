@@ -8,16 +8,21 @@ Phases, each printing its seconds:
   1. build every CUDA kernel of the port from ``src/`` (one ``nvcc`` per
      source, all at once) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card,
-     bit for bit: K1 on seeded pairs, K2 on seeded join rows, K3-single
-     and K3-batch on seeded dense scans (ties at eps, +inf / NaN rows,
-     sentinel and pad ids);
+     bit for bit: K1 on seeded pairs, K2 on seeded join rows (T = 3, 4,
+     5, 4,097 and 524,293; W = 2 to 64; one contiguous table, bases off
+     16 bytes, separate tensors, a wider parent table, rows of all
+     sentinels), K3-single and K3-batch on seeded dense scans (ties at
+     eps, +inf / NaN rows, sentinel and pad ids); ptxas's report of K2
+     and K3 (no spill);
   3. the main path at paper scale: ``GnnPeEngine.build`` then
      ``match_many`` on a 50K-vertex NWS graph in 80 partitions with 16
      queries of 8 vertices; every match set must equal VF2's, K1 must
      have run on that path, and its verdict on the real probe's pairs
      must equal the plain version's; K1 is timed there.  Then the device
-     join on the same engine (``join_impl="device"``, K2 must run; its
-     match sets equal VF2's and the host join's) and the dense-scan entry
+     join on the same engine (``join_impl="device"``, K2 must run, every
+     launch on the contiguous layout; its match sets equal VF2's and the
+     host join's, K2's verdict on every real step equals the plain
+     version's, and K2 is timed at the median step) and the dense-scan entry
      ``ops.dominance_scan`` (K3) over every partition's real index, which
      must keep exactly the loop probe's rows; K3 is timed over all the
      indexed rows;
@@ -26,7 +31,9 @@ Phases, each printing its seconds:
      12K-vertex, 3-label NWS graph (the configuration of
      ``benchmarks/bench_join.py --full``), device join against the host
      join and VF2; K2's verdicts on the real join steps equal the plain
-     version's, and K2 is timed at the largest step;
+     version's, every launch took the contiguous layout, and K2 is timed
+     at the largest step with L2 flushed by a write, by a read and with
+     the operands just rewritten, and under ``torch.profiler``;
   6. DCN-v2 serving at the published width (26 tables of 1M x 16, cross
      width 429, MLP 1024-1024-512), params from a seeded CUDA generator,
      through ``repro_torch.configs``: K4 (embedding bag) and K5 (cross
@@ -96,14 +103,16 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, args, reps: int, flush, clean: bool = False) -> float:
+def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None) -> float:
     """Mean device ms of ``fn(*args)``, with L2 flushed before each call
     (the main path gathers fresh operands that mostly miss L2) and the
     card held busy by a spin while the host enqueues the call, so the
     host's launch latency stays out of the events.  The flush writes
     ``flush``, which leaves up to 50 MB of dirty lines in L2 for the call
     to write back as its reads evict them; ``clean`` flushes by reading
-    ``flush`` instead, so that L2 holds clean lines."""
+    ``flush`` instead, so that L2 holds clean lines.  ``before``, where
+    given, runs after the flush (``k2_readings`` rewrites the operands
+    there)."""
     import torch
 
     for _ in range(3):
@@ -114,6 +123,8 @@ def time_ms(fn, args, reps: int, flush, clean: bool = False) -> float:
             flush.sum()
         else:
             flush.zero_()
+        if before is not None:
+            before()
         torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -221,7 +232,7 @@ def reset_counters() -> None:
     from repro_torch.kernels.star_agg import ops as sa
 
     ds.LAUNCHES = ds.SINGLE_LAUNCHES = ds.BATCH_LAUNCHES = 0
-    mj.LAUNCHES = sa.LAUNCHES = ci.LAUNCHES = fa.LAUNCHES = 0
+    mj.LAUNCHES = mj.CONTIGUOUS_LAUNCHES = sa.LAUNCHES = ci.LAUNCHES = fa.LAUNCHES = 0
 
 
 def iso_batch(g, size: int, n: int, seed: int = 0):
@@ -241,6 +252,28 @@ def iso_batch(g, size: int, n: int, seed: int = 0):
             from_edge_list(base.n_vertices, np.stack([perm[e[:, 0]], perm[e[:, 1]]], 1), labs)
         )
     return out
+
+
+def cell_50k_inputs(n: int = 50_000, n_parts: int = 80, n_queries: int = 16):
+    """The 50K cell (``benchmarks/bench_online_batch.py --full``) → (graph,
+    queries, engine config)."""
+    from repro_torch.core import GnnPeConfig, TrainConfig
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(n, k=4, p=0.1, n_labels=100, seed=11)
+    queries = [random_connected_query(g, 8, seed=42 + s) for s in range(n_queries)]
+    cfg = GnnPeConfig(n_partitions=n_parts, encoder="monotone", train=TrainConfig(max_epochs=150))
+    return g, queries, cfg
+
+
+def join_heavy_inputs(n: int = 12_000, n_parts: int = 12):
+    """The join-heavy batch (``benchmarks/bench_join.py --full``) → (graph,
+    queries, engine config)."""
+    from repro_torch.core import GnnPeConfig
+    from repro_torch.graphs import newman_watts_strogatz
+
+    g = newman_watts_strogatz(n, k=6, p=0.1, n_labels=3, seed=7)
+    return g, iso_batch(g, 8, 8, seed=0), GnnPeConfig(n_partitions=n_parts, encoder="monotone")
 
 
 def check_against_vf2(g, queries, got_lists, what: str) -> int:
@@ -323,6 +356,79 @@ def device_join_breakdown(eng, queries, dev, what: str) -> None:
         log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
 
 
+def k2_steps(eng, queries) -> list:
+    """K2's verdicts in one device-join ``match_many``: (old, new, result)
+    for every join step, each equal to the plain version's bit for bit."""
+    import torch
+
+    from repro_torch.kernels.merge_join import ops as mj
+    from repro_torch.kernels.merge_join.ref import injectivity_mask_ref
+
+    seen = []
+    verdict = mj.injectivity_mask
+
+    def record(old, new):
+        res = verdict(old, new)
+        seen.append((old, new, res))
+        return res
+
+    mj.injectivity_mask = record
+    try:
+        eng.match_many(queries, join_impl="device")
+    finally:
+        mj.injectivity_mask = verdict
+    for old, new, res in seen:
+        require(torch.equal(res, injectivity_mask_ref(old, new)),
+                f"K2 on a real join step (T={old.shape[0]}) differs from the plain version")
+    return seen
+
+
+def k2_table(old, new):
+    """A real step's operands as the join hands them in: the column slices
+    of one contiguous (T, Co + Cn) table → (table, (old view, new view))."""
+    import torch
+
+    table = torch.cat([old, new], dim=1)
+    return table, (table[:, :old.shape[1]], table[:, old.shape[1]:])
+
+
+def k2_readings(fn, table, ops, reps: int, flush) -> dict:
+    """K2's three readings on ``ops`` (views of ``table``): L2 flushed by a
+    write (dirty lines that the reads write back first), by a read (clean
+    lines), and with the table just rewritten after the flush, as the
+    join's ``torch.cat`` leaves it (in L2) → ms by reading."""
+    src = table.clone()
+    return {
+        "dirty": time_ms(fn, ops, reps, flush),
+        "clean": time_ms(fn, ops, reps, flush, clean=True),
+        "rewritten": time_ms(fn, ops, reps, flush, before=lambda: table.copy_(src)),
+    }
+
+
+def k2_profiled_ms(fn, ops, flush, reps: int = 20) -> tuple[float, int]:
+    """K2's mean kernel duration under ``torch.profiler`` (the device's own
+    start and end of each launch, without the events' floor), L2 flushed
+    by a read before each call → (ms, launches the profiler listed): it
+    may list fewer than ``reps`` (§7 of PERF.md), and the mean is over
+    those it lists (NaN where none)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn(*ops)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "injectivity_mask" in e.key]
+    listed = sum(e.count for e in evs)
+    total = sum(e.self_device_time_total for e in evs) / 1e3
+    return (total / listed if listed else float("nan")), listed
+
+
+def fmt_readings(r: dict, bound: float) -> str:
+    return "; ".join(f"{k} {v:.6f} ms ({bound / v * 100:.1f} % of the bound)" for k, v in r.items())
+
+
 # ---- phase 2 ----------------------------------------------------------------
 
 
@@ -365,6 +471,85 @@ def k3_ptxas_report() -> None:
         f"(query tiles); at D = 300, D0 = 12: {scan_smem_bytes(17, 300, 12)} at Q = 17")
 
 
+def k2_ptxas_report() -> None:
+    """ptxas's registers, spills and shared memory for every instantiation of
+    K2 (from this run's build), and the dynamic shared memory of a block's
+    full ring at the widths the join uses; fails on a spill."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.merge_join.kernel import ring_bytes
+
+    text = kbuild.BUILD_LOG.get("injectivity_mask")
+    require(text is not None, "K2 was not built in this run: no ptxas report")
+    rep: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"injectivity_mask_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            cur = tuple(map(int, k.groups())) if k else None
+            if cur:
+                rep[cur] = {}
+        elif cur is not None and "spill stores" in line:
+            rep[cur]["stores"], rep[cur]["loads"] = map(int, re.findall(r"(\d+) bytes", line)[1:3])
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            rep[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            rep[cur]["static_smem"] = int(s.group(1)) if s else 0
+    widths = sorted(w for w, _, _ in rep)
+    require(widths == list(range(17)), f"K2 ptxas report names widths {widths}")
+    for (w, threads, stages), r in sorted(rep.items()):
+        require(r["stores"] == 0 and r["loads"] == 0,
+                f"K2 at W = {w or 'runtime'} spills ({r['stores']} / {r['loads']} bytes)")
+    log("K2 ptxas, registers a thread by instantiation (W = 0 is the runtime width, 17 to 64): "
+        + ", ".join(f"W={w}: {r['registers']} ({threads} threads, {stages} stages)"
+                    for (w, threads, stages), r in sorted(rep.items()))
+        + "; spill stores and loads 0 bytes in every one, static shared memory "
+        + f"{max(r['static_smem'] for r in rep.values())} bytes")
+    log("K2 dynamic shared memory of a full ring: " + ", ".join(
+        f"W={w}: {ring_bytes(w)} bytes" for w in (2, 4, 7, 8, 16, 17, 64)))
+
+
+def k2_edge_checks(dev, err) -> float:
+    """K2 on the shapes its design makes distinct, in every layout of
+    ``ref.join_layouts`` and on rows of all sentinels, bit-equal to the
+    plain version, each launch counted on the layout the wrapper gives it
+    → max |err|."""
+    import torch
+
+    from repro_torch.kernels.merge_join import ops as mj
+    from repro_torch.kernels.merge_join.ref import (
+        injectivity_mask_ref,
+        join_layouts,
+        make_join_rows,
+    )
+
+    worst = 0.0
+    widths = ((1, 1), (6, 1), (5, 2), (7, 1), (0, 8), (8, 8), (15, 1), (9, 8), (56, 8))
+    for T in (3, 4, 5, 4097, 524_293):
+        for Co, Cn in widths:
+            old, new = (torch.from_numpy(a).to(dev) for a in make_join_rows(T, Co, Cn, seed=T + Co))
+            want = injectivity_mask_ref(old, new)
+            for what, (a, b, layout) in join_layouts(old, new).items():
+                before = mj.CONTIGUOUS_LAUNCHES
+                got = mj.injectivity_mask(a, b)
+                label = f"K2 at T={T}, Co={Co}, Cn={Cn}, {what}"
+                worst = max(worst, err(got, want, label))
+                require((mj.CONTIGUOUS_LAUNCHES - before == 1) == (layout == "contiguous"),
+                        f"{label}: not launched on the {layout} layout")
+            s_old, s_new = (torch.from_numpy(a).to(dev)
+                            for a in make_join_rows(T, Co, Cn, seed=0, all_sentinels=True))
+            _, (a, b) = k2_table(s_old, s_new)
+            got = mj.injectivity_mask(a, b)
+            worst = max(worst, err(got, injectivity_mask_ref(a, b), f"K2 sentinels at T={T}"))
+            require(bool(got.all()), f"K2 dismissed a row of sentinels at T={T}, Co={Co}")
+        log(f"K2 T={T}: bit-equal to the plain version at (Co, Cn) in "
+            + ", ".join(f"({co}, {cn})" for co, cn in widths)
+            + f", in the layouts {', '.join(join_layouts(old, new))} and on rows of all sentinels")
+    return worst
+
+
 def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
     """Each kernel against its plain version, bit for bit → max |err| by kernel."""
     import torch
@@ -387,6 +572,7 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
         return float((got.int() - want.int()).abs().max()) if got.numel() else 0.0
 
     k3_ptxas_report()
+    k2_ptxas_report()
     errs = {"K1": 0.0, "K2": 0.0, "K3-single": 0.0, "K3-batch": 0.0}
     for T in (1, 1000, big):
         args = [torch.from_numpy(a).to(dev) for a in make_pairs(T, seed=T)]
@@ -401,6 +587,7 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
             errs["K2"] = max(errs["K2"], err(got, want, f"K2 at T={T}, Co={Co}, Cn={Cn}"))
         log(f"K2 T={T}: bit-equal to the plain version at (Co, Cn) in "
             "(7, 1), (5, 2), (0, 3), (3, 2), (56, 8)")
+    errs["K2"] = max(errs["K2"], k2_edge_checks(dev, err))
     for N in (1, 1000, big):
         q, q0, emb, emb0 = (torch.from_numpy(a).to(dev) for a in make_scan(1, N, seed=N))
         got = ds.dominance_scan(q[0], q0[0], emb, emb0)
@@ -513,20 +700,18 @@ def dense_scan_check(eng, queries, dev):
 def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: int = 16):
     import torch
 
-    from repro_torch.core import GnnPeConfig, GnnPeEngine, TrainConfig, sort_matches
+    from repro_torch.core import GnnPeEngine, sort_matches
     from repro_torch.core import index as index_mod
-    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
         dominance_scan_batch_ref,
         dominance_scan_pairs_ref,
         dominance_scan_ref,
     )
+    from repro_torch.kernels.merge_join import ops as mj
 
     out: dict = {}
-    g = newman_watts_strogatz(n, k=4, p=0.1, n_labels=100, seed=11)
-    queries = [random_connected_query(g, 8, seed=42 + s) for s in range(n_queries)]
-    cfg = GnnPeConfig(n_partitions=n_parts, encoder="monotone", train=TrainConfig(max_epochs=150))
+    g, queries, cfg = cell_50k_inputs(n, n_parts, n_queries)
     reset_counters()  # counts from here to the end of the cold match_many
     pairs_before = index_mod.PAIR_METRIC.get(kind="leaf_pairs")
     t_build = time.perf_counter()
@@ -607,9 +792,11 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     cold_dev_s = time.perf_counter() - t_cold
     launched = counters()
     out["K2"] = launched["K2"]
-    log(f"K2 LAUNCHES (device join, cold match_many of the 50K cell): {launched['K2']}; "
-        f"K1 {launched['K1']}")
+    contiguous = mj.CONTIGUOUS_LAUNCHES
+    log(f"K2 LAUNCHES (device join, cold match_many of the 50K cell): {launched['K2']}, "
+        f"{contiguous} of them on the contiguous layout; K1 {launched['K1']}")
     require(launched["K2"] > 0, "the device join never launched the K2 kernel")
+    require(contiguous == launched["K2"], "a K2 launch of the 50K cell missed the contiguous layout")
     check_against_vf2(g, queries, dev_matches, "device join")
     for qi, (a, b) in enumerate(zip(dev_matches, matches)):
         require(sort_matches(a) == sort_matches(b), f"device and host joins differ, query {qi}")
@@ -622,6 +809,17 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         f"(join + refine {sum(s.join_time for s in dstats) * 1e3:.3f} ms of the last); "
         f"host join warm, interleaved: {fmt(host_warm)} ms")
     device_join_breakdown(eng, queries, dev, "50K cell")
+    seen = sorted(k2_steps(eng, queries), key=lambda st: st[0].shape[0])
+    log(f"K2 on {len(seen)} real join steps of the 50K cell: equal to the plain version; steps "
+        "(T, Co, Cn) by T: "
+        + ", ".join(f"({o.shape[0]}, {o.shape[1]}, {w.shape[1]})" for o, w, _ in seen))
+    old, new, _ = seen[len(seen) // 2]
+    T, Co, Cn = old.shape[0], old.shape[1], new.shape[1]
+    table, ops = k2_table(old, new)
+    bound = k2_bound_ms(T, Co, Cn)
+    out["K2_median"] = k2_readings(mj.injectivity_mask, table, ops, 50, flush)
+    log(f"K2 at the 50K cell's median step T={T}, Co={Co}, Cn={Cn} (bound {bound[0]:.3g} ms, "
+        f"{bound[1]}): {fmt_readings(out['K2_median'], bound[0])}")
 
     # ---- K3: the dense scan over the real index ---------------------------
     qm, q0m, e_all, e0_all, k3_launches, n_req = dense_scan_check(eng, queries, dev)
@@ -691,18 +889,14 @@ def phase4_gat(dev) -> None:
 
 
 def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
-    import torch
-
-    from repro_torch.core import GnnPeConfig, GnnPeEngine, sort_matches
-    from repro_torch.graphs import newman_watts_strogatz
+    from repro_torch.core import GnnPeEngine, sort_matches
     from repro_torch.kernels.merge_join import ops as mj
     from repro_torch.kernels.merge_join.ref import injectivity_mask_ref
 
     out: dict = {}
-    g = newman_watts_strogatz(n, k=6, p=0.1, n_labels=3, seed=7)
-    queries = iso_batch(g, 8, 8, seed=0)
+    g, queries, cfg = join_heavy_inputs(n, n_parts)
     t_build = time.perf_counter()
-    eng = GnnPeEngine(GnnPeConfig(n_partitions=n_parts, encoder="monotone")).build(g)
+    eng = GnnPeEngine(cfg).build(g)
     log(f"join-heavy build: {time.perf_counter() - t_build:.3f} s, "
         f"{eng.offline_stats['n_paths']} paths, {g.n_edges} edges")
     reset_counters()
@@ -712,6 +906,9 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     cold_s = time.perf_counter() - t_cold
     out["K2"] = counters()["K2"]
     require(out["K2"] > 0, "the join-heavy device join never launched the K2 kernel")
+    require(mj.CONTIGUOUS_LAUNCHES == out["K2"],
+            f"only {mj.CONTIGUOUS_LAUNCHES} of the join-heavy batch's {out['K2']} K2 launches "
+            "took the contiguous layout")
     host_matches = eng.match_many(queries)
     for qi, (a, b) in enumerate(zip(dev_matches, host_matches)):
         require(sort_matches(a) == sort_matches(b), f"join-heavy query {qi}: joins differ")
@@ -719,34 +916,24 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     n_matches = check_against_vf2(g, queries, dev_matches, "join-heavy")
     log(f"join-heavy: {n_matches} matches, device join = host join = VF2 for all "
         f"{len(queries)} queries (VF2 {time.perf_counter() - t_vf2:.3f} s); "
-        f"K2 LAUNCHES {out['K2']}, cold device match_many {cold_s * 1e3:.3f} ms")
-    # K2's verdicts on the real join steps, recorded and re-run plain
-    seen = []
-    verdict = mj.injectivity_mask
-
-    def record(old, new):
-        res = verdict(old, new)
-        seen.append((old, new, res))
-        return res
-
-    mj.injectivity_mask = record
-    try:
-        eng.match_many(queries, join_impl="device")
-    finally:
-        mj.injectivity_mask = verdict
-    for old, new, res in seen:
-        require(torch.equal(res, injectivity_mask_ref(old, new)),
-                f"K2 on a real join step (T={old.shape[0]}) differs from the plain version")
-    old, new, _ = max(seen, key=lambda s: s[0].shape[0])
+        f"K2 LAUNCHES {out['K2']}, all on the contiguous layout; cold device match_many "
+        f"{cold_s * 1e3:.3f} ms")
+    seen = k2_steps(eng, queries)
+    old, new, _ = max(seen, key=lambda st: st[0].shape[0])
     T, Co, Cn = old.shape[0], old.shape[1], new.shape[1]
     log(f"K2 on {len(seen)} real join steps: equal to the plain version; steps (T, Co, Cn): "
         + ", ".join(f"({o.shape[0]}, {o.shape[1]}, {w.shape[1]})" for o, w, _ in seen))
-    out["K2_ms"] = time_ms(mj.injectivity_mask, (old, new), 50, flush)
-    out["K2_plain_ms"] = time_ms(injectivity_mask_ref, (old, new), 20, flush)
+    table, ops = k2_table(old, new)
     out["K2_bound"] = k2_bound_ms(T, Co, Cn)
-    log(f"K2 at the largest step T={T}, Co={Co}, Cn={Cn}: {out['K2_ms']:.6f} ms, bound "
-        f"{out['K2_bound'][0]:.6f} ms ({out['K2_bound'][1]}), plain version "
-        f"{out['K2_plain_ms']:.6f} ms")
+    readings = k2_readings(mj.injectivity_mask, table, ops, 50, flush)
+    out["K2_ms"] = readings["dirty"]
+    out["K2_plain_ms"] = time_ms(injectivity_mask_ref, ops, 20, flush)
+    profiled, listed = k2_profiled_ms(mj.injectivity_mask, ops, flush)
+    log(f"K2 at the largest step T={T}, Co={Co}, Cn={Cn}, bound {out['K2_bound'][0]:.6f} ms "
+        f"({out['K2_bound'][1]}): L2 flushed by a write, by a read, operands just rewritten: "
+        f"{fmt_readings(readings, out['K2_bound'][0])}; kernel duration under torch.profiler "
+        f"(read flush) {profiled:.6f} ms over the {listed} of 20 launches it listed; plain "
+        f"version {out['K2_plain_ms']:.6f} ms")
     dev_warm, host_warm = [], []
     for _ in range(3):
         dev_warm += warm_ms(lambda: eng.match_many(queries, join_impl="device"), dev, 1)

@@ -13,7 +13,7 @@ import torch
 
 from ..build import load_library
 
-__all__ = ["SOURCE", "launch_injectivity_mask"]
+__all__ = ["SOURCE", "launch_injectivity_mask", "ring_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "injectivity_mask.cu"
 
@@ -25,18 +25,28 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.injectivity_mask_ring_bytes.restype = ctypes.c_int
+    lib.injectivity_mask_ring_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
-def launch_injectivity_mask(old, new, out) -> None:
-    """Enqueue the kernel on the current stream; raises if the launch fails."""
+def launch_injectivity_mask(old, new, out, contiguous: bool) -> None:
+    """Enqueue the kernel on the current stream; raises if the launch fails.
+    ``contiguous``: old and new are the column slices of one contiguous
+    (T, Co + Cn) table (``ops.injectivity_layout``)."""
     T, Co = old.shape
-    stream = torch.cuda.current_stream(old.device).cuda_stream
+    dev = old.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().injectivity_mask(
         old.data_ptr(), old.stride(0), new.data_ptr(), new.stride(0), out.data_ptr(),
-        T, Co, new.shape[1], stream,
+        T, Co, new.shape[1], int(contiguous), dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"injectivity_mask kernel launch failed: CUDA error {rc}")
+
+
+def ring_bytes(W: int) -> int:
+    """Dynamic shared memory of a block's full ring at row width ``W``."""
+    return _lib().injectivity_mask_ring_bytes(W)

@@ -14,7 +14,8 @@ sentinel ids so they sort last and never equal a live key.
 
 ``injectivity_mask`` is the one verdict with a hand-written kernel (K2):
 a CUDA tensor goes through it, a CPU tensor through the plain version.
-``LAUNCHES`` counts the kernel's launches.
+``LAUNCHES`` counts the kernel's launches, ``CONTIGUOUS_LAUNCHES`` those
+that took the contiguous layout (``injectivity_layout``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from .ref import (
 
 __all__ = [
     "LAUNCHES",
+    "CONTIGUOUS_LAUNCHES",
     "key_words",
     "pack_words",
     "pack_words_ref",
@@ -40,6 +42,7 @@ __all__ = [
     "run_lookup",
     "expand_pairs",
     "expand_pairs_ref",
+    "injectivity_layout",
     "injectivity_mask",
     "injectivity_mask_ref",
     "dedup_mask",
@@ -47,6 +50,7 @@ __all__ = [
 ]
 
 LAUNCHES = 0
+CONTIGUOUS_LAUNCHES = 0
 # the kernel keeps a row's new ids in registers: widths past these raise
 MAX_NEW_COLS = 8
 MAX_COLS = 64
@@ -185,6 +189,32 @@ def _check_rows(old: torch.Tensor, new: torch.Tensor) -> None:
         raise ValueError(f"injectivity_mask: {old.shape[0]} rows")
 
 
+def injectivity_layout(old: torch.Tensor, new: torch.Tensor) -> str:
+    """How K2 stages row-aligned old (T, Co) and new (T, Cn) int32 ids:
+    ``"contiguous"`` where they are the column slices ``[:, :Co]`` and
+    ``[:, Co:]`` of one contiguous (T, Co + Cn) table (the join's own
+    case: a tile of rows is one run of bytes), ``"strided"`` for any
+    other rows.  Raises ValueError where the kernel cannot take them:
+    more than ``MAX_NEW_COLS`` new or ``MAX_COLS`` columns in all, or
+    columns that are not unit-stride.  A function of shapes, strides and
+    data pointers only."""
+    Co, Cn = old.shape[1], new.shape[1]
+    if Cn > MAX_NEW_COLS or Co + Cn > MAX_COLS:
+        raise ValueError(
+            f"injectivity_mask: the kernel takes at most {MAX_NEW_COLS} new and "
+            f"{MAX_COLS} columns in all, got Co={Co}, Cn={Cn}"
+        )
+    if (Co and old.stride(1) != 1) or new.stride(1) != 1:
+        raise ValueError("injectivity_mask: columns must be unit-stride")
+    W = Co + Cn
+    # at Co = 0 only new is read (and an empty view's data_ptr() is 0)
+    one_table = new.stride(0) == W and (
+        Co == 0
+        or (old.stride(0) == W and new.data_ptr() == old.data_ptr() + old.element_size() * Co)
+    )
+    return "contiguous" if one_table else "strided"
+
+
 def injectivity_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Row-aligned injectivity verdict: old (T, Co), new (T, Cn) int32 →
     (T,) bool, keep[t] iff row t's new columns collide with nothing.
@@ -193,28 +223,22 @@ def injectivity_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     be unit-stride on the card.  Padded rows are judged like any other:
     callers AND the result with their validity mask.
     """
-    global LAUNCHES
+    global LAUNCHES, CONTIGUOUS_LAUNCHES
     _check_rows(old, new)
-    T, Co = old.shape
-    Cn = new.shape[1]
-    if Cn == 0:
+    T = old.shape[0]
+    if new.shape[1] == 0:
         return torch.ones(T, dtype=torch.bool, device=old.device)
     if old.device.type == "cpu":
         return injectivity_mask_ref(old, new)
     if old.device.type != "cuda":
         raise ValueError(f"injectivity_mask: no kernel for device {old.device}")
-    if Cn > MAX_NEW_COLS or Co + Cn > MAX_COLS:
-        raise ValueError(
-            f"injectivity_mask: the kernel takes at most {MAX_NEW_COLS} new and "
-            f"{MAX_COLS} columns in all, got Co={Co}, Cn={Cn}"
-        )
-    if (Co and old.stride(1) != 1) or new.stride(1) != 1:
-        raise ValueError("injectivity_mask: columns must be unit-stride")
+    contiguous = injectivity_layout(old, new) == "contiguous"
     out = torch.empty(T, dtype=torch.bool, device=old.device)
     if T == 0:
         return out
-    launch_injectivity_mask(old, new, out)
+    launch_injectivity_mask(old, new, out, contiguous)
     LAUNCHES += 1
+    CONTIGUOUS_LAUNCHES += contiguous
     return out
 
 

@@ -21,6 +21,7 @@ __all__ = [
     "injectivity_mask_ref",
     "dedup_mask_ref",
     "make_join_rows",
+    "join_layouts",
 ]
 
 
@@ -122,13 +123,19 @@ def dedup_mask_ref(words: torch.Tensor, valid: torch.Tensor):
     return order, keep
 
 
-def make_join_rows(T: int, Co: int, Cn: int, seed: int, n_values: int = 1000):
+def make_join_rows(T: int, Co: int, Cn: int, seed: int, n_values: int = 1000,
+                   all_sentinels: bool = False):
     """Seeded NumPy (old (T, Co), new (T, Cn)) int32 join rows that probe
     the injectivity verdict's edges: ids from a small pool (so some rows
     collide by chance), planted collisions at every (new, old) column
     position, duplicate new columns, sentinel rows (old −1, new column j
     −(j+2): never collide) and rows filled with the join's pad id
-    ``n_values`` (they collide)."""
+    ``n_values`` (they collide).  ``all_sentinels``: every row a
+    sentinel row."""
+    if all_sentinels:
+        old = np.full((T, Co), -1, np.int32)
+        new = np.broadcast_to(-(np.arange(Cn, dtype=np.int32) + 2), (T, Cn)).copy()
+        return old, new
     rng = np.random.default_rng(seed)
     old = rng.integers(0, 4 * (Co + Cn) + 8, (T, Co)).astype(np.int32)
     new = rng.integers(0, 4 * (Co + Cn) + 8, (T, Cn)).astype(np.int32)
@@ -152,3 +159,32 @@ def make_join_rows(T: int, Co: int, Cn: int, seed: int, n_values: int = 1000):
     old[pad] = n_values
     new[pad] = n_values
     return old, new
+
+
+def join_layouts(old: torch.Tensor, new: torch.Tensor) -> dict:
+    """The same rows in the layouts K2 stages differently → {name: (old
+    view, new view, the layout ``ops.injectivity_layout`` gives them)}:
+    one contiguous table (the join's own), the same table one row and
+    one id past an allocation's start (bases off 16 bytes where 4·W is
+    not a multiple of 16), the separate tensors, and a parent table
+    three ids wider than the rows."""
+    T, Co = old.shape
+    W = Co + new.shape[1]
+    rows = torch.cat([old, new], dim=1)
+
+    def placed(at: int, width: int):
+        buf = torch.full((at + T * width,), 7, dtype=torch.int32, device=old.device)
+        table = buf[at:].view(T, width)
+        table[:, :W] = rows
+        return table
+
+    one, row_off, id_off, wide = placed(0, W), placed(W, W), placed(1, W), placed(0, W + 3)
+    # new alone is read where Co = 0, and it is a contiguous table of its own
+    separate = "contiguous" if Co == 0 else "strided"
+    return {
+        "one table": (one[:, :Co], one[:, Co:], "contiguous"),
+        "one row off": (row_off[:, :Co], row_off[:, Co:], "contiguous"),
+        "one id off": (id_off[:, :Co], id_off[:, Co:], "contiguous"),
+        "separate": (old, new, separate),
+        "wider parent": (wide[:, :Co], wide[:, Co:W], "strided"),
+    }

@@ -20,7 +20,11 @@ from repro_torch.kernels.dominance_scan.ref import (  # noqa: E402
     make_scan,
 )
 from repro_torch.kernels.merge_join import ops as mj  # noqa: E402
-from repro_torch.kernels.merge_join.ref import injectivity_mask_ref, make_join_rows  # noqa: E402
+from repro_torch.kernels.merge_join.ref import (  # noqa: E402
+    injectivity_mask_ref,
+    join_layouts,
+    make_join_rows,
+)
 from repro_torch.kernels.star_agg import ops as sa  # noqa: E402
 from repro_torch.kernels.star_agg.ref import make_bags, star_agg_ref  # noqa: E402
 from repro_torch.kernels.cross_interact import ops as ci  # noqa: E402
@@ -95,6 +99,43 @@ def test_injectivity_mask_strided_slices_and_limits(cuda):
     assert mj.injectivity_mask(table[:0, :6], table[:0, 6:]).shape == (0,)
     assert mj.injectivity_mask(table[:, :6], table[:, 6:6]).all()
     assert mj.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [3, 4, 5, 4097, 524_293])
+@pytest.mark.parametrize("Co,Cn", [(1, 1), (6, 1), (5, 2), (7, 1), (0, 8), (8, 8), (15, 1),
+                                   (9, 8), (56, 8)])
+def test_injectivity_mask_edge_shapes(cuda, T, Co, Cn):
+    """T that is no multiple of the tile or of 4, W = 2 to 64, in every
+    layout (one table, bases off 16 bytes, separate tensors, a wider parent
+    table) and on rows of all sentinels: bit-equal to the plain version,
+    each launch on the layout the wrapper gives it."""
+    old, new = (torch.from_numpy(a).to(cuda) for a in make_join_rows(T, Co, Cn, seed=T + Co))
+    want = injectivity_mask_ref(old, new)
+    for what, (a, b, layout) in join_layouts(old, new).items():
+        launches, contiguous = mj.LAUNCHES, mj.CONTIGUOUS_LAUNCHES
+        got = mj.injectivity_mask(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), what
+        assert mj.LAUNCHES == launches + 1
+        assert mj.CONTIGUOUS_LAUNCHES == contiguous + (layout == "contiguous"), what
+    s_old, s_new = (torch.from_numpy(a).to(cuda)
+                    for a in make_join_rows(T, Co, Cn, seed=0, all_sentinels=True))
+    assert mj.injectivity_mask(s_old, s_new).all()
+
+
+@pytest.mark.cuda
+def test_injectivity_mask_takes_the_contiguous_path(cuda):
+    """The join's own operands (the column slices of one table) take the
+    contiguous layout; separate tensors take the strided one."""
+    old, new = (torch.from_numpy(a).to(cuda) for a in make_join_rows(5000, 6, 1, seed=3))
+    flat = torch.cat([old, new], 1)
+    contiguous = mj.CONTIGUOUS_LAUNCHES
+    got = mj.injectivity_mask(flat[:, :6], flat[:, 6:])
+    assert mj.CONTIGUOUS_LAUNCHES == contiguous + 1
+    assert torch.equal(mj.injectivity_mask(old, new), got)
+    assert mj.CONTIGUOUS_LAUNCHES == contiguous + 1
+    assert torch.equal(got, injectivity_mask_ref(old, new))
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from repro_torch.kernels.merge_join.ref import (  # noqa: E402
     dedup_mask_ref,
     expand_pairs_ref,
     injectivity_mask_ref,
+    join_layouts,
     make_join_rows,
     pack_words_ref,
     run_bounds_ref,
@@ -145,6 +146,62 @@ def test_injectivity_mask_takes_strided_column_slices():
         ops.injectivity_mask(table[:, :4].long(), table[:, 4:].long())
     with pytest.raises(ValueError):
         ops.injectivity_mask(table[:4], table[:, 4:])
+
+
+@pytest.mark.parametrize("T", [3, 4, 5, 37])
+@pytest.mark.parametrize("Co,Cn", [(1, 1), (8, 8), (15, 1), (9, 8), (56, 8)])
+def test_injectivity_mask_edge_widths(T, Co, Cn):
+    """The widths K2 takes distinct paths for (W = 2, 16 in registers, 17
+    and 64 at the runtime width) and T that is no multiple of 4, on seeded
+    rows and on rows of all sentinels, against the Pallas kernel in
+    interpret mode and the reference's NumPy form."""
+    for old, new in (make_join_rows(T, Co, Cn, seed=T + Co),
+                     make_join_rows(T, Co, Cn, seed=0, all_sentinels=True)):
+        want = ref_np.injectivity_mask_ref(old, new)
+        jx = ref_ops.injectivity_mask(jnp.asarray(old), jnp.asarray(new), use_pallas=True,
+                                      interpret=True)
+        np.testing.assert_array_equal(np.asarray(jx), want)
+        got = ops.injectivity_mask(torch.from_numpy(old), torch.from_numpy(new))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert want.all()  # the sentinels never collide
+    np.testing.assert_array_equal(
+        injectivity_mask_ref(torch.from_numpy(old), torch.from_numpy(new)).numpy(), want)
+
+
+@pytest.mark.parametrize("T,Co,Cn", [(1, 6, 1), (5, 6, 1), (37, 0, 3), (37, 15, 1), (37, 56, 8)])
+def test_injectivity_layout(T, Co, Cn):
+    """The wrapper's layout decision is a function of shapes, strides and
+    pointers: the column slices of one contiguous table (at any base) are
+    contiguous, separate tensors (but new alone at Co = 0) and a wider
+    parent table strided; every layout gives the plain verdict."""
+    old, new = (torch.from_numpy(a) for a in make_join_rows(T, Co, Cn, seed=T))
+    want = ref_np.injectivity_mask_ref(old.numpy(), new.numpy())
+    cases = join_layouts(old, new)
+    assert [c[2] for c in cases.values()] == ["contiguous"] * 3 + [
+        "contiguous" if Co == 0 else "strided", "strided"]
+    for a, b, layout in cases.values():
+        assert ops.injectivity_layout(a, b) == layout
+        np.testing.assert_array_equal(ops.injectivity_mask(a, b).numpy(), want)
+    flat = torch.cat([old, new], 1)
+    assert ops.injectivity_layout(flat[:, :Co], flat[:, Co:]) == "contiguous"
+    if T > 1:  # a row stride other than the table's width
+        assert ops.injectivity_layout(flat[::2, :Co], flat[::2, Co:]) == "strided"
+
+
+@pytest.mark.parametrize("what", ["new columns", "all columns", "old column stride",
+                                  "new column stride"])
+def test_injectivity_layout_refuses(what):
+    """Widths past the kernel's bounds and columns that are not unit-stride
+    are refused before any launch."""
+    t = torch.zeros((6, 80), dtype=torch.int32)
+    old, new = {
+        "new columns": (t[:, :4], t[:, 4:13]),
+        "all columns": (t[:, :60], t[:, 60:65]),
+        "old column stride": (t[:, 0:8:2], t[:, 8:10]),
+        "new column stride": (t[:, :4], t[:, 4:8:2]),
+    }[what]
+    with pytest.raises(ValueError):
+        ops.injectivity_layout(old, new)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

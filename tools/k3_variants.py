@@ -153,13 +153,10 @@ def build(tmp: Path, sources: dict) -> dict:
 def real_index(dev):
     """The 50K cell's index and partition 0's plan-path query rows, as
     ``chip_smoke.py`` phase 3 builds them."""
-    from chip_smoke import dense_scan_check
-    from repro_torch.core import GnnPeConfig, GnnPeEngine, TrainConfig
-    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+    from chip_smoke import cell_50k_inputs, dense_scan_check
+    from repro_torch.core import GnnPeEngine
 
-    g = newman_watts_strogatz(50_000, k=4, p=0.1, n_labels=100, seed=11)
-    queries = [random_connected_query(g, 8, seed=42 + s) for s in range(16)]
-    cfg = GnnPeConfig(n_partitions=80, encoder="monotone", train=TrainConfig(max_epochs=150))
+    g, queries, cfg = cell_50k_inputs()
     eng = GnnPeEngine(cfg).build(g)
     qm, q0m, e_all, e0_all, _, _ = dense_scan_check(eng, queries, dev)
     return qm, q0m, e_all, e0_all
