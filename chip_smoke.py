@@ -25,7 +25,21 @@ Phases, each printing its seconds:
      version's, and K2 is timed at the median step) and the dense-scan entry
      ``ops.dominance_scan`` (K3) over every partition's real index, which
      must keep exactly the loop probe's rows; K3 is timed over all the
-     indexed rows;
+     indexed rows.  Then on the same engine the scalar match
+     (``match(q, impl="scalar")``, equal to ``match_many``'s lists) and
+     the stacked probe (``probe_impl="stacked"``): its lists equal the loop
+     probe's with the host join and the device join's with it, K1 must
+     launch, its verdicts equal the plain version's and their T the loop
+     probe's; warm runs interleaved with the loop probe and one profiled
+     warm call of each;
+  3q. the same graph and queries with ``quantize_index=True,
+     plan_weight="dr"``: partition 0's int8 sidecar and label hashes, made
+     on the card, equal the CPU's; the cold batch (every candidate plan
+     path probed for the dr weights) and the warm one (plans from the
+     cache), both probes with both joins and the scalar match on two
+     queries, every list equal to phase 3's match set, K1 launching on
+     each and equal to its plain version; leaf pairs before the prefilter
+     against K1's T after it;
   4. the GAT encoder, trained on the card, on a 2,000-vertex graph;
   5. the join-heavy batch: 8 relabeled-isomorphic 8-vertex queries on a
      12K-vertex, 3-label NWS graph (the configuration of
@@ -356,9 +370,10 @@ def device_join_breakdown(eng, queries, dev, what: str) -> None:
         log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
 
 
-def k2_steps(eng, queries) -> list:
-    """K2's verdicts in one device-join ``match_many``: (old, new, result)
-    for every join step, each equal to the plain version's bit for bit."""
+def k2_steps(eng, queries, **kw) -> list:
+    """K2's verdicts in one device-join ``match_many(queries, **kw)``: (old,
+    new, result) for every join step, each equal to the plain version's bit
+    for bit."""
     import torch
 
     from repro_torch.kernels.merge_join import ops as mj
@@ -374,7 +389,7 @@ def k2_steps(eng, queries) -> list:
 
     mj.injectivity_mask = record
     try:
-        eng.match_many(queries, join_impl="device")
+        eng.match_many(queries, join_impl="device", **kw)
     finally:
         mj.injectivity_mask = verdict
     for old, new, res in seen:
@@ -657,11 +672,12 @@ def dense_scan_check(eng, queries, dev):
 
     from repro_torch.kernels.dominance_scan import ops as ds
 
-    cat, spans = eng._query_node_embeddings_many(queries)
+    q_embs = eng._query_node_embeddings_many(queries)
+    cat, spans, _ = q_embs
     plans = [eng._deg_plan_cached(q) for q in queries]
     requests = list(dict.fromkeys((qi, p) for qi, pl in enumerate(plans) for p in pl.paths))
     memo: dict = {}
-    eng._probe_batch(requests, (cat, spans), memo)
+    eng._probe_batch(requests, q_embs, memo)
     n_multi = eng.cfg.n_multi
     all_e, all_e0, q0_rows = [], [], None
     reset_counters()
@@ -732,40 +748,12 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         warm.append((time.perf_counter() - t_w) * 1e3)
         require(again == matches, "warm match_many differs from the cold run")
     # the real probe's verdict, recorded and re-run through the plain version
-    seen = []
-    keep_mask = index_mod._pairs_keep_mask
-
-    def record(*a):
-        res = keep_mask(*a)
-        seen.append((a, res))
-        return res
-
-    index_mod._pairs_keep_mask = record
-    try:
-        eng.match_many(queries)
-    finally:
-        index_mod._pairs_keep_mask = keep_mask
+    seen = recorded_verdicts(lambda: eng.match_many(queries))
     require(len(seen) == 1, f"expected one fused verdict per match_many, saw {len(seen)}")
     (qg, q0g, eg, e0g, eps), keep = seen[0]
+    out["K1_T"] = qg.shape[0]
     require(torch.equal(keep, dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps)),
             "K1 on the real probe's pairs differs from the plain version")
-    # where a warm batch's time goes: host-clock stages and device-busy time
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t_p = time.perf_counter()
-        _, qstats = eng.match_many(queries, return_stats=True)
-        sync(dev)
-        prof_ms = (time.perf_counter() - t_p) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    filter_ms = sum(s.filter_time for s in qstats) * 1e3
-    join_ms = sum(s.join_time for s in qstats) * 1e3
-    log(f"profiled warm match_many: {prof_ms:.3f} ms wall; filter (embed + plan + probe) "
-        f"{filter_ms:.3f} ms, join + refine {join_ms:.3f} ms; device busy {busy_ms:.3f} ms "
-        f"in {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
     T, D = qg.shape
     D0 = q0g.shape[1]
     out["K1_ms"] = time_ms(ds.dominance_scan_pairs, (qg, q0g, eg, e0g, eps), 50, flush)
@@ -863,6 +851,204 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
             f"{bound[0]:.6f} ms ({bound[1]}), {bound[0] / out[key + '_ms'] * 100:.1f} % of it; "
             f"with L2 flushed by a read (clean lines, nothing to write back) "
             f"{out[key + '_clean_ms']:.6f} ms, {bound[0] / out[key + '_clean_ms'] * 100:.1f} %")
+
+    # ---- the scalar match on the same engine ------------------------------
+    t_s = time.perf_counter()
+    scalar = [eng.match(q, impl="scalar") for q in queries]
+    sync(dev)
+    scalar_cold = (time.perf_counter() - t_s) * 1e3
+    for qi, (a, b) in enumerate(zip(scalar, matches)):
+        require(a == b, f"the scalar match differs from match_many, query {qi}")
+    scalar_warm = warm_ms(lambda: [eng.match(q, impl="scalar") for q in queries], dev, 1)
+    log(f"scalar match (match(q, impl='scalar'), plain tensor code) of {n_queries} queries: "
+        f"lists equal match_many's; cold {scalar_cold:.3f} ms, warm {fmt(scalar_warm)} ms, "
+        f"against match_many warm {fmt(warm)} ms")
+
+    # ---- the stacked probe on the same engine ----------------------------
+    t_st = time.perf_counter()
+    eng.stacked_probe()
+    sync(dev)
+    stack_s = time.perf_counter() - t_st
+    os_ = eng.offline_stats
+    log(f"stacking {len(eng.models)} partitions: {stack_s:.3f} s; stacked_bytes "
+        f"{os_['stacked_bytes']}, real {os_['stacked_real_bytes']}, padding "
+        f"{os_['stacked_padding_frac']:.4f} of it; index bytes (loop) {os_['index_bytes']}")
+    reset_counters()
+    t_c = time.perf_counter()
+    st_matches = eng.match_many(queries, probe_impl="stacked")
+    sync(dev)
+    st_cold = (time.perf_counter() - t_c) * 1e3
+    out["K1_stacked"] = counters()["K1"]
+    require(out["K1_stacked"] > 0, "the stacked probe never launched the K1 kernel")
+    require(st_matches == matches, "the stacked probe's lists differ from the loop probe's")
+    reset_counters()
+    st_dev = eng.match_many(queries, probe_impl="stacked", join_impl="device")
+    out["K2_stacked"] = counters()["K2"]
+    require(out["K2_stacked"] > 0, "stacked probe + device join never launched the K2 kernel")
+    require(mj.CONTIGUOUS_LAUNCHES == out["K2_stacked"],
+            "a K2 launch of the stacked probe's device join missed the contiguous layout")
+    require(st_dev == dev_matches, "stacked probe + device join differs from the device join")
+    st_steps = k2_steps(eng, queries, probe_impl="stacked")
+    log(f"stacked probe + device join: K2 launches {out['K2_stacked']}, all on the contiguous "
+        f"layout; K2 on its {len(st_steps)} real join steps equal to the plain version")
+    seen = recorded_verdicts(lambda: eng.match_many(queries, probe_impl="stacked"))
+    T_st = sum(a[0].shape[0] for a, _ in seen)
+    for args, keep_ in seen:
+        require(torch.equal(keep_, dominance_scan_pairs_ref(*args)),
+                "K1 on the stacked probe's pairs differs from the plain version")
+    require(T_st == out["K1_T"],
+            f"the stacked probe's verdict T {T_st} != the loop probe's {out['K1_T']}")
+    st_warm, loop_warm = [], []
+    for _ in range(3):
+        st_warm += warm_ms(lambda: eng.match_many(queries, probe_impl="stacked"), dev, 1)
+        loop_warm += warm_ms(lambda: eng.match_many(queries), dev, 1)
+    log(f"stacked probe: lists equal the loop probe's (host join) and the device join's; K1 "
+        f"launches {out['K1_stacked']} (cold match_many), {len(seen)} verdicts of T = {T_st} "
+        f"in all, equal to the plain version; cold {st_cold:.3f} ms; warm, interleaved: stacked "
+        f"{fmt(st_warm)} ms, loop {fmt(loop_warm)} ms")
+    # where a warm batch's time goes, for each probe: host-clock stages and device-busy time
+    for impl in ("loop", "stacked"):
+        profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl=impl), dev,
+                       f"50K cell, host join, {impl} probe")
+    out["ctx"] = {"g": g, "queries": queries, "cfg": cfg, "matches": matches,
+                  "index_bytes": os_["index_bytes"]}
+    return out
+
+
+def recorded_verdicts(fn) -> list:
+    """Every fused verdict of one ``fn()`` call: ((qg, q0g, eg, e0g, eps), keep)."""
+    from repro_torch.core import index as index_mod
+
+    seen = []
+    keep_mask = index_mod._pairs_keep_mask
+
+    def record(*a):
+        res = keep_mask(*a)
+        seen.append((a, res))
+        return res
+
+    index_mod._pairs_keep_mask = record
+    try:
+        fn()
+    finally:
+        index_mod._pairs_keep_mask = keep_mask
+    return seen
+
+
+def profiled_match(fn, dev, what: str) -> None:
+    """One warm ``match_many(..., return_stats=True)`` under ``torch.profiler``:
+    wall, filter and join on the host clock, device-busy time, kernel launches
+    and device-to-host copies."""
+    import torch
+
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t_p = time.perf_counter()
+        _, st = fn()
+        sync(dev)
+        wall = (time.perf_counter() - t_p) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    dtoh = sum(e.count for e in kernels if "DtoH" in e.key)
+    log(f"{what}, profiled warm match_many: {wall:.3f} ms wall; filter (embed + plan + probe) "
+        f"{sum(s.filter_time for s in st) * 1e3:.3f} ms, join + refine "
+        f"{sum(s.join_time for s in st) * 1e3:.3f} ms; device busy {busy:.3f} ms in "
+        f"{sum(e.count for e in kernels)} kernel launches, {dtoh} device-to-host copies")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
+
+
+def phase3q_quantized_dr(dev, ctx: dict) -> dict:
+    """The 50K cell's graph and queries under ``quantize_index=True,
+    plan_weight="dr"``: both probes and both joins against phase 3's match
+    sets, the scalar match, the prefilter's survivors, the dr plan cache."""
+    import torch
+
+    from repro_torch.core import GnnPeEngine, sort_matches
+    from repro_torch.core import index as index_mod
+    from repro_torch.core.index import hash_labels, quantize_data
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.kernels.merge_join import ops as mj
+
+    out: dict = {"K2": 0}
+    g, queries = ctx["g"], ctx["queries"]
+    want = [sort_matches(m) for m in ctx["matches"]]
+    cfg = dataclasses.replace(ctx["cfg"], quantize_index=True, plan_weight="dr")
+    t_b = time.perf_counter()
+    eng = GnnPeEngine(cfg).build(g)
+    build_s = time.perf_counter() - t_b
+    idx = eng.models[0].index
+    cat = torch.cat([idx.emb, *idx.emb_multi], 1).cpu()
+    require(torch.equal(idx.emb_q.cpu(), quantize_data(cat)),
+            "partition 0's emb_q, made on the card, differs from quantize_data of its CPU copy")
+    labels = torch.as_tensor(g.labels.astype(np.int64))[idx.paths.cpu()]
+    require(torch.equal(idx.label_hash.cpu(), hash_labels(labels)),
+            "partition 0's label_hash, made on the card, differs from hash_labels on the CPU")
+    log(f"quantized dr engine: build {build_s:.3f} s "
+        f"(index {eng.offline_stats['index_time']:.3f}); "
+        f"partition 0's emb_q and label_hash ({idx.n_paths} paths) equal the CPU's; index bytes "
+        f"{eng.offline_stats['index_bytes']} with the sidecar, {ctx['index_bytes']} without")
+
+    def run(what: str, **kw):
+        """One match_many, its K1 launches, pairs before the prefilter and T
+        after; under the device join also its K2 launches, which must all
+        take the contiguous layout (added to ``out["K2"]``)."""
+        reset_counters()
+        pairs0 = index_mod.PAIR_METRIC.get(kind="leaf_pairs")
+        t = time.perf_counter()
+        res = [None]
+        seen = recorded_verdicts(lambda: res.__setitem__(0, eng.match_many(queries, **kw)))
+        sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        k1, k2 = counters()["K1"], counters()["K2"]
+        pairs = int(index_mod.PAIR_METRIC.get(kind="leaf_pairs") - pairs0)
+        T = sum(a[0].shape[0] for a, _ in seen)
+        for qi, m in enumerate(res[0]):
+            require(sort_matches(m) == want[qi], f"{what}: query {qi} differs from phase 3's set")
+        for a, keep in seen:
+            require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+                    f"{what}: K1 differs from the plain version")
+        require(k1 > 0, f"{what}: K1 never launched")
+        k2_note = ""
+        if kw.get("join_impl") == "device":
+            require(k2 > 0, f"{what}: K2 never launched")
+            require(mj.CONTIGUOUS_LAUNCHES == k2,
+                    f"{what}: a K2 launch missed the contiguous layout")
+            out["K2"] += k2
+            k2_note = f"; K2 launches {k2}, all contiguous"
+        log(f"  {what}: {ms:.3f} ms; K1 launches {k1}{k2_note}; leaf pairs {pairs} before the "
+            f"prefilter, T = {T} after it ({T / max(pairs, 1) * 100:.2f} % survive)")
+        return res[0], k1
+
+    hits = sum(eng._dr_plan_peek(q) is not None for q in queries)
+    cold, k1_cold = run(f"cold match_many, loop probe ({hits} dr plans cached: probes every "
+                        "candidate plan path)")
+    hits = sum(eng._dr_plan_peek(q) is not None for q in queries)
+    warm, _ = run(f"warm match_many, loop probe ({hits} dr plans cached: probes the plans' paths)")
+    require(hits == len(queries) and warm == cold, "the warm dr batch missed the plan cache")
+    out["K1"] = k1_cold
+    for probe, join in (("loop", "device"), ("stacked", "numpy"), ("stacked", "device")):
+        res, k1 = run(f"{probe} probe, {'host' if join == 'numpy' else 'device'} join",
+                      probe_impl=probe, join_impl=join)
+        out["K1"] += k1
+    for probe in ("loop", "stacked"):
+        steps = k2_steps(eng, queries, probe_impl=probe)
+        log(f"  K2 on the {len(steps)} real join steps of the {probe} probe's device join: equal "
+            "to the plain version; steps (T, Co, Cn): "
+            + ", ".join(f"({o.shape[0]}, {o.shape[1]}, {w.shape[1]})" for o, w, _ in steps))
+    eng._plan_cache.clear()  # the stacked probe's cold dr batch
+    _, k1 = run("cold match_many, stacked probe", probe_impl="stacked")
+    out["K1"] += k1
+    for impl in ("loop", "stacked"):
+        profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl=impl), dev,
+                       f"quantized dr engine, host join, {impl} probe")
+    t_s = time.perf_counter()
+    for qi, q in enumerate(queries[:2]):
+        require(eng.match(q, impl="scalar") == cold[qi],
+                f"quantized dr engine: the scalar match differs from match_many, query {qi}")
+    log(f"  scalar match of queries 0-1 (dr weights from its own probes): "
+        f"{(time.perf_counter() - t_s) * 1e3:.3f} ms, lists equal match_many's")
     return out
 
 
@@ -1786,6 +1972,12 @@ def main() -> int:
     log(f"phase 3 main path, 50K vertices / 80 partitions: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
+    p3q = phase3q_quantized_dr(dev, p3.pop("ctx"))
+    log(f"phase 3q the 50K cell with the int8 sidecar and dr plans: {time.perf_counter() - t:.3f} s")
+    log(f"K2 launches: phase 3 device join {p3['K2']}, phase 3 stacked probe + device join "
+        f"{p3['K2_stacked']}, phase 3q device joins {p3q['K2']}")
+
+    t = time.perf_counter()
     phase4_gat(dev)
     log(f"phase 4 gat, 2K vertices / 2 partitions: {time.perf_counter() - t:.3f} s")
 
@@ -1818,10 +2010,16 @@ def main() -> int:
     scan_cu = f"{SRC}/dominance_scan/csrc/dominance_scan.cu"
     scan_py = "src/repro/kernels/dominance_scan/kernel.py"
     records = [
-        record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98", p3["K1"],
+        # K1's launches: the loop and stacked probes' cold batches of phase 3 and
+        # phase 3q's batches, each counted from 0 just before it
+        record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
+               p3["K1"] + p3["K1_stacked"] + p3q["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
+        # K2's launches: phase 3's device joins (loop, then stacked probe), phase
+        # 3q's device joins and phase 5's batch, each counted from 0 just before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
-               "src/repro/kernels/merge_join/kernel.py:47", p3["K2"] + p5["K2"],
+               "src/repro/kernels/merge_join/kernel.py:47",
+               p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p5["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),

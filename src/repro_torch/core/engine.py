@@ -11,20 +11,30 @@ stage:
      partitions' models stack on a leading partition dim, so one call
      embeds every query vertex under every partition's GNNs;
   2. every (query, plan path) probe against every partition descends the
-     packed indexes level-synchronously, and the leaf pairs of all
-     partitions go through ONE fused dominance verdict (the hand-written
-     CUDA kernel on the card, its plain version on the CPU);
+     packed indexes level-synchronously (``probe_impl="loop"``, one
+     partition after another; ``"stacked"``, one batched descent over the
+     partitions' stacked tensors, ``dist/probe.py``), and the leaf pairs of
+     all partitions go through ONE fused dominance verdict (the
+     hand-written CUDA kernel on the card, its plain version on the CPU);
+     under ``plan_weight="dr"`` the candidate plan paths of every query
+     without a cached plan are probed first, in the same way, and weight
+     the planner;
   3. the join + exact refine on the device: per query in the host join's
      order (``join_impl="numpy"``), or the batched device join
      (``join_impl="device"``), one program per join step for each group
      of same-plan queries, its injectivity verdict the hand-written CUDA
      kernel K2 on the card.
 
+``match(q, impl="scalar")`` is the per-(partition, path) loop over the
+scalar ``query_index``, plain tensor code, kept as the cross-check:
+``match_many(qs)[i] == match(qs[i], impl="scalar")``.
+
 The engine runs on the card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
@@ -33,10 +43,10 @@ import torch
 from ..device import default_device
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
 from .encoder import EncoderConfig, make_encoder
-from .index import PackedIndex, build_index, query_index_batch_multi
+from .index import PackedIndex, build_index, hash_labels, query_index, query_index_batch_multi
 from .matcher import match_from_candidates, match_from_candidates_many
 from .paths import concat_path_embeddings, enumerate_paths
-from .planner import QueryPlan, canonical_form, plan_query
+from .planner import QueryPlan, candidate_plan_paths, canonical_form, plan_query
 from .stars import build_pair_dataset, build_star_tensors
 from .training import TrainConfig, train_dominance
 
@@ -92,11 +102,7 @@ class GnnPeConfig:
 _LATER = {
     ("index_kind", "grouped"): "item 9 (GNN-PGE grouped index)",
     ("group_size_mode", "auto"): "item 9 (GNN-PGE grouped index)",
-    ("probe_impl", "stacked"): "item 10 (stacked probe)",
-    ("quantize_index", True): "item 5 (int8 + label-hash leaf sidecar)",
-    ("plan_weight", "dr"): "item 6 (dr plan weights)",
     ("cache", True): "item 12 (result cache)",
-    ("online_impl", "scalar"): "item 8 (scalar match)",
 }
 
 
@@ -107,8 +113,9 @@ def _check_config(cfg: GnnPeConfig) -> None:
                 f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}"
             )
     allowed = {
-        "index_kind": ("path",), "probe_impl": ("loop",), "join_impl": ("numpy", "device"),
-        "group_size_mode": ("fixed",), "plan_weight": ("deg",), "online_impl": ("batched",),
+        "index_kind": ("path",), "probe_impl": ("loop", "stacked"),
+        "join_impl": ("numpy", "device"), "group_size_mode": ("fixed",),
+        "plan_weight": ("deg", "dr"), "online_impl": ("batched", "scalar"),
     }
     for name, ok in allowed.items():
         if getattr(cfg, name) not in ok:
@@ -171,7 +178,9 @@ class GnnPeEngine:
         self.offline_stats: dict = {}
         self._encoder = None
         self._stacked_cache = None  # per-partition params stacked on a partition dim
+        self._stacked_probe = None  # dist.probe.StackedProbe over the indexes
         self._plan_cache: dict = {}  # canonical query key -> canonical QueryPlan
+        self._emb_fingerprint: bytes = b""  # the index content the dr plans probed
 
     @property
     def encoder(self):
@@ -210,7 +219,7 @@ class GnnPeEngine:
         self.n_labels = int(g.labels.max()) + 1 if g.n_vertices else 1
         self._encoder = None
         self._stacked_cache = None
-        self._plan_cache.clear()
+        self._stacked_probe = None
         self.partitioning = partition_graph(g, cfg.n_partitions, seed=cfg.seed)
         rng = np.random.default_rng(cfg.seed)
         # randomized label maps shared across partitions (query side needs them)
@@ -276,6 +285,8 @@ class GnnPeEngine:
                 else None,
                 block_size=cfg.block_size,
                 fanout=cfg.index_fanout,
+                quantize=cfg.quantize_index,
+                path_labels=dg.labels[paths] if cfg.quantize_index else None,
             )
             index_time += time.perf_counter() - t3
             self.models.append(
@@ -304,9 +315,37 @@ class GnnPeEngine:
             "embed_time": embed_time,
             "index_time": index_time,
             "n_paths": int(sum(m.index.n_paths for m in self.models)),
+            "index_bytes": int(sum(m.index.nbytes() for m in self.models)),
             "edge_cut": int(self.partitioning.edge_cut(g)),
         }
+        self._emb_fingerprint = self._content_fingerprint()
+        # dr plans probed the previous build's indexes: drop every plan
+        self._plan_cache.clear()
+        if cfg.probe_impl == "stacked" and self.models:
+            self.stacked_probe()  # stack offline and report its bytes
         return self
+
+    def stacked_probe(self):
+        """The stacked probe over every partition's index, built at the
+        first call after a ``build`` and kept; its padding lands in
+        ``offline_stats`` (``stacked_*``)."""
+        if self._stacked_probe is None:
+            assert self.models, "call build() first"
+            from ..dist.probe import StackedProbe  # the dist package imports core
+
+            self._stacked_probe = StackedProbe(
+                [m.index for m in self.models], leaf_pair_cap=self.cfg.stacked_leaf_pair_cap
+            )
+            self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
+        return self._stacked_probe
+
+    def _content_fingerprint(self) -> bytes:
+        """Digest of the index content the dr-plan cache keys on: the seed
+        and every partition's path count, as the JAX package digests them."""
+        h = hashlib.blake2b(digest_size=12)
+        h.update(np.int64(self.cfg.seed).tobytes())
+        h.update(np.asarray([m.index.n_paths for m in self.models], np.int64).tobytes())
+        return h.digest()
 
     def _relabel_stars(self, stars, perm: torch.Tensor):
         """The star tensors under one randomized label map (multi-GNN input)."""
@@ -340,21 +379,16 @@ class GnnPeEngine:
         return node_emb, node_emb0
 
     # ------------------------------------------------------------------
-    # Plans: weight="deg" under a canonical-signature cache
+    # Plans under a canonical-signature cache
     # ------------------------------------------------------------------
-    def _deg_plan_cached(self, q: Graph) -> QueryPlan:
-        """``plan_query(weight="deg")`` cached in canonical vertex ids, so
-        repeated (even relabeled-isomorphic) queries reuse one planner run."""
-        cfg = self.cfg
-        perm, key = canonical_form(q)
-        full_key = (key, cfg.path_length, cfg.plan_strategy, cfg.seed)
+    def _plan_cache_get(self, q: Graph, full_key, perm) -> QueryPlan | None:
         hit = self._plan_cache.get(full_key)
-        if hit is not None:
-            paths = [tuple(int(perm[v]) for v in p) for p in hit.paths]
-            return QueryPlan(paths=paths, cost=hit.cost, strategy=hit.strategy)
-        plan = plan_query(
-            q, cfg.path_length, strategy=cfg.plan_strategy, weight="deg", seed=cfg.seed
-        )
+        if hit is None:
+            return None
+        paths = [tuple(int(perm[v]) for v in p) for p in hit.paths]
+        return QueryPlan(paths=paths, cost=hit.cost, strategy=hit.strategy)
+
+    def _plan_cache_put(self, q: Graph, full_key, perm, plan: QueryPlan) -> None:
         inv = np.empty(q.n_vertices, np.int64)
         inv[perm] = np.arange(q.n_vertices)
         while len(self._plan_cache) >= _PLAN_CACHE_MAX:
@@ -364,18 +398,167 @@ class GnnPeEngine:
             cost=plan.cost,
             strategy=plan.strategy,
         )
+
+    def _dr_plan_key(self, q: Graph):
+        """Cache key of a ``weight="dr"`` plan: the canonical signature and
+        the index fingerprint.  dr weights are index probe counts, which
+        the canonical relabeling keeps and a new index does not."""
+        cfg = self.cfg
+        perm, key = canonical_form(q)
+        return perm, (
+            key, cfg.path_length, cfg.plan_strategy, cfg.seed, "dr", self._emb_fingerprint
+        )
+
+    def _dr_plan_peek(self, q: Graph) -> QueryPlan | None:
+        """The cached dr plan of ``q`` for the current index, or None.  A hit
+        lets ``match_many`` skip the candidate-path probes."""
+        perm, full_key = self._dr_plan_key(q)
+        return self._plan_cache_get(q, full_key, perm)
+
+    def _deg_plan_cached(self, q: Graph) -> QueryPlan:
+        """``plan_query(weight="deg")`` cached in canonical vertex ids, so
+        repeated (even relabeled-isomorphic) queries reuse one planner run."""
+        cfg = self.cfg
+        perm, key = canonical_form(q)
+        full_key = (key, cfg.path_length, cfg.plan_strategy, cfg.seed)
+        hit = self._plan_cache_get(q, full_key, perm)
+        if hit is not None:
+            return hit
+        plan = plan_query(
+            q, cfg.path_length, strategy=cfg.plan_strategy, weight="deg", seed=cfg.seed
+        )
+        self._plan_cache_put(q, full_key, perm, plan)
         return plan
+
+    def _plan_cached(self, q: Graph, weight_fn=None) -> QueryPlan:
+        """``plan_query`` under the canonical-signature cache: ``deg`` plans
+        by signature; ``dr`` plans, whose ``weight_fn`` counts a path's
+        candidate rows, by signature and index fingerprint."""
+        if weight_fn is None:
+            return self._deg_plan_cached(q)
+        cfg = self.cfg
+        perm, full_key = self._dr_plan_key(q)
+        hit = self._plan_cache_get(q, full_key, perm)
+        if hit is not None:
+            return hit
+        plan = plan_query(
+            q, cfg.path_length, strategy=cfg.plan_strategy, weight="dr",
+            weight_fn=weight_fn, seed=cfg.seed,
+        )
+        self._plan_cache_put(q, full_key, perm, plan)
+        return plan
+
+    # ------------------------------------------------------------------
+    # Online matching: one query through the scalar loop, or a batch
+    # ------------------------------------------------------------------
+    def match(
+        self,
+        q: Graph,
+        return_stats: bool = False,
+        impl: str | None = None,
+        probe_impl: str | None = None,
+        join_impl: str | None = None,
+    ):
+        """Exact subgraph matching of one query (Alg. 3).
+
+        ``impl`` overrides ``cfg.online_impl``: "batched" goes through
+        ``match_many`` (a batch of one); "scalar" runs the per-(partition,
+        path) loop over ``query_index``.  ``probe_impl`` ("loop" |
+        "stacked") chooses the batched path's index traversal; ``join_impl``
+        ("numpy" | "device") the join.
+        """
+        impl = impl or self.cfg.online_impl
+        if impl == "batched":
+            out = self.match_many(
+                [q], return_stats=return_stats, probe_impl=probe_impl, join_impl=join_impl
+            )
+            if return_stats:
+                return out[0][0], out[1][0]
+            return out[0]
+        if impl != "scalar":
+            raise ValueError(f"unknown online impl {impl!r}; use 'batched' or 'scalar'")
+        return self._match_scalar(q, return_stats=return_stats, join_impl=join_impl)
+
+    def _match_scalar(self, q: Graph, return_stats: bool = False, join_impl: str | None = None):
+        assert self.graph is not None, "call build() first"
+        cfg = self.cfg
+        dev = self.device
+        stats = QueryStats()
+        t0 = time.perf_counter()
+        q_embs = self._query_node_embeddings_many([q])[0]  # per partition (o, o0, o_multi)
+        q_labels = torch.as_tensor(q.labels.astype(np.int64))  # the hashes are made on the host
+        probe_memo: dict = {}
+
+        def _retrieve(mi: int, p: tuple) -> torch.Tensor:
+            """Candidate rows of one (partition, path), memoised."""
+            key = (mi, p)
+            if key not in probe_memo:
+                pv = torch.as_tensor(p, dtype=torch.int64, device=dev)
+                qo, qo0, qom = q_embs[mi]
+                qh = None
+                if cfg.quantize_index:
+                    qh = int(hash_labels(q_labels[list(p)][None, :])[0])
+                probe_memo[key] = query_index(
+                    self.models[mi].index,
+                    qo[pv].reshape(-1),
+                    qo0[pv].reshape(-1),
+                    qom[:, pv].reshape(cfg.n_multi, -1) if cfg.n_multi else None,
+                    q_label_hash=qh,
+                )
+            return probe_memo[key]
+
+        weight_fn = None
+        if cfg.plan_weight == "dr":
+            # the paper's §5.1 alternative: w(p_q) = |DR(o(p_q))|, candidate
+            # counts from memoised probes, reused by the retrieval below
+            def weight_fn(p):
+                return float(
+                    sum(
+                        _retrieve(mi, p).numel()
+                        for mi, m in enumerate(self.models)
+                        if m.index.n_paths and len(p) == m.index.paths.shape[1]
+                    )
+                )
+
+        plan = self._plan_cached(q, weight_fn=weight_fn)
+        stats.plan = plan
+        candidates = [[] for _ in plan.paths]
+        total_paths = 0
+        for mi, model in enumerate(self.models):
+            if model.index.n_paths <= 0:
+                continue
+            total_paths += model.index.n_paths
+            for pi, p in enumerate(plan.paths):
+                if len(p) != model.index.paths.shape[1]:
+                    continue  # a length-mismatched fallback path
+                rows = _retrieve(mi, p)
+                if rows.numel():
+                    candidates[pi].append(model.index.paths[rows])
+        cand_arrays = [
+            torch.cat(parts)
+            if parts
+            else torch.zeros((0, len(p)), dtype=torch.int64, device=dev)
+            for p, parts in zip(plan.paths, candidates)
+        ]
+        for p, arr in zip(plan.paths, cand_arrays):
+            stats.n_candidates[p] = int(arr.shape[0])
+        stats.filter_time = time.perf_counter() - t0
+        stats.total_paths = total_paths * max(len(plan.paths), 1)
+        stats.candidate_paths = sum(int(a.shape[0]) for a in cand_arrays)
+        stats.pruning_power = 1.0 - stats.candidate_paths / max(stats.total_paths, 1)
+        t1 = time.perf_counter()
+        # per-path candidates are duplicate-free (partitions are root-disjoint)
+        matches = match_from_candidates(
+            self.graph, self.dgraph, q, plan.paths, cand_arrays, induced=cfg.induced,
+            assume_unique=True, join_impl=join_impl or cfg.join_impl,
+        )
+        stats.join_time = time.perf_counter() - t1
+        stats.n_matches = len(matches)
+        return (matches, stats) if return_stats else matches
 
     # ------------------------------------------------------------------
     # Batched online matching: the fused multi-query path
     # ------------------------------------------------------------------
-    def match(self, q: Graph, return_stats: bool = False, join_impl: str | None = None):
-        """Exact subgraph matching of one query (a batch of one)."""
-        out = self.match_many([q], return_stats=return_stats, join_impl=join_impl)
-        if return_stats:
-            return out[0][0], out[1][0]
-        return out[0]
-
     def _stacked_model_params(self):
         """Per-partition GNN params stacked on a leading partition dim, so
         one call embeds a star batch under every partition's model."""
@@ -396,10 +579,12 @@ class GnnPeEngine:
 
         Star tensors concatenate across queries and the partition models
         stack on a partition dim, so the whole (partition × query vertex)
-        grid is 2 + n_multi calls.  Returns ``(cat, spans)``: ``cat[mi] =
-        (o, o0, o_multi)`` concatenated over queries, with query ``qi``'s
-        rows at ``spans[qi]:spans[qi+1]``.  Overflow query vertices embed
-        to 0⃗ so they prune nothing.
+        grid is 2 + n_multi calls.  Returns ``(cat, spans, stacked)``:
+        ``cat[mi] = (o, o0, o_multi)`` concatenated over queries, with query
+        ``qi``'s rows at ``spans[qi]:spans[qi+1]``, views of ``stacked =
+        (o_all, o0_all, om_all)``, shaped (m, n, d), (m, n, d0) and
+        (n_multi, m, n, d).  Overflow query vertices embed to 0⃗ so they
+        prune nothing.
         """
         cfg = self.cfg
         enc = self.encoder
@@ -409,7 +594,7 @@ class GnnPeEngine:
         ]
         spans = np.concatenate([[0], np.cumsum([q.n_vertices for q in queries])]).astype(np.int64)
         if not self.models:
-            return [], spans
+            return [], spans, None
         centers = torch.cat([s.center_labels for s in star_list])
         leaf_labels = torch.cat([s.leaf_labels for s in star_list])
         leaf_mask = torch.cat([s.leaf_mask for s in star_list])
@@ -431,35 +616,72 @@ class GnnPeEngine:
             om.append(oi)
         om_all = torch.stack(om) if om else o_all.new_zeros((0,) + tuple(o_all.shape))
         cat = [(o_all[mi], o0_all[mi], om_all[:, mi]) for mi in range(len(self.models))]
-        return cat, spans
+        return cat, spans, (o_all, o0_all, om_all)
 
-    def _probe_batch(self, requests: list, q_embs, memo: dict) -> None:
+    def _probe_batch(
+        self, requests: list, q_embs, memo: dict, queries: list | None = None,
+        probe_impl: str | None = None,
+    ) -> None:
         """One fused index probe for many (query, path) pairs × partitions.
 
         ``requests`` is a list of (qi, path) pairs; results land in
         ``memo[(mi, qi, path)]``: row tensors of partition ``mi``'s index,
-        from ONE ``query_index_batch_multi`` (and hence one fused leaf
-        verdict) covering every partition.
+        with ONE fused leaf verdict covering every partition.  The loop
+        probe (``query_index_batch_multi``) and the stacked probe
+        (``stacked_probe().probe``) fill the same entries.  A quantized
+        index needs ``queries``: each probe path's label sequence is hashed
+        on the host.
         """
         cfg = self.cfg
-        cat, spans = q_embs
+        dev = self.device
+        cat, spans, stacked = q_embs
         reqs = list(dict.fromkeys(requests))
         by_len: dict = {}
         for qi, p in reqs:
             by_len.setdefault(len(p), []).append((qi, p))
         layouts = {}
+        all_labels = None
         for L, sel in by_len.items():
             qi_arr = np.asarray([qi for qi, _ in sel], dtype=np.int64)
             pv_arr = np.asarray([p for _, p in sel], dtype=np.int64)  # (B, L)
-            gidx = torch.as_tensor(spans[qi_arr][:, None] + pv_arr, device=self.device)
-            layouts[L] = (sel, gidx)
+            rows = spans[qi_arr][:, None] + pv_arr  # rows of the concatenated stars
+            qh = None
+            if cfg.quantize_index:
+                if queries is None:
+                    raise ValueError("a quantized index hashes the probes' labels: pass queries")
+                if all_labels is None:
+                    all_labels = np.concatenate([q.labels for q in queries]).astype(np.int64)
+                qh = hash_labels(torch.as_tensor(all_labels[rows])).to(dev)
+            layouts[L] = (sel, torch.as_tensor(rows, device=dev), qh)
+        impl = probe_impl or cfg.probe_impl
+        if impl == "stacked" and self.models:
+            # one batched descent over every partition's stacked tensors
+            L = self.models[0].index.paths.shape[1]
+            if L not in layouts:
+                return
+            sel, gidx, qh = layouts[L]
+            B, m = len(sel), len(self.models)
+            o_all, o0_all, om_all = stacked
+            q_multi = None
+            if cfg.n_multi:
+                q_multi = om_all[:, :, gidx].reshape(cfg.n_multi, m, B, -1)
+            results = self.stacked_probe().probe(
+                o_all[:, gidx].reshape(m, B, -1), o0_all[:, gidx].reshape(m, B, -1), q_multi,
+                q_label_hash=qh,
+            )
+            for mi, model in enumerate(self.models):
+                if model.index.n_paths == 0:
+                    continue  # as the loop probe, which skips them
+                for b, (qi, p) in enumerate(sel):
+                    memo[(mi, qi, p)] = results[mi][b]
+            return
         items = []
         sels = []
         for mi, model in enumerate(self.models):
             L = model.index.paths.shape[1]
             if model.index.n_paths == 0 or L not in layouts:
                 continue
-            sel, gidx = layouts[L]
+            sel, gidx, qh = layouts[L]
             B = len(sel)
             o, o0, om = cat[mi]
             items.append(
@@ -468,6 +690,7 @@ class GnnPeEngine:
                     o[gidx].reshape(B, -1),
                     o0[gidx].reshape(B, -1),
                     om[:, gidx].reshape(cfg.n_multi, B, -1) if cfg.n_multi else None,
+                    qh,
                 )
             )
             sels.append((mi, sel))
@@ -479,35 +702,84 @@ class GnnPeEngine:
                 memo[(mi, qi, p)] = rows_list[b]
 
     def match_many(
-        self, queries: list, return_stats: bool = False, join_impl: str | None = None
+        self,
+        queries: list,
+        return_stats: bool = False,
+        probe_impl: str | None = None,
+        join_impl: str | None = None,
     ):
         """Exact subgraph matching for a batch of queries (fused Alg. 3).
 
         Returns one match list per query, each a list of tuples
         ``(f(0), …, f(|V(q)|−1))`` in the JAX engine's order for the same
-        ``join_impl`` (which overrides ``cfg.join_impl``).
+        ``join_impl`` (which overrides ``cfg.join_impl``).  ``probe_impl``
+        overrides ``cfg.probe_impl`` ("loop" | "stacked"); the match lists
+        are identical for both.
         """
         assert self.graph is not None, "call build() first"
+        impl = probe_impl or self.cfg.probe_impl
+        if impl not in ("loop", "stacked"):
+            raise ValueError(f"unknown probe_impl {impl!r}; use 'loop' or 'stacked'")
         jimpl = join_impl or self.cfg.join_impl
         if jimpl not in ("numpy", "device"):
             raise ValueError(f"unknown join_impl {jimpl!r}; use 'numpy' or 'device'")
         if not queries:
             return ([], []) if return_stats else []
-        results, stats = self._match_many_core(queries, jimpl)
+        results, stats = self._match_many_core(queries, impl, jimpl)
         return (results, stats) if return_stats else results
 
-    def _match_many_core(self, queries: list, join_impl: str):
+    def _match_many_core(self, queries: list, probe_impl: str, join_impl: str):
         cfg = self.cfg
         nq = len(queries)
+        n_models = len(self.models)
         stats = [QueryStats() for _ in range(nq)]
         t0 = time.perf_counter()
         q_embs = self._query_node_embeddings_many(queries)
-        plans = [self._deg_plan_cached(q) for q in queries]
-        # ---- retrieval: one fused probe for all plans × partitions ------
         memo: dict = {}
-        self._probe_batch(
-            [(qi, p) for qi, plan in enumerate(plans) for p in plan.paths], q_embs, memo
-        )
+        # ---- plans: the dr probes ride the same batched probe -----------
+        cached_plans: list = [None] * nq
+        weight_fns: list = [None] * nq
+        if cfg.plan_weight == "dr":
+            cached_plans = [self._dr_plan_peek(q) for q in queries]
+            probe_reqs = [
+                (qi, p)
+                for qi, q in enumerate(queries)
+                if cached_plans[qi] is None
+                for p in candidate_plan_paths(q, cfg.path_length)
+            ]
+            if probe_reqs:
+                self._probe_batch(probe_reqs, q_embs, memo, queries, probe_impl)
+
+            def make_weight_fn(qi):
+                def weight_fn(p):
+                    return float(
+                        sum(
+                            memo[(mi, qi, p)].numel()
+                            for mi in range(n_models)
+                            if (mi, qi, p) in memo
+                        )
+                    )
+
+                return weight_fn
+
+            weight_fns = [
+                make_weight_fn(qi) if cached_plans[qi] is None else None for qi in range(nq)
+            ]
+        plans = [
+            cached_plans[qi]
+            if cached_plans[qi] is not None
+            else self._plan_cached(q, weight_fn=weight_fns[qi])
+            for qi, q in enumerate(queries)
+        ]
+        # ---- retrieval: one fused probe for the plan paths not yet probed
+        todo = [
+            (qi, p)
+            for qi, plan in enumerate(plans)
+            for p in plan.paths
+            if not any((mi, qi, p) in memo for mi in range(n_models))
+        ]
+        if todo:
+            self._probe_batch(todo, q_embs, memo, queries, probe_impl)
         filter_time = time.perf_counter() - t0
         # ---- per-query candidate assembly -------------------------------
         per_query_cands = []
@@ -539,7 +811,11 @@ class GnnPeEngine:
             st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
         # ---- join + refine ----------------------------------------------
         # per-path candidates are duplicate-free (partitions are
-        # root-disjoint), so the join may skip its dedup sorts
+        # root-disjoint), so the join may skip its dedup sorts.  The JAX
+        # package hands the stacked probe's device-resident candidates
+        # straight to the device join (``probe_device``); here both probes
+        # fill the memo and the device join reads it, with the same match
+        # sets.  The hand-off is ROADMAP queue 1 item 11.
         if join_impl == "device":
             # one batched device program per join step for every group of
             # same-plan queries; the candidates are already device tensors

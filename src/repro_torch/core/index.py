@@ -13,6 +13,12 @@ pairs of each query's own surviving leaf blocks then pack into
 row-aligned operands, and the pairs of every partition go through ONE
 fused dominance verdict (``kernels/dominance_scan``): the hand-written
 CUDA kernel on the card, its plain version on the CPU.
+
+With ``quantize=True`` the index carries a conservative int8 copy of the
+leaf embeddings and a hash of each path's label sequence; the batched
+probe drops (query, row) pairs that either rules out before the exact
+verdict, which keeps the same rows.  ``query_index`` is the scalar probe
+of one query path, plain tensor code, kept as the exactness cross-check.
 """
 from __future__ import annotations
 
@@ -26,7 +32,12 @@ from ..obs.metrics import REGISTRY
 __all__ = [
     "PackedIndex",
     "build_index",
+    "query_index",
+    "leaf_scan",
     "query_index_batch_multi",
+    "quantize_data",
+    "quantize_query",
+    "hash_labels",
     "reset_pair_counters",
     "PAIR_METRIC",
 ]
@@ -74,6 +85,41 @@ def _morton_words(x: torch.Tensor, bits: int = 8) -> list:
     return words + [torch.zeros(n, dtype=torch.int64, device=x.device)] * (2 - len(words))
 
 
+_Q_SCALE = 250.0  # int8 grid over (0, 1): data rounds up, queries round down
+
+
+def quantize_data(x: torch.Tensor) -> torch.Tensor:
+    """Conservative data-side int8: ``ceil(x·250) − 125`` clipped to
+    [−125, 126], from the float32 product, so it never under-reports."""
+    return torch.clamp(torch.ceil(x * _Q_SCALE) - 125, -125, 126).to(torch.int8)
+
+
+def quantize_query(x: torch.Tensor) -> torch.Tensor:
+    """Conservative query-side int8: rounded down.  q ≤ e ⇒ floor(q·s) ≤
+    ceil(e·s), so the prefilter dismisses no match; it prunes only where
+    floor(q·s) > ceil(e·s), which implies q > e."""
+    return torch.clamp(torch.floor(x * _Q_SCALE) - 125, -125, 126).to(torch.int8)
+
+
+def hash_labels(paths_labels: torch.Tensor) -> torch.Tensor:
+    """(P, L) labels → (P,) int64 polynomial hash, wrapping mod 2⁶⁴ as the
+    JAX package's NumPy int64 does.  Equal sequences hash equal, so a
+    differing hash prunes safely; a collision only adds exact work."""
+    h = torch.zeros(paths_labels.shape[0], dtype=torch.int64, device=paths_labels.device)
+    for j in range(paths_labels.shape[1]):
+        h = h * 1_000_003 + paths_labels[:, j].to(torch.int64) + 1
+    return h
+
+
+def _eps(eps: float, device) -> torch.Tensor:
+    """``eps`` rounded to float32, as NumPy does against a float32 array."""
+    return torch.tensor(eps, dtype=torch.float32, device=device)
+
+
+def _nbytes(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 @dataclasses.dataclass
 class PackedIndex:
     """Per-partition index over paths of one length (tensors on one device)."""
@@ -85,10 +131,22 @@ class PackedIndex:
     levels: list  # per level {mbr, mbr0, mbr_multi}: (n_blocks, D, 2) min/max
     block_size: int
     fanout: int
+    # the int8 + label-hash leaf sidecar (``quantize=True``)
+    emb_q: torch.Tensor | None = None  # (P, D·(1+n)) int8 over main ⊕ multi
+    label_hash: torch.Tensor | None = None  # (P,) int64
 
     @property
     def n_paths(self) -> int:
         return int(self.paths.shape[0])
+
+    def nbytes(self) -> int:
+        """Index bytes as the JAX package counts them; the vertex ids count
+        at the int32 width it stores them in (the port keeps int64)."""
+        total = self.paths.numel() * 4 + _nbytes(self.emb) + _nbytes(self.emb0)
+        total += _nbytes(self.emb_multi)
+        for lv in self.levels:
+            total += _nbytes(lv["mbr"]) + _nbytes(lv["mbr0"]) + _nbytes(lv["mbr_multi"])
+        return total + _nbytes(self.emb_q) + _nbytes(self.label_hash)
 
 
 def _mbr(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -116,7 +174,11 @@ def build_index(
     emb_multi: torch.Tensor | None = None,
     block_size: int = 128,
     fanout: int = 16,
+    quantize: bool = False,
+    path_labels: torch.Tensor | None = None,
 ) -> PackedIndex:
+    """Sort, block and roll up one partition's paths; ``quantize`` adds the
+    int8 sidecar and, given ``path_labels`` (P, l+1), the label hashes."""
     P = paths.shape[0]
     D = emb.shape[1] if P else 0
     if emb_multi is None:
@@ -146,7 +208,104 @@ def build_index(
         levels.append(
             level(lambda x: _roll(x, fanout), top["mbr"], top["mbr0"], top["mbr_multi"])
         )
-    return PackedIndex(paths, emb, emb0, emb_multi, levels, block_size, fanout)
+    idx = PackedIndex(paths, emb, emb0, emb_multi, levels, block_size, fanout)
+    if quantize:
+        idx.emb_q = quantize_data(torch.cat([emb, *emb_multi], dim=1))
+        if path_labels is not None:
+            idx.label_hash = hash_labels(path_labels[order])
+    return idx
+
+
+# --------------------------------------------------------------------------
+# Scalar query path: one query path per traversal (the exactness cross-check)
+# --------------------------------------------------------------------------
+
+
+def _block_mask(level, q_emb, q_emb0, q_multi, eps: float) -> torch.Tensor:
+    """Survival mask over one level's blocks for one query path."""
+    e = _eps(eps, q_emb.device)
+    mbr, mbr0 = level["mbr"], level["mbr0"]
+    # Lemma 4.3: o₀(p_q) ∈ MBR₀; Lemma 4.4: o(p_q) ≤ MBR_max everywhere
+    mask = ((q_emb0 >= mbr0[:, :, 0] - e) & (q_emb0 <= mbr0[:, :, 1] + e)).all(dim=1)
+    mask &= (q_emb <= mbr[:, :, 1] + e).all(dim=1)
+    for i in range(q_multi.shape[0]):
+        mask &= (q_multi[i] <= level["mbr_multi"][i][:, :, 1] + e).all(dim=1)
+    return mask
+
+
+def leaf_scan(
+    index: PackedIndex, block_ids, q_emb, q_emb0, q_multi, eps: float,
+    q_label_hash: int | None = None,
+) -> torch.Tensor:
+    """Lemmas 4.1 + 4.2 over candidate leaf blocks → path row indices.
+
+    With the int8 + label-hash sidecar, its prefilter runs first and the
+    exact predicates only on its survivors: the same rows.
+    """
+    dev = q_emb.device
+    if index.n_paths == 0 or block_ids.numel() == 0:
+        return torch.zeros((0,), dtype=torch.int64, device=dev)
+    bs = index.block_size
+    rows = (block_ids[:, None] * bs + torch.arange(bs, device=dev)[None, :]).reshape(-1)
+    rows = rows[rows < index.n_paths]
+    if index.emb_q is not None:
+        qq = quantize_query(torch.cat([q_emb, *q_multi]))
+        pre = (qq[None, :] <= index.emb_q[rows]).all(dim=1)
+        if index.label_hash is not None and q_label_hash is not None:
+            pre &= index.label_hash[rows] == q_label_hash
+        rows = rows[pre]
+        if rows.numel() == 0:
+            return rows
+    e = _eps(eps, dev)
+    # Lemma 4.1: label embedding equality; Lemma 4.2: o(p_q) ⪯ o(p_z)
+    ok = ((index.emb0[rows] - q_emb0).abs() <= e).all(dim=1)
+    ok &= (q_emb <= index.emb[rows] + e).all(dim=1)
+    for i in range(q_multi.shape[0]):
+        ok &= (q_multi[i] <= index.emb_multi[i][rows] + e).all(dim=1)
+    return rows[ok]
+
+
+def query_index(
+    index: PackedIndex,
+    q_emb: torch.Tensor,
+    q_emb0: torch.Tensor,
+    q_multi: torch.Tensor | None = None,
+    eps: float = 1e-6,
+    return_stats: bool = False,
+    q_label_hash: int | None = None,
+):
+    """Candidate path rows of one query path (Alg. 3 traversal): each level's
+    block mask ANDs down to the leaves, then the leaf scan."""
+    dev = q_emb.device
+    if q_multi is None:
+        q_multi = q_emb.new_zeros((index.emb_multi.shape[0], q_emb.shape[0]))
+    empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+    no_stats = {"scanned_blocks": 0, "scanned_paths": 0}
+    if index.n_paths == 0:
+        return (empty, no_stats) if return_stats else empty
+    survivors = None
+    for li in range(len(index.levels) - 1, -1, -1):
+        level = index.levels[li]
+        nb = level["mbr"].shape[0]
+        if survivors is None:
+            cand = torch.arange(nb, device=dev)
+        else:
+            fo = index.fanout
+            cand = (survivors[:, None] * fo + torch.arange(fo, device=dev)[None, :]).reshape(-1)
+            cand = cand[cand < nb]
+        if cand.numel() == 0:
+            return (empty, no_stats) if return_stats else empty
+        sub = {
+            "mbr": level["mbr"][cand],
+            "mbr0": level["mbr0"][cand],
+            "mbr_multi": level["mbr_multi"][:, cand],
+        }
+        survivors = cand[_block_mask(sub, q_emb, q_emb0, q_multi, eps)]
+    rows = leaf_scan(index, survivors, q_emb, q_emb0, q_multi, eps, q_label_hash)
+    if return_stats:
+        n = int(survivors.numel())
+        return rows, {"scanned_blocks": n, "scanned_paths": n * index.block_size}
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +318,7 @@ def _block_mask_batch(mbr, mbr0, mbr_multi, q_emb, q_emb0, q_multi, eps: float):
 
     Lemma 4.3: o₀(p_q) ∈ MBR₀ (eps-widened); Lemma 4.4: o(p_q) ⪯ MBR_max.
     """
-    e = torch.tensor(eps, dtype=torch.float32, device=mbr.device)
+    e = _eps(eps, mbr.device)
     m = (
         (q_emb0[:, None, :] >= mbr0[None, :, :, 0] - e)
         & (q_emb0[:, None, :] <= mbr0[None, :, :, 1] + e)
@@ -213,8 +372,21 @@ def _descend_batch(index: PackedIndex, q_emb, q_emb0, q_multi, eps: float):
     return cand, alive
 
 
-def _pack_leaf_pairs(index: PackedIndex, cand, alive):
-    """(query, block) survivors → packed (rows, q_ids) leaf pairs, qi-major."""
+def _prefilter_pairs(index: PackedIndex, rows, q_ids, q_emb, q_multi, q_label_hash):
+    """The conservative int8 + label-hash prefilter on (query, row) pairs."""
+    if index.emb_q is None or rows.numel() == 0:
+        return rows, q_ids
+    qq = quantize_query(torch.cat([q_emb, *q_multi], dim=1))
+    pre = (qq[q_ids] <= index.emb_q[rows]).all(dim=1)
+    if index.label_hash is not None and q_label_hash is not None:
+        pre &= index.label_hash[rows] == q_label_hash[q_ids]
+    return rows[pre], q_ids[pre]
+
+
+def _pack_leaf_pairs(index: PackedIndex, cand, alive, q_emb, q_multi, q_label_hash):
+    """(query, block) survivors → packed (rows, q_ids) leaf pairs, qi-major,
+    through the sidecar's prefilter where the index has one.  The pair
+    counter counts the pairs before the prefilter."""
     bs = index.block_size
     qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)  # row-major = qi-major
     row_mat = cand[ci_pair][:, None] * bs + torch.arange(bs, device=cand.device)[None, :]
@@ -222,7 +394,7 @@ def _pack_leaf_pairs(index: PackedIndex, cand, alive):
     rows = row_mat[valid]
     q_ids = qi_pair[:, None].expand(-1, bs)[valid]
     _LEAF_PAIRS.inc(int(rows.numel()))
-    return rows, q_ids
+    return _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
 
 
 def _gather_pair_operands(index: PackedIndex, rows, q_ids, q_emb, q_emb0, q_multi):
@@ -252,9 +424,10 @@ def query_index_batch_multi(
 ):
     """Batched traversal over SEVERAL indexes (partitions) at once.
 
-    ``items``: list of ``(index, q_emb, q_emb0, q_multi)``, one entry per
-    partition, each with its own (Q_i, D) query batch (``q_multi`` is
-    (n, Q_i, D) or None).  The per-partition descents run
+    ``items``: list of ``(index, q_emb, q_emb0, q_multi, q_label_hash)``,
+    one entry per partition, each with its own (Q_i, D) query batch
+    (``q_multi`` is (n, Q_i, D) or None; ``q_label_hash`` (Q_i,) int64 or
+    None, read where the index has label hashes).  The per-partition descents run
     level-synchronously; the packed leaf pairs of ALL partitions
     concatenate into ONE fused verdict call.  Returns a list (per item)
     of lists (per query) of row tensors; with ``return_stats``, also
@@ -265,7 +438,7 @@ def query_index_batch_multi(
             "the grouped probe comes with the GNN-PGE slice (ROADMAP queue 1 item 9)"
         )
     packs = []
-    for index, q_emb, q_emb0, q_multi in items:
+    for index, q_emb, q_emb0, q_multi, q_label_hash in items:
         Q = q_emb.shape[0]
         if q_multi is None:
             q_multi = q_emb.new_zeros((index.emb_multi.shape[0], Q, q_emb.shape[1]))
@@ -273,7 +446,7 @@ def query_index_batch_multi(
             packs.append({"Q": Q, "empty": True, "device": q_emb.device})
             continue
         cand, alive = _descend_batch(index, q_emb, q_emb0, q_multi, eps)
-        rows, q_ids = _pack_leaf_pairs(index, cand, alive)
+        rows, q_ids = _pack_leaf_pairs(index, cand, alive, q_emb, q_multi, q_label_hash)
         packs.append(
             {
                 "Q": Q, "empty": False, "alive": alive, "rows": rows, "q_ids": q_ids,

@@ -1,0 +1,285 @@
+"""Stacked-tensor partition index: every partition's packed forest in dense
+(slots, …) tensors on one device, for the stacked probe (``dist/probe.py``).
+
+The loop probe walks one ``PackedIndex`` per partition in Python.  All
+partitions share the block layout of ``build_index`` (``block_size``,
+``fanout``, feature widths) and differ only in path count, and hence in
+blocks per level and level count, so they stack by padding:
+
+  * levels align at the LEAF end; a partition with fewer levels gets extra
+    top levels rolled up with build_index's fanout (an ancestor rejects
+    only queries its children reject, so the dense descent keeps the
+    loop's masks);
+  * per level, blocks pad to the widest partition with reject sentinels
+    (dominance hi = −inf, label lo/hi = +inf/−inf) that no query passes;
+  * only the probed bounds are kept: the dominance upper bounds of
+    (main ⊕ multi-GNN) in one (S, B, Dcat) tensor per level (Lemma 4.4 is
+    one-sided) and the MBR₀ lo/hi pair (Lemma 4.3);
+  * the leaf payload (exact embeddings, the int8 and label-hash sidecar)
+    pads to the widest partition's path count;
+  * slots follow ``plan_shards``' largest-first order (one shard: one card),
+    so slot ``s`` is not partition ``s``: ``slot_of[i]`` maps engine
+    partition ``i`` to its slot.
+
+Padding is the price of density; ``padding_stats()`` reports it and the
+engine records it in ``offline_stats`` (``stacked_*`` keys).  The grouped
+index's sidecar (ROADMAP queue 1 item 9) and re-stacking one slot after a
+compaction (item 12) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .index import PackedIndex, _eps, _nbytes
+
+__all__ = ["StackedIndex", "build_stacked", "plan_shards", "stacked_masks_ref"]
+
+_GROUPED = "the grouped index is not ported yet: ROADMAP queue 1 item 9 (GNN-PGE grouped index)"
+
+
+def _reject_level(nb: int, d_cat: int, d0: int, device) -> tuple:
+    """Level tensors no query can survive (pads blocks and filler slots)."""
+    return (
+        torch.full((nb, d_cat), -torch.inf, device=device),  # dominance hi
+        torch.full((nb, d0), torch.inf, device=device),  # label lo
+        torch.full((nb, d0), -torch.inf, device=device),  # label hi
+    )
+
+
+def _level_bounds(level: dict) -> tuple:
+    """One level of ``build_index`` → the probed bounds (hi_cat, lo0, hi0)."""
+    his = [level["mbr"][:, :, 1]] + [m[:, :, 1] for m in level["mbr_multi"]]
+    return (
+        torch.cat(his, dim=1).contiguous(),
+        level["mbr0"][:, :, 0].contiguous(),
+        level["mbr0"][:, :, 1].contiguous(),
+    )
+
+
+def _roll_up(hi, lo0, hi0, fanout: int) -> tuple:
+    """A parent level: max/min over ``fanout`` children, as ``build_index``
+    rolls up, on the probed bounds only."""
+    nb = hi.shape[0]
+    n_sup = -(-nb // fanout)
+    pad = n_sup * fanout - nb
+
+    def agg(x, fill, red):
+        x = torch.cat([x, x.new_full((pad, x.shape[1]), fill)])
+        return red(x.reshape(n_sup, fanout, -1), dim=1)
+
+    return agg(hi, -torch.inf, torch.amax), agg(lo0, torch.inf, torch.amin), agg(
+        hi0, -torch.inf, torch.amax
+    )
+
+
+def plan_shards(sizes, n_shards: int) -> list[list[int]]:
+    """Greedy size-balanced partition → shard assignment: largest first onto
+    the least-loaded shard.  Returns per-shard partition-id lists."""
+    sizes = np.asarray(sizes, np.int64)
+    order = np.argsort(sizes, kind="stable")[::-1]
+    loads = np.zeros(n_shards, np.int64)
+    shards: list[list[int]] = [[] for _ in range(n_shards)]
+    for pid in order:
+        s = int(np.argmin(loads))
+        shards[s].append(int(pid))
+        loads[s] += int(sizes[pid])
+    return shards
+
+
+@dataclasses.dataclass
+class StackedIndex:
+    """All partitions' packed forests as dense (S, …) tensors on one device.
+
+    ``S = n_slots``: partitions sit in size-ordered slots, a partition
+    without paths in a filler slot (all-reject bounds); ``slot_of[i]``
+    (host) maps engine partition ``i`` to its slot.
+    """
+
+    n_parts: int
+    n_slots: int
+    slot_of: np.ndarray  # (n_parts,) int64, host
+    n_paths: torch.Tensor  # (S,) int64, 0 on filler slots
+    block_size: int
+    fanout: int
+    n_gnn: int
+    # levels stored top → leaf; each entry (S, B_li, Dcat) / (S, B_li, D0)
+    level_hi: tuple
+    level_lo0: tuple
+    level_hi0: tuple
+    # leaf payload, padded to (S, P_max, …)
+    emb_cat: torch.Tensor  # (S, P_max, Dcat) float32
+    emb0: torch.Tensor  # (S, P_max, D0) float32
+    emb_q: torch.Tensor | None  # (S, P_max, Dcat) int8
+    label_hash: torch.Tensor | None  # (S, P_max) int64
+    real_bytes: int  # Σ source-index bytes these tensors cover
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.level_hi)
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb_cat.device
+
+    def nbytes(self) -> int:
+        total = _nbytes(self.emb_cat) + _nbytes(self.emb0) + _nbytes(self.n_paths)
+        for hi, lo0, hi0 in zip(self.level_hi, self.level_lo0, self.level_hi0):
+            total += _nbytes(hi) + _nbytes(lo0) + _nbytes(hi0)
+        return int(total + _nbytes(self.emb_q) + _nbytes(self.label_hash))
+
+    def padding_stats(self) -> dict:
+        """Stacking overhead: dense bytes against the ragged bytes they cover."""
+        total = self.nbytes()
+        pad = max(total - self.real_bytes, 0)
+        return {
+            "stacked_bytes": total,
+            "stacked_real_bytes": int(self.real_bytes),
+            "stacked_padding_bytes": int(pad),
+            "stacked_padding_frac": pad / max(total, 1),
+        }
+
+
+def _slot_levels(index: PackedIndex, n_levels: int, fanout: int) -> list:
+    """One partition's probed level bounds, rolled up to ``n_levels``."""
+    levels = [_level_bounds(lv) for lv in index.levels]  # leaf → top
+    while len(levels) < n_levels:
+        levels.append(_roll_up(*levels[-1], fanout))
+    return levels[::-1]  # top → leaf
+
+
+def _index_real_bytes(ix: PackedIndex) -> int:
+    """Source-index bytes the stacked tensors cover for one partition: the
+    leaf payload, the hi half of mbr/mbr_multi and both ends of mbr0."""
+    rb = _nbytes(ix.emb) + _nbytes(ix.emb0) + _nbytes(ix.emb_multi)
+    for lv in ix.levels:
+        rb += _nbytes(lv["mbr"]) // 2 + _nbytes(lv["mbr_multi"]) // 2 + _nbytes(lv["mbr0"])
+    return int(rb + _nbytes(ix.emb_q) + _nbytes(ix.label_hash))
+
+
+def build_stacked(indexes: list) -> StackedIndex:
+    """Pad-and-stack per-partition ``PackedIndex``es into a ``StackedIndex``
+    on their device, for one card (the JAX package's ``n_shards=1``).
+
+    Every index must come from one engine build (same ``block_size``,
+    ``fanout``, feature widths and sidecar).  Zero-path indexes become
+    filler slots.
+    """
+    if not indexes:
+        raise ValueError("build_stacked needs at least one PackedIndex")
+    n_parts = len(indexes)
+    live = [ix for ix in indexes if ix.n_paths]
+    ref = live[0] if live else indexes[0]
+    dev = ref.emb.device
+    bs, fanout = int(ref.block_size), int(ref.fanout)
+    n_gnn = int(ref.emb_multi.shape[0])
+    d = int(ref.emb.shape[1])
+    d0 = int(ref.emb0.shape[1])
+    d_cat = d * (1 + n_gnn)
+    quantized = ref.emb_q is not None
+    hashed = ref.label_hash is not None
+    for ix in live:
+        if (ix.block_size, ix.fanout, ix.emb_multi.shape[0]) != (bs, fanout, n_gnn):
+            raise ValueError("stacked partitions must share block_size/fanout/n_gnn")
+        if (ix.emb.shape[1], ix.emb0.shape[1]) != (d, d0):
+            raise ValueError("stacked partitions must share embedding widths")
+        if (ix.emb_q is not None) != quantized or (ix.label_hash is not None) != hashed:
+            raise ValueError("stacked partitions must share the quantized sidecar")
+
+    # ---- slot layout: one shard, largest partition first -----------------
+    sizes = np.asarray([ix.n_paths for ix in indexes], np.int64)
+    n_slots = n_parts
+    slot_of = np.zeros(n_parts, np.int64)
+    slot_of[plan_shards(sizes, 1)[0]] = np.arange(n_parts)
+    n_paths = np.zeros(n_slots, np.int64)
+    n_paths[slot_of] = sizes
+    p_max = int(max(n_paths.max(), 1))
+
+    # ---- levels: align at the leaf, roll up tops, pad blocks --------------
+    n_levels = max(max((len(ix.levels) for ix in live), default=1), 1)
+    per_slot = {
+        int(slot_of[i]): _slot_levels(ix, n_levels, fanout)
+        for i, ix in enumerate(indexes)
+        if ix.n_paths
+    }
+    level_hi, level_lo0, level_hi0 = [], [], []
+    for li in range(n_levels):  # top → leaf
+        width = max((lv[li][0].shape[0] for lv in per_slot.values()), default=1)
+        hi, lo0, hi0 = (
+            t.expand(n_slots, -1, -1).clone() for t in _reject_level(width, d_cat, d0, dev)
+        )
+        for s, lv in per_slot.items():
+            h, l0, h0 = lv[li]
+            hi[s, : h.shape[0]] = h
+            lo0[s, : l0.shape[0]] = l0
+            hi0[s, : h0.shape[0]] = h0
+        level_hi.append(hi)
+        level_lo0.append(lo0)
+        level_hi0.append(hi0)
+
+    # ---- leaf payload ------------------------------------------------------
+    emb_cat = torch.zeros((n_slots, p_max, d_cat), device=dev)
+    emb0 = torch.zeros((n_slots, p_max, d0), device=dev)
+    emb_q = label_hash = None
+    if quantized:
+        emb_q = torch.zeros((n_slots, p_max, d_cat), dtype=torch.int8, device=dev)
+    if hashed:
+        label_hash = torch.zeros((n_slots, p_max), dtype=torch.int64, device=dev)
+    real_bytes = 0
+    for i, ix in enumerate(indexes):
+        P = ix.n_paths
+        if P == 0:
+            continue
+        s = int(slot_of[i])
+        emb_cat[s, :P] = torch.cat([ix.emb, *ix.emb_multi], dim=1)
+        emb0[s, :P] = ix.emb0
+        if quantized:
+            emb_q[s, :P] = ix.emb_q
+        if hashed:
+            label_hash[s, :P] = ix.label_hash
+        real_bytes += _index_real_bytes(ix)
+    return StackedIndex(
+        n_parts=n_parts,
+        n_slots=n_slots,
+        slot_of=slot_of,
+        n_paths=torch.as_tensor(n_paths, device=dev),
+        block_size=bs,
+        fanout=fanout,
+        n_gnn=n_gnn,
+        level_hi=tuple(level_hi),
+        level_lo0=tuple(level_lo0),
+        level_hi0=tuple(level_hi0),
+        emb_cat=emb_cat,
+        emb0=emb0,
+        emb_q=emb_q,
+        label_hash=label_hash,
+        real_bytes=real_bytes,
+    )
+
+
+def stacked_masks_ref(
+    stacked: StackedIndex,
+    q_cat: torch.Tensor,  # (S, Q, Dcat)
+    q0: torch.Tensor,  # (S, Q, D0)
+    eps: float = 1e-6,
+    use_groups: bool = False,
+):
+    """The plain dense level descent: every level of every slot for every
+    query at once, no chunking.  Returns ``(alive, None)``: per-slot
+    (Q, B_leaf) leaf-block survival."""
+    if use_groups:
+        raise NotImplementedError(_GROUPED)
+    e = _eps(eps, q_cat.device)
+    alive = None
+    for hi, lo0, hi0 in zip(stacked.level_hi, stacked.level_lo0, stacked.level_hi0):
+        m = (
+            (q_cat[:, :, None, :] <= hi[:, None, :, :] + e).all(dim=-1)
+            & (q0[:, :, None, :] <= hi0[:, None, :, :] + e).all(dim=-1)
+            & (q0[:, :, None, :] >= lo0[:, None, :, :] - e).all(dim=-1)
+        )
+        if alive is not None:
+            m &= alive.repeat_interleave(stacked.fanout, dim=2)[:, :, : m.shape[2]]
+        alive = m
+    return alive, None

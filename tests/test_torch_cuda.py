@@ -291,6 +291,68 @@ def test_use_pallas_scan_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_stacked_probe_on_the_card_equals_the_loop(cuda):
+    """The stacked probe on the card, with the int8 sidecar and dr plans:
+    its verdicts went through K1, and its match lists equal the loop
+    probe's and the CPU's, with both joins."""
+    from repro_torch.core import GnnPeConfig, GnnPeEngine
+    from repro_torch.core import index as index_mod
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(400, k=4, p=0.15, n_labels=4, seed=3)
+    cfg = GnnPeConfig(n_partitions=3, encoder="monotone", quantize_index=True, plan_weight="dr",
+                      probe_impl="stacked")
+    qs = [random_connected_query(g, 6, seed=s) for s in range(4)]
+    cpu = GnnPeEngine(cfg, device="cpu").build(g)
+    eng = GnnPeEngine(cfg, device=cuda).build(g)
+    assert eng.offline_stats["stacked_bytes"] == cpu.offline_stats["stacked_bytes"]
+    for join in ("numpy", "device"):
+        seen = []
+        keep_mask = index_mod._pairs_keep_mask
+        index_mod._pairs_keep_mask = lambda *a: seen.append(a) or keep_mask(*a)
+        before = ops.LAUNCHES
+        try:
+            got = eng.match_many(qs, join_impl=join)
+        finally:
+            index_mod._pairs_keep_mask = keep_mask
+        assert ops.LAUNCHES > before and seen
+        for qg, q0g, eg, e0g, eps in seen:
+            assert torch.equal(ops.dominance_scan_pairs(qg, q0g, eg, e0g, eps),
+                               dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps))
+        assert got == eng.match_many(qs, probe_impl="loop", join_impl=join)
+        assert got == cpu.match_many(qs, join_impl=join) and sum(map(len, got)) > 0
+    for q, m in zip(qs[:2], cpu.match_many(qs[:2])):
+        assert eng.match(q, impl="scalar") == m
+
+
+@pytest.mark.cuda
+def test_sidecar_on_the_card_equals_the_cpu(cuda):
+    """emb_q and label_hash made on the card equal the quantizers and the
+    hash of the CPU copies; the query side, hashed on the host, equals the
+    card's hash of the same labels at a length where the hash wraps."""
+    from repro_torch.core import GnnPeConfig, GnnPeEngine
+    from repro_torch.core.index import hash_labels, quantize_data, quantize_query
+    from repro_torch.graphs import newman_watts_strogatz
+
+    g = newman_watts_strogatz(400, k=4, p=0.15, n_labels=4, seed=3)
+    eng = GnnPeEngine(GnnPeConfig(n_partitions=3, encoder="monotone", quantize_index=True),
+                      device=cuda).build(g)
+    for m in eng.models:
+        idx = m.index
+        cat = torch.cat([idx.emb, *idx.emb_multi], dim=1).cpu()
+        assert torch.equal(idx.emb_q.cpu(), quantize_data(cat))
+        labels = torch.as_tensor(g.labels.astype(np.int64))[idx.paths.cpu()]
+        assert torch.equal(idx.label_hash.cpu(), hash_labels(labels))
+    rng = np.random.default_rng(0)
+    lab = torch.as_tensor(rng.integers(0, 1 << 20, (10_000, 7)))
+    assert torch.equal(hash_labels(lab.to(cuda)).cpu(), hash_labels(lab))
+    x = torch.as_tensor(np.concatenate([np.arange(-2, 253) / 250.0, rng.random(10_000)]),
+                        dtype=torch.float32)
+    for fn in (quantize_data, quantize_query):
+        assert torch.equal(fn(x.to(cuda)).cpu(), fn(x))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,K,V,E", [(1, 1, 7, 16), (4099, 1, 1000, 16), (1000, 8, 300, 16),
                                      (777, 3, 50, 6), (2048, 8, 64, 128)])
 def test_star_agg_against_plain_version(cuda, N, K, V, E):

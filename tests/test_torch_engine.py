@@ -105,19 +105,17 @@ def test_own_params_match_vf2(graph, encoder):
 
 
 @pytest.mark.parametrize(
-    "field,value,item",
+    "fields,item",
     [
-        ("index_kind", "grouped", "item 9"),
-        ("probe_impl", "stacked", "item 10"),
-        ("quantize_index", True, "item 5"),
-        ("plan_weight", "dr", "item 6"),
-        ("cache", True, "item 12"),
-        ("online_impl", "scalar", "item 8"),
+        ({"index_kind": "grouped"}, "item 9"),
+        ({"group_size_mode": "auto"}, "item 9"),
+        ({"index_kind": "grouped", "probe_impl": "stacked"}, "item 9"),
+        ({"cache": True}, "item 12"),
     ],
 )
-def test_later_slices_raise(field, value, item):
+def test_later_slices_raise(fields, item):
     with pytest.raises(NotImplementedError, match=item):
-        GnnPeEngine(GnnPeConfig(**{field: value}), device="cpu")
+        GnnPeEngine(GnnPeConfig(**fields), device="cpu")
 
 
 def test_every_reference_config_field_builds_the_port_config():

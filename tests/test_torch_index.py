@@ -88,7 +88,7 @@ def test_batched_probe_rows_equal_reference():
     for s, (ref, port) in enumerate(parts):
         q_emb, q_emb0, q_multi = _queries(ref, 12 + s, seed=s)
         ref_items.append((ref, q_emb, q_emb0, q_multi, None))
-        items.append((port, _t(q_emb), _t(q_emb0), _t(q_multi)))
+        items.append((port, _t(q_emb), _t(q_emb0), _t(q_multi), None))
     want, want_stats = ref_probe(ref_items, use_pallas=False, return_stats=True)
     reset_pair_counters()
     got, got_stats = query_index_batch_multi(items, return_stats=True)
@@ -116,9 +116,9 @@ def test_probe_of_empty_index_and_empty_batch():
     )
     q = torch.rand(4, 6)
     out = query_index_batch_multi(
-        [(empty, q, q, torch.zeros(2, 4, 6)), (port, q[:0], q[:0], torch.zeros(2, 0, 6))]
+        [(empty, q, q, torch.zeros(2, 4, 6), None), (port, q[:0], q[:0], torch.zeros(2, 0, 6), None)]
     )
     assert [len(o) for o in out] == [4, 0]
     assert all(r.numel() == 0 for r in out[0])
     with pytest.raises(NotImplementedError, match="item 9"):
-        query_index_batch_multi([(port, q, q, None)], use_groups=True)
+        query_index_batch_multi([(port, q, q, None, None)], use_groups=True)

@@ -1,6 +1,7 @@
 """The port runs without JAX and without the JAX package: a fresh process
 imports ``repro_torch``, builds and matches on the CPU through both joins,
-runs the dense scan, the DCN-v2 serve and retrieval steps and the
+also with the int8 sidecar, dr plans and the stacked probe, and through the
+scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -24,6 +25,13 @@ eng = GnnPeEngine(GnnPeConfig(encoder="monotone", n_partitions=2), device="cpu")
 qs = [random_connected_query(g, 5, seed=s) for s in range(3)]
 for q, m, d in zip(qs, eng.match_many(qs), eng.match_many(qs, join_impl="device")):
     assert set(m) == set(vf2_match(g, q)) == set(d)
+cfg = GnnPeConfig(encoder="monotone", n_partitions=2, quantize_index=True, plan_weight="dr",
+                  probe_impl="stacked")
+eng_q = GnnPeEngine(cfg, device="cpu").build(g)
+assert eng_q.offline_stats["stacked_bytes"] > 0
+for q, m, d in zip(qs, eng_q.match_many(qs), eng_q.match_many(qs, join_impl="device")):
+    assert set(m) == set(vf2_match(g, q)) == set(d)
+    assert eng_q.match(q, impl="scalar") == m
 import torch
 from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index

@@ -19,11 +19,12 @@ def test_dense_scan_keeps_the_loop_probes_rows(n_partitions, n_multi):
     cfg = GnnPeConfig(n_partitions=n_partitions, encoder="monotone", n_multi=n_multi)
     eng = GnnPeEngine(cfg, device="cpu").build(g)
     queries = [random_connected_query(g, 5, seed=42 + s) for s in range(3)]
-    cat, spans = eng._query_node_embeddings_many(queries)
+    q_embs = eng._query_node_embeddings_many(queries)
+    cat, spans, _ = q_embs
     plans = [eng._deg_plan_cached(q) for q in queries]
     requests = list(dict.fromkeys((qi, p) for qi, pl in enumerate(plans) for p in pl.paths))
     memo: dict = {}
-    eng._probe_batch(requests, (cat, spans), memo)
+    eng._probe_batch(requests, q_embs, memo)
     kept = 0
     for mi, model in enumerate(eng.models):
         idx = model.index
