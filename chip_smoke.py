@@ -8,7 +8,9 @@ Phases, each printing its seconds:
   1. build every CUDA kernel of the port from ``src/`` (one ``nvcc`` per
      source, all at once) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card,
-     bit for bit: K1 on seeded pairs, K2 on seeded join rows (T = 3, 4,
+     bit for bit: K1 on seeded pairs and its groups form on seeded group
+     bounds (ties exactly at each eps edge and one ulp either side), K2 on
+     seeded join rows (T = 3, 4,
      5, 4,097 and 524,293; W = 2 to 64; one contiguous table, bases off
      16 bytes, separate tensors, a wider parent table, rows of all
      sentinels), K3-single and K3-batch on seeded dense scans (ties at
@@ -28,10 +30,14 @@ Phases, each printing its seconds:
      indexed rows.  Then on the same engine the scalar match
      (``match(q, impl="scalar")``, equal to ``match_many``'s lists) and
      the stacked probe (``probe_impl="stacked"``): its lists equal the loop
-     probe's with the host join and the device join's with it, K1 must
-     launch, its verdicts equal the plain version's and their T the loop
-     probe's; warm runs interleaved with the loop probe and one profiled
-     warm call of each;
+     probe's with the host join, K1 must launch, its verdicts equal the
+     plain version's and their T the loop probe's; with the device join it
+     hands its device-resident candidates to the join (``probe_device``):
+     no host expansion, K2 launching on the contiguous layout and equal to
+     its plain version, the candidates equal to the loop probe's rows in
+     slot order and the lists to the device join over them; warm runs
+     interleaved with the loop probe (host join and device join) and one
+     profiled warm call of each;
   3q. the same graph and queries with ``quantize_index=True,
      plan_weight="dr"``: partition 0's int8 sidecar and label hashes, made
      on the card, equal the CPU's; the cold batch (every candidate plan
@@ -40,6 +46,14 @@ Phases, each printing its seconds:
      queries, every list equal to phase 3's match set, K1 launching on
      each and equal to its plain version; leaf pairs before the prefilter
      against K1's T after it;
+  3g. the same graph and queries with ``index_kind="grouped",
+     group_size=16`` (``benchmarks/bench_grouped.py --full``): K1 at the
+     group level (its groups form) and the member level, both equal to
+     their plain versions on the real operands, the groups form timed
+     there; group and leaf pairs against phase 3's; both probes with both
+     joins, every list equal to phase 3's set; warm runs interleaved with
+     the path kind; an auto-size engine (sizes equal to the CPU's
+     ``choose_group_size``) and the grouped dr cost model, cold and warm;
   4. the GAT encoder, trained on the card, on a 2,000-vertex graph;
   5. the join-heavy batch: 8 relabeled-isomorphic 8-vertex queries on a
      12K-vertex, 3-label NWS graph (the configuration of
@@ -47,7 +61,10 @@ Phases, each printing its seconds:
      join and VF2; K2's verdicts on the real join steps equal the plain
      version's, every launch took the contiguous layout, and K2 is timed
      at the largest step with L2 flushed by a write, by a read and with
-     the operands just rewritten, and under ``torch.profiler``;
+     the operands just rewritten, and under ``torch.profiler``; then the
+     stacked probe's hand-off to the device join, whose lists equal VF2's,
+     K2 equal to its plain version on its steps, timed beside the loop
+     probe's device join;
   6. DCN-v2 serving at the published width (26 tables of 1M x 16, cross
      width 429, MLP 1024-1024-512), params from a seeded CUDA generator,
      through ``repro_torch.configs``: K4 (embedding bag) and K5 (cross
@@ -318,7 +335,7 @@ def fmt(ms: list, digits: int = 3) -> str:
     return ", ".join(f"{m:.{digits}f}" for m in ms)
 
 
-def device_join_breakdown(eng, queries, dev, what: str) -> None:
+def device_join_breakdown(eng, queries, dev, what: str, **kw) -> None:
     """Where a warm device-join ``match_many`` spends its time: the join
     steps and the refine on the host clock (both end in a read-back), the
     number of fused join steps, and device-busy time under the profiler."""
@@ -351,7 +368,7 @@ def device_join_breakdown(eng, queries, dev, what: str) -> None:
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
             t_p = time.perf_counter()
-            _, st = eng.match_many(queries, join_impl="device", return_stats=True)
+            _, st = eng.match_many(queries, join_impl="device", return_stats=True, **kw)
             sync(dev)
             wall = (time.perf_counter() - t_p) * 1e3
     finally:
@@ -359,13 +376,15 @@ def device_join_breakdown(eng, queries, dev, what: str) -> None:
         mt._joinstep_body = step_fn
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    dtoh = sum(e.count for e in kernels if "DtoH" in e.key)
     join_s = sum(s.join_time for s in st)
     log(f"{what}, profiled warm device-join match_many: {wall:.3f} ms wall; filter "
         f"{sum(s.filter_time for s in st) * 1e3:.3f} ms, join + refine {join_s * 1e3:.3f} ms, "
         f"of which join steps {spent['join'] * 1e3:.3f} ms ({spent['steps']} fused steps, one "
         f"read-back each), refine {spent['refine'] * 1e3:.3f} ms and the rest (grouping, "
         f"match tuples on the host) {(join_s - spent['join'] - spent['refine']) * 1e3:.3f} ms; "
-        f"device busy {busy:.3f} ms in {sum(e.count for e in kernels)} kernel launches")
+        f"device busy {busy:.3f} ms in {sum(e.count for e in kernels)} kernel launches, {dtoh} "
+        "device-to-host copies")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
 
@@ -572,8 +591,10 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
         dominance_scan_batch_ref,
+        dominance_scan_groups_ref,
         dominance_scan_pairs_ref,
         dominance_scan_ref,
+        make_groups,
         make_pairs,
         make_scan,
     )
@@ -594,6 +615,17 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
         got = ds.dominance_scan_pairs(*args)
         errs["K1"] = max(errs["K1"], err(got, dominance_scan_pairs_ref(*args), f"K1 at T={T}"))
         log(f"K1 T={T}: bit-equal to the plain version, kept {int(got.sum())}")
+    # K1's groups form: one K1 launch over (qg, q0g, -q0g) against (hi, hi0, -lo0), ties
+    # exactly at hi + eps, hi0 + eps and lo0 - eps and one ulp either side of each
+    for T in (1, 1000, big):
+        args = [torch.from_numpy(a).to(dev) for a in make_groups(T, seed=T)]
+        before = ds.LAUNCHES
+        got = ds.dominance_scan_groups(*args)
+        require(ds.LAUNCHES == before + 1, "K1's groups form did not launch K1 once")
+        errs["K1"] = max(errs["K1"], err(got, dominance_scan_groups_ref(*args),
+                                         f"K1's groups form at T={T}"))
+        log(f"K1 groups form T={T} (D=18, D0=6: one K1 launch at widths 30, 1): bit-equal to "
+            f"the direct three compares, kept {int(got.sum())}")
     for T in (1, 1000, big):
         for Co, Cn in ((7, 1), (5, 2), (0, 3), (3, 2), (56, 8)):
             old, new = (torch.from_numpy(a).to(dev) for a in make_join_rows(T, Co, Cn, seed=T + Co))
@@ -881,16 +913,29 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     out["K1_stacked"] = counters()["K1"]
     require(out["K1_stacked"] > 0, "the stacked probe never launched the K1 kernel")
     require(st_matches == matches, "the stacked probe's lists differ from the loop probe's")
+    # the stacked probe with the device join: the hand-off (probe_device)
+    probe = eng.stacked_probe()
+    expansions = probe.host_expansions
     reset_counters()
     st_dev = eng.match_many(queries, probe_impl="stacked", join_impl="device")
-    out["K2_stacked"] = counters()["K2"]
+    out["K2_stacked"], out["K1_handoff"] = counters()["K2"], counters()["K1"]
     require(out["K2_stacked"] > 0, "stacked probe + device join never launched the K2 kernel")
+    require(out["K1_handoff"] > 0, "the hand-off never launched the K1 kernel")
     require(mj.CONTIGUOUS_LAUNCHES == out["K2_stacked"],
             "a K2 launch of the stacked probe's device join missed the contiguous layout")
-    require(st_dev == dev_matches, "stacked probe + device join differs from the device join")
+    require(probe.host_expansions == expansions,
+            "the stacked probe's device join split rows on the host instead of the hand-off")
+    for qi, (a, b) in enumerate(zip(st_dev, dev_matches)):
+        require(sort_matches(a) == sort_matches(b),
+                f"stacked probe + device join differs from the device join's set, query {qi}")
+    n_handoff = handoff_check(eng, queries, st_dev)
     st_steps = k2_steps(eng, queries, probe_impl="stacked")
-    log(f"stacked probe + device join: K2 launches {out['K2_stacked']}, all on the contiguous "
-        f"layout; K2 on its {len(st_steps)} real join steps equal to the plain version")
+    require(probe.host_expansions == expansions, "a hand-off split rows on the host")
+    log(f"stacked probe + device join (the hand-off): K1 launches {out['K1_handoff']}, K2 "
+        f"launches {out['K2_stacked']}, all on the contiguous layout; K2 on its {len(st_steps)} "
+        f"real join steps equal to the plain version; host expansions unchanged "
+        f"({probe.host_expansions}); the device candidates of {n_handoff} probes equal the loop "
+        "probe's rows in slot order, and the lists equal the device join over those")
     seen = recorded_verdicts(lambda: eng.match_many(queries, probe_impl="stacked"))
     T_st = sum(a[0].shape[0] for a, _ in seen)
     for args, keep_ in seen:
@@ -906,13 +951,60 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         f"launches {out['K1_stacked']} (cold match_many), {len(seen)} verdicts of T = {T_st} "
         f"in all, equal to the plain version; cold {st_cold:.3f} ms; warm, interleaved: stacked "
         f"{fmt(st_warm)} ms, loop {fmt(loop_warm)} ms")
+    ho_warm, loop_dev_warm = [], []
+    expansions = probe.host_expansions
+    for _ in range(3):
+        ho_warm += warm_ms(
+            lambda: eng.match_many(queries, probe_impl="stacked", join_impl="device"), dev, 1)
+        loop_dev_warm += warm_ms(lambda: eng.match_many(queries, join_impl="device"), dev, 1)
+    require(probe.host_expansions == expansions, "a warm hand-off split rows on the host")
+    log(f"device join, warm, interleaved: stacked probe's hand-off {fmt(ho_warm)} ms, loop "
+        f"probe {fmt(loop_dev_warm)} ms")
     # where a warm batch's time goes, for each probe: host-clock stages and device-busy time
     for impl in ("loop", "stacked"):
         profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl=impl), dev,
                        f"50K cell, host join, {impl} probe")
+    device_join_breakdown(eng, queries, dev, "50K cell, stacked probe's hand-off",
+                          probe_impl="stacked")
     out["ctx"] = {"g": g, "queries": queries, "cfg": cfg, "matches": matches,
-                  "index_bytes": os_["index_bytes"]}
+                  "index_bytes": os_["index_bytes"], "leaf_pairs": leaf_pairs}
     return out
+
+
+def handoff_check(eng, queries, lists) -> int:
+    """The hand-off's candidates are the loop probe's rows, partition by
+    partition in slot order, and ``lists`` (the hand-off's device-join
+    lists) equal the device join over those candidates → probes checked."""
+    import torch
+
+    from repro_torch.core.matcher import match_from_candidates_many
+
+    q_embs = eng._query_node_embeddings_many(queries)
+    plans = [eng._deg_plan_cached(q) for q in queries]
+    reqs = list(dict.fromkeys((qi, p) for qi, pl in enumerate(plans) for p in pl.paths))
+    loop, memo, dev_memo, dev_counts = {}, {}, {}, {}
+    eng._probe_batch(reqs, q_embs, loop, queries, "loop")
+    eng._probe_batch(reqs, q_embs, memo, queries, "stacked", dev_memo=dev_memo,
+                     dev_counts=dev_counts)
+    require(not memo and set(dev_memo) == set(reqs), "the hand-off filled the host memo")
+    slots = np.argsort(eng.stacked_probe().stacked.slot_of)
+    want = {}
+    for qi, p in reqs:
+        parts = [eng.models[mi].index.paths[loop[(mi, qi, p)]] for mi in slots
+                 if (mi, qi, p) in loop]
+        want[(qi, p)] = torch.cat(parts).to(torch.int32)
+        require(torch.equal(dev_memo[(qi, p)], want[(qi, p)]),
+                f"the hand-off's candidates of probe {(qi, p)} differ from the loop probe's rows")
+        for mi in range(len(eng.models)):
+            n = loop[(mi, qi, p)].numel() if (mi, qi, p) in loop else 0
+            require(dev_counts[(mi, qi, p)] == n, "the hand-off's partition counts differ")
+    again = match_from_candidates_many(
+        eng.graph, eng.dgraph, queries, [pl.paths for pl in plans],
+        [[want[(qi, p)] for p in pl.paths] for qi, pl in enumerate(plans)],
+        join_impl="device", assume_unique=True,
+    )
+    require(again == lists, "the hand-off's lists differ from the device join over its candidates")
+    return len(reqs)
 
 
 def recorded_verdicts(fn) -> list:
@@ -1052,6 +1144,183 @@ def phase3q_quantized_dr(dev, ctx: dict) -> dict:
     return out
 
 
+# ---- phase 3g ---------------------------------------------------------------
+
+
+def recorded_level_verdicts(fn) -> list:
+    """Every fused verdict of one ``fn()`` call at both probe levels:
+    (level, args, keep), level "groups" (K1's groups form) or "pairs"."""
+    from repro_torch.core import index as index_mod
+
+    seen = []
+    saved = index_mod._groups_keep_mask, index_mod._pairs_keep_mask
+
+    def recording(level, verdict):
+        def run(*a):
+            res = verdict(*a)
+            seen.append((level, a, res))
+            return res
+        return run
+
+    index_mod._groups_keep_mask = recording("groups", saved[0])
+    index_mod._pairs_keep_mask = recording("pairs", saved[1])
+    try:
+        fn()
+    finally:
+        index_mod._groups_keep_mask, index_mod._pairs_keep_mask = saved
+    return seen
+
+
+def k1_groups_bound_ms(T: int, D: int, D0: int) -> tuple[float, str]:
+    """T (query, group) pairs: qg and hi (D), q0g, lo0 and hi0 (D0) read once, a
+    1-byte output; an add and a compare per dominance column, two of each per
+    label column."""
+    return bound_ms(T * 4 * (2 * D + 3 * D0) + T, T * (2 * D + 4 * D0))
+
+
+def cpu_index(ix):
+    """A CPU copy of the fields ``choose_group_size`` reads."""
+    from repro_torch.core.index import PackedIndex
+
+    return PackedIndex(ix.paths.cpu(), ix.emb.cpu(), ix.emb0.cpu(), ix.emb_multi.cpu(), [],
+                       ix.block_size, ix.fanout)
+
+
+def phase3g_grouped(dev, flush, ctx: dict) -> dict:
+    """The 50K cell with ``index_kind="grouped", group_size=16`` (the
+    configuration of ``benchmarks/bench_grouped.py --full``): both probes
+    and both joins against phase 3's match sets, K1 at the group and the
+    member level, leaf and group pairs, the groups form timed on its real
+    operands, an auto-size engine and the grouped dr cost model."""
+    from repro_torch.core import GnnPeEngine, sort_matches
+    from repro_torch.core import index as index_mod
+    from repro_torch.core.grouping import choose_group_size
+    from repro_torch.kernels.dominance_scan import ops as ds
+    from repro_torch.kernels.dominance_scan.ref import (
+        dominance_scan_groups_ref,
+        dominance_scan_pairs_ref,
+    )
+    from repro_torch.kernels.merge_join import ops as mj
+
+    import torch
+
+    out: dict = {"K1": 0, "K2": 0}
+    g, queries = ctx["g"], ctx["queries"]
+    want = [sort_matches(m) for m in ctx["matches"]]
+
+    def build(**fields):
+        t = time.perf_counter()
+        eng = GnnPeEngine(dataclasses.replace(ctx["cfg"], **fields)).build(g)
+        sync(dev)
+        return eng, time.perf_counter() - t
+
+    def pairs() -> dict:
+        return {k: index_mod.PAIR_METRIC.get(kind=k) for k in ("leaf_pairs", "group_pairs")}
+
+    def run(eng, what: str, **kw):
+        """One match_many: its K1 (and K2) launches and pairs, each counted from 0
+        just before it; its lists equal phase 3's sets."""
+        reset_counters()
+        p0 = pairs()
+        t = time.perf_counter()
+        res = eng.match_many(queries, **kw)
+        sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        c, p1 = counters(), pairs()
+        d = {k: int(p1[k] - p0[k]) for k in p0}
+        for qi, m in enumerate(res):
+            require(sort_matches(m) == want[qi], f"{what}: query {qi} differs from phase 3's set")
+        require(c["K1"] > 0, f"{what}: K1 never launched")
+        out["K1"] += c["K1"]
+        note = ""
+        if kw.get("join_impl") == "device":
+            require(c["K2"] > 0 and mj.CONTIGUOUS_LAUNCHES == c["K2"],
+                    f"{what}: K2 never launched, or off the contiguous layout")
+            out["K2"] += c["K2"]
+            note = f"; K2 launches {c['K2']}, all contiguous"
+        log(f"  {what}: {ms:.3f} ms; K1 launches {c['K1']}{note}; group pairs "
+            f"{d['group_pairs']}, leaf pairs {d['leaf_pairs']}")
+        return res, c, d
+
+    eng, build_s = build(index_kind="grouped", group_size=16)
+    os_ = eng.offline_stats
+    require(os_["n_groups"] > 0 and set(os_["group_sizes"]) == {16},
+            "the grouped engine's sidecars are missing or not at size 16")
+    log(f"grouped engine (group_size=16): build {build_s:.3f} s (index "
+        f"{os_['index_time']:.3f}); {os_['n_groups']} groups over {os_['n_paths']} paths "
+        f"({os_['n_paths'] / os_['n_groups']:.2f} a group); group bytes {os_['group_bytes']}; "
+        f"index bytes {os_['index_bytes']} with the sidecar, {ctx['index_bytes']} without")
+    _, c, grouped = run(eng, "cold match_many, grouped, loop probe, host join")
+    require(c["K1"] >= 2, "the grouped loop probe did not launch K1 at both levels")
+    _, _, path = run(eng, "path kind on the grouped engine, loop probe, host join",
+                     index_kind="path")
+    require(grouped["leaf_pairs"] < ctx["leaf_pairs"],
+            f"the grouped probe's leaf pairs {grouped['leaf_pairs']} are not fewer than phase "
+            f"3's path kind's {ctx['leaf_pairs']}")
+    log(f"  leaf pairs: grouped {grouped['leaf_pairs']} (+ {grouped['group_pairs']} group "
+        f"pairs) against the path kind's {path['leaf_pairs']} on this engine and "
+        f"{ctx['leaf_pairs']} in phase 3 ({ctx['leaf_pairs'] / max(grouped['leaf_pairs'], 1):.1f}x)")
+    # the real verdicts of a warm grouped batch, against the plain versions
+    seen = recorded_level_verdicts(lambda: eng.match_many(queries))
+    require([lv for lv, _, _ in seen] == ["groups", "pairs"],
+            f"expected one group and one member verdict, saw {[lv for lv, _, _ in seen]}")
+    for level, a, keep in seen:
+        plain = dominance_scan_groups_ref if level == "groups" else dominance_scan_pairs_ref
+        require(torch.equal(keep, plain(*a)), f"K1 at the {level} level differs from plain")
+    args = seen[0][1]
+    T, D, D0 = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    out["K1g"] = {
+        "T": T, "D": D, "D0": D0, "member_T": seen[1][1][0].shape[0],
+        "ms": time_ms(ds.dominance_scan_groups, args, 50, flush),
+        "plain_ms": time_ms(dominance_scan_groups_ref, args, 20, flush),
+        "bound": k1_groups_bound_ms(T, D, D0),
+    }
+    k = out["K1g"]
+    log(f"  K1 at both levels equal to the plain versions; groups form at T={T} (D={D}, "
+        f"D0={D0}; K1 at widths {D + 2 * D0}, 1): {k['ms']:.6f} ms, bound "
+        f"{k['bound'][0]:.6f} ms ({k['bound'][1]}), plain version {k['plain_ms']:.6f} ms; "
+        f"member level T = {k['member_T']}")
+    probe = eng.stacked_probe()
+    for impl, join in (("loop", "device"), ("stacked", "numpy"), ("stacked", "device")):
+        expansions = probe.host_expansions
+        run(eng, f"grouped, {impl} probe, {'host' if join == 'numpy' else 'device'} join",
+            probe_impl=impl, join_impl=join)
+        if join == "device" and impl == "stacked":
+            require(probe.host_expansions == expansions, "the grouped hand-off split rows")
+    for impl in ("loop", "stacked"):
+        gw, pw = [], []
+        for _ in range(3):
+            gw += warm_ms(lambda: eng.match_many(queries, probe_impl=impl), dev, 1)
+            pw += warm_ms(lambda: eng.match_many(queries, index_kind="path", probe_impl=impl),
+                          dev, 1)
+        log(f"  warm match_many, {impl} probe, host join, interleaved: grouped {fmt(gw)} ms, "
+            f"path {fmt(pw)} ms")
+    profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl="stacked"), dev,
+                   "50K cell grouped, host join, stacked probe")
+    # auto sizes: each partition's pick equals the CPU's on the same index
+    eng_a, build_s = build(index_kind="grouped", group_size_mode="auto")
+    sizes = eng_a.offline_stats["group_sizes"]
+    cpu_sizes = [choose_group_size(cpu_index(m.index)) for m in eng_a.models]
+    require(sizes == cpu_sizes, "the auto group sizes differ from the CPU's choose_group_size")
+    log(f"auto-size engine: build {build_s:.3f} s; sizes 8 / 16 / 32 on "
+        f"{sizes.count(8)} / {sizes.count(16)} / {sizes.count(32)} partitions, equal to the "
+        f"CPU's choose_group_size; {eng_a.offline_stats['n_groups']} groups")
+    run(eng_a, "auto sizes, loop probe, host join")
+    run(eng_a, "auto sizes, stacked probe, device join (the hand-off)", probe_impl="stacked",
+        join_impl="device")
+    # the grouped dr cost model: surviving groups weigh the plan paths
+    eng_d, build_s = build(index_kind="grouped", group_size=16, plan_weight="dr")
+    log(f"grouped dr engine: build {build_s:.3f} s")
+    run(eng_d, "cold dr batch, grouped, loop probe (every candidate plan path probed)")
+    hits = sum(eng_d._dr_plan_peek(q, 16) is not None for q in queries)
+    require(hits == len(queries), f"the grouped dr plans were not cached ({hits})")
+    run(eng_d, f"warm dr batch, grouped, loop probe ({hits} plans from the cache)")
+    eng_d._plan_cache.clear()
+    run(eng_d, "cold dr batch, grouped, stacked probe, device join (dr weights from the "
+        "hand-off's stats)", probe_impl="stacked", join_impl="device")
+    return out
+
+
 # ---- phase 4 ----------------------------------------------------------------
 
 
@@ -1127,6 +1396,30 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     log(f"join-heavy warm match_many: device join {fmt(dev_warm)} ms; host join "
         f"{fmt(host_warm)} ms (interleaved)")
     device_join_breakdown(eng, queries, dev, "join-heavy")
+    # the stacked probe's hand-off to the device join
+    probe = eng.stacked_probe()
+    expansions = probe.host_expansions
+    reset_counters()
+    ho = eng.match_many(queries, probe_impl="stacked", join_impl="device")
+    out["K2_stacked"] = counters()["K2"]
+    require(out["K2_stacked"] > 0 and mj.CONTIGUOUS_LAUNCHES == out["K2_stacked"],
+            "the join-heavy hand-off never launched K2, or off the contiguous layout")
+    require(probe.host_expansions == expansions, "the join-heavy hand-off split rows on the host")
+    for qi, (a, b) in enumerate(zip(ho, dev_matches)):
+        require(sort_matches(a) == sort_matches(b), f"join-heavy hand-off query {qi} differs")
+    check_against_vf2(g, queries, ho, "join-heavy hand-off")
+    steps = k2_steps(eng, queries, probe_impl="stacked")
+    ho_warm, dev_warm = [], []
+    for _ in range(3):
+        ho_warm += warm_ms(
+            lambda: eng.match_many(queries, probe_impl="stacked", join_impl="device"), dev, 1)
+        dev_warm += warm_ms(lambda: eng.match_many(queries, join_impl="device"), dev, 1)
+    log(f"join-heavy, stacked probe's hand-off to the device join: lists = the loop probe's "
+        f"sets = VF2's; K2 launches {out['K2_stacked']}, all contiguous, equal to the plain "
+        f"version on its {len(steps)} real steps; host expansions unchanged; warm, "
+        f"interleaved: hand-off {fmt(ho_warm)} ms, loop probe's device join {fmt(dev_warm)} ms")
+    device_join_breakdown(eng, queries, dev, "join-heavy, stacked probe's hand-off",
+                          probe_impl="stacked")
     return out
 
 
@@ -1972,10 +2265,14 @@ def main() -> int:
     log(f"phase 3 main path, 50K vertices / 80 partitions: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
-    p3q = phase3q_quantized_dr(dev, p3.pop("ctx"))
+    p3q = phase3q_quantized_dr(dev, p3["ctx"])
     log(f"phase 3q the 50K cell with the int8 sidecar and dr plans: {time.perf_counter() - t:.3f} s")
-    log(f"K2 launches: phase 3 device join {p3['K2']}, phase 3 stacked probe + device join "
+    log(f"K2 launches: phase 3 device join {p3['K2']}, phase 3 stacked probe's hand-off "
         f"{p3['K2_stacked']}, phase 3q device joins {p3q['K2']}")
+
+    t = time.perf_counter()
+    p3g = phase3g_grouped(dev, flush, p3["ctx"])
+    log(f"phase 3g the 50K cell with the grouped index: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
     phase4_gat(dev)
@@ -2010,16 +2307,19 @@ def main() -> int:
     scan_cu = f"{SRC}/dominance_scan/csrc/dominance_scan.cu"
     scan_py = "src/repro/kernels/dominance_scan/kernel.py"
     records = [
-        # K1's launches: the loop and stacked probes' cold batches of phase 3 and
-        # phase 3q's batches, each counted from 0 just before it
+        # K1's launches (the pairs form and the groups form): the loop and stacked
+        # probes' cold batches of phase 3 and its hand-off, phase 3q's and phase 3g's
+        # batches, each counted from 0 just before it; its times at phase 3's pairs
+        # (the groups form's are in the log)
         record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
-               p3["K1"] + p3["K1_stacked"] + p3q["K1"],
+               p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
-        # K2's launches: phase 3's device joins (loop, then stacked probe), phase
-        # 3q's device joins and phase 5's batch, each counted from 0 just before it
+        # K2's launches: phase 3's device joins (loop, then the stacked probe's
+        # hand-off), phase 3q's and phase 3g's device joins and phase 5's batches
+        # (loop, then the hand-off), each counted from 0 just before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
-               p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p5["K2"],
+               p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),

@@ -1,7 +1,14 @@
 from .baselines import gql_match, match_count, quicksi_match, vf2_match
 from .encoder import EncoderConfig, GATEncoder, MonotoneEncoder, make_encoder
 from .engine import GnnPeConfig, GnnPeEngine, PartitionModel, QueryStats
-from .index import PackedIndex, build_index, query_index_batch_multi, reset_pair_counters
+from .grouping import attach_groups, group_paths
+from .index import (
+    PackedGroupIndex,
+    PackedIndex,
+    build_index,
+    query_index_batch_multi,
+    reset_pair_counters,
+)
 from .matcher import join_candidates, match_from_candidates, refine, sort_matches
 from .paths import concat_path_embeddings, enumerate_paths
 from .planner import QueryPlan, candidate_plan_paths, canonical_form, plan_query
@@ -22,7 +29,10 @@ __all__ = [
     "train_dominance",
     "dominance_violations",
     "PackedIndex",
+    "PackedGroupIndex",
     "build_index",
+    "attach_groups",
+    "group_paths",
     "query_index_batch_multi",
     "reset_pair_counters",
     "QueryPlan",

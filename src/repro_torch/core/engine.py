@@ -2,7 +2,10 @@
 
 Offline:  partition → per-partition dominance GNNs (main + n multi-GNNs
 over randomized labels) → node/label embeddings → path enumeration →
-packed block indexes, all tensors on the engine's device.
+packed block indexes, all tensors on the engine's device; with
+``index_kind="grouped"`` each index also carries its GNN-PGE group sidecar
+(``core/grouping.py``), at ``group_size`` or, under
+``group_size_mode="auto"``, at a size chosen per partition.
 
 Online (``match_many``): a batch of queries goes through ONE pass per
 stage:
@@ -15,15 +18,18 @@ stage:
      partition after another; ``"stacked"``, one batched descent over the
      partitions' stacked tensors, ``dist/probe.py``), and the leaf pairs of
      all partitions go through ONE fused dominance verdict (the
-     hand-written CUDA kernel on the card, its plain version on the CPU);
-     under ``plan_weight="dr"`` the candidate plan paths of every query
-     without a cached plan are probed first, in the same way, and weight
-     the planner;
+     hand-written CUDA kernel K1 on the card, its plain version on the
+     CPU); a grouped index first decides every (query, group) bound in one
+     fused groups-form verdict of K1 and scans only the surviving groups'
+     members; under ``plan_weight="dr"`` the candidate plan paths of every
+     query without a cached plan are probed first, in the same way, and
+     weight the planner (with surviving groups on a grouped index);
   3. the join + exact refine on the device: per query in the host join's
      order (``join_impl="numpy"``), or the batched device join
      (``join_impl="device"``), one program per join step for each group
      of same-plan queries, its injectivity verdict the hand-written CUDA
-     kernel K2 on the card.
+     kernel K2 on the card.  With the stacked probe the device join takes
+     the probe's device-resident candidate vertices (``probe_device``).
 
 ``match(q, impl="scalar")`` is the per-(partition, path) loop over the
 scalar ``query_index``, plain tensor code, kept as the cross-check:
@@ -43,6 +49,7 @@ import torch
 from ..device import default_device
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
 from .encoder import EncoderConfig, make_encoder
+from .grouping import _best_grouping, attach_groups
 from .index import PackedIndex, build_index, hash_labels, query_index, query_index_batch_multi
 from .matcher import match_from_candidates, match_from_candidates_many
 from .paths import concat_path_embeddings, enumerate_paths
@@ -100,8 +107,6 @@ class GnnPeConfig:
 
 # config values of later slices → the ROADMAP queue-1 item that brings them
 _LATER = {
-    ("index_kind", "grouped"): "item 9 (GNN-PGE grouped index)",
-    ("group_size_mode", "auto"): "item 9 (GNN-PGE grouped index)",
     ("cache", True): "item 12 (result cache)",
 }
 
@@ -113,8 +118,8 @@ def _check_config(cfg: GnnPeConfig) -> None:
                 f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}"
             )
     allowed = {
-        "index_kind": ("path",), "probe_impl": ("loop", "stacked"),
-        "join_impl": ("numpy", "device"), "group_size_mode": ("fixed",),
+        "index_kind": ("path", "grouped"), "probe_impl": ("loop", "stacked"),
+        "join_impl": ("numpy", "device"), "group_size_mode": ("fixed", "auto"),
         "plan_weight": ("deg", "dr"), "online_impl": ("batched", "scalar"),
     }
     for name, ok in allowed.items():
@@ -288,6 +293,8 @@ class GnnPeEngine:
                 quantize=cfg.quantize_index,
                 path_labels=dg.labels[paths] if cfg.quantize_index else None,
             )
+            if cfg.index_kind == "grouped":
+                self._attach_partition_groups(index)
             index_time += time.perf_counter() - t3
             self.models.append(
                 PartitionModel(
@@ -316,6 +323,13 @@ class GnnPeEngine:
             "index_time": index_time,
             "n_paths": int(sum(m.index.n_paths for m in self.models)),
             "index_bytes": int(sum(m.index.nbytes() for m in self.models)),
+            "n_groups": int(sum(m.index.groups.n_groups for m in self.models if m.index.groups)),
+            "group_sizes": [
+                int(m.index.groups.group_size) for m in self.models if m.index.groups
+            ],
+            "group_bytes": int(
+                sum(m.index.groups.nbytes() for m in self.models if m.index.groups)
+            ),
             "edge_cut": int(self.partitioning.edge_cut(g)),
         }
         self._emb_fingerprint = self._content_fingerprint()
@@ -324,6 +338,15 @@ class GnnPeEngine:
         if cfg.probe_impl == "stacked" and self.models:
             self.stacked_probe()  # stack offline and report its bytes
         return self
+
+    def _attach_partition_groups(self, index: PackedIndex) -> None:
+        """The group sidecar: at the size ``choose_group_size`` picks for
+        this partition under ``group_size_mode="auto"`` (its winning trial
+        grouping reused), else at ``cfg.group_size``."""
+        if self.cfg.group_size_mode == "auto":
+            index.groups = _best_grouping(index)[1]
+        else:
+            attach_groups(index, self.cfg.group_size)
 
     def stacked_probe(self):
         """The stacked probe over every partition's index, built at the
@@ -399,20 +422,23 @@ class GnnPeEngine:
             strategy=plan.strategy,
         )
 
-    def _dr_plan_key(self, q: Graph):
-        """Cache key of a ``weight="dr"`` plan: the canonical signature and
-        the index fingerprint.  dr weights are index probe counts, which
-        the canonical relabeling keeps and a new index does not."""
+    def _dr_plan_key(self, q: Graph, group_size: int = 1):
+        """Cache key of a ``weight="dr"`` plan: the canonical signature, the
+        index fingerprint and the group size of the weights (1: candidate
+        rows; a grouped probe's: surviving groups).  dr weights are index
+        probe counts, which the canonical relabeling keeps and a new index
+        does not."""
         cfg = self.cfg
         perm, key = canonical_form(q)
         return perm, (
-            key, cfg.path_length, cfg.plan_strategy, cfg.seed, "dr", self._emb_fingerprint
+            key, cfg.path_length, cfg.plan_strategy, cfg.seed, "dr", self._emb_fingerprint,
+            group_size,
         )
 
-    def _dr_plan_peek(self, q: Graph) -> QueryPlan | None:
+    def _dr_plan_peek(self, q: Graph, group_size: int = 1) -> QueryPlan | None:
         """The cached dr plan of ``q`` for the current index, or None.  A hit
         lets ``match_many`` skip the candidate-path probes."""
-        perm, full_key = self._dr_plan_key(q)
+        perm, full_key = self._dr_plan_key(q, group_size)
         return self._plan_cache_get(q, full_key, perm)
 
     def _deg_plan_cached(self, q: Graph) -> QueryPlan:
@@ -430,20 +456,21 @@ class GnnPeEngine:
         self._plan_cache_put(q, full_key, perm, plan)
         return plan
 
-    def _plan_cached(self, q: Graph, weight_fn=None) -> QueryPlan:
+    def _plan_cached(self, q: Graph, weight_fn=None, group_size: int = 1) -> QueryPlan:
         """``plan_query`` under the canonical-signature cache: ``deg`` plans
         by signature; ``dr`` plans, whose ``weight_fn`` counts a path's
-        candidate rows, by signature and index fingerprint."""
+        candidate rows (surviving groups of ``group_size`` on a grouped
+        probe), by signature, index fingerprint and group size."""
         if weight_fn is None:
             return self._deg_plan_cached(q)
         cfg = self.cfg
-        perm, full_key = self._dr_plan_key(q)
+        perm, full_key = self._dr_plan_key(q, group_size)
         hit = self._plan_cache_get(q, full_key, perm)
         if hit is not None:
             return hit
         plan = plan_query(
             q, cfg.path_length, strategy=cfg.plan_strategy, weight="dr",
-            weight_fn=weight_fn, seed=cfg.seed,
+            weight_fn=weight_fn, seed=cfg.seed, group_size=group_size,
         )
         self._plan_cache_put(q, full_key, perm, plan)
         return plan
@@ -620,7 +647,9 @@ class GnnPeEngine:
 
     def _probe_batch(
         self, requests: list, q_embs, memo: dict, queries: list | None = None,
-        probe_impl: str | None = None,
+        probe_impl: str | None = None, *, use_groups: bool = False,
+        stats_memo: dict | None = None, dev_memo: dict | None = None,
+        dev_counts: dict | None = None,
     ) -> None:
         """One fused index probe for many (query, path) pairs × partitions.
 
@@ -631,6 +660,14 @@ class GnnPeEngine:
         (``stacked_probe().probe``) fill the same entries.  A quantized
         index needs ``queries``: each probe path's label sequence is hashed
         on the host.
+
+        ``use_groups`` takes the GNN-PGE two-level probe; ``stats_memo``,
+        where given, receives each entry's traversal stats (the grouped dr
+        weights read ``surviving_groups`` there).  With ``dev_memo`` the
+        stacked probe hands off to the device join instead (``probe_device``):
+        ``dev_memo[(qi, path)]`` is the probe's device tensor of candidate
+        path vertices across all partitions, ``dev_counts[(mi, qi, path)]``
+        its rows in partition ``mi``, and ``memo`` stays empty.
         """
         cfg = self.cfg
         dev = self.device
@@ -665,15 +702,26 @@ class GnnPeEngine:
             q_multi = None
             if cfg.n_multi:
                 q_multi = om_all[:, :, gidx].reshape(cfg.n_multi, m, B, -1)
-            results = self.stacked_probe().probe(
-                o_all[:, gidx].reshape(m, B, -1), o0_all[:, gidx].reshape(m, B, -1), q_multi,
-                q_label_hash=qh,
-            )
+            args = (o_all[:, gidx].reshape(m, B, -1), o0_all[:, gidx].reshape(m, B, -1), q_multi)
+            kw = dict(q_label_hash=qh, use_groups=use_groups, return_stats=stats_memo is not None)
+            probe = self.stacked_probe()
+            out = (probe.probe if dev_memo is None else probe.probe_device)(*args, **kw)
+            stats = out[-1] if stats_memo is not None else None
+            if dev_memo is not None:
+                per_probe, part_counts = out[:2]
+                for b, (qi, p) in enumerate(sel):
+                    dev_memo[(qi, p)] = per_probe[b]
+                    for mi in range(m):
+                        dev_counts[(mi, qi, p)] = int(part_counts[mi, b])
+            results = out[0] if stats is not None else out
             for mi, model in enumerate(self.models):
                 if model.index.n_paths == 0:
                     continue  # as the loop probe, which skips them
                 for b, (qi, p) in enumerate(sel):
-                    memo[(mi, qi, p)] = results[mi][b]
+                    if dev_memo is None:
+                        memo[(mi, qi, p)] = results[mi][b]
+                    if stats is not None:
+                        stats_memo[(mi, qi, p)] = stats[mi][b]
             return
         items = []
         sels = []
@@ -696,15 +744,21 @@ class GnnPeEngine:
             sels.append((mi, sel))
         if not items:
             return
-        results = query_index_batch_multi(items)
-        for (mi, sel), rows_list in zip(sels, results):
+        out = query_index_batch_multi(
+            items, use_groups=use_groups, return_stats=stats_memo is not None
+        )
+        results, stats = out if stats_memo is not None else (out, None)
+        for k, ((mi, sel), rows_list) in enumerate(zip(sels, results)):
             for b, (qi, p) in enumerate(sel):
                 memo[(mi, qi, p)] = rows_list[b]
+                if stats_memo is not None:
+                    stats_memo[(mi, qi, p)] = stats[k][b]
 
     def match_many(
         self,
         queries: list,
         return_stats: bool = False,
+        index_kind: str | None = None,
         probe_impl: str | None = None,
         join_impl: str | None = None,
     ):
@@ -712,11 +766,18 @@ class GnnPeEngine:
 
         Returns one match list per query, each a list of tuples
         ``(f(0), …, f(|V(q)|−1))`` in the JAX engine's order for the same
-        ``join_impl`` (which overrides ``cfg.join_impl``).  ``probe_impl``
-        overrides ``cfg.probe_impl`` ("loop" | "stacked"); the match lists
-        are identical for both.
+        probe and join.  ``index_kind`` overrides ``cfg.index_kind`` for the
+        probe ("path" | "grouped": a grouped engine keeps its per-path
+        arrays, so both kinds run), ``probe_impl`` ``cfg.probe_impl``
+        ("loop" | "stacked") and ``join_impl`` ``cfg.join_impl`` ("numpy" |
+        "device").  The match sets are the same for every choice.  The
+        device join's list order follows its candidates' order, which the
+        stacked probe's hand-off makes slot order, as in the JAX package.
         """
         assert self.graph is not None, "call build() first"
+        kind = index_kind or self.cfg.index_kind
+        if kind not in ("path", "grouped"):
+            raise ValueError(f"unknown index_kind {kind!r}; use 'path' or 'grouped'")
         impl = probe_impl or self.cfg.probe_impl
         if impl not in ("loop", "stacked"):
             raise ValueError(f"unknown probe_impl {impl!r}; use 'loop' or 'stacked'")
@@ -725,50 +786,62 @@ class GnnPeEngine:
             raise ValueError(f"unknown join_impl {jimpl!r}; use 'numpy' or 'device'")
         if not queries:
             return ([], []) if return_stats else []
-        results, stats = self._match_many_core(queries, impl, jimpl)
+        results, stats = self._match_many_core(queries, kind, impl, jimpl)
         return (results, stats) if return_stats else results
 
-    def _match_many_core(self, queries: list, probe_impl: str, join_impl: str):
+    def _match_many_core(self, queries: list, kind: str, probe_impl: str, join_impl: str):
         cfg = self.cfg
+        use_groups = kind == "grouped"
         nq = len(queries)
         n_models = len(self.models)
         stats = [QueryStats() for _ in range(nq)]
         t0 = time.perf_counter()
         q_embs = self._query_node_embeddings_many(queries)
         memo: dict = {}
+        # the stacked probe hands the device join its device-resident
+        # candidate vertices; memo then stays empty
+        device_assembly = join_impl == "device" and probe_impl == "stacked" and n_models > 0
+        dev_memo: dict | None = {} if device_assembly else None
+        dev_counts: dict = {}
+        probe_kw = dict(use_groups=use_groups, dev_memo=dev_memo, dev_counts=dev_counts)
         # ---- plans: the dr probes ride the same batched probe -----------
         cached_plans: list = [None] * nq
         weight_fns: list = [None] * nq
+        plan_group_size = cfg.group_size if use_groups else 1
         if cfg.plan_weight == "dr":
-            cached_plans = [self._dr_plan_peek(q) for q in queries]
+            cached_plans = [self._dr_plan_peek(q, plan_group_size) for q in queries]
             probe_reqs = [
                 (qi, p)
                 for qi, q in enumerate(queries)
                 if cached_plans[qi] is None
                 for p in candidate_plan_paths(q, cfg.path_length)
             ]
+            stats_memo: dict = {}
             if probe_reqs:
-                self._probe_batch(probe_reqs, q_embs, memo, queries, probe_impl)
+                self._probe_batch(
+                    probe_reqs, q_embs, memo, queries, probe_impl,
+                    stats_memo=stats_memo if use_groups else None, **probe_kw,
+                )
 
-            def make_weight_fn(qi):
-                def weight_fn(p):
-                    return float(
-                        sum(
-                            memo[(mi, qi, p)].numel()
-                            for mi in range(n_models)
-                            if (mi, qi, p) in memo
-                        )
-                    )
-
-                return weight_fn
+            def weight(qi, p) -> float:
+                """A plan path's dr weight: surviving groups on a grouped
+                probe (its unit of leaf work), else candidate rows."""
+                keys = [(mi, qi, p) for mi in range(n_models)]
+                if use_groups:
+                    return float(sum(stats_memo[k]["surviving_groups"] for k in keys
+                                     if k in stats_memo))
+                if device_assembly:
+                    return float(sum(dev_counts.get(k, 0) for k in keys))
+                return float(sum(memo[k].numel() for k in keys if k in memo))
 
             weight_fns = [
-                make_weight_fn(qi) if cached_plans[qi] is None else None for qi in range(nq)
+                (lambda p, qi=qi: weight(qi, p)) if cached_plans[qi] is None else None
+                for qi in range(nq)
             ]
         plans = [
             cached_plans[qi]
             if cached_plans[qi] is not None
-            else self._plan_cached(q, weight_fn=weight_fns[qi])
+            else self._plan_cached(q, weight_fn=weight_fns[qi], group_size=plan_group_size)
             for qi, q in enumerate(queries)
         ]
         # ---- retrieval: one fused probe for the plan paths not yet probed
@@ -776,10 +849,13 @@ class GnnPeEngine:
             (qi, p)
             for qi, plan in enumerate(plans)
             for p in plan.paths
-            if not any((mi, qi, p) in memo for mi in range(n_models))
+            if not (
+                (device_assembly and (qi, p) in dev_memo)
+                or any((mi, qi, p) in memo for mi in range(n_models))
+            )
         ]
         if todo:
-            self._probe_batch(todo, q_embs, memo, queries, probe_impl)
+            self._probe_batch(todo, q_embs, memo, queries, probe_impl, **probe_kw)
         filter_time = time.perf_counter() - t0
         # ---- per-query candidate assembly -------------------------------
         per_query_cands = []
@@ -792,17 +868,21 @@ class GnnPeEngine:
                 if model.index.n_paths <= 0:
                     continue
                 total_paths += model.index.n_paths
+                if device_assembly:
+                    continue
                 for pi, p in enumerate(plan.paths):
                     rows = memo.get((mi, qi, p))
                     if rows is not None and rows.numel():
                         candidates[pi].append(model.index.paths[rows])
-            cand_arrays = [
-                torch.cat(parts)
-                if parts
-                else torch.zeros((0, len(p)), dtype=torch.int64, device=self.device)
-                for p, parts in zip(plan.paths, candidates)
-            ]
-            for p, arr in zip(plan.paths, cand_arrays):
+            cand_arrays = []
+            for p, parts in zip(plan.paths, candidates):
+                if device_assembly and (qi, p) in dev_memo:
+                    arr = dev_memo[(qi, p)]
+                elif parts:
+                    arr = torch.cat(parts)
+                else:
+                    arr = torch.zeros((0, len(p)), dtype=torch.int64, device=self.device)
+                cand_arrays.append(arr)
                 st.n_candidates[p] = int(arr.shape[0])
             per_query_cands.append(cand_arrays)
             st.filter_time = filter_time / nq  # batch stage, amortized
@@ -811,11 +891,7 @@ class GnnPeEngine:
             st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
         # ---- join + refine ----------------------------------------------
         # per-path candidates are duplicate-free (partitions are
-        # root-disjoint), so the join may skip its dedup sorts.  The JAX
-        # package hands the stacked probe's device-resident candidates
-        # straight to the device join (``probe_device``); here both probes
-        # fill the memo and the device join reads it, with the same match
-        # sets.  The hand-off is ROADMAP queue 1 item 11.
+        # root-disjoint), so the join may skip its dedup sorts
         if join_impl == "device":
             # one batched device program per join step for every group of
             # same-plan queries; the candidates are already device tensors

@@ -19,6 +19,13 @@ leaf embeddings and a hash of each path's label sequence; the batched
 probe drops (query, row) pairs that either rules out before the exact
 verdict, which keeps the same rows.  ``query_index`` is the scalar probe
 of one query path, plain tensor code, kept as the exactness cross-check.
+
+A grouped index (GNN-PGE, ``core/grouping.py``) also carries a
+``PackedGroupIndex`` sidecar: ``query_index_batch_multi(use_groups=True)``
+expands each query's surviving blocks to their groups, decides every
+(query, group) bound in ONE fused groups-form verdict across the
+partitions, and sends only the members of surviving groups through the
+prefilter and ONE fused leaf verdict: the same rows, fewer leaf pairs.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.dominance_scan.ops import dominance_scan_pairs
+from ..kernels.dominance_scan.ops import dominance_scan_groups, dominance_scan_pairs
 from ..obs.metrics import REGISTRY
 
 __all__ = [
@@ -38,6 +45,7 @@ __all__ = [
     "quantize_data",
     "quantize_query",
     "hash_labels",
+    "PackedGroupIndex",
     "reset_pair_counters",
     "PAIR_METRIC",
 ]
@@ -49,11 +57,13 @@ PAIR_METRIC = REGISTRY.counter(
     labels=("kind",),
 )
 _LEAF_PAIRS = PAIR_METRIC.labels(kind="leaf_pairs")
+_GROUP_PAIRS = PAIR_METRIC.labels(kind="group_pairs")
 
 
 def reset_pair_counters() -> None:
-    with _LEAF_PAIRS._lock:
-        _LEAF_PAIRS.value = 0.0
+    for child in (_LEAF_PAIRS, _GROUP_PAIRS):
+        with child._lock:
+            child.value = 0.0
 
 
 def _stable_lexsort(keys: list) -> torch.Tensor:
@@ -121,6 +131,39 @@ def _nbytes(t: torch.Tensor | None) -> int:
 
 
 @dataclasses.dataclass
+class PackedGroupIndex:
+    """GNN-PGE sidecar: contiguous path bundles and their pruning bounds.
+
+    A group is a run of at most ``group_size`` rows of the sorted order
+    that never crosses a leaf-block edge, so each leaf block owns an
+    integral set of groups.  A group may straddle a label run, so the
+    probe tests o₀(p_q) against the group's MBR₀ *interval*; one dominance
+    check against the group's upper bound (Lemma 4.4 per group) prunes
+    the bundle with no false dismissal.  Dominance pruning is one-sided,
+    so only the upper bound of the dominance embeddings is kept.
+    """
+
+    group_start: torch.Tensor  # (G+1,) int64 row offsets in the sorted order
+    mbr_hi: torch.Tensor  # (G, Dcat) float32 upper bound over main ⊕ multi-GNN
+    mbr0: torch.Tensor  # (G, D0, 2) float32 lo/hi over the label embeddings
+    block_group_start: torch.Tensor  # (n_blocks+1,) int64: groups per leaf block
+    group_size: int  # the most members a group may have
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.group_start.shape[0]) - 1
+
+    def member_counts(self) -> torch.Tensor:
+        return torch.diff(self.group_start)
+
+    def nbytes(self) -> int:
+        return (
+            _nbytes(self.group_start) + _nbytes(self.mbr_hi) + _nbytes(self.mbr0)
+            + _nbytes(self.block_group_start)
+        )
+
+
+@dataclasses.dataclass
 class PackedIndex:
     """Per-partition index over paths of one length (tensors on one device)."""
 
@@ -134,6 +177,8 @@ class PackedIndex:
     # the int8 + label-hash leaf sidecar (``quantize=True``)
     emb_q: torch.Tensor | None = None  # (P, D·(1+n)) int8 over main ⊕ multi
     label_hash: torch.Tensor | None = None  # (P,) int64
+    # the GNN-PGE group sidecar (``grouping.attach_groups``); None = paths only
+    groups: PackedGroupIndex | None = None
 
     @property
     def n_paths(self) -> int:
@@ -146,7 +191,8 @@ class PackedIndex:
         total += _nbytes(self.emb_multi)
         for lv in self.levels:
             total += _nbytes(lv["mbr"]) + _nbytes(lv["mbr0"]) + _nbytes(lv["mbr_multi"])
-        return total + _nbytes(self.emb_q) + _nbytes(self.label_hash)
+        total += _nbytes(self.emb_q) + _nbytes(self.label_hash)
+        return total + (self.groups.nbytes() if self.groups is not None else 0)
 
 
 def _mbr(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -416,6 +462,143 @@ def _split_rows(rows, q_ids, keep, Q: int) -> list:
     return list(torch.split(rows, counts.tolist()))
 
 
+# --------------------------------------------------------------------------
+# GNN-PGE two-level probe: group bounds, then the members of surviving groups
+# --------------------------------------------------------------------------
+
+
+def _expand_segments(starts: torch.Tensor, counts: torch.Tensor, total: int | None = None):
+    """The concatenated ranges [starts[i], starts[i] + counts[i]); ``total``,
+    where the caller knows it, is ``counts.sum()`` (no read-back)."""
+    total = int(counts.sum()) if total is None else total
+    base = starts - (torch.cumsum(counts, 0) - counts)
+    return torch.repeat_interleave(base, counts, output_size=total) + torch.arange(
+        total, device=starts.device
+    )
+
+
+def _pack_group_pairs(groups: PackedGroupIndex, cand, alive):
+    """(query, block) survivors → packed (g_ids, q_ids) group pairs, qi-major:
+    each surviving (query, block) cell expands to that block's groups."""
+    qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)
+    blk = cand[ci_pair]
+    bgs = groups.block_group_start
+    counts = bgs[blk + 1] - bgs[blk]
+    return _expand_segments(bgs[blk], counts), torch.repeat_interleave(qi_pair, counts)
+
+
+def _gather_group_operands(groups: PackedGroupIndex, g_ids, q_ids, q_emb, q_emb0, q_multi):
+    """Row-aligned groups-form operands (qg, q0g, hi, lo0, hi0) for packed
+    (query, group) pairs."""
+    q_cat = torch.cat([q_emb] + [q_multi[i] for i in range(q_multi.shape[0])], dim=1)
+    mbr0 = groups.mbr0[g_ids]
+    return q_cat[q_ids], q_emb0[q_ids], groups.mbr_hi[g_ids], mbr0[:, :, 0], mbr0[:, :, 1]
+
+
+def _groups_keep_mask(qg, q0g, hi, lo0, hi0, eps: float) -> torch.Tensor:
+    """Group verdict: q ⪯ MBR_max ∧ o₀(p_q) ∈ MBR₀ (eps-widened).  Any member
+    passing the exact leaf predicates makes its group pass: no false
+    dismissal."""
+    return dominance_scan_groups(qg, q0g, hi, lo0, hi0, eps=eps)
+
+
+def _fused(packs: list, ops_key: str, n_key: str, keep_key: str, verdict, eps: float) -> None:
+    """ONE verdict over the row-aligned operands of every pack with pairs;
+    each pack's slice of it lands in ``pack[keep_key]``."""
+    live = [p for p in packs if not p["empty"] and p[n_key].numel()]
+    if not live:
+        return
+    n_ops = len(live[0][ops_key])
+    keep_all = verdict(*[torch.cat([p[ops_key][k] for p in live]) for k in range(n_ops)], eps)
+    for p, keep in zip(live, torch.split(keep_all, [p[n_key].numel() for p in live])):
+        p[keep_key] = keep
+
+
+_NO_GROUP_STATS = {"scanned_blocks": 0, "scanned_groups": 0, "surviving_groups": 0,
+                   "scanned_paths": 0}
+NO_SIDECAR = (
+    "use_groups=True needs the PackedGroupIndex sidecar: "
+    "run core.grouping.attach_groups(index, group_size) first"
+)
+
+
+def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool):
+    """The two-level probe over several partitions (``use_groups=True``).
+
+    The block descent is the per-path probe's; then
+
+      1. group level: each query's surviving blocks expand to their
+         groups, and ONE fused groups-form verdict across every partition
+         checks every (query, group) bound;
+      2. member level: only the rows of surviving groups expand, through
+         the prefilter and ONE fused leaf verdict across every partition.
+
+    The rows equal the per-path probe's (the group test is conservative and
+    the member predicates are unchanged) from fewer leaf pairs.
+    """
+    packs = []
+    for index, q_emb, q_emb0, q_multi, q_label_hash in items:
+        Q = q_emb.shape[0]
+        if q_multi is None:
+            q_multi = q_emb.new_zeros((index.emb_multi.shape[0], Q, q_emb.shape[1]))
+        if index.n_paths == 0 or Q == 0:
+            packs.append({"Q": Q, "empty": True, "device": q_emb.device})
+            continue
+        if index.groups is None:
+            raise ValueError(NO_SIDECAR)
+        cand, alive = _descend_batch(index, q_emb, q_emb0, q_multi, eps)
+        g_ids, q_ids_g = _pack_group_pairs(index.groups, cand, alive)
+        _GROUP_PAIRS.inc(int(g_ids.numel()))
+        packs.append({
+            "Q": Q, "empty": False, "alive": alive, "index": index, "g_ids": g_ids,
+            "q_ids_g": q_ids_g, "query": (q_emb, q_emb0, q_multi, q_label_hash),
+            "g_ops": _gather_group_operands(index.groups, g_ids, q_ids_g, q_emb, q_emb0, q_multi),
+        })
+    # ---- level 1: one fused group verdict across every partition ----------
+    _fused(packs, "g_ops", "g_ids", "g_keep", _groups_keep_mask, eps)
+    # ---- level 2: the member rows of surviving groups only ----------------
+    for p in packs:
+        if p["empty"]:
+            continue
+        index = p["index"]
+        q_emb, q_emb0, q_multi, q_label_hash = p["query"]
+        g_keep = p.get("g_keep", torch.zeros((0,), dtype=torch.bool, device=q_emb.device))
+        g_surv, q_surv = p["g_ids"][g_keep], p["q_ids_g"][g_keep]
+        gs = index.groups.group_start
+        counts = gs[g_surv + 1] - gs[g_surv]
+        rows = _expand_segments(gs[g_surv], counts)
+        q_ids = torch.repeat_interleave(q_surv, counts)
+        _LEAF_PAIRS.inc(int(rows.numel()))
+        if return_stats:
+            Q = p["Q"]
+            p["stats"] = torch.stack([
+                p["alive"].sum(dim=1),
+                torch.bincount(p["q_ids_g"], minlength=Q),
+                torch.bincount(q_surv, minlength=Q),
+                torch.bincount(q_ids, minlength=Q),
+            ], dim=1).tolist()
+        rows, q_ids = _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
+        p["rows"], p["q_ids"] = rows, q_ids
+        p["ops"] = _gather_pair_operands(index, rows, q_ids, q_emb, q_emb0, q_multi)
+    _fused(packs, "ops", "rows", "keep", _pairs_keep_mask, eps)
+    results = []
+    stats = [] if return_stats else None
+    for p in packs:
+        Q = p["Q"]
+        if p["empty"]:
+            results.append([torch.zeros((0,), dtype=torch.int64, device=p["device"])] * Q)
+            if return_stats:
+                stats.append([dict(_NO_GROUP_STATS) for _ in range(Q)])
+            continue
+        keep = p.get("keep", torch.zeros((0,), dtype=torch.bool, device=p["rows"].device))
+        results.append(_split_rows(p["rows"], p["q_ids"], keep, Q))
+        if return_stats:
+            stats.append([dict(zip(_NO_GROUP_STATS, map(int, row))) for row in p["stats"]])
+    if return_stats:
+        return results, stats
+    return results
+
+
 def query_index_batch_multi(
     items: list,
     eps: float = 1e-6,
@@ -432,11 +615,12 @@ def query_index_batch_multi(
     concatenate into ONE fused verdict call.  Returns a list (per item)
     of lists (per query) of row tensors; with ``return_stats``, also
     per-item per-query stats dicts.
+
+    ``use_groups=True`` runs the GNN-PGE two-level probe instead: the same
+    rows, fewer leaf pairs; every non-empty index needs the group sidecar.
     """
     if use_groups:
-        raise NotImplementedError(
-            "the grouped probe comes with the GNN-PGE slice (ROADMAP queue 1 item 9)"
-        )
+        return _query_index_batch_multi_grouped(items, eps, return_stats)
     packs = []
     for index, q_emb, q_emb0, q_multi, q_label_hash in items:
         Q = q_emb.shape[0]
@@ -455,12 +639,7 @@ def query_index_batch_multi(
             }
         )
     # ONE fused verdict across every partition's pairs
-    live = [p for p in packs if not p["empty"] and p["rows"].numel()]
-    if live:
-        ops = [torch.cat([p["ops"][k] for p in live]) for k in range(4)]
-        keep_all = _pairs_keep_mask(*ops, eps)
-        for p, keep in zip(live, torch.split(keep_all, [p["rows"].numel() for p in live])):
-            p["keep"] = keep
+    _fused(packs, "ops", "rows", "keep", _pairs_keep_mask, eps)
     results = []
     stats = [] if return_stats else None
     for p in packs:

@@ -17,14 +17,17 @@ blocks per level and level count, so they stack by padding:
     one-sided) and the MBR₀ lo/hi pair (Lemma 4.3);
   * the leaf payload (exact embeddings, the int8 and label-hash sidecar)
     pads to the widest partition's path count;
+  * the group sidecar of a grouped index re-tiles onto ``gpb`` fixed slots
+    per leaf block, so a block's groups are one ``repeat_interleave`` of
+    its survival; unused slots carry reject bounds and zero members;
   * slots follow ``plan_shards``' largest-first order (one shard: one card),
     so slot ``s`` is not partition ``s``: ``slot_of[i]`` maps engine
     partition ``i`` to its slot.
 
 Padding is the price of density; ``padding_stats()`` reports it and the
-engine records it in ``offline_stats`` (``stacked_*`` keys).  The grouped
-index's sidecar (ROADMAP queue 1 item 9) and re-stacking one slot after a
-compaction (item 12) are not ported yet.
+engine records it in ``offline_stats`` (``stacked_*`` keys).  Re-stacking
+one slot after a compaction comes with live updates (ROADMAP queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -33,11 +36,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .index import PackedIndex, _eps, _nbytes
+from .index import NO_SIDECAR, PackedIndex, _eps, _nbytes
 
-__all__ = ["StackedIndex", "build_stacked", "plan_shards", "stacked_masks_ref"]
+__all__ = ["StackedIndex", "StackedGroups", "build_stacked", "plan_shards", "stacked_masks_ref"]
 
-_GROUPED = "the grouped index is not ported yet: ROADMAP queue 1 item 9 (GNN-PGE grouped index)"
 
 
 def _reject_level(nb: int, d_cat: int, d0: int, device) -> tuple:
@@ -90,6 +92,22 @@ def plan_shards(sizes, n_shards: int) -> list[list[int]]:
 
 
 @dataclasses.dataclass
+class StackedGroups:
+    """Group sidecars re-tiled onto ``gpb`` fixed slots per leaf block."""
+
+    hi: torch.Tensor  # (S, G, Dcat) dominance upper bounds
+    lo0: torch.Tensor  # (S, G, D0)
+    hi0: torch.Tensor  # (S, G, D0)
+    start: torch.Tensor  # (S, G) int64 first row in the slot (0 on unused slots)
+    count: torch.Tensor  # (S, G) int64 members (0 on unused slots)
+    gpb: int  # group slots per leaf block
+    group_size: int  # the finest partition's group size (it set gpb)
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(t) for t in (self.hi, self.lo0, self.hi0, self.start, self.count))
+
+
+@dataclasses.dataclass
 class StackedIndex:
     """All partitions' packed forests as dense (S, …) tensors on one device.
 
@@ -114,6 +132,7 @@ class StackedIndex:
     emb0: torch.Tensor  # (S, P_max, D0) float32
     emb_q: torch.Tensor | None  # (S, P_max, Dcat) int8
     label_hash: torch.Tensor | None  # (S, P_max) int64
+    groups: StackedGroups | None
     real_bytes: int  # Σ source-index bytes these tensors cover
 
     @property
@@ -128,7 +147,8 @@ class StackedIndex:
         total = _nbytes(self.emb_cat) + _nbytes(self.emb0) + _nbytes(self.n_paths)
         for hi, lo0, hi0 in zip(self.level_hi, self.level_lo0, self.level_hi0):
             total += _nbytes(hi) + _nbytes(lo0) + _nbytes(hi0)
-        return int(total + _nbytes(self.emb_q) + _nbytes(self.label_hash))
+        total += _nbytes(self.emb_q) + _nbytes(self.label_hash)
+        return int(total + (self.groups.nbytes() if self.groups is not None else 0))
 
     def padding_stats(self) -> dict:
         """Stacking overhead: dense bytes against the ragged bytes they cover."""
@@ -156,7 +176,48 @@ def _index_real_bytes(ix: PackedIndex) -> int:
     rb = _nbytes(ix.emb) + _nbytes(ix.emb0) + _nbytes(ix.emb_multi)
     for lv in ix.levels:
         rb += _nbytes(lv["mbr"]) // 2 + _nbytes(lv["mbr_multi"]) // 2 + _nbytes(lv["mbr0"])
-    return int(rb + _nbytes(ix.emb_q) + _nbytes(ix.label_hash))
+    rb += _nbytes(ix.emb_q) + _nbytes(ix.label_hash)
+    return int(rb + (ix.groups.nbytes() if ix.groups is not None else 0))
+
+
+def _stack_groups(
+    indexes: list, slot_of: np.ndarray, n_slots: int, n_leaf_blocks: int, d_cat: int, d0: int,
+) -> StackedGroups | None:
+    """Every partition's group sidecar on ``gpb`` slots per leaf block, or
+    None where a partition with paths has none.
+
+    Partitions may carry different group sizes (``group_size_mode="auto"``):
+    the slots follow the finest, gpb = max over partitions of
+    ⌈block_size / group_size⌉, and a coarser partition leaves its trailing
+    slots empty (reject bounds, zero members)."""
+    live = [ix for ix in indexes if ix.n_paths]
+    if not live or any(ix.groups is None for ix in live):
+        return None
+    dev = live[0].emb.device
+    bs = live[0].block_size
+    group_size = min(int(ix.groups.group_size) for ix in live)
+    gpb = max(-(-bs // int(ix.groups.group_size)) for ix in live)
+    G = n_leaf_blocks * gpb
+    hi, lo0, hi0 = (
+        t.expand(n_slots, -1, -1).clone() for t in _reject_level(G, d_cat, d0, dev)
+    )
+    start = torch.zeros((n_slots, G), dtype=torch.int64, device=dev)
+    count = torch.zeros((n_slots, G), dtype=torch.int64, device=dev)
+    for i, ix in enumerate(indexes):
+        if ix.n_paths == 0:
+            continue
+        g, s = ix.groups, int(slot_of[i])
+        bgs = g.block_group_start
+        per_block = torch.diff(bgs)  # groups in each leaf block (≤ gpb)
+        blk = torch.repeat_interleave(torch.arange(per_block.shape[0], device=dev), per_block)
+        within = torch.arange(g.n_groups, device=dev) - torch.repeat_interleave(bgs[:-1], per_block)
+        slots = blk * gpb + within  # each group's slot, in group order
+        hi[s, slots] = g.mbr_hi
+        lo0[s, slots] = g.mbr0[:, :, 0]
+        hi0[s, slots] = g.mbr0[:, :, 1]
+        start[s, slots] = g.group_start[:-1]
+        count[s, slots] = g.member_counts()
+    return StackedGroups(hi, lo0, hi0, start, count, gpb=gpb, group_size=group_size)
 
 
 def build_stacked(indexes: list) -> StackedIndex:
@@ -164,7 +225,7 @@ def build_stacked(indexes: list) -> StackedIndex:
     on their device, for one card (the JAX package's ``n_shards=1``).
 
     Every index must come from one engine build (same ``block_size``,
-    ``fanout``, feature widths and sidecar).  Zero-path indexes become
+    ``fanout``, feature widths and sidecars).  Zero-path indexes become
     filler slots.
     """
     if not indexes:
@@ -240,6 +301,7 @@ def build_stacked(indexes: list) -> StackedIndex:
         if hashed:
             label_hash[s, :P] = ix.label_hash
         real_bytes += _index_real_bytes(ix)
+    groups = _stack_groups(indexes, slot_of, n_slots, level_hi[-1].shape[1], d_cat, d0)
     return StackedIndex(
         n_parts=n_parts,
         n_slots=n_slots,
@@ -255,6 +317,7 @@ def build_stacked(indexes: list) -> StackedIndex:
         emb0=emb0,
         emb_q=emb_q,
         label_hash=label_hash,
+        groups=groups,
         real_bytes=real_bytes,
     )
 
@@ -266,20 +329,28 @@ def stacked_masks_ref(
     eps: float = 1e-6,
     use_groups: bool = False,
 ):
-    """The plain dense level descent: every level of every slot for every
-    query at once, no chunking.  Returns ``(alive, None)``: per-slot
-    (Q, B_leaf) leaf-block survival."""
-    if use_groups:
-        raise NotImplementedError(_GROUPED)
+    """The plain dense level descent (and, with ``use_groups``, group scan):
+    every level of every slot for every query at once, no chunking.
+    Returns ``(alive, gkeep)``: per-slot (Q, B_leaf) leaf-block survival
+    and the (Q, G) group survival ANDed with it (None without groups)."""
     e = _eps(eps, q_cat.device)
-    alive = None
-    for hi, lo0, hi0 in zip(stacked.level_hi, stacked.level_lo0, stacked.level_hi0):
-        m = (
+
+    def passes(hi, lo0, hi0):
+        return (
             (q_cat[:, :, None, :] <= hi[:, None, :, :] + e).all(dim=-1)
             & (q0[:, :, None, :] <= hi0[:, None, :, :] + e).all(dim=-1)
             & (q0[:, :, None, :] >= lo0[:, None, :, :] - e).all(dim=-1)
         )
+
+    alive = None
+    for hi, lo0, hi0 in zip(stacked.level_hi, stacked.level_lo0, stacked.level_hi0):
+        m = passes(hi, lo0, hi0)
         if alive is not None:
             m &= alive.repeat_interleave(stacked.fanout, dim=2)[:, :, : m.shape[2]]
         alive = m
-    return alive, None
+    if not use_groups:
+        return alive, None
+    g = stacked.groups
+    if g is None:
+        raise ValueError(NO_SIDECAR)
+    return alive, alive.repeat_interleave(g.gpb, dim=2) & passes(g.hi, g.lo0, g.hi0)

@@ -5,24 +5,29 @@ partition's stacked tensors, then one leaf stage across all of them.
 (S, …) tensors; this module runs the online filter over them:
 
   1. **device stage**: the level-synchronous MBR descent (Lemmas 4.3 and
-     4.4) as batched tensor ops over the leading slot dimension, with no
-     Python loop over partitions.  Queries go in chunks so that no
-     intermediate exceeds ``_MASK_BUDGET`` bytes.  ``device_stage="numpy"``
-     runs the plain ``stacked_masks_ref`` instead (the JAX package's name
-     for the same switch);
-  2. **leaf stage**: the surviving (slot, query, block) cells expand to
-     (query, row) pairs on the device (``repeat_interleave`` over a
-     ``cumsum``), in chunks of about ``leaf_pair_cap`` pairs, each through
+     4.4) and, for a grouped index, the GNN-PGE group scan, as batched
+     tensor ops over the leading slot dimension, with no Python loop over
+     partitions.  Queries go in chunks so that no intermediate exceeds
+     ``_MASK_BUDGET`` bytes.  ``device_stage="numpy"`` runs the plain
+     ``stacked_masks_ref`` instead (the JAX package's name for the switch);
+  2. **leaf stage**: the surviving (slot, query, block or group) cells
+     expand to (query, row) pairs on the device (``repeat_interleave`` over
+     a ``cumsum``), in chunks of about ``leaf_pair_cap`` pairs, each through
      the conservative int8 + label-hash prefilter and then one fused
      verdict, ``index._pairs_keep_mask``: the kernel K1 on the card, its
      plain version on the CPU.
 
-The rows per (partition, query) equal ``query_index_batch_multi``'s over
-the source indexes, in the same order.  A probe call reads a few small
-tensors back to the host, not one per partition.  ``probe_device`` (the
-device-resident hand-off to the device join, ROADMAP queue 1 item 11),
-``update_slot`` (item 12) and the multi-device mesh (item 15) are not
-ported yet.
+``probe`` returns the rows per (partition, query), equal to
+``query_index_batch_multi``'s over the source indexes, in the same order,
+reading a few small tensors back to the host, not one per partition.
+``probe_device`` is the hand-off to the device join: the kept rows' path
+vertices gather on the device and compact into one int32 tensor per probe,
+concatenated across the partitions in slot order, and only counts come
+back to the host.  Where the pairs exceed ``leaf_pair_cap`` it takes
+``probe``'s chunked path and concatenates in engine order, as the JAX
+package does.  ``update_slot`` and the tombstone mask come with live
+updates (ROADMAP queue 1 item 12), the multi-device mesh with the cluster
+(item 15).
 """
 from __future__ import annotations
 
@@ -30,12 +35,13 @@ import numpy as np
 import torch
 
 from ..core import index as index_mod
-from ..core.index import _eps, quantize_query
-from ..core.stacked import _GROUPED, build_stacked, stacked_masks_ref
+from ..core.index import NO_SIDECAR, _eps, _expand_segments, quantize_query
+from ..core.stacked import build_stacked, stacked_masks_ref
 
 __all__ = ["StackedProbe"]
 
 _MASK_BUDGET = 256 << 20  # bytes of the largest descent intermediate
+_STAT_KEYS = tuple(index_mod._NO_GROUP_STATS)  # the loop probe's stats, grouped
 
 
 class StackedProbe:
@@ -45,7 +51,8 @@ class StackedProbe:
     ``leaf_pair_cap`` bounds the cross-partition leaf expansion: the
     surviving cells expand in chunks of about ``cap`` (query, row) pairs,
     each through the prefilter and one fused verdict before the next
-    exists.  The rows are the same for any cap.
+    exists, and ``probe_device`` keeps its pairs on the device only up to
+    ``cap``.  The rows are the same for any cap.
     """
 
     def __init__(self, indexes: list, leaf_pair_cap: int = 1 << 21):
@@ -54,48 +61,183 @@ class StackedProbe:
         self.leaf_pair_cap = int(leaf_pair_cap)
         self.stacked = build_stacked(indexes)
         st = self.stacked
+        self._indexes = list(indexes)  # the hand-off's paths tensor is built from them
+        self._paths: torch.Tensor | None = None
+        # groups present in each leaf block, (S, B_leaf): the group pairs a
+        # surviving block costs
+        self._gib = None
+        if st.groups is not None:
+            self._gib = (st.groups.count.reshape(st.n_slots, -1, st.groups.gpb) > 0).sum(dim=2)
         self._slot_of = torch.as_tensor(st.slot_of, device=st.device)
         self._total_paths = int(st.n_paths.sum())
         # per-partition (query, row) leaf pairs scanned, engine order,
         # cumulative over the probe's lifetime like the pair counter
         self.part_leaf_pairs = np.zeros(st.n_parts, np.int64)
+        # calls whose leaf stage split rows per (partition, query) through
+        # ``probe`` (``probe_device`` moves it only on its fallback)
+        self.host_expansions = 0
+
+    def _leaf_tensors(self) -> torch.Tensor:
+        """Every partition's path vertices as one (S, P_max, L) int32 tensor
+        in the stacked row layout, built at the first hand-off."""
+        if self._paths is None:
+            st = self.stacked
+            L = int(self._indexes[0].paths.shape[1])
+            self._paths = torch.zeros((st.n_slots, st.emb_cat.shape[1], L), dtype=torch.int32,
+                                      device=st.device)
+            for i, ix in enumerate(self._indexes):
+                if ix.n_paths:
+                    self._paths[int(st.slot_of[i]), : ix.n_paths] = ix.paths.to(torch.int32)
+        return self._paths
+
+    def _check(self, n_parts: int, use_groups: bool) -> None:
+        st = self.stacked
+        if n_parts != st.n_parts:
+            raise ValueError(f"expected {st.n_parts} partitions, got {n_parts}")
+        if use_groups and st.groups is None and self._total_paths:
+            raise ValueError(NO_SIDECAR)
+
+    def _slot_queries(self, q_emb, q_emb0, q_multi) -> tuple:
+        """Engine-order per-partition queries scattered into their slots →
+        (q_cat (S, Q, Dcat), q0 (S, Q, D0)); filler slots get 0⃗."""
+        st = self.stacked
+        cat = torch.cat([q_emb, *q_multi], dim=2) if st.n_gnn else q_emb
+        q_cat = cat.new_zeros((st.n_slots,) + tuple(cat.shape[1:]))
+        q0 = q_emb0.new_zeros((st.n_slots,) + tuple(q_emb0.shape[1:]))
+        q_cat[self._slot_of] = cat
+        q0[self._slot_of] = q_emb0
+        return q_cat, q0
 
     # ------------------------------------------------------------------
-    # device stage: the batched dense descent
+    # device stage: the batched dense descent and group scan
     # ------------------------------------------------------------------
-    def _device_masks(self, q_cat, q0, eps: float, device_stage: str) -> torch.Tensor:
-        """(S, Q, Dcat/D0) query tensors → (S, Q, B_leaf) leaf-block survival."""
+    def _device_masks(self, q_cat, q0, eps: float, device_stage: str, use_groups: bool = False):
+        """(S, Q, Dcat/D0) query tensors → (alive (S, Q, B_leaf), gkeep (S,
+        Q, G) or None)."""
         if device_stage == "numpy":
-            return stacked_masks_ref(self.stacked, q_cat, q0, eps)[0]
+            return stacked_masks_ref(self.stacked, q_cat, q0, eps, use_groups)
         if device_stage != "batched":
             raise ValueError(f"unknown device_stage {device_stage!r}; use 'batched' or 'numpy'")
         st = self.stacked
         e = _eps(eps, st.device)
-        # bounds widened once a call: the float32 ``bound ± eps`` the compares need
-        levels = [
-            ((hi + e)[:, None], (hi0 + e)[:, None], (lo0 - e)[:, None])
-            for hi, lo0, hi0 in zip(st.level_hi, st.level_lo0, st.level_hi0)
-        ]
+
+        def widened(hi, lo0, hi0):
+            # the float32 ``bound ± eps`` the compares need, once a call
+            return (hi + e)[:, None], (hi0 + e)[:, None], (lo0 - e)[:, None]
+
+        levels = [widened(*b) for b in zip(st.level_hi, st.level_lo0, st.level_hi0)]
+        g = st.groups if use_groups else None
+        bounds = levels + ([widened(g.hi, g.lo0, g.hi0)] if g is not None else [])
         S, Q = q_cat.shape[:2]
-        widest = max(hi.shape[2] for hi, _, _ in levels) * max(q_cat.shape[2], q0.shape[2])
+        widest = max(hi.shape[2] for hi, _, _ in bounds) * max(q_cat.shape[2], q0.shape[2])
         qc = max(1, _MASK_BUDGET // max(S * widest, 1))
-        out = []
+        alive_out, gkeep_out = [], []
         for a in range(0, Q, qc):
             qa = q_cat[:, a : a + qc, None, :]
             q0a = q0[:, a : a + qc, None, :]
-            alive = None
-            for hi_e, hi0_e, lo0_e in levels:
+
+            def passes(hi_e, hi0_e, lo0_e):
                 m = (qa <= hi_e).all(dim=-1)
                 m &= (q0a <= hi0_e).all(dim=-1)
                 m &= (q0a >= lo0_e).all(dim=-1)
+                return m
+
+            alive = None
+            for b in levels:
+                m = passes(*b)
                 if alive is not None:
                     m &= alive.repeat_interleave(st.fanout, dim=2)[:, :, : m.shape[2]]
                 alive = m
-            out.append(alive)
-        return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+            alive_out.append(alive)
+            if g is not None:
+                gkeep_out.append(alive.repeat_interleave(g.gpb, dim=2) & passes(*bounds[-1]))
+        alive = torch.cat(alive_out, dim=1)
+        return alive, (torch.cat(gkeep_out, dim=1) if g is not None else None)
 
     # ------------------------------------------------------------------
-    # full probe: device masks → cross-partition leaf stage
+    # leaf stage: cells → (query, row) pairs → prefilter → K1
+    # ------------------------------------------------------------------
+    def _cells(self, alive, gkeep) -> tuple:
+        """Surviving (slot, query, block or group) cells → (pi, qi, starts,
+        counts): each cell's first row in its slot and its rows.
+        ``nonzero``'s row-major order makes them (slot, query)-major."""
+        st = self.stacked
+        if gkeep is not None:
+            pi, qi, gi = torch.nonzero(gkeep, as_tuple=True)
+            return pi, qi, st.groups.start[pi, gi], st.groups.count[pi, gi]
+        pi, qi, bi = torch.nonzero(alive, as_tuple=True)
+        starts = bi * st.block_size
+        return pi, qi, starts, torch.clamp(st.n_paths[pi] - starts, 0, st.block_size)
+
+    def _checked_groups(self, alive) -> torch.Tensor:
+        """(S, Q) groups checked: the groups of each surviving leaf block,
+        as the loop probe counts its group pairs."""
+        return (alive * self._gib[:, None, :]).sum(dim=2)
+
+    def _group_pairs(self, checked) -> torch.Tensor:
+        """(1,) the group pairs checked in all (0 without groups)."""
+        if checked is None:
+            return torch.zeros(1, dtype=torch.int64, device=self.stacked.device)
+        return checked.sum().view(1)
+
+    def _prefilter_queries(self, q_cat, q_label_hash, any_pairs: bool) -> tuple:
+        """The query side of the int8 + label-hash prefilter, or Nones."""
+        st = self.stacked
+        if not any_pairs or st.emb_q is None:
+            return None, None
+        qh = None
+        if st.label_hash is not None and q_label_hash is not None:
+            qh = q_label_hash.to(st.device)
+        return quantize_query(q_cat), qh
+
+    def _pairs(self, pi, qi, starts, counts, n: int, q_cat, q0, qq, qh, eps: float) -> tuple:
+        """Cells with ``n`` rows in all → their pairs, through the prefilter
+        and ONE fused verdict → the kept (rows, pr, qr), in cell order."""
+        st = self.stacked
+        rows = _expand_segments(starts, counts, n)
+        pr = torch.repeat_interleave(pi, counts, output_size=n)
+        qr = torch.repeat_interleave(qi, counts, output_size=n)
+        if qq is not None:  # the conservative int8 + label-hash prefilter
+            pre = (qq[pr, qr] <= st.emb_q[pr, rows]).all(dim=1)
+            if qh is not None:
+                pre &= st.label_hash[pr, rows] == qh[qr]
+            sel = torch.nonzero(pre).flatten()
+            rows, pr, qr = rows[sel], pr[sel], qr[sel]
+        # exact Lemma 4.1 + 4.2 verdicts: one fused pass
+        keep = index_mod._pairs_keep_mask(
+            q_cat[pr, qr], q0[pr, qr], st.emb_cat[pr, rows], st.emb0[pr, rows], eps
+        )
+        sel = torch.nonzero(keep).flatten()
+        return rows[sel], pr[sel], qr[sel]
+
+    def _stats(self, alive, gkeep, checked, pi, qi, counts) -> torch.Tensor:
+        """(S, Q, k) per-(slot, query) stats, the loop probe's semantics, in
+        ``_STAT_KEYS`` order (k = 4 with groups; else scanned blocks and
+        paths)."""
+        st = self.stacked
+        scanned = alive.sum(dim=2)
+        if gkeep is None:
+            return torch.stack([scanned, scanned * st.block_size], dim=2)
+        S, Q = scanned.shape
+        member = torch.zeros(S * Q, dtype=torch.int64, device=st.device).index_add_(
+            0, pi * Q + qi, counts
+        )
+        return torch.stack([scanned, checked, gkeep.sum(dim=2), member.view(S, Q)], dim=2)
+
+    def _stats_dicts(self, table: np.ndarray, use_groups: bool) -> list:
+        """(S, Q, k) host stats → per partition (engine order), per query dicts."""
+        keys = _STAT_KEYS if use_groups else (_STAT_KEYS[0], _STAT_KEYS[3])
+        return [
+            [dict(zip(keys, map(int, row))) for row in table[int(s)]]
+            for s in self.stacked.slot_of
+        ]
+
+    def _zero_stats(self, n_parts: int, Q: int, use_groups: bool) -> list:
+        keys = _STAT_KEYS if use_groups else (_STAT_KEYS[0], _STAT_KEYS[3])
+        return [[dict.fromkeys(keys, 0) for _ in range(Q)] for _ in range(n_parts)]
+
+    # ------------------------------------------------------------------
+    # the probe: rows per (partition, query)
     # ------------------------------------------------------------------
     def probe(
         self,
@@ -106,94 +248,74 @@ class StackedProbe:
         eps: float = 1e-6,
         use_groups: bool = False,
         device_stage: str = "batched",
+        return_stats: bool = False,
     ):
         """Candidate rows for Q query paths against every partition.
 
         Returns a list (per partition, engine order) of lists (per query)
         of int64 row tensors: the rows, in the order, of
-        ``query_index_batch_multi`` over the source indexes.  The leaf
-        pairs scanned add to ``part_leaf_pairs``.
+        ``query_index_batch_multi`` over the source indexes (with
+        ``use_groups``, its two-level probe); with ``return_stats`` also its
+        per-partition per-query stats dicts.  The leaf pairs scanned add to
+        ``part_leaf_pairs``.
         """
-        if use_groups:
-            raise NotImplementedError(_GROUPED)
         st = self.stacked
         dev = st.device
         n_parts, Q = q_emb.shape[:2]
-        if n_parts != st.n_parts:
-            raise ValueError(f"expected {st.n_parts} partitions, got {n_parts}")
+        self._check(n_parts, use_groups)
         empty = torch.zeros((0,), dtype=torch.int64, device=dev)
         if Q == 0 or self._total_paths == 0:
-            return [[empty] * Q for _ in range(n_parts)]
-        S, bs = st.n_slots, st.block_size
-        # engine-order queries scattered into their slots (filler slots: 0⃗)
-        cat = torch.cat([q_emb, *q_multi], dim=2) if st.n_gnn else q_emb
-        q_cat = cat.new_zeros((S, Q, cat.shape[2]))
-        q0 = q_emb0.new_zeros((S, Q, q_emb0.shape[2]))
-        q_cat[self._slot_of] = cat
-        q0[self._slot_of] = q_emb0
-        alive = self._device_masks(q_cat, q0, eps, device_stage)
-
-        # ---- leaf stage: (slot, query, block) cells → (query, row) pairs --
-        # nonzero's row-major order makes the cells (slot, query)-major, so
-        # the kept rows come out grouped by (slot, query) for the split
-        pi, qi, bi = torch.nonzero(alive, as_tuple=True)
-        starts = bi * bs
-        counts = torch.clamp(st.n_paths[pi] - starts, 0, bs)
+            results = [[empty] * Q for _ in range(n_parts)]
+            return (results, self._zero_stats(n_parts, Q, use_groups)) if return_stats else results
+        S = st.n_slots
+        q_cat, q0 = self._slot_queries(q_emb, q_emb0, q_multi)
+        alive, gkeep = self._device_masks(q_cat, q0, eps, device_stage, use_groups)
+        pi, qi, starts, counts = self._cells(alive, gkeep)
+        checked = self._checked_groups(alive) if use_groups else None
         ends = torch.cumsum(counts, 0)
         cell_start = ends - counts
         n_cells = int(pi.numel())
         # chunks are contiguous cell ranges: a cell joins chunk
         # cell_start // leaf_pair_cap, as in the JAX package; one read-back
-        # gives every chunk's first cell and first pair
-        host = np.zeros((2, 1), np.int64)
+        # gives every chunk's first cell and first pair, and the group pairs
+        head = [torch.zeros(1, dtype=torch.int64, device=dev)] * 2
         if n_cells:
             chunk_of = cell_start // self.leaf_pair_cap
             first = torch.ones(n_cells, dtype=torch.bool, device=dev)
             first[1:] = chunk_of[1:] != chunk_of[:-1]
             firsts = torch.nonzero(first).flatten()
-            host = torch.stack([
+            head = [
                 torch.cat([firsts, firsts.new_full((1,), n_cells)]),
                 torch.cat([cell_start[firsts], ends[-1:]]),
-            ]).cpu().numpy()
+            ]
+        host = torch.cat([*head, self._group_pairs(checked)]).cpu().numpy()
+        host, group_pairs = host[:-1].reshape(2, -1), int(host[-1])
         total_pairs = int(host[1, -1])
         index_mod._LEAF_PAIRS.inc(total_pairs)
-        qq = qh = None
-        if total_pairs and st.emb_q is not None:
-            qq = quantize_query(q_cat)
-            if st.label_hash is not None and q_label_hash is not None:
-                qh = q_label_hash.to(dev)
+        index_mod._GROUP_PAIRS.inc(group_pairs)
+        qq, qh = self._prefilter_queries(q_cat, q_label_hash, total_pairs > 0)
+        if total_pairs:
+            self.host_expansions += 1
         kept_rows, kept_combo = [], []
         for c in range(host.shape[1] - 1):
             lo, hi = int(host[0, c]), int(host[0, c + 1])
-            p_lo, n = int(host[1, c]), int(host[1, c + 1] - host[1, c])
-            cnt = counts[lo:hi]
-            rows = torch.repeat_interleave(starts[lo:hi], cnt, output_size=n)
-            rows += torch.arange(n, device=dev) - torch.repeat_interleave(
-                cell_start[lo:hi] - p_lo, cnt, output_size=n
+            rows, pr, qr = self._pairs(
+                pi[lo:hi], qi[lo:hi], starts[lo:hi], counts[lo:hi],
+                int(host[1, c + 1] - host[1, c]), q_cat, q0, qq, qh, eps,
             )
-            pr = torch.repeat_interleave(pi[lo:hi], cnt, output_size=n)
-            qr = torch.repeat_interleave(qi[lo:hi], cnt, output_size=n)
-            if qq is not None:  # the conservative int8 + label-hash prefilter
-                pre = (qq[pr, qr] <= st.emb_q[pr, rows]).all(dim=1)
-                if qh is not None:
-                    pre &= st.label_hash[pr, rows] == qh[qr]
-                sel = torch.nonzero(pre).flatten()
-                rows, pr, qr = rows[sel], pr[sel], qr[sel]
-            # exact Lemma 4.1 + 4.2 verdicts: one fused pass per chunk
-            keep = index_mod._pairs_keep_mask(
-                q_cat[pr, qr], q0[pr, qr], st.emb_cat[pr, rows], st.emb0[pr, rows], eps
-            )
-            sel = torch.nonzero(keep).flatten()
-            kept_rows.append(rows[sel])
-            kept_combo.append(pr[sel] * Q + qr[sel])
+            kept_rows.append(rows)
+            kept_combo.append(pr * Q + qr)
         rows_all = torch.cat(kept_rows) if kept_rows else empty
         combo_all = torch.cat(kept_combo) if kept_combo else empty
-        # one read-back: kept rows per (slot, query) and pairs per slot
-        small = torch.cat([
+        # one read-back: kept rows per (slot, query), pairs per slot, stats
+        small = [
             torch.bincount(combo_all, minlength=S * Q),
             torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, pi, counts),
-        ]).cpu().numpy()
-        per_combo, slot_lp = small[: S * Q], small[S * Q :]
+        ]
+        if return_stats:
+            small.append(self._stats(alive, gkeep, checked, pi, qi, counts).flatten())
+        small = torch.cat(small).cpu().numpy()
+        per_combo, slot_lp = small[: S * Q], small[S * Q : S * Q + S]
         self.part_leaf_pairs += slot_lp[st.slot_of]
         offs = np.concatenate([[0], np.cumsum(per_combo)])
         results = []
@@ -205,4 +327,118 @@ class StackedProbe:
                     for c in range(base, base + Q)
                 ]
             )
-        return results
+        if not return_stats:
+            return results
+        return results, self._stats_dicts(small[S * Q + S :].reshape(S, Q, -1), use_groups)
+
+    # ------------------------------------------------------------------
+    # the hand-off to the device join: candidate vertices per probe
+    # ------------------------------------------------------------------
+    def probe_device(
+        self,
+        q_emb: torch.Tensor,  # (n_parts, Q, D)
+        q_emb0: torch.Tensor,  # (n_parts, Q, D0)
+        q_multi: torch.Tensor | None = None,  # (n_gnn, n_parts, Q, D)
+        q_label_hash: torch.Tensor | None = None,  # (Q,) int64, shared
+        eps: float = 1e-6,
+        use_groups: bool = False,
+        return_stats: bool = False,
+    ):
+        """Device-resident candidates of Q probes for the device join.
+
+        Returns ``(per_probe, part_counts[, stats])``:
+
+          * ``per_probe[b]``: the (n_b, L) int32 device tensor of probe b's
+            candidate path vertices, the kept rows of every partition
+            concatenated in slot order (``stacked.slot_of``), each
+            partition's in ``probe``'s row order;
+          * ``part_counts`` (host, (n_parts, Q) int64): probe b's kept rows
+            in engine partition ``i``;
+          * ``stats``: ``probe``'s per-partition per-query dicts.
+
+        The cells, the pairs and K1's verdicts stay on the device; the
+        probe-major compaction is a ``bincount``, ``cumsum``s and one
+        ``index_put_``.  Two small tensors come back to the host.  Where the
+        pairs exceed ``leaf_pair_cap`` it falls back to ``probe``'s chunked
+        leaf stage and concatenates each probe's rows in engine order (the
+        JAX package's two orders); the candidate sets are the same.
+        """
+        st = self.stacked
+        dev = st.device
+        n_parts, Q = q_emb.shape[:2]
+        self._check(n_parts, use_groups)
+        paths = self._leaf_tensors()
+        L = paths.shape[2]
+        empty = torch.zeros((0, L), dtype=torch.int32, device=dev)
+        if Q == 0 or self._total_paths == 0:
+            out = ([empty] * Q, np.zeros((n_parts, Q), np.int64))
+            return out + (self._zero_stats(n_parts, Q, use_groups),) if return_stats else out
+        S = st.n_slots
+        q_cat, q0 = self._slot_queries(q_emb, q_emb0, q_multi)
+        alive, gkeep = self._device_masks(q_cat, q0, eps, "batched", use_groups)
+        pi, qi, starts, counts = self._cells(alive, gkeep)
+        checked = self._checked_groups(alive) if use_groups else None
+        slot_lp = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, pi, counts)
+        head = torch.cat([slot_lp, self._group_pairs(checked)]).cpu().numpy()  # no pairs
+        total = int(head[:S].sum())
+        if total > self.leaf_pair_cap:
+            # a fan-out past the cap: probe's chunked leaf stage (which
+            # keeps the counters itself), then one gather per probe
+            return self._probe_device_fallback(
+                q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats
+            )
+        index_mod._LEAF_PAIRS.inc(total)
+        index_mod._GROUP_PAIRS.inc(int(head[S]))
+        self.part_leaf_pairs += head[:S][st.slot_of]
+        combo_counts = torch.zeros(S * Q, dtype=torch.int64, device=dev)
+        out = empty
+        if total:
+            qq, qh = self._prefilter_queries(q_cat, q_label_hash, True)
+            rows, pr, qr = self._pairs(pi, qi, starts, counts, total, q_cat, q0, qq, qh, eps)
+            # probe-major compaction without a sort: the kept pairs come
+            # (slot, probe)-major, so a pair's place is its probe's offset,
+            # plus the kept pairs of its probe in earlier slots, plus its rank
+            # within its own (slot, probe) run
+            combo = pr * Q + qr
+            combo_counts = torch.bincount(combo, minlength=S * Q)
+            per_sb = combo_counts.view(S, Q)
+            per_b = per_sb.sum(dim=0)
+            base_sb = (torch.cumsum(per_b, 0) - per_b)[None, :] + torch.cumsum(per_sb, 0) - per_sb
+            run_start = torch.cumsum(combo_counts, 0) - combo_counts
+            pos = base_sb.flatten()[combo] + torch.arange(combo.numel(), device=dev) - run_start[combo]
+            out = torch.empty((combo.numel(), L), dtype=torch.int32, device=dev)
+            out.index_put_((pos,), paths[pr, rows])
+        small = [combo_counts]
+        if return_stats:
+            small.append(self._stats(alive, gkeep, checked, pi, qi, counts).flatten())
+        small = torch.cat(small).cpu().numpy()
+        cc = small[: S * Q].reshape(S, Q)
+        per_probe = list(torch.split(out, cc.sum(axis=0).tolist())) if total else [empty] * Q
+        part_counts = cc[st.slot_of]
+        if not return_stats:
+            return per_probe, part_counts
+        return per_probe, part_counts, self._stats_dicts(small[S * Q :].reshape(S, Q, -1), use_groups)
+
+    def _probe_device_fallback(
+        self, q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats
+    ):
+        """``probe``'s chunked leaf stage, then each probe's rows gathered
+        partition by partition in engine order: the same candidates."""
+        out = self.probe(
+            q_emb, q_emb0, q_multi, q_label_hash=q_label_hash, eps=eps,
+            use_groups=use_groups, return_stats=return_stats,
+        )
+        results, stats = out if return_stats else (out, None)
+        n_parts, Q = q_emb.shape[:2]
+        part_counts = np.asarray(
+            [[int(r.numel()) for r in per_q] for per_q in results], np.int64
+        ).reshape(n_parts, Q)
+        per_probe = [
+            torch.cat([ix.paths[results[i][b]] for i, ix in enumerate(self._indexes)]).to(
+                torch.int32
+            )
+            for b in range(Q)
+        ]
+        if return_stats:
+            return per_probe, part_counts, stats
+        return per_probe, part_counts

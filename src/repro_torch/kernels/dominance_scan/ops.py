@@ -5,6 +5,9 @@ tensor through the plain version (``ref.py``); any other device raises.
 
   * ``dominance_scan_pairs`` — K1-pairs, the engine's fused leaf verdict
     on packed (query path, data path) pairs; ``LAUNCHES`` counts it.
+  * ``dominance_scan_groups`` — K1's groups form, the GNN-PGE group
+    verdict on packed (query path, group bound) pairs: one K1-pairs call
+    on concatenated operands (so ``LAUNCHES`` counts it too).
   * ``dominance_scan`` — the dense scan of one query row against N rows
     (K3-single, ``SINGLE_LAUNCHES``) or, for a 2-D ``q``, of Q query rows
     against N rows (K3-batch, ``BATCH_LAUNCHES``), as the JAX package's
@@ -21,7 +24,12 @@ from .kernel import (
     launch_dominance_scan_batch,
     launch_dominance_scan_pairs,
 )
-from .ref import dominance_scan_batch_ref, dominance_scan_pairs_ref, dominance_scan_ref
+from .ref import (
+    dominance_scan_batch_ref,
+    dominance_scan_groups_ref,
+    dominance_scan_pairs_ref,
+    dominance_scan_ref,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -29,6 +37,8 @@ __all__ = [
     "BATCH_LAUNCHES",
     "dominance_scan_pairs",
     "dominance_scan_pairs_ref",
+    "dominance_scan_groups",
+    "dominance_scan_groups_ref",
     "dominance_scan",
     "dominance_scan_ref",
     "dominance_scan_batch",
@@ -76,6 +86,27 @@ def dominance_scan_pairs(qg, q0g, eg, e0g, eps: float = 1e-6) -> torch.Tensor:
     launch_dominance_scan_pairs(qg, q0g, eg, e0g, out, eps)
     LAUNCHES += 1
     return out
+
+
+def dominance_scan_groups(qg, q0g, hi, lo0, hi0, eps: float = 1e-6) -> torch.Tensor:
+    """qg,hi (T, D); q0g,lo0,hi0 (T, D0) float32 → (T,) bool keep mask:
+
+        keep[t] = all(qg[t] ≤ hi[t] + eps) ∧ all(lo0[t] − eps ≤ q0g[t] ≤ hi0[t] + eps)
+
+    as ONE ``dominance_scan_pairs`` call: (qg, q0g, −q0g) against (hi, hi0,
+    −lo0) along the features, with a vacuous (T, 1) label column.
+    ``−q0 ≤ −lo0 + eps`` is ``q0 ≥ lo0 − eps`` bit for bit, since
+    fl(−lo0 + eps) = −fl(lo0 − eps) under round-to-nearest-even, so the
+    verdicts equal ``dominance_scan_groups_ref``'s exactly.
+    """
+    ops = (qg, q0g, hi, lo0, hi0)
+    if not (all(t.dim() == 2 for t in ops) and qg.shape == hi.shape
+            and q0g.shape == lo0.shape == hi0.shape and q0g.shape[0] == qg.shape[0]):
+        raise ValueError(f"dominance_scan_groups: operand shapes {[tuple(t.shape) for t in ops]}")
+    zeros = qg.new_zeros((qg.shape[0], 1))
+    return dominance_scan_pairs(
+        torch.cat([qg, q0g, -q0g], dim=1), zeros, torch.cat([hi, hi0, -lo0], dim=1), zeros, eps
+    )
 
 
 def dominance_scan(q, q0, emb, emb0, eps: float = 1e-6) -> torch.Tensor:

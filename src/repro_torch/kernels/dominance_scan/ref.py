@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the dominance verdicts: K1-pairs on packed
-pairs, K3-single and K3-batch as dense scans."""
+pairs, K1's groups form on packed group bounds, K3-single and K3-batch as
+dense scans."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,9 +8,11 @@ import torch
 
 __all__ = [
     "dominance_scan_pairs_ref",
+    "dominance_scan_groups_ref",
     "dominance_scan_ref",
     "dominance_scan_batch_ref",
     "make_pairs",
+    "make_groups",
     "make_scan",
 ]
 
@@ -23,6 +26,15 @@ def dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps: float = 1e-6) -> torch.Tenso
     """
     e = torch.tensor(eps, dtype=torch.float32, device=qg.device)
     return (qg <= eg + e).all(dim=1) & ((e0g - q0g).abs() <= e).all(dim=1)
+
+
+def dominance_scan_groups_ref(qg, q0g, hi, lo0, hi0, eps: float = 1e-6) -> torch.Tensor:
+    """Row-aligned (query, group bound) pairs: qg,hi (T, D); q0g,lo0,hi0 (T,
+    D0) float32 → (T,) bool: dominance against the group's upper bound and
+    the label embedding inside [lo0, hi0], each widened by ``eps``."""
+    e = torch.tensor(eps, dtype=torch.float32, device=qg.device)
+    dom = (qg <= hi + e).all(dim=1)
+    return dom & ((q0g <= hi0 + e) & (q0g >= lo0 - e)).all(dim=1)
 
 
 def dominance_scan_ref(q, q0, emb, emb0, eps: float = 1e-6) -> torch.Tensor:
@@ -69,6 +81,38 @@ def make_pairs(T: int, seed: int, D: int = 18, D0: int = 6):
     q0g[rows[T // 8 + T // 64 : T // 8 + T // 32]] = np.inf  # inf - inf = NaN
     qg[rows[T // 5 : T // 5 + T // 64], 0] = np.nan
     return qg, q0g, eg, e0g
+
+
+def make_groups(T: int, seed: int, D: int = 18, D0: int = 6):
+    """Seeded NumPy operands (qg, q0g, hi, lo0, hi0) of the groups form at
+    its edges: queries exactly at ``hi + eps``, ``hi0 + eps`` and ``lo0 −
+    eps`` (float32 sums), and one ulp either side of each; points (lo0 =
+    hi0) and intervals; +inf and NaN entries."""
+    rng = np.random.default_rng(seed)
+    eps = np.float32(1e-6)
+    hi = rng.random((T, D), dtype=np.float32)
+    lo0 = rng.integers(0, 4, (T, D0)).astype(np.float32) / np.float32(4)
+    hi0 = lo0 + np.where(rng.random((T, D0)) < 0.5, 0, 0.25).astype(np.float32)
+    qg = (hi * rng.uniform(0.5, 1.02, (T, 1))).astype(np.float32)
+    q0g = np.where(rng.random((T, D0)) < 0.5, lo0, hi0).astype(np.float32)
+    q0g[rng.random(T) < 0.2, 0] += np.float32(0.5)
+
+    def plant(q, edge, p):
+        """Set a share ``p`` of ``q`` to ``edge``, and as much again one ulp
+        above it and one ulp below it."""
+        for step in (None, np.inf, -np.inf):
+            at = rng.random(q.shape) < p
+            q[at] = edge[at] if step is None else np.nextafter(edge[at], np.float32(step))
+
+    plant(qg, (hi + eps).astype(np.float32), 0.02)
+    plant(q0g, (hi0 + eps).astype(np.float32), 0.03)
+    plant(q0g, (lo0 - eps).astype(np.float32), 0.03)
+    rows = rng.permutation(T)
+    hi[rows[: T // 16]] = np.inf  # +inf bounds: dominance holds
+    qg[rows[T // 16 : T // 8]] = np.inf  # +inf query rows: dismissed
+    lo0[rows[T // 8 : T // 8 + T // 32]] = -np.inf  # open below
+    q0g[rows[T // 5 : T // 5 + T // 64], 0] = np.nan
+    return qg, q0g, hi, lo0, hi0
 
 
 def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6,

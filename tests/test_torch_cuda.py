@@ -14,8 +14,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.dominance_scan import ops  # noqa: E402
 from repro_torch.kernels.dominance_scan.ref import (  # noqa: E402
     dominance_scan_batch_ref,
+    dominance_scan_groups_ref,
     dominance_scan_pairs_ref,
     dominance_scan_ref,
+    make_groups,
     make_pairs,
     make_scan,
 )
@@ -63,6 +65,20 @@ def test_dominance_scan_pairs_other_widths(cuda, D, D0):
     """Widths whose shared-memory tile is smaller or needs the opt-in size."""
     args = [torch.from_numpy(a).to(cuda) for a in make_pairs(4099, seed=D, D=D, D0=D0)]
     assert torch.equal(ops.dominance_scan_pairs(*args), dominance_scan_pairs_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1000, (1 << 20) + 7])
+@pytest.mark.parametrize("D,D0", [(18, 6), (6, 6)])
+def test_dominance_scan_groups_bit_equal_to_plain_version(cuda, T, D, D0):
+    """K1's groups form (one K1 launch at width D + 2·D0, D0 = 1) against
+    the direct three compares, ties at every eps edge."""
+    args = [torch.from_numpy(a).to(cuda) for a in make_groups(T, seed=T + D, D=D, D0=D0)]
+    before = ops.LAUNCHES
+    got = ops.dominance_scan_groups(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert torch.equal(got, dominance_scan_groups_ref(*args))
 
 
 @pytest.mark.cuda
@@ -295,7 +311,7 @@ def test_stacked_probe_on_the_card_equals_the_loop(cuda):
     """The stacked probe on the card, with the int8 sidecar and dr plans:
     its verdicts went through K1, and its match lists equal the loop
     probe's and the CPU's, with both joins."""
-    from repro_torch.core import GnnPeConfig, GnnPeEngine
+    from repro_torch.core import GnnPeConfig, GnnPeEngine, sort_matches
     from repro_torch.core import index as index_mod
     from repro_torch.graphs import newman_watts_strogatz, random_connected_query
 
@@ -319,10 +335,58 @@ def test_stacked_probe_on_the_card_equals_the_loop(cuda):
         for qg, q0g, eg, e0g, eps in seen:
             assert torch.equal(ops.dominance_scan_pairs(qg, q0g, eg, e0g, eps),
                                dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps))
-        assert got == eng.match_many(qs, probe_impl="loop", join_impl=join)
+        # the device join takes the stacked probe's hand-off, in slot order
+        loop = eng.match_many(qs, probe_impl="loop", join_impl=join)
+        assert [sort_matches(m) for m in got] == [sort_matches(m) for m in loop]
         assert got == cpu.match_many(qs, join_impl=join) and sum(map(len, got)) > 0
     for q, m in zip(qs[:2], cpu.match_many(qs[:2])):
         assert eng.match(q, impl="scalar") == m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "auto"])
+def test_grouped_engine_and_hand_off_on_the_card(cuda, mode):
+    """A grouped engine on the card: its sidecar sizes equal the CPU's, the
+    loop probe launches K1 for the group level and the member level, each
+    verdict equal to its plain version, and every kind × probe × join
+    gives the CPU's lists; the stacked probe's hand-off to the device join
+    splits no rows per (partition, query)."""
+    import itertools
+
+    from repro_torch.core import GnnPeConfig, GnnPeEngine
+    from repro_torch.core import index as index_mod
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(600, k=4, p=0.15, n_labels=4, seed=3)
+    cfg = GnnPeConfig(n_partitions=5, encoder="monotone", index_kind="grouped",
+                      group_size_mode=mode, plan_weight="dr")
+    qs = [random_connected_query(g, 6, seed=s) for s in range(4)]
+    cpu = GnnPeEngine(cfg, device="cpu").build(g)
+    eng = GnnPeEngine(cfg, device=cuda).build(g)
+    for key in ("n_groups", "group_sizes", "group_bytes"):
+        assert eng.offline_stats[key] == cpu.offline_stats[key]
+    seen = []
+    saved = index_mod._groups_keep_mask, index_mod._pairs_keep_mask
+    index_mod._groups_keep_mask = lambda *a: seen.append(("groups", a)) or saved[0](*a)
+    index_mod._pairs_keep_mask = lambda *a: seen.append(("pairs", a)) or saved[1](*a)
+    before = ops.LAUNCHES
+    try:
+        got = eng.match_many(qs, probe_impl="loop")
+    finally:
+        index_mod._groups_keep_mask, index_mod._pairs_keep_mask = saved
+    assert ops.LAUNCHES >= before + 2 and {k for k, _ in seen} == {"groups", "pairs"}
+    for kind, a in seen:
+        fn, plain = ((ops.dominance_scan_groups, dominance_scan_groups_ref) if kind == "groups"
+                     else (ops.dominance_scan_pairs, dominance_scan_pairs_ref))
+        assert torch.equal(fn(*a), plain(*a))
+    assert got == cpu.match_many(qs, probe_impl="loop") and sum(map(len, got)) > 0
+    for kind, probe, join in itertools.product(("path", "grouped"), ("loop", "stacked"),
+                                               ("numpy", "device")):
+        kw = dict(index_kind=kind, probe_impl=probe, join_impl=join)
+        expansions = eng.stacked_probe().host_expansions
+        assert eng.match_many(qs, **kw) == cpu.match_many(qs, **kw), kw
+        if (probe, join) == ("stacked", "device"):
+            assert eng.stacked_probe().host_expansions == expansions
 
 
 @pytest.mark.cuda

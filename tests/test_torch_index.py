@@ -9,8 +9,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core.grouping import attach_groups as ref_attach  # noqa: E402
 from repro.core.index import build_index as ref_build  # noqa: E402
 from repro.core.index import query_index_batch_multi as ref_probe  # noqa: E402
+from repro_torch.core.grouping import attach_groups  # noqa: E402
 from repro_torch.core.index import (  # noqa: E402
     PAIR_METRIC,
     build_index,
@@ -120,5 +122,27 @@ def test_probe_of_empty_index_and_empty_batch():
     )
     assert [len(o) for o in out] == [4, 0]
     assert all(r.numel() == 0 for r in out[0])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the grouped probe needs the sidecar, as the reference's does
+    with pytest.raises(ValueError, match="PackedGroupIndex sidecar"):
         query_index_batch_multi([(port, q, q, None, None)], use_groups=True)
+    with pytest.raises(ValueError, match="PackedGroupIndex sidecar"):
+        ref_probe([(ref, q.numpy(), q.numpy(), None, None)], use_groups=True, use_pallas=False)
+    # with it, the grouped probe of the empty index and an empty batch
+    # returns what the reference's does, stats included
+    ref_attach(ref, 8)
+    attach_groups(port, 8)
+    attach_groups(empty, 8)
+    got, got_stats = query_index_batch_multi(
+        [(empty, q, q, None, None), (port, q, q, None, None), (port, q[:0], q[:0], None, None)],
+        use_groups=True, return_stats=True,
+    )
+    want, want_stats = ref_probe(
+        [(ref, q.numpy(), q.numpy(), None, None), (ref, q[:0].numpy(), q[:0].numpy(), None, None)],
+        use_groups=True, return_stats=True, use_pallas=False,
+    )
+    assert [len(o) for o in got] == [4, 4, 0]
+    assert all(r.numel() == 0 for r in got[0])
+    assert got_stats[0] == [dict.fromkeys(want_stats[0][0], 0)] * 4
+    assert got_stats[1:] == want_stats
+    for g, w in zip(got[1], want[0]):
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: a fresh process
 imports ``repro_torch``, builds and matches on the CPU through both joins,
-also with the int8 sidecar, dr plans and the stacked probe, and through the
-scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
+also with the int8 sidecar, dr plans and the stacked probe, with a grouped
+index (auto group sizes) and the stacked probe's hand-off to the device
+join, and through the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -32,6 +33,15 @@ assert eng_q.offline_stats["stacked_bytes"] > 0
 for q, m, d in zip(qs, eng_q.match_many(qs), eng_q.match_many(qs, join_impl="device")):
     assert set(m) == set(vf2_match(g, q)) == set(d)
     assert eng_q.match(q, impl="scalar") == m
+cfg = GnnPeConfig(encoder="monotone", n_partitions=3, index_kind="grouped",
+                  group_size_mode="auto", probe_impl="stacked", join_impl="device",
+                  plan_weight="dr")
+eng_g = GnnPeEngine(cfg, device="cpu").build(g)
+assert eng_g.offline_stats["n_groups"] > 0 and len(eng_g.offline_stats["group_sizes"]) == 3
+before = eng_g.stacked_probe().host_expansions
+for q, m, l in zip(qs, eng_g.match_many(qs), eng_g.match_many(qs, probe_impl="loop", join_impl="numpy")):
+    assert set(m) == set(vf2_match(g, q)) == set(l)
+assert eng_g.stacked_probe().host_expansions == before
 import torch
 from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index

@@ -13,12 +13,14 @@ torch = pytest.importorskip("torch")
 
 from repro.core import GnnPeConfig as RefConfig  # noqa: E402
 from repro.core import GnnPeEngine as RefEngine  # noqa: E402
+from repro.core import grouping as RG  # noqa: E402
 from repro.core import index as RI  # noqa: E402
 from repro.core import stacked as RS  # noqa: E402
 from repro.dist.probe import StackedProbe as RefProbe  # noqa: E402
 from repro.graphs import erdos_renyi, random_connected_query  # noqa: E402
 from repro_torch.convert import partition_state_from_reference  # noqa: E402
 from repro_torch.core import GnnPeConfig, GnnPeEngine, vf2_match  # noqa: E402
+from repro_torch.core import grouping as PG  # noqa: E402
 from repro_torch.core import index as PI  # noqa: E402
 from repro_torch.core import stacked as PS  # noqa: E402
 from repro_torch.dist import StackedProbe  # noqa: E402
@@ -133,10 +135,26 @@ def test_descent_equals_reference_masks(n_gnn, monkeypatch):
     probe = StackedProbe(port)
     for budget in (1 << 28, 1):  # one chunk; one query a chunk
         monkeypatch.setattr(probe_mod, "_MASK_BUDGET", budget)
-        got = probe._device_masks(_t(q_cat), _t(q0), 1e-6, "batched")
+        got, gkeep = probe._device_masks(_t(q_cat), _t(q0), 1e-6, "batched")
         np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 9"):
+        assert gkeep is None
+    with pytest.raises(ValueError, match="PackedGroupIndex sidecar"):
         PS.stacked_masks_ref(st, _t(q_cat), _t(q0), use_groups=True)
+    # with group sidecars of mixed sizes, the group masks equal the reference's too
+    for i, (r, p) in enumerate(zip(ref, port)):
+        RG.attach_groups(r, (8, 16, 32)[i % 3])
+        PG.attach_groups(p, (8, 16, 32)[i % 3])
+    st_ref = RS.build_stacked(ref)
+    want, want_g = RS.stacked_masks_ref(st_ref, q_cat, q0, use_groups=True)
+    plain, plain_g = PS.stacked_masks_ref(PS.build_stacked(port), _t(q_cat), _t(q0), use_groups=True)
+    np.testing.assert_array_equal(plain_g.numpy(), want_g)
+    assert want_g.any() and not want_g.all()
+    probe = StackedProbe(port)
+    for budget in (1 << 28, 1):
+        monkeypatch.setattr(probe_mod, "_MASK_BUDGET", budget)
+        got, gkeep = probe._device_masks(_t(q_cat), _t(q0), 1e-6, "batched", use_groups=True)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(gkeep.numpy(), want_g)
 
 
 @pytest.mark.parametrize("cap", [7, 1 << 21])
@@ -225,8 +243,21 @@ def test_all_empty_partitions_and_grouped():
     assert all(r.numel() == 0 for part in got for r in part)
     assert probe.part_leaf_pairs.tolist() == [0, 0, 0]
     assert probe.probe(*(a[:, :0] for a in args[:2]), None) == [[], [], []]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        probe.probe(*args, use_groups=True)
+    # all partitions empty: the grouped probe needs no sidecar and returns
+    # the reference's empty rows and zero stats
+    got, got_stats = probe.probe(*args, use_groups=True, return_stats=True)
+    want, want_stats = RefProbe(ref).probe(
+        q_emb, q_emb0, q_multi, use_groups=True, return_stats=True, use_pallas=False
+    )
+    assert [[r.numel() for r in part] for part in got] == [[r.size for r in part] for part in want]
+    assert got_stats == want_stats
+    # a stack with paths and no sidecar refuses the grouped probe, as the reference's
+    ref, port, vocab, rng = ragged_indexes(5, True, 2)
+    q_emb, q_emb0, q_multi, qh = queries(ref, vocab, rng, 4, 2)
+    with pytest.raises(ValueError, match="PackedGroupIndex sidecar"):
+        StackedProbe(port).probe(_t(q_emb), _t(q_emb0), _t(q_multi), use_groups=True)
+    with pytest.raises(ValueError, match="PackedGroupIndex sidecar"):
+        RefProbe(ref).probe(q_emb, q_emb0, q_multi, use_groups=True, use_pallas=False)
 
 
 @pytest.fixture(scope="module")
