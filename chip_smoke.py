@@ -95,7 +95,30 @@ Phases, each printing its seconds:
      cut to B = 64 (warm steps at the cell's cur_len, one check step at
      S − 2 against the CPU on rows 0–1); ``long_500k`` uncut; the
      ``DecodeEngine`` on 12 requests through 8 slots; K6 timed at a global
-     and a local layer beside its plain version and SDPA.
+     and a local layer beside its plain version and SDPA;
+  8. live updates: 8a, the 50K cell (phase 3's graph, partitions, encoder
+     and queries) with ``cache=True, delta_compact_min=192,
+     delta_compact_frac=0.08`` under 8 seeded epochs (6 of
+     ``benchmarks/bench_updates.py``'s edge churn, one appending 2 vertices,
+     one removing a vertex): after each, both probes x both joins (cache set
+     aside; K1 and K2 counted), every list in the JAX package's candidate
+     order under pending deltas (host join: per partition its live main
+     rows, then its buffer rows; hand-off: the main rows in slot order, then
+     the buffer rows), the sets equal to VF2's at the first and last epoch,
+     the delta buffers' scan one K1 launch a batch (``ops.LAUNCHES``) equal
+     to its plain version on its real operands, its peak memory, the cache's hits, warm
+     ``match_many`` beside epoch 0's; then the two most pressured partitions
+     compacted through prepare / build / install (``update_slot`` must run,
+     re-stacking only their slots) and every list equal to
+     ``rebuild_indexes()``'s under ``sort_matches``; 8b,
+     ``bench_updates.py --full``'s cell (10K vertices, 40 partitions, grouped
+     index): delta (a stacked probe kept) against ``strategy="rebuild"`` over
+     6 batches with equal match sets, each strategy's stages timed, at least
+     one compaction and one ``update_slot`` from the engine's own trigger,
+     and the repeat-heavy stream with the cache off and on; 8c,
+     phase 4's GAT engine after one update: its re-embedded rows against
+     ``rebuild_indexes()``'s, bit for bit (printed), and its sets against
+     VF2's.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1324,7 +1347,7 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
 # ---- phase 4 ----------------------------------------------------------------
 
 
-def phase4_gat(dev) -> None:
+def phase4_gat(dev):
     from repro_torch.core import GnnPeConfig, GnnPeEngine, TrainConfig
     from repro_torch.graphs import newman_watts_strogatz, random_connected_query
 
@@ -1338,6 +1361,7 @@ def phase4_gat(dev) -> None:
     log(f"gat: epochs {[m.train_epochs for m in eng2.models]}, "
         f"fallback vertices {[m.n_fallback for m in eng2.models]}, "
         f"train {eng2.offline_stats['train_time']:.3f} s")
+    return eng2, queries2
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -2229,6 +2253,522 @@ def phase7_lm_serving(dev, flush) -> dict:
     return out
 
 
+# ---- phase 8 ----------------------------------------------------------------
+
+PATHS4 = (("loop", "numpy"), ("stacked", "numpy"), ("loop", "device"), ("stacked", "device"))
+
+
+def rand_update(rng, g, n_edges: int = 4):
+    """``benchmarks/bench_updates.py``'s edit batch: ``n_edges`` edges removed
+    and ``n_edges`` random pairs added."""
+    from repro_torch.core import GraphUpdate
+
+    e = g.edge_array()
+    remove = e[rng.choice(e.shape[0], size=n_edges, replace=False)]  # drawn first, as bench_updates.py does
+    return GraphUpdate(add_edges=rng.integers(0, g.n_vertices, size=(n_edges, 2)),
+                       remove_edges=remove)
+
+
+def delta_order_check(eng, queries, lists: dict) -> int:
+    """The four probe × join lists against the candidate orders of the JAX
+    package under pending deltas, built here from the loop probe's memos:
+    per partition in engine order its live main rows, then its buffer rows
+    (host join, both probes); the hand-off's device rows in slot order, then
+    the buffer rows in engine order.  No main row a probe returns is
+    tombstoned → probes checked."""
+    import torch
+
+    from repro_torch.core.matcher import match_from_candidates, match_from_candidates_many
+
+    q_embs = eng._query_node_embeddings_many(queries)
+    plans = [eng._deg_plan_cached(q) for q in queries]
+    reqs = list(dict.fromkeys((qi, p) for qi, pl in enumerate(plans) for p in pl.paths))
+    memo, dm, smemo, sdm, dev_memo, dev_counts, hdm = {}, {}, {}, {}, {}, {}, {}
+    eng._probe_batch(reqs, q_embs, memo, queries, "loop", delta_memo=dm)
+    eng._probe_batch(reqs, q_embs, smemo, queries, "stacked", delta_memo=sdm)
+    eng._probe_batch(reqs, q_embs, {}, queries, "stacked", dev_memo=dev_memo,
+                     dev_counts=dev_counts, delta_memo=hdm)
+    for a, b, what in ((memo, smemo, "stacked probe's main rows"), (dm, sdm, "stacked buffer rows"),
+                       (dm, hdm, "hand-off's buffer rows")):
+        require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                f"the {what} differ from the loop probe's")
+    slots = np.argsort(eng.stacked_probe().stacked.slot_of)
+    host, hand = {}, {}
+    for qi, p in reqs:
+        main, buf = [], []
+        for mi, model in enumerate(eng.models):
+            dp = eng.delta.parts[mi]
+            rows = memo.get((mi, qi, p))
+            if rows is not None and rows.numel():
+                require(not bool(dp.tombstone[rows].any()), "a probe returned a tombstoned row")
+                main.append(model.index.paths[rows])
+            drows = dm.get((mi, qi, p))
+            if drows is not None and drows.numel():
+                main.append(dp.paths[drows])
+                buf.append(dp.paths[drows])
+        host[(qi, p)] = torch.cat(main) if main else torch.zeros((0, len(p)), dtype=torch.int64,
+                                                                 device=eng.device)
+        slot_rows = [eng.models[mi].index.paths[memo[(mi, qi, p)]] for mi in slots
+                     if (mi, qi, p) in memo]
+        hand[(qi, p)] = torch.cat(slot_rows + buf).to(torch.int32)
+        got = eng._device_candidates(dev_memo[(qi, p)], buf, len(p))
+        require(torch.equal(got, hand[(qi, p)]),
+                f"the hand-off's candidates of probe {(qi, p)} are not main (slot order) + buffer")
+    paths = [pl.paths for pl in plans]
+    want_host = [
+        match_from_candidates(eng.graph, eng.dgraph, q, pl.paths, [host[(qi, p)] for p in pl.paths],
+                              assume_unique=True)
+        for qi, (q, pl) in enumerate(zip(queries, plans))
+    ]
+    for path in (("loop", "numpy"), ("stacked", "numpy")):
+        require(lists[path] == want_host, f"{path}: lists differ from the host-order join")
+    for path, cands in ((("loop", "device"), host), (("stacked", "device"), hand)):
+        want = match_from_candidates_many(
+            eng.graph, eng.dgraph, queries, paths,
+            [[cands[(qi, p)] for p in pl.paths] for qi, pl in enumerate(plans)],
+            join_impl="device", assume_unique=True,
+        )
+        require(lists[path] == want, f"{path}: lists differ from the device join in that order")
+    return len(reqs)
+
+
+class DeltaScanProbe:
+    """Records the delta buffers' scans while installed: each fused verdict's
+    operands and result (``core/delta.py``'s ``_pairs_keep_mask``, K1 on the
+    card), the K1 launches ``ops.LAUNCHES`` counts inside those verdicts, and
+    each ``probe_delta_multi`` call's peak of device memory above what was
+    allocated when it began."""
+
+    def __init__(self):
+        from repro_torch.core import delta as delta_mod
+        from repro_torch.core import engine as engine_mod
+        from repro_torch.kernels.dominance_scan import ops
+
+        self.delta_mod, self.engine_mod, self.ops = delta_mod, engine_mod, ops
+        self.verdicts, self.peaks, self.pairs, self.launches = [], [], 0, 0
+
+    def __enter__(self):
+        import torch
+
+        keep_mask, scan = self.delta_mod._pairs_keep_mask, self.engine_mod.probe_delta_multi
+        self.saved = keep_mask, scan
+
+        def verdict(*a):
+            before = self.ops.LAUNCHES
+            res = keep_mask(*a)
+            self.launches += self.ops.LAUNCHES - before
+            self.verdicts.append((a, res))
+            self.pairs += int(a[0].shape[0])
+            return res
+
+        def measured(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = scan(*a, **k)
+            torch.cuda.synchronize()
+            self.peaks.append(torch.cuda.max_memory_allocated() - base)
+            return out
+
+        self.delta_mod._pairs_keep_mask, self.engine_mod.probe_delta_multi = verdict, measured
+        return self
+
+    def __exit__(self, *exc):
+        self.delta_mod._pairs_keep_mask, self.engine_mod.probe_delta_multi = self.saved
+
+    def check(self, what: str) -> None:
+        """Every recorded verdict equal to the plain version on its operands."""
+        import torch
+
+        from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+
+        for a, keep in self.verdicts:
+            require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+                    f"{what}: K1 on the delta scan's pairs differs from the plain version")
+
+
+class SlotUpdates:
+    """Counts ``StackedProbe.update_slot`` calls (and refusals) while installed."""
+
+    def __enter__(self):
+        from repro_torch.dist.probe import StackedProbe
+
+        self.cls, self.saved = StackedProbe, StackedProbe.update_slot
+        self.calls = self.refused = 0
+
+        def counted(probe, part_i, index):
+            ok = self.saved(probe, part_i, index)
+            self.calls += 1
+            self.refused += int(not ok)
+            return ok
+
+        StackedProbe.update_slot = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update_slot = self.saved
+
+
+class StageClock:
+    """Host ms of the update path's stages while installed: each listed
+    function (a module's or a class's attribute) counts its time, to
+    ``finish()`` (a synchronize on the card), under its stage, less the
+    stages it calls; ``calls`` counts its entries."""
+
+    def __init__(self, stages: list, finish=lambda: None):
+        self.stages, self.finish = stages, finish
+        self.ms: dict = {}
+        self.calls: dict = {}
+        self._open: list = []  # [stage, start] of the stages entered, innermost last
+
+    def _add(self, key: str, t0: float, t1: float) -> None:
+        self.ms[key] = self.ms.get(key, 0.0) + (t1 - t0) * 1e3
+
+    def _wrap(self, fn, key: str):
+        def run(*a, **k):
+            self.finish()
+            now = time.perf_counter()
+            if self._open:  # the caller's stage pauses
+                self._add(self._open[-1][0], self._open[-1][1], now)
+            self._open.append([key, now])
+            try:
+                return fn(*a, **k)
+            finally:
+                self.finish()
+                now = time.perf_counter()
+                self._add(key, self._open.pop()[1], now)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if self._open:
+                    self._open[-1][1] = now
+
+        return run
+
+    def __enter__(self):
+        self.saved = [(owner, name, vars(owner)[name]) for owner, name, _ in self.stages]
+        for (owner, name, key), (_, _, fn) in zip(self.stages, self.saved):
+            setattr(owner, name, self._wrap(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def report(self, wall_ms: float) -> str:
+        return ", ".join(f"{k} {v:.3f} ms / {self.calls[k]}" for k, v in self.ms.items()) + (
+            f", the rest {wall_ms - sum(self.ms.values()):.3f} ms")
+
+
+def update_stages(engine_mod, delta_mod, probe_mod) -> list:
+    """(owner, attribute, stage) of ``apply_updates``' stages under both
+    strategies: the names are the same in the port and in the JAX package
+    (``tools/update_stages.py`` passes the latter's modules)."""
+    eng = engine_mod.GnnPeEngine
+    stages = [
+        (engine_mod, "apply_graph_update", "graph edit"),
+        (engine_mod, "device_graph", "graph upload"),
+        (eng, "_assign_new_vertices", "new vertices"),
+        (engine_mod, "l_hop_reach", "L-hop reach"),
+        (engine_mod, "expanded_partition", "expanded vertex sets (host BFS)"),
+        (engine_mod, "build_star_tensors", "star tensors"),
+        (eng, "_refresh_node_embeddings", "re-embed"),
+        (eng, "_node_embeddings", "embed (rebuild)"),
+        (delta_mod.DeltaIndex, "tombstone_touched", "tombstones"),
+        (engine_mod, "enumerate_paths", "path enumeration"),
+        (engine_mod, "paths_touching", "paths touching"),
+        (engine_mod, "concat_path_embeddings", "path embeddings"),
+        (engine_mod, "hash_labels", "label hashes"),
+        (delta_mod.DeltaIndex, "append", "buffer append"),
+        (engine_mod, "build_index", "index pack (rebuild)"),
+        (eng, "_attach_partition_groups", "groups (rebuild)"),
+        (delta_mod.DeltaIndex, "compact_partition", "compaction"),
+        (probe_mod.StackedProbe, "update_slot", "update_slot"),
+    ]
+    return [st for st in stages if st[1] in vars(st[0])]
+
+
+def profiled_update(eng, upd, dev) -> tuple[dict, float]:
+    """One ``apply_updates`` under ``torch.profiler``, with the host ms of
+    its stages (``StageClock``) → (summary, wall ms)."""
+    import torch
+
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.dist import probe as probe_mod
+
+    with StageClock(update_stages(engine_mod, delta_mod, probe_mod), lambda: sync(dev)) as clock:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            s = eng.apply_updates(upd)
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"8a profiled apply_updates: {wall:.3f} ms wall, {len(s['mutated'])} partitions mutated; "
+        f"device busy {busy:.3f} ms in {sum(e.count for e in kernels)} kernel launches, "
+        f"{sum(e.count for e in kernels if 'DtoH' in e.key)} device-to-host copies; host stages "
+        f"(ms / calls) {clock.report(wall)}")
+    return s, wall
+
+
+def phase8a_updates(dev) -> dict:
+    """The 50K cell under 8 seeded update epochs, cache on (the module doc's
+    phase 8a)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import GnnPeEngine, GraphUpdate, sort_matches
+
+    out = {"K1": 0, "K2": 0, "delta_K1": 0}
+    g, queries, cfg = cell_50k_inputs()
+    cfg = dataclasses.replace(cfg, cache=True, delta_compact_min=192, delta_compact_frac=0.08)
+    t = time.perf_counter()
+    eng = GnnPeEngine(cfg).build(g)
+    eng.stacked_probe()
+    sync(dev)
+    log(f"8a build: {time.perf_counter() - t:.3f} s, {eng.offline_stats['n_paths']} paths; "
+        f"compaction threshold per partition max(192, 0.08 x paths) = "
+        f"{min(max(192, int(0.08 * m.index.n_paths)) for m in eng.models)}.."
+        f"{max(max(192, int(0.08 * m.index.n_paths)) for m in eng.models)} rows")
+    cache = eng._result_cache
+
+    def run_paths(label: str) -> dict:
+        """The four probe × join lists, cache set aside (counted launches)."""
+        eng._result_cache = None
+        lists = {}
+        try:
+            for probe, join in PATHS4:
+                reset_counters()
+                lists[(probe, join)] = eng.match_many(queries, probe_impl=probe, join_impl=join)
+                sync(dev)
+                c = counters()
+                out["K1"] += c["K1"]
+                out["K2"] += c["K2"]
+                require(c["K1"] > 0, f"{label} {probe}/{join}: K1 never launched")
+                if join == "device":
+                    require(c["K2"] > 0, f"{label} {probe}/{join}: K2 never launched")
+        finally:
+            eng._result_cache = cache
+        sets = [sort_matches(m) for m in lists[PATHS4[0]]]
+        for path, got in lists.items():
+            require([sort_matches(m) for m in got] == sets, f"{label} {path}: sets differ")
+        return lists
+
+    def warm() -> float:
+        eng._result_cache = None
+        try:
+            return warm_ms(lambda: eng.match_many(queries), dev, 1)[0]
+        finally:
+            eng._result_cache = cache
+
+    run_paths("epoch 0")
+    warm0 = warm()
+    rng = np.random.default_rng(0)
+    n_inline = 0
+    with SlotUpdates() as slots:
+        for epoch in range(1, 9):
+            if epoch == 7:  # two appended vertices, labels in [0, 100)
+                upd = GraphUpdate(add_vertex_labels=rng.integers(0, 100, size=2).astype(np.int32))
+            elif epoch == 8:  # one vertex removed
+                upd = GraphUpdate(remove_vertices=rng.integers(0, eng.graph.n_vertices, size=1))
+            else:
+                upd = rand_update(rng, eng.graph)
+            calls0 = slots.calls
+            if epoch == 6:  # one epoch under the profiler, its stages timed
+                s, apply_ms = profiled_update(eng, upd, dev)
+            else:
+                t = time.perf_counter()
+                s = eng.apply_updates(upd)
+                sync(dev)
+                apply_ms = (time.perf_counter() - t) * 1e3
+            n_inline += len(s["compacted"])
+            k1_before = out["K1"]
+            with DeltaScanProbe() as scan:
+                lists = run_paths(f"epoch {epoch}")
+            scan.check(f"8a epoch {epoch}")
+            out["delta_K1"] += scan.launches
+            require(len(scan.verdicts) == (4 if eng.delta.any_rows() else 0),
+                    f"epoch {epoch}: {len(scan.verdicts)} delta-scan verdicts for 4 batches")
+            require(scan.launches == len(scan.verdicts),
+                    f"epoch {epoch}: ops.LAUNCHES rose by {scan.launches} in "
+                    f"{len(scan.verdicts)} delta-scan verdicts, not one K1 launch each")
+            n_probes = delta_order_check(eng, queries, lists)
+            if epoch in (1, 8):
+                check_against_vf2(eng.graph, queries, lists[PATHS4[0]], f"8a epoch {epoch}")
+            hits0 = cache.stats.hits
+            for _ in range(2):
+                got = eng.match_many(queries)
+                same = [sort_matches(m) for m in got] == [sort_matches(m) for m in lists[PATHS4[0]]]
+                require(same, f"epoch {epoch}: a cached answer differs from the pipeline's")
+            w = warm()
+            st = eng.delta_stats()
+            peak = max(scan.peaks, default=0)
+            log(f"8a epoch {epoch}: apply_updates {apply_ms:.3f} ms{' (profiled)' * (epoch == 6)}, "
+                f"touched {s['touched']}, "
+                f"mutated {len(s['mutated'])}, compacted {s['compacted']}; delta rows "
+                f"{st['delta_rows']}, tombstones {st['tombstones']}, compactions "
+                f"{st['n_compactions']}; update_slot {slots.calls - calls0} (full re-stacks "
+                f"{int(eng._stacked_probe is None)}); K1 launches (ops.LAUNCHES) "
+                f"{out['K1'] - k1_before}, of them the delta scan's {scan.launches} over "
+                f"{scan.pairs} pairs, equal to plain; delta-scan peak "
+                f"{peak / 2**20:.3f} MiB; cache hits {cache.stats.hits - hits0} of "
+                f"{2 * len(queries)}; warm match_many {w:.3f} ms (epoch 0: {warm0:.3f}); "
+                f"{n_probes} probes in the JAX package's candidate order")
+            out["peak_mib"] = max(out.get("peak_mib", 0.0), peak / 2**20)
+        # the deferred path: the two most pressured partitions compact through
+        # prepare → build → install, each re-stacking only its slot
+        pressured = sorted(range(len(eng.models)), key=lambda mi: -eng.delta.parts[mi].pressure)[:2]
+        calls0 = slots.calls
+        for mi in pressured:
+            snap = eng.prepare_compaction(mi)
+            require(eng.install_compaction(snap, eng.build_compaction(snap)),
+                    f"the compaction of partition {mi} was refused")
+        require(eng._stacked_probe is not None and slots.calls - calls0 == len(pressured),
+                "a compaction re-stacked everything instead of its slot")
+    require(n_inline + len(pressured) >= 1 and slots.calls - slots.refused >= 1,
+            "no compaction or no update_slot in phase 8a")
+    after = run_paths("after the installs")
+    delta_order_check(eng, queries, after)
+    log(f"8a: delta-scan K1 launches {out['delta_K1']} over the 8 epochs (ops.LAUNCHES); "
+        f"inline compactions {n_inline}, installed {len(pressured)} ({pressured}); "
+        f"update_slot {slots.calls} calls, {slots.refused} refused; delta stats "
+        f"{eng.delta_stats()}")
+    eng.rebuild_indexes()
+    rebuilt = run_paths("rebuild_indexes")
+    for path in PATHS4:
+        require([sort_matches(m) for m in after[path]] == [sort_matches(m) for m in rebuilt[path]],
+                f"{path}: the delta engine's lists differ from rebuild_indexes()'s")
+    log("8a: after the last epoch every probe x join list equals rebuild_indexes()'s "
+        "under sort_matches")
+    out.update(warm0=warm0, n_inline=n_inline)
+    return out
+
+
+def phase8b_bench_updates(dev) -> dict:
+    """``benchmarks/bench_updates.py --full``'s cell on the port: delta
+    against rebuild over 6 batches, each strategy's stages timed
+    (``StageClock``; the delta engine keeps a stacked probe, so the engine's
+    own compaction trigger re-stacks a slot), then the repeat-heavy stream
+    with the cache off and on."""
+    from repro_torch.core import GnnPeConfig, GnnPeEngine, TrainConfig, sort_matches
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.dist import probe as probe_mod
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(10_000, k=4, p=0.1, n_labels=100, seed=13)
+    base = dict(n_partitions=10_000 // 250, encoder="monotone", index_kind="grouped",
+                group_size=16, train=TrainConfig(max_epochs=150))
+    eng = GnnPeEngine(GnnPeConfig(**base, cache=True, delta_compact_min=192,
+                                  delta_compact_frac=0.08)).build(g)
+    eng.stacked_probe()
+    reb = GnnPeEngine(GnnPeConfig(**base)).build(g)
+
+    def sample(n, seed0):
+        out = []
+        for s in range(n):
+            try:
+                out.append(random_connected_query(g, 8, seed=seed0 + s))
+            except RuntimeError:
+                continue
+        return out
+
+    queries = sample(8, 77)
+    rng = np.random.default_rng(0)
+    cache, eng._result_cache = eng._result_cache, None
+    stages = update_stages(engine_mod, delta_mod, probe_mod)
+    clocks = {k: StageClock(stages, lambda: sync(dev)) for k in ("delta", "rebuild")}
+    wall = {"delta": 0.0, "rebuild": 0.0}
+    n_mutated = 0
+    with SlotUpdates() as slots:
+        for b in range(6):
+            upd = rand_update(rng, eng.graph)
+            for strategy, e in (("delta", eng), ("rebuild", reb)):
+                with clocks[strategy]:
+                    t = time.perf_counter()
+                    s = e.apply_updates(upd, strategy=strategy)
+                    sync(dev)
+                    wall[strategy] += (time.perf_counter() - t) * 1e3
+                n_mutated += len(s["mutated"]) * (strategy == "delta")
+            md = [sort_matches(m) for m in eng.match_many(queries)]
+            require(md == [sort_matches(m) for m in reb.match_many(queries)],
+                    f"8b batch {b}: delta and rebuild match sets differ")
+    st = eng.delta_stats()
+    require(st["n_compactions"] >= 1 and slots.calls - slots.refused >= 1,
+            f"8b: {st['n_compactions']} compactions and {slots.calls - slots.refused} slots "
+            "re-stacked by the engine's own trigger; each must be at least 1")
+    speedup = wall["rebuild"] / max(wall["delta"], 1e-12)
+    log(f"8b delta vs rebuild, 6 batches: delta {wall['delta']:.3f} ms, rebuild "
+        f"{wall['rebuild']:.3f} ms, speedup {speedup:.2f}x; match sets identical at every epoch; "
+        f"compactions {st['n_compactions']}, update_slot {slots.calls} calls ({slots.refused} "
+        f"refused), delta rows {st['delta_rows']}, tombstones {st['tombstones']}")
+    for strategy, n_parts in (("delta", n_mutated), ("rebuild", 6 * len(reb.models))):
+        log(f"8b {strategy} stages, 6 batches (ms / calls): {clocks[strategy].report(wall[strategy])}; "
+            f"{n_parts} partitions re-indexed, {wall[strategy] / max(n_parts, 1):.3f} ms each")
+    pool = sample(6, 500)
+    stream = [pool[int(rng.integers(0, len(pool)))] for _ in range(48)]
+
+    def lat(q):
+        t = time.perf_counter()
+        m = eng.match(q)
+        sync(dev)
+        return time.perf_counter() - t, m
+
+    off = [lat(q) for q in stream]
+    cache.clear()
+    eng._result_cache = cache
+    on = [lat(q) for q in stream]
+    for (_, a), (_, b) in zip(off, on):
+        require(sort_matches(a) == sort_matches(b), "8b: a cached answer differs")
+
+    def pcts(x):
+        a = np.sort(np.asarray([v for v, _ in x])) * 1e3
+        return float(a[len(a) // 2]), float(a[min(int(len(a) * 0.95), len(a) - 1)])
+
+    (p50_off, p95_off), (p50_on, p95_on) = pcts(off), pcts(on)
+    log(f"8b repeat-heavy stream (pool 6, 48 requests): cache off p50 {p50_off:.3f} ms, p95 "
+        f"{p95_off:.3f} ms; cache on p50 {p50_on:.3f} ms, p95 {p95_on:.3f} ms "
+        f"({p50_off / max(p50_on, 1e-9):.2f}x at p50); hit rate {cache.stats.hit_rate():.3f}")
+    return {"speedup": speedup, "n_compactions": st["n_compactions"]}
+
+
+def phase8c_gat_bits(dev, eng, queries) -> None:
+    """Phase 4's GAT engine: one update through the delta path, then its
+    refreshed node embeddings against ``rebuild_indexes()``'s, bit for bit,
+    on every partition's vertex set; the match sets exact against VF2."""
+    import torch
+
+    upd = rand_update(np.random.default_rng(0), eng.graph)
+    s = eng.apply_updates(upd)
+    check_against_vf2(eng.graph, queries, eng.match_many(queries), "8c delta")
+    touched = eng.epoch_fresh()["touched"]
+
+    def rows(m, v):
+        """(|v|, d + d + n_multi·d): each vertex's three embeddings in one row."""
+        multi = m.node_emb_multi[:, v].transpose(0, 1).reshape(v.numel(), -1)
+        return torch.cat([m.node_emb[v], m.node_emb0[v], multi], dim=1).clone()
+
+    vsets = [m.vertex_set.astype(np.int64) for m in eng.models]
+    before = [rows(m, torch.as_tensor(v, device=dev)) for m, v in zip(eng.models, vsets)]
+    eng.rebuild_indexes()
+    n_rows = n_equal = n_touched = n_touched_equal = 0
+    worst = 0.0
+    for m, v, old in zip(eng.models, vsets, before):
+        same = (old == rows(m, torch.as_tensor(v, device=dev))).all(dim=1).cpu().numpy()
+        hit = np.isin(v, touched)
+        n_rows, n_equal = n_rows + same.size, n_equal + int(same.sum())
+        n_touched += int(hit.sum())
+        n_touched_equal += int(same[hit].sum())
+        worst = max(worst, float((old - rows(m, torch.as_tensor(v, device=dev))).abs().max()))
+    check_against_vf2(eng.graph, queries, eng.match_many(queries), "8c rebuild")
+    log(f"8c GAT bits: {s['touched']} touched vertices; on the vertex sets {n_equal} of {n_rows} "
+        f"vertices' embeddings equal rebuild_indexes()'s bit for bit ({n_touched_equal} of the "
+        f"{n_touched} rows of touched vertices), max |diff| {worst:.3e}: "
+        f"{'bit-equal' if n_equal == n_rows else 'NOT bit-equal'}; match sets equal VF2's after "
+        f"the update and after the rebuild")
+
+
 def main() -> int:
     import torch
 
@@ -2275,7 +2815,7 @@ def main() -> int:
     log(f"phase 3g the 50K cell with the grouped index: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
-    phase4_gat(dev)
+    gat_eng, gat_queries = phase4_gat(dev)
     log(f"phase 4 gat, 2K vertices / 2 partitions: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -2295,6 +2835,17 @@ def main() -> int:
     log(f"phase 7 gemma3-1b serving, prefill_32k / decode_32k / long_500k / DecodeEngine: "
         f"{time.perf_counter() - t:.3f} s")
 
+    t = time.perf_counter()
+    p8 = phase8a_updates(dev)
+    log(f"phase 8a the 50K cell under 8 update epochs: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    phase8b_bench_updates(dev)
+    log(f"phase 8b the bench_updates cell, 10K vertices / 40 partitions: "
+        f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    phase8c_gat_bits(dev, gat_eng, gat_queries)
+    log(f"phase 8c GAT bits after an update: {time.perf_counter() - t:.3f} s")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2309,17 +2860,20 @@ def main() -> int:
     records = [
         # K1's launches (the pairs form and the groups form): the loop and stacked
         # probes' cold batches of phase 3 and its hand-off, phase 3q's and phase 3g's
-        # batches, each counted from 0 just before it; its times at phase 3's pairs
-        # (the groups form's are in the log)
+        # batches and phase 8a's (main probe and delta-buffer scan), each counted
+        # from 0 just before it; its times at phase 3's pairs (the groups form's
+        # are in the log)
         record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
-               p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"],
+               p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
-        # hand-off), phase 3q's and phase 3g's device joins and phase 5's batches
-        # (loop, then the hand-off), each counted from 0 just before it
+        # hand-off), phase 3q's, phase 3g's and phase 8a's device joins and
+        # phase 5's batches (loop, then the hand-off), each counted from 0 just
+        # before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
-               p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"],
+               p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"]
+               + p8["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),

@@ -1,4 +1,5 @@
 from .baselines import gql_match, match_count, quicksi_match, vf2_match
+from .delta import DeltaIndex, GraphUpdate, apply_graph_update
 from .encoder import EncoderConfig, GATEncoder, MonotoneEncoder, make_encoder
 from .engine import GnnPeConfig, GnnPeEngine, PartitionModel, QueryStats
 from .grouping import attach_groups, group_paths
@@ -16,6 +17,9 @@ from .stars import build_pair_dataset, build_star_tensors, subset_table
 from .training import TrainConfig, TrainResult, dominance_violations, train_dominance
 
 __all__ = [
+    "GraphUpdate",
+    "apply_graph_update",
+    "DeltaIndex",
     "GnnPeConfig",
     "GnnPeEngine",
     "PartitionModel",

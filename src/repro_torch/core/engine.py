@@ -35,6 +35,16 @@ stage:
 scalar ``query_index``, plain tensor code, kept as the cross-check:
 ``match_many(qs)[i] == match(qs[i], impl="scalar")``.
 
+Live updates (``apply_updates``): touched vertices re-embed under the
+frozen partition GNNs, their paths land in per-partition delta buffers on
+the device (``core/delta.py``), dead main rows are tombstoned, and every
+probe becomes ``main ∪ delta − tombstones``: the buffers' pairs go through
+one fused K1 verdict, the tombstones filter the main rows once per
+partition (the stacked probe and its hand-off through one (slots, rows)
+mask).  An over-full partition compacts alone, and a stacked probe
+re-stacks only its slot.  ``cache=True`` adds the signature-keyed result
+cache (``serve/cache.py``) with partition-scoped invalidation.
+
 The engine runs on the card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -48,6 +58,16 @@ import torch
 
 from ..device import default_device
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
+from ..kernels.dominance_scan.ref import dominance_scan_pairs_ref
+from ..obs.metrics import REGISTRY
+from .delta import (
+    DeltaIndex,
+    apply_graph_update,
+    build_compacted_index,
+    l_hop_reach,
+    paths_touching,
+    probe_delta_multi,
+)
 from .encoder import EncoderConfig, make_encoder
 from .grouping import _best_grouping, attach_groups
 from .index import PackedIndex, build_index, hash_labels, query_index, query_index_batch_multi
@@ -63,12 +83,15 @@ __all__ = ["GnnPeConfig", "PartitionModel", "GnnPeEngine", "QueryStats"]
 # eviction keeps a long-lived engine from growing without limit
 _PLAN_CACHE_MAX = 4096
 
+_M_RCACHE = REGISTRY.counter(
+    "gnnpe_result_cache_lookups_total", "Result-cache lookups by outcome", labels=("result",)
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class GnnPeConfig:
     """The JAX package's config fields and defaults, so one dict builds
-    both engines.  Values that later slices of the port bring raise
-    ``NotImplementedError`` when the engine is made."""
+    both engines; every value of it builds a port engine."""
 
     path_length: int = 2  # l  (paper default 2)
     emb_dim: int = 2  # d  (paper default 2)
@@ -96,8 +119,11 @@ class GnnPeConfig:
     # card); False asks for the plain version, which only a CPU engine
     # runs (the engine raises on a card, where K1 decides the verdict)
     use_pallas_scan: bool | None = None
+    # the signature-keyed result cache (serve/cache.py)
     cache: bool = False
     cache_capacity: int = 2048
+    # a partition compacts when its delta pressure (buffer rows +
+    # tombstones) exceeds max(delta_compact_min, delta_compact_frac · paths)
     delta_compact_frac: float = 0.25
     delta_compact_min: int = 512
     stacked_leaf_pair_cap: int = 1 << 21
@@ -106,9 +132,7 @@ class GnnPeConfig:
 
 
 # config values of later slices → the ROADMAP queue-1 item that brings them
-_LATER = {
-    ("cache", True): "item 12 (result cache)",
-}
+_LATER: dict = {}
 
 
 def _check_config(cfg: GnnPeConfig) -> None:
@@ -143,8 +167,10 @@ class PartitionModel:
     train_epochs: int = 0
     n_fallback: int = 0
     part_id: int = -1
-    fallback: np.ndarray | None = None  # star indices forced to all-ones (main)
-    fallback_multi: list = dataclasses.field(default_factory=list)
+    # vertex ids embedded as all-ones (main GNN, then each multi-GNN): a
+    # re-embedded vertex must get them again, bit for bit
+    fallback_vids: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.int64))
+    fallback_vids_multi: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -157,6 +183,7 @@ class QueryStats:
     filter_time: float = 0.0
     join_time: float = 0.0
     n_matches: int = 0
+    cache_hit: bool = False
 
 
 class GnnPeEngine:
@@ -186,6 +213,20 @@ class GnnPeEngine:
         self._stacked_probe = None  # dist.probe.StackedProbe over the indexes
         self._plan_cache: dict = {}  # canonical query key -> canonical QueryPlan
         self._emb_fingerprint: bytes = b""  # the index content the dr plans probed
+        self._perms = None  # label_perms on the device
+        # live updates: per-partition tombstones and delta buffers, the index
+        # epoch, the partitions whose compaction was deferred, what the last
+        # epoch changed, the stacked probe's tombstone mask and the result cache
+        self.delta: DeltaIndex | None = None
+        self.epoch: int = 0
+        self._pending_compaction: set[int] = set()
+        self._last_epoch_update: dict | None = None
+        self._live_mask_cache = None
+        self._result_cache = None
+        if cfg.cache:
+            from ..serve.cache import ResultCache  # the serve package imports core
+
+            self._result_cache = ResultCache(cfg.cache_capacity)
 
     @property
     def encoder(self):
@@ -234,7 +275,7 @@ class GnnPeEngine:
         given = {int(s["part_id"]): s for s in params} if params is not None else None
         if given:
             self.label_perms = np.asarray(next(iter(given.values()))["label_perms"])
-        perms = torch.as_tensor(self.label_perms.astype(np.int64), device=dev)
+        self._perms = perms = torch.as_tensor(self.label_perms.astype(np.int64), device=dev)
         ecfg = self._encoder_cfg()
         train_time = embed_time = index_time = 0.0
         self.models = []
@@ -268,52 +309,28 @@ class GnnPeEngine:
                 fb, fb_multi = st["fallback"], list(st["fallback_multi"])
                 epochs = 0
             train_time += time.perf_counter() - t1
-            # ---- node embeddings (with safe fallbacks) --------------------
-            t2 = time.perf_counter()
-            node_emb, node_emb0 = self._node_embeddings(vset, stars, main_p, fb)
-            node_emb_multi = torch.stack(
-                [
-                    self._node_embeddings(vset, stars_multi[i], multi_p[i], fb_multi[i])[0]
-                    for i in range(cfg.n_multi)
-                ]
-            ) if cfg.n_multi else node_emb.new_zeros((0, g.n_vertices, cfg.emb_dim))
-            embed_time += time.perf_counter() - t2
-            # ---- paths + index -------------------------------------------
-            t3 = time.perf_counter()
-            paths = enumerate_paths(dg, members, cfg.path_length)
-            index = build_index(
-                paths,
-                concat_path_embeddings(paths, node_emb),
-                concat_path_embeddings(paths, node_emb0),
-                torch.stack([concat_path_embeddings(paths, e) for e in node_emb_multi])
-                if cfg.n_multi
-                else None,
-                block_size=cfg.block_size,
-                fanout=cfg.index_fanout,
-                quantize=cfg.quantize_index,
-                path_labels=dg.labels[paths] if cfg.quantize_index else None,
+            vset64 = vset.astype(np.int64)
+            model = PartitionModel(
+                members=members,
+                vertex_set=vset,
+                params=main_p,
+                multi_params=multi_p,
+                label_perms=self.label_perms,
+                node_emb=None,
+                node_emb0=None,
+                node_emb_multi=None,
+                index=None,
+                train_epochs=epochs,
+                n_fallback=len(fb),
+                part_id=j,
+                fallback_vids=vset64[np.asarray(fb, np.int64)],
+                fallback_vids_multi=[vset64[np.asarray(f, np.int64)] for f in fb_multi],
             )
-            if cfg.index_kind == "grouped":
-                self._attach_partition_groups(index)
-            index_time += time.perf_counter() - t3
-            self.models.append(
-                PartitionModel(
-                    members=members,
-                    vertex_set=vset,
-                    params=main_p,
-                    multi_params=multi_p,
-                    label_perms=self.label_perms,
-                    node_emb=node_emb,
-                    node_emb0=node_emb0,
-                    node_emb_multi=node_emb_multi,
-                    index=index,
-                    train_epochs=epochs,
-                    n_fallback=len(fb),
-                    part_id=j,
-                    fallback=np.asarray(fb, np.int64),
-                    fallback_multi=[np.asarray(f, np.int64) for f in fb_multi],
-                )
-            )
+            out = self._partition_artifacts(g, dg, model, vset, members, stars, stars_multi)
+            embed_time += out.pop("embed_time")
+            index_time += out.pop("index_time")
+            self._install_artifacts(model, out)
+            self.models.append(model)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.offline_stats = {
@@ -332,12 +349,70 @@ class GnnPeEngine:
             ),
             "edge_cut": int(self.partitioning.edge_cut(g)),
         }
+        self.delta = DeltaIndex([m.index for m in self.models]) if self.models else None
+        self._pending_compaction.clear()
+        self.epoch = 0
+        self._last_epoch_update = None
+        self._live_mask_cache = None
         self._emb_fingerprint = self._content_fingerprint()
         # dr plans probed the previous build's indexes: drop every plan
         self._plan_cache.clear()
+        if self._result_cache is not None:
+            self._result_cache.clear()
         if cfg.probe_impl == "stacked" and self.models:
             self.stacked_probe()  # stack offline and report its bytes
         return self
+
+    def _partition_artifacts(self, g: Graph, dg, model: PartitionModel, vset, members, stars,
+                             stars_multi) -> dict:
+        """One partition's embed → paths → index pipeline under ``model``'s
+        (frozen) GNNs, over ``g`` with the partition's expanded vertex set
+        ``vset`` and its star tensors: ``build`` and ``rebuild_indexes`` both
+        run it.  Returns the node embeddings and the index, not installed,
+        with the seconds of each stage."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        node_emb, node_emb0 = self._node_embeddings(
+            g.n_vertices, vset, stars, model.params, model.fallback_vids
+        )
+        node_emb_multi = torch.stack(
+            [
+                self._node_embeddings(
+                    g.n_vertices, vset, stars_multi[i], model.multi_params[i],
+                    model.fallback_vids_multi[i],
+                )[0]
+                for i in range(cfg.n_multi)
+            ]
+        ) if cfg.n_multi else node_emb.new_zeros((0, g.n_vertices, cfg.emb_dim))
+        t1 = time.perf_counter()
+        paths = enumerate_paths(dg, members, cfg.path_length)
+        index = build_index(
+            paths,
+            concat_path_embeddings(paths, node_emb),
+            concat_path_embeddings(paths, node_emb0),
+            torch.stack([concat_path_embeddings(paths, e) for e in node_emb_multi])
+            if cfg.n_multi
+            else None,
+            block_size=cfg.block_size,
+            fanout=cfg.index_fanout,
+            quantize=cfg.quantize_index,
+            path_labels=dg.labels[paths] if cfg.quantize_index else None,
+        )
+        if cfg.index_kind == "grouped":
+            self._attach_partition_groups(index)
+        return {
+            "node_emb": node_emb, "node_emb0": node_emb0, "node_emb_multi": node_emb_multi,
+            "vertex_set": vset, "index": index,
+            "embed_time": t1 - t0, "index_time": time.perf_counter() - t1,
+        }
+
+    @staticmethod
+    def _install_artifacts(model: PartitionModel, out: dict) -> None:
+        model.node_emb = out["node_emb"]
+        model.node_emb0 = out["node_emb0"]
+        model.node_emb_multi = out["node_emb_multi"]
+        model.vertex_set = out["vertex_set"]
+        model.index = out["index"]
 
     def _attach_partition_groups(self, index: PackedIndex) -> None:
         """The group sidecar: at the size ``choose_group_size`` picks for
@@ -364,11 +439,19 @@ class GnnPeEngine:
 
     def _content_fingerprint(self) -> bytes:
         """Digest of the index content the dr-plan cache keys on: the seed
-        and every partition's path count, as the JAX package digests them."""
+        and every partition's path count, as the JAX package digests them;
+        every mutating update epoch chains into it (``_bump_fingerprint``),
+        so a dr plan of one index state never serves another."""
         h = hashlib.blake2b(digest_size=12)
         h.update(np.int64(self.cfg.seed).tobytes())
         h.update(np.asarray([m.index.n_paths for m in self.models], np.int64).tobytes())
         return h.digest()
+
+    def _bump_fingerprint(self, token: bytes) -> None:
+        h = hashlib.blake2b(digest_size=12)
+        h.update(self._emb_fingerprint)
+        h.update(token)
+        self._emb_fingerprint = h.digest()
 
     def _relabel_stars(self, stars, perm: torch.Tensor):
         """The star tensors under one randomized label map (multi-GNN input)."""
@@ -382,24 +465,365 @@ class GnnPeEngine:
     def _relabel_leaves(leaf_labels, leaf_mask, perm: torch.Tensor):
         return torch.where(leaf_mask, perm[leaf_labels], 0)
 
-    def _node_embeddings(self, vset, stars, params, fallback_vertices):
-        """Embed every vertex of the expanded set; all-ones for overflow/fallback."""
-        cfg = self.cfg
+    def _embed_stars(self, params, stars, vids, fallback_vids) -> tuple:
+        """(o, o0) of the stars of vertices ``vids``: all-ones where a star
+        overflows or its vertex is a fallback vertex."""
         enc = self.encoder
         with torch.no_grad():
             o = enc.embed_stars(params, stars.center_labels, stars.leaf_labels, stars.leaf_mask)
             o0 = enc.embed_isolated(params, stars.center_labels)
         # paper: high-degree → all-ones; ours: unverified vertices too
         o[stars.overflow] = 1.0
-        if len(fallback_vertices):
-            o[torch.as_tensor(np.asarray(fallback_vertices, np.int64), device=o.device)] = 1.0
-        n = self.graph.n_vertices
+        fb = np.isin(vids, fallback_vids)
+        if fb.any():
+            o[torch.as_tensor(np.nonzero(fb)[0], device=o.device)] = 1.0
+        return o, o0
+
+    def _node_embeddings(self, n: int, vset, stars, params, fallback_vids):
+        """Embed every vertex of the expanded set into (n, d) tables."""
+        cfg = self.cfg
+        o, o0 = self._embed_stars(params, stars, vset, fallback_vids)
         node_emb = o.new_zeros((n, cfg.emb_dim))
         node_emb0 = o.new_zeros((n, cfg.emb_dim))
         vs = torch.as_tensor(vset.astype(np.int64), device=o.device)
         node_emb[vs] = o
         node_emb0[vs] = o0
         return node_emb, node_emb0
+
+    # ------------------------------------------------------------------
+    # Live updates: incremental maintenance under frozen GNNs
+    # ------------------------------------------------------------------
+    def _grow_model_arrays(self, model: PartitionModel, n_vertices: int) -> None:
+        """Extend the per-vertex embedding tables for appended vertices."""
+        pad = n_vertices - model.node_emb.shape[0]
+        if pad <= 0:
+            return
+
+        def grow(t):  # (…, n, d) → (…, n + pad, d), the new rows zero
+            return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad, t.shape[-1]))], dim=-2)
+
+        model.node_emb, model.node_emb0 = grow(model.node_emb), grow(model.node_emb0)
+        model.node_emb_multi = grow(model.node_emb_multi)
+
+    def _refresh_node_embeddings(self, model: PartitionModel, vids: np.ndarray) -> None:
+        """Re-embed vertices ``vids`` of the current graph with the partition's
+        FROZEN GNNs (the paper's incremental maintenance rule).  Delta ≡
+        rebuild rests on a vertex re-embedded alone getting the bits a
+        full-batch rebuild gives it: the monotone encoder has no matmul, the
+        GAT's is checked on the card (``chip_smoke.py`` phase 8c)."""
+        stars = build_star_tensors(self.dgraph, vids, self.cfg.theta)
+        vt = torch.as_tensor(vids, device=self.device)
+        o, o0 = self._embed_stars(model.params, stars, vids, model.fallback_vids)
+        model.node_emb[vt] = o
+        model.node_emb0[vt] = o0
+        for i in range(self.cfg.n_multi):
+            oi, _ = self._embed_stars(
+                model.multi_params[i], self._relabel_stars(stars, self._perms[i]), vids,
+                model.fallback_vids_multi[i],
+            )
+            model.node_emb_multi[i, vt] = oi
+
+    def _assign_new_vertices(self, new_ids: np.ndarray) -> dict:
+        """Place appended vertices into modeled partitions (the majority of
+        their assigned neighbours, else the smallest modeled partition) and
+        extend ``self.partitioning`` → part_id → new members."""
+        g = self.graph
+        assignment = np.concatenate(
+            [self.partitioning.assignment, np.full(new_ids.size, -1, np.int32)]
+        )
+        sizes = np.bincount(
+            self.partitioning.assignment, minlength=self.partitioning.n_parts
+        ).astype(np.int64)
+        modeled = np.asarray([m.part_id for m in self.models], np.int64)
+        new_members: dict[int, list] = {}
+        for v in new_ids:
+            nbr_parts = assignment[g.neighbors(int(v))]
+            nbr_parts = nbr_parts[nbr_parts >= 0]
+            pick = -1
+            if nbr_parts.size:
+                counts = np.bincount(nbr_parts, minlength=self.partitioning.n_parts)
+                best = int(np.argmax(counts[modeled]))
+                if counts[modeled][best] > 0:
+                    pick = int(modeled[best])
+            if pick < 0:
+                pick = int(modeled[int(np.argmin(sizes[modeled]))])
+            assignment[v] = pick
+            sizes[pick] += 1
+            new_members.setdefault(pick, []).append(int(v))
+        self.partitioning = Partitioning(assignment, self.partitioning.n_parts)
+        return new_members
+
+    def apply_updates(self, updates, strategy: str = "delta", compaction: str = "inline") -> dict:
+        """Absorb a batch of online graph edits as one index epoch.
+
+        ``updates`` is one ``GraphUpdate`` or a list applied atomically.
+        ``strategy="delta"`` runs the incremental path: touched vertices
+        re-embed under the frozen GNNs, affected paths land in the delta
+        buffers, dead main rows are tombstoned, over-full partitions compact
+        (and, with a stacked probe, re-stack only their slot).
+        ``strategy="rebuild"`` applies the same graph change, then re-embeds,
+        re-enumerates and re-packs EVERY partition (``rebuild_indexes``).
+        The match sets are the same after either.
+
+        ``compaction="defer"`` queues over-threshold partitions on
+        ``pending_compactions()`` for ``prepare/build/install_compaction``
+        instead of re-packing them here; probes stay exact at any pressure.
+        Match lists follow the index layout, so a deferred partition gives
+        the same set as an inline-compacted one, and the same list once its
+        install lands.
+
+        Returns a summary dict (epoch, mutated and compacted partitions,
+        delta and tombstone row counts).
+        """
+        assert self.graph is not None, "call build() first"
+        if strategy not in ("delta", "rebuild"):
+            raise ValueError(f"unknown update strategy {strategy!r}; use 'delta' or 'rebuild'")
+        if compaction not in ("inline", "defer"):
+            raise ValueError(f"unknown compaction mode {compaction!r}; use 'inline' or 'defer'")
+        if not self.models:
+            raise RuntimeError("apply_updates needs at least one built partition model")
+        cfg = self.cfg
+        ups = list(updates) if isinstance(updates, (list, tuple)) else [updates]
+        g = self.graph
+        n_old = g.n_vertices
+        touched_parts = []
+        for u in ups:
+            lab = np.asarray(u.add_vertex_labels, np.int64).reshape(-1)
+            if lab.size and (lab.min() < 0 or lab.max() >= self.n_labels):
+                raise ValueError(
+                    f"new vertex labels must lie in [0, {self.n_labels}): "
+                    "the label vocabulary is frozen at build time"
+                )
+            g, t = apply_graph_update(g, u)
+            touched_parts.append(t)
+        touched = np.unique(np.concatenate(touched_parts or [np.zeros(0, np.int64)]))
+        self.graph = g
+        self.dgraph = dg = device_graph(g, self.device)
+        self.epoch += 1
+        new_ids = np.arange(n_old, g.n_vertices, dtype=np.int64)
+        new_members = self._assign_new_vertices(new_ids) if new_ids.size else {}
+        for model in self.models:
+            add = new_members.get(model.part_id)
+            if add:
+                model.members = np.sort(
+                    np.concatenate([model.members.astype(np.int64), np.asarray(add, np.int64)])
+                ).astype(np.int32)
+
+        if strategy == "rebuild":
+            self.rebuild_indexes()
+            self._bump_fingerprint(b"rebuild" + np.int64(self.epoch).tobytes())
+            if self._result_cache is not None:
+                self._result_cache.clear()
+            self._last_epoch_update = {"epoch": self.epoch, "strategy": "rebuild"}
+            return {
+                "epoch": self.epoch,
+                "strategy": "rebuild",
+                "touched": int(touched.size),
+                "mutated": list(range(len(self.models))),
+                "compacted": [],
+            }
+
+        if self.delta is None:
+            self.delta = DeltaIndex([m.index for m in self.models])
+        delta = self.delta
+        L = cfg.path_length
+        reach = l_hop_reach(g, touched, L) if touched.size else np.zeros(0, np.int64)
+        mutated: dict[int, dict] = {}
+        fresh_map: dict[int, object] = {}
+        compacted: list[int] = []
+        n_delta_rows = 0
+        n_tombstoned = 0
+        for mi, model in enumerate(self.models):
+            old_vset = model.vertex_set.astype(np.int64)
+            touched_near = np.intersect1d(touched, old_vset, assume_unique=True)
+            gained = bool(new_members.get(model.part_id))
+            if touched_near.size == 0 and not gained:
+                continue  # no touched vertex reaches this partition (core/delta.py)
+            new_vset = expanded_partition(g, self.partitioning, model.part_id, L).astype(np.int64)
+            self._grow_model_arrays(model, g.n_vertices)
+            need = np.union1d(
+                np.setdiff1d(new_vset, old_vset, assume_unique=True),
+                np.intersect1d(touched, new_vset, assume_unique=True),
+            )
+            if need.size:
+                self._refresh_node_embeddings(model, need)
+            model.vertex_set = new_vset.astype(np.int32)
+            n_tomb, dropped = delta.tombstone_touched(mi, model.index, touched)
+            n_tombstoned += n_tomb
+            roots = np.intersect1d(model.members.astype(np.int64), reach, assume_unique=True)
+            paths = enumerate_paths(dg, roots, L)
+            if paths.shape[0]:
+                paths = paths[paths_touching(paths, touched)]
+            n_new = int(paths.shape[0])
+            if n_new:
+                emb = concat_path_embeddings(paths, model.node_emb)
+                fresh = delta.append(
+                    mi,
+                    paths,
+                    emb,
+                    concat_path_embeddings(paths, model.node_emb0),
+                    torch.stack([concat_path_embeddings(paths, e) for e in model.node_emb_multi])
+                    if cfg.n_multi
+                    else emb.new_zeros((0,) + tuple(emb.shape)),
+                    path_labels=dg.labels[paths],
+                )
+                fresh_map[mi] = fresh
+                n_delta_rows += n_new
+            if n_tomb or dropped or n_new:
+                mutated[mi] = {
+                    "deleted": bool(n_tomb or dropped),
+                    "inserted_hashes": np.unique(hash_labels(dg.labels[paths]).cpu().numpy())
+                    if n_new
+                    else np.zeros(0, np.int64),
+                }
+            frac, min_rows = cfg.delta_compact_frac, cfg.delta_compact_min
+            if delta.needs_compaction(mi, model.index, frac, min_rows):
+                if compaction == "defer":
+                    self._pending_compaction.add(mi)
+                else:
+                    model.index = delta.compact_partition(
+                        mi, model.index, dg.labels if cfg.quantize_index else None
+                    )
+                    self._pending_compaction.discard(mi)
+                    compacted.append(mi)
+        # elastic re-stacking: only the compacted partitions' slots
+        if self._stacked_probe is not None and compacted:
+            for mi in compacted:
+                if not self._stacked_probe.update_slot(mi, self.models[mi].index):
+                    # the partition outgrew its slot's levels: stack anew lazily
+                    self._stacked_probe = None
+                    break
+            if self._stacked_probe is not None:
+                self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
+        delta.epoch = self.epoch
+        if mutated:  # a no-op epoch leaves the index content (and dr plans) alone
+            self._bump_fingerprint(
+                b"delta"
+                + np.int64(self.epoch).tobytes()
+                + np.asarray(sorted(mutated), np.int64).tobytes()
+            )
+            if self._result_cache is not None:
+                self._result_cache.invalidate(mutated)
+        self._last_epoch_update = {
+            "epoch": self.epoch,
+            "strategy": "delta",
+            "touched": touched,
+            "mutated": mutated,
+            "fresh": fresh_map,
+        }
+        return {
+            "epoch": self.epoch,
+            "strategy": "delta",
+            "touched": int(touched.size),
+            "mutated": sorted(mutated),
+            "compacted": compacted,
+            "compaction_deferred": sorted(self._pending_compaction),
+            "delta_rows_added": n_delta_rows,
+            "rows_tombstoned": n_tombstoned,
+            **delta.stats(),
+        }
+
+    def _rebuild_partition(self, model: PartitionModel) -> dict:
+        """One partition's from-scratch embed → paths → index under its
+        FROZEN GNNs, over the engine's current graph and partitioning; reads
+        only frozen model state and returns the artifacts without installing
+        them."""
+        cfg = self.cfg
+        g, dg = self.graph, self.dgraph
+        vset = expanded_partition(g, self.partitioning, model.part_id, cfg.path_length)
+        stars = build_star_tensors(dg, vset, cfg.theta)
+        stars_multi = [self._relabel_stars(stars, self._perms[i]) for i in range(cfg.n_multi)]
+        out = self._partition_artifacts(g, dg, model, vset, model.members, stars, stars_multi)
+        del out["embed_time"], out["index_time"]
+        return out
+
+    def rebuild_indexes(self) -> "GnnPeEngine":
+        """Re-embed, re-enumerate and re-pack EVERY partition from scratch
+        with the frozen GNNs: the baseline the delta path is measured
+        against, and the equivalence oracle of the update tests (a full
+        ``build`` would also re-train)."""
+        assert self.graph is not None, "call build() first"
+        for mi, model in enumerate(self.models):
+            out = self._rebuild_partition(model)
+            self._install_artifacts(model, out)
+            if self.delta is not None:
+                self.delta.reset_part(mi, out["index"])
+        self._pending_compaction.clear()
+        self.offline_stats["n_paths"] = int(sum(m.index.n_paths for m in self.models))
+        self.offline_stats["index_bytes"] = int(sum(m.index.nbytes() for m in self.models))
+        self._stacked_probe = None
+        self._live_mask_cache = None
+        if self.cfg.probe_impl == "stacked" and self.models:
+            self.stacked_probe()
+        return self
+
+    def delta_stats(self) -> dict:
+        """The epoch, delta and tombstone pressure, and the cache's stats."""
+        base = {"epoch": self.epoch}
+        if self.delta is not None:
+            base.update(self.delta.stats())
+        if self._result_cache is not None:
+            base["cache"] = self._result_cache.stats.as_dict()
+        return base
+
+    def _live_rows(self, mi: int, rows: torch.Tensor) -> torch.Tensor:
+        """Drop tombstoned main-index rows from a probe result."""
+        return rows if self.delta is None else self.delta.live_rows(mi, rows)
+
+    def _dead_mask(self, mi: int):
+        """Partition ``mi``'s (P,) tombstone mask, or None without tombstones."""
+        if self.delta is None or not self.delta.parts[mi].n_tomb:
+            return None
+        return self.delta.parts[mi].tombstone
+
+    # ---- deferred compaction: snapshot → build → install ----------------
+    def pending_compactions(self) -> list:
+        """Partitions queued for deferred compaction, most pressured first."""
+        if self.delta is None or not self._pending_compaction:
+            return []
+        cfg = self.cfg
+        return sorted(
+            self._pending_compaction,
+            key=lambda mi: -self.delta.compaction_urgency(
+                mi, self.models[mi].index, cfg.delta_compact_frac, cfg.delta_compact_min
+            ),
+        )
+
+    def prepare_compaction(self, mi: int):
+        """A snapshot of one pending partition's (index, delta) state."""
+        assert self.delta is not None
+        return self.delta.snapshot_partition(
+            mi, self.models[mi].index, self.dgraph.labels if self.cfg.quantize_index else None
+        )
+
+    @staticmethod
+    def build_compaction(snap):
+        """The re-pack; reads only the snapshot."""
+        return build_compacted_index(snap)
+
+    def install_compaction(self, snap, new_index) -> bool:
+        """Swap a compacted index in.  False, with nothing changed, where an
+        update mutated the partition after the snapshot; it then stays on
+        ``pending_compactions()``."""
+        if not (self.delta and self.delta.try_install(snap.mi, snap, new_index)):
+            return False
+        self.models[snap.mi].index = new_index
+        self._pending_compaction.discard(snap.mi)
+        # the tombstone mask is cached per epoch, which an install does not bump
+        self._live_mask_cache = None
+        if self._stacked_probe is not None:
+            if self._stacked_probe.update_slot(snap.mi, new_index):
+                self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
+            else:
+                self._stacked_probe = None  # outgrew the slot; stack anew lazily
+        return True
+
+    def epoch_fresh(self) -> dict | None:
+        """What the last ``apply_updates`` epoch changed: ``{"epoch",
+        "strategy", "touched", "mutated", "fresh"}``, ``fresh`` mapping each
+        mutated partition to its appended rows (``FreshRows``); a rebuild
+        epoch carries no rows; None before the first update."""
+        return self._last_epoch_update
 
     # ------------------------------------------------------------------
     # Plans under a canonical-signature cache
@@ -510,29 +934,47 @@ class GnnPeEngine:
         assert self.graph is not None, "call build() first"
         cfg = self.cfg
         dev = self.device
+        delta = self.delta
         stats = QueryStats()
         t0 = time.perf_counter()
         q_embs = self._query_node_embeddings_many([q])[0]  # per partition (o, o0, o_multi)
         q_labels = torch.as_tensor(q.labels.astype(np.int64))  # the hashes are made on the host
         probe_memo: dict = {}
 
-        def _retrieve(mi: int, p: tuple) -> torch.Tensor:
-            """Candidate rows of one (partition, path), memoised."""
+        def _retrieve(mi: int, p: tuple) -> tuple:
+            """(live main rows, delta-buffer rows) of one (partition, path),
+            memoised."""
             key = (mi, p)
             if key not in probe_memo:
                 pv = torch.as_tensor(p, dtype=torch.int64, device=dev)
                 qo, qo0, qom = q_embs[mi]
+                q_emb, q_emb0 = qo[pv].reshape(-1), qo0[pv].reshape(-1)
+                q_multi = qom[:, pv].reshape(cfg.n_multi, -1) if cfg.n_multi else None
                 qh = None
                 if cfg.quantize_index:
                     qh = int(hash_labels(q_labels[list(p)][None, :])[0])
-                probe_memo[key] = query_index(
-                    self.models[mi].index,
-                    qo[pv].reshape(-1),
-                    qo0[pv].reshape(-1),
-                    qom[:, pv].reshape(cfg.n_multi, -1) if cfg.n_multi else None,
-                    q_label_hash=qh,
+                rows = query_index(
+                    self.models[mi].index, q_emb, q_emb0, q_multi, q_label_hash=qh
                 )
+                drows = torch.zeros((0,), dtype=torch.int64, device=dev)
+                if delta is not None and delta.parts[mi].n_rows:
+                    # the buffer's brute pairs through the plain verdict: the
+                    # scalar match launches no kernel
+                    drows = probe_delta_multi(
+                        [(
+                            delta.parts[mi], q_emb[None], q_emb0[None],
+                            q_multi[:, None] if q_multi is not None else None,
+                            torch.tensor([qh], device=dev) if qh is not None else None,
+                        )],
+                        verdict=dominance_scan_pairs_ref,
+                    )[0][0]
+                probe_memo[key] = (self._live_rows(mi, rows), drows)
             return probe_memo[key]
+
+        def _probed(mi: int, p: tuple) -> bool:
+            m = self.models[mi]
+            has_rows = m.index.n_paths or (delta is not None and delta.parts[mi].n_rows)
+            return bool(has_rows) and len(p) == m.index.paths.shape[1]
 
         weight_fn = None
         if cfg.plan_weight == "dr":
@@ -541,9 +983,9 @@ class GnnPeEngine:
             def weight_fn(p):
                 return float(
                     sum(
-                        _retrieve(mi, p).numel()
-                        for mi, m in enumerate(self.models)
-                        if m.index.n_paths and len(p) == m.index.paths.shape[1]
+                        sum(r.numel() for r in _retrieve(mi, p))
+                        for mi in range(len(self.models))
+                        if _probed(mi, p)
                     )
                 )
 
@@ -552,15 +994,19 @@ class GnnPeEngine:
         candidates = [[] for _ in plan.paths]
         total_paths = 0
         for mi, model in enumerate(self.models):
-            if model.index.n_paths <= 0:
+            dp = delta.parts[mi] if delta is not None else None
+            n_live = model.index.n_paths + (dp.n_rows - dp.n_tombstones if dp is not None else 0)
+            if n_live <= 0:
                 continue
-            total_paths += model.index.n_paths
+            total_paths += n_live
             for pi, p in enumerate(plan.paths):
                 if len(p) != model.index.paths.shape[1]:
                     continue  # a length-mismatched fallback path
-                rows = _retrieve(mi, p)
+                rows, drows = _retrieve(mi, p)
                 if rows.numel():
                     candidates[pi].append(model.index.paths[rows])
+                if drows.numel():
+                    candidates[pi].append(dp.paths[drows])
         cand_arrays = [
             torch.cat(parts)
             if parts
@@ -574,7 +1020,8 @@ class GnnPeEngine:
         stats.candidate_paths = sum(int(a.shape[0]) for a in cand_arrays)
         stats.pruning_power = 1.0 - stats.candidate_paths / max(stats.total_paths, 1)
         t1 = time.perf_counter()
-        # per-path candidates are duplicate-free (partitions are root-disjoint)
+        # per-path candidates are duplicate-free (partitions are root-disjoint;
+        # buffer rows are disjoint from live main rows)
         matches = match_from_candidates(
             self.graph, self.dgraph, q, plan.paths, cand_arrays, induced=cfg.induced,
             assume_unique=True, join_impl=join_impl or cfg.join_impl,
@@ -645,21 +1092,44 @@ class GnnPeEngine:
         cat = [(o_all[mi], o0_all[mi], om_all[:, mi]) for mi in range(len(self.models))]
         return cat, spans, (o_all, o0_all, om_all)
 
+    def _stacked_live_mask(self, probe) -> torch.Tensor | None:
+        """(S, P_max) device bool mask over the stacked leaf rows (False:
+        tombstoned), or None where no partition has tombstones.  Tombstones
+        change only in ``apply_updates``, which bumps the epoch, so the mask
+        is cached per (epoch, stacked layout); ``install_compaction`` and
+        ``rebuild_indexes`` drop it."""
+        if self.delta is None:
+            return None
+        st = probe.stacked
+        cached = self._live_mask_cache
+        if cached is not None and cached[0] == self.epoch and cached[1] is st:
+            return cached[2]
+        mask = None
+        for mi, dp in enumerate(self.delta.parts):
+            if dp.n_tomb:
+                if mask is None:
+                    mask = torch.ones((st.n_slots, st.emb_cat.shape[1]), dtype=torch.bool,
+                                      device=st.device)
+                n = min(dp.tombstone.numel(), mask.shape[1])
+                mask[int(st.slot_of[mi]), :n] = ~dp.tombstone[:n]
+        self._live_mask_cache = (self.epoch, st, mask)
+        return mask
+
     def _probe_batch(
         self, requests: list, q_embs, memo: dict, queries: list | None = None,
         probe_impl: str | None = None, *, use_groups: bool = False,
         stats_memo: dict | None = None, dev_memo: dict | None = None,
-        dev_counts: dict | None = None,
+        dev_counts: dict | None = None, delta_memo: dict | None = None,
     ) -> None:
         """One fused index probe for many (query, path) pairs × partitions.
 
         ``requests`` is a list of (qi, path) pairs; results land in
-        ``memo[(mi, qi, path)]``: row tensors of partition ``mi``'s index,
-        with ONE fused leaf verdict covering every partition.  The loop
-        probe (``query_index_batch_multi``) and the stacked probe
-        (``stacked_probe().probe``) fill the same entries.  A quantized
-        index needs ``queries``: each probe path's label sequence is hashed
-        on the host.
+        ``memo[(mi, qi, path)]``: the live (not tombstoned) row tensors of
+        partition ``mi``'s index, with ONE fused leaf verdict covering every
+        partition.  The loop probe (``query_index_batch_multi``) and the
+        stacked probe (``stacked_probe().probe``) fill the same entries.  A
+        quantized index needs ``queries``: each probe path's label sequence
+        is hashed on the host.
 
         ``use_groups`` takes the GNN-PGE two-level probe; ``stats_memo``,
         where given, receives each entry's traversal stats (the grouped dr
@@ -667,7 +1137,10 @@ class GnnPeEngine:
         stacked probe hands off to the device join instead (``probe_device``):
         ``dev_memo[(qi, path)]`` is the probe's device tensor of candidate
         path vertices across all partitions, ``dev_counts[(mi, qi, path)]``
-        its rows in partition ``mi``, and ``memo`` stays empty.
+        its rows in partition ``mi``, and ``memo`` stays empty.  With
+        ``delta_memo`` the delta buffers' rows land in
+        ``delta_memo[(mi, qi, path)]``, from one ``probe_delta_multi`` over
+        every partition with buffer rows.
         """
         cfg = self.cfg
         dev = self.device
@@ -690,6 +1163,16 @@ class GnnPeEngine:
                     all_labels = np.concatenate([q.labels for q in queries]).astype(np.int64)
                 qh = hash_labels(torch.as_tensor(all_labels[rows])).to(dev)
             layouts[L] = (sel, torch.as_tensor(rows, device=dev), qh)
+
+        def query_tensors(mi, gidx, B):
+            """(q_emb, q_emb0, q_multi) of partition ``mi``'s probe batch."""
+            o, o0, om = cat[mi]
+            return (
+                o[gidx].reshape(B, -1),
+                o0[gidx].reshape(B, -1),
+                om[:, gidx].reshape(cfg.n_multi, B, -1) if cfg.n_multi else None,
+            )
+
         impl = probe_impl or cfg.probe_impl
         if impl == "stacked" and self.models:
             # one batched descent over every partition's stacked tensors
@@ -703,8 +1186,9 @@ class GnnPeEngine:
             if cfg.n_multi:
                 q_multi = om_all[:, :, gidx].reshape(cfg.n_multi, m, B, -1)
             args = (o_all[:, gidx].reshape(m, B, -1), o0_all[:, gidx].reshape(m, B, -1), q_multi)
-            kw = dict(q_label_hash=qh, use_groups=use_groups, return_stats=stats_memo is not None)
             probe = self.stacked_probe()
+            kw = dict(q_label_hash=qh, use_groups=use_groups, return_stats=stats_memo is not None,
+                      live_mask=self._stacked_live_mask(probe))
             out = (probe.probe if dev_memo is None else probe.probe_device)(*args, **kw)
             stats = out[-1] if stats_memo is not None else None
             if dev_memo is not None:
@@ -722,37 +1206,41 @@ class GnnPeEngine:
                         memo[(mi, qi, p)] = results[mi][b]
                     if stats is not None:
                         stats_memo[(mi, qi, p)] = stats[mi][b]
-            return
-        items = []
-        sels = []
-        for mi, model in enumerate(self.models):
-            L = model.index.paths.shape[1]
-            if model.index.n_paths == 0 or L not in layouts:
-                continue
-            sel, gidx, qh = layouts[L]
-            B = len(sel)
-            o, o0, om = cat[mi]
-            items.append(
-                (
-                    model.index,
-                    o[gidx].reshape(B, -1),
-                    o0[gidx].reshape(B, -1),
-                    om[:, gidx].reshape(cfg.n_multi, B, -1) if cfg.n_multi else None,
-                    qh,
+        else:
+            items, sels, dead = [], [], []
+            for mi, model in enumerate(self.models):
+                L = model.index.paths.shape[1]
+                if model.index.n_paths == 0 or L not in layouts:
+                    continue
+                sel, gidx, qh = layouts[L]
+                items.append((model.index, *query_tensors(mi, gidx, len(sel)), qh))
+                sels.append((mi, sel))
+                dead.append(self._dead_mask(mi))
+            if items:
+                out = query_index_batch_multi(
+                    items, use_groups=use_groups, return_stats=stats_memo is not None, dead=dead
                 )
-            )
-            sels.append((mi, sel))
-        if not items:
+                results, stats = out if stats_memo is not None else (out, None)
+                for k, ((mi, sel), rows_list) in enumerate(zip(sels, results)):
+                    for b, (qi, p) in enumerate(sel):
+                        memo[(mi, qi, p)] = rows_list[b]
+                        if stats_memo is not None:
+                            stats_memo[(mi, qi, p)] = stats[k][b]
+        # ---- delta buffers: brute (query, row) pairs, one fused verdict ----
+        if delta_memo is None or self.delta is None or not self.delta.any_rows() or not self.models:
             return
-        out = query_index_batch_multi(
-            items, use_groups=use_groups, return_stats=stats_memo is not None
-        )
-        results, stats = out if stats_memo is not None else (out, None)
-        for k, ((mi, sel), rows_list) in enumerate(zip(sels, results)):
+        L = self.models[0].index.paths.shape[1]
+        if L not in layouts:
+            return
+        sel, gidx, qh = layouts[L]
+        d_mis = [mi for mi, dp in enumerate(self.delta.parts) if dp.n_rows]
+        d_items = [
+            (self.delta.parts[mi], *query_tensors(mi, gidx, len(sel)), qh) for mi in d_mis
+        ]
+        d_results = probe_delta_multi(d_items, pair_cap=cfg.stacked_leaf_pair_cap)
+        for mi, rows_list in zip(d_mis, d_results):
             for b, (qi, p) in enumerate(sel):
-                memo[(mi, qi, p)] = rows_list[b]
-                if stats_memo is not None:
-                    stats_memo[(mi, qi, p)] = stats[k][b]
+                delta_memo[(mi, qi, p)] = rows_list[b]
 
     def match_many(
         self,
@@ -773,6 +1261,11 @@ class GnnPeEngine:
         "device").  The match sets are the same for every choice.  The
         device join's list order follows its candidates' order, which the
         stacked probe's hand-off makes slot order, as in the JAX package.
+
+        With ``cfg.cache``, a query whose WL-canonical signature is cached
+        (and not invalidated by an update since) skips the pipeline: the
+        cached canonical matches map back through the query's own order
+        (``serve/cache.py``), exact for relabeled-isomorphic repeats too.
         """
         assert self.graph is not None, "call build() first"
         kind = index_kind or self.cfg.index_kind
@@ -784,26 +1277,96 @@ class GnnPeEngine:
         jimpl = join_impl or self.cfg.join_impl
         if jimpl not in ("numpy", "device"):
             raise ValueError(f"unknown join_impl {jimpl!r}; use 'numpy' or 'device'")
-        if not queries:
+        nq = len(queries)
+        if not nq:
             return ([], []) if return_stats else []
-        results, stats = self._match_many_core(queries, kind, impl, jimpl)
+        cache = self._result_cache
+        if cache is None:
+            results, stats, _ = self._match_many_core(queries, kind, impl, jimpl)
+            return (results, stats) if return_stats else results
+        from ..serve.cache import canonical_matches, remap_matches
+
+        canon = [canonical_form(q) for q in queries]
+        results: list = [None] * nq
+        stats: list = [None] * nq
+        miss: list[int] = []
+        for qi, (perm, key) in enumerate(canon):
+            ent = cache.get(key)
+            if ent is None:
+                miss.append(qi)
+                continue
+            results[qi] = remap_matches(ent.matches, perm)
+            st = QueryStats(cache_hit=True, n_matches=len(results[qi]))
+            if ent.plan is not None:  # canonical ids → this query's ids
+                st.plan = QueryPlan(
+                    paths=[tuple(int(perm[v]) for v in p) for p in ent.plan.paths],
+                    cost=ent.plan.cost,
+                    strategy=ent.plan.strategy,
+                )
+            stats[qi] = st
+        if nq - len(miss):
+            _M_RCACHE.labels(result="hit").inc(nq - len(miss))
+        if miss:
+            _M_RCACHE.labels(result="miss").inc(len(miss))
+            sub_results, sub_stats, contributing = self._match_many_core(
+                [queries[qi] for qi in miss], kind, impl, jimpl
+            )
+            for k, qi in enumerate(miss):
+                results[qi], stats[qi] = sub_results[k], sub_stats[k]
+                q = queries[qi]
+                perm, key = canon[qi]
+                plan = sub_stats[k].plan
+                labels = torch.as_tensor(q.labels.astype(np.int64))
+                plan_hashes = {int(hash_labels(labels[list(p)][None, :])[0]) for p in plan.paths}
+                inv = np.empty(q.n_vertices, np.int64)
+                inv[perm] = np.arange(q.n_vertices)
+                cache.put(
+                    key,
+                    canonical_matches(sub_results[k], perm, q.n_vertices),
+                    contributing[k],
+                    plan_hashes,
+                    self.epoch,
+                    plan=QueryPlan(
+                        paths=[tuple(int(inv[v]) for v in p) for p in plan.paths],
+                        cost=plan.cost,
+                        strategy=plan.strategy,
+                    ),
+                )
         return (results, stats) if return_stats else results
 
     def _match_many_core(self, queries: list, kind: str, probe_impl: str, join_impl: str):
+        """The fused batch pipeline, without the result cache → ``(results,
+        stats, contributing)``, ``contributing[qi]`` the partitions (model
+        indices) that gave query ``qi`` candidate rows, main or buffer: what
+        the cache scopes its invalidation on.
+
+        Candidates are ``main ∪ delta − tombstones``: per partition in
+        engine order its live main rows, then its buffer rows; with the
+        hand-off, the probe's device rows (slot order), then the buffer rows
+        in engine order.
+        """
         cfg = self.cfg
         use_groups = kind == "grouped"
         nq = len(queries)
         n_models = len(self.models)
+        delta = self.delta
         stats = [QueryStats() for _ in range(nq)]
         t0 = time.perf_counter()
         q_embs = self._query_node_embeddings_many(queries)
         memo: dict = {}
+        delta_memo: dict = {}
         # the stacked probe hands the device join its device-resident
         # candidate vertices; memo then stays empty
         device_assembly = join_impl == "device" and probe_impl == "stacked" and n_models > 0
         dev_memo: dict | None = {} if device_assembly else None
         dev_counts: dict = {}
-        probe_kw = dict(use_groups=use_groups, dev_memo=dev_memo, dev_counts=dev_counts)
+        probe_kw = dict(use_groups=use_groups, dev_memo=dev_memo, dev_counts=dev_counts,
+                        delta_memo=delta_memo)
+
+        def delta_rows(mi, qi, p) -> int:
+            rows = delta_memo.get((mi, qi, p))
+            return int(rows.numel()) if rows is not None else 0
+
         # ---- plans: the dr probes ride the same batched probe -----------
         cached_plans: list = [None] * nq
         weight_fns: list = [None] * nq
@@ -825,14 +1388,21 @@ class GnnPeEngine:
 
             def weight(qi, p) -> float:
                 """A plan path's dr weight: surviving groups on a grouped
-                probe (its unit of leaf work), else candidate rows."""
+                probe (its unit of leaf work; buffer rows count as
+                ceil(rows / group_size) groups), else candidate rows, main
+                and buffer."""
                 keys = [(mi, qi, p) for mi in range(n_models)]
                 if use_groups:
-                    return float(sum(stats_memo[k]["surviving_groups"] for k in keys
-                                     if k in stats_memo))
+                    gsz = max(cfg.group_size, 1)
+                    return float(
+                        sum(stats_memo[k]["surviving_groups"] for k in keys if k in stats_memo)
+                        + sum(-(-delta_rows(*k) // gsz) for k in keys)
+                    )
                 if device_assembly:
-                    return float(sum(dev_counts.get(k, 0) for k in keys))
-                return float(sum(memo[k].numel() for k in keys if k in memo))
+                    main = sum(dev_counts.get(k, 0) for k in keys)
+                else:
+                    main = sum(memo[k].numel() for k in keys if k in memo)
+                return float(main + sum(delta_rows(*k) for k in keys))
 
             weight_fns = [
                 (lambda p, qi=qi: weight(qi, p)) if cached_plans[qi] is None else None
@@ -851,13 +1421,14 @@ class GnnPeEngine:
             for p in plan.paths
             if not (
                 (device_assembly and (qi, p) in dev_memo)
-                or any((mi, qi, p) in memo for mi in range(n_models))
+                or any((mi, qi, p) in memo or (mi, qi, p) in delta_memo for mi in range(n_models))
             )
         ]
         if todo:
             self._probe_batch(todo, q_embs, memo, queries, probe_impl, **probe_kw)
         filter_time = time.perf_counter() - t0
         # ---- per-query candidate assembly -------------------------------
+        contributing: list[set] = [set() for _ in range(nq)]
         per_query_cands = []
         for qi, plan in enumerate(plans):
             st = stats[qi]
@@ -865,19 +1436,30 @@ class GnnPeEngine:
             candidates = [[] for _ in plan.paths]
             total_paths = 0
             for mi, model in enumerate(self.models):
-                if model.index.n_paths <= 0:
+                dp = delta.parts[mi] if delta is not None else None
+                n_live = model.index.n_paths
+                if dp is not None:
+                    n_live += dp.n_rows - dp.n_tombstones
+                if n_live <= 0:
                     continue
-                total_paths += model.index.n_paths
-                if device_assembly:
-                    continue
+                total_paths += n_live
                 for pi, p in enumerate(plan.paths):
-                    rows = memo.get((mi, qi, p))
-                    if rows is not None and rows.numel():
-                        candidates[pi].append(model.index.paths[rows])
+                    if device_assembly:
+                        if dev_counts.get((mi, qi, p), 0):
+                            contributing[qi].add(mi)
+                    else:
+                        rows = memo.get((mi, qi, p))
+                        if rows is not None and rows.numel():
+                            candidates[pi].append(model.index.paths[rows])
+                            contributing[qi].add(mi)
+                    drows = delta_memo.get((mi, qi, p))
+                    if drows is not None and drows.numel():
+                        candidates[pi].append(dp.paths[drows])
+                        contributing[qi].add(mi)
             cand_arrays = []
             for p, parts in zip(plan.paths, candidates):
-                if device_assembly and (qi, p) in dev_memo:
-                    arr = dev_memo[(qi, p)]
+                if device_assembly:
+                    arr = self._device_candidates(dev_memo.get((qi, p)), parts, len(p))
                 elif parts:
                     arr = torch.cat(parts)
                 else:
@@ -891,7 +1473,8 @@ class GnnPeEngine:
             st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
         # ---- join + refine ----------------------------------------------
         # per-path candidates are duplicate-free (partitions are
-        # root-disjoint), so the join may skip its dedup sorts
+        # root-disjoint; buffer rows are disjoint from live main rows), so
+        # the join may skip its dedup sorts
         if join_impl == "device":
             # one batched device program per join step for every group of
             # same-plan queries; the candidates are already device tensors
@@ -904,7 +1487,7 @@ class GnnPeEngine:
             for st, matches in zip(stats, results):
                 st.join_time = join_time / nq  # batch stage, amortized
                 st.n_matches = len(matches)
-            return results, stats
+            return results, stats, contributing
         results = []
         for qi, (q, plan) in enumerate(zip(queries, plans)):
             t1 = time.perf_counter()
@@ -915,7 +1498,19 @@ class GnnPeEngine:
             stats[qi].join_time = time.perf_counter() - t1
             stats[qi].n_matches = len(matches)
             results.append(matches)
-        return results, stats
+        return results, stats, contributing
+
+    def _device_candidates(self, dev_rows, buffer_parts: list, path_len: int) -> torch.Tensor:
+        """A probe's device candidate rows (int32) followed by its buffer
+        rows, already on the device: one tensor for the device join."""
+        if not buffer_parts:
+            if dev_rows is None:
+                return torch.zeros((0, path_len), dtype=torch.int32, device=self.device)
+            return dev_rows
+        extra = torch.cat(buffer_parts).to(torch.int32)
+        if dev_rows is None or dev_rows.shape[0] == 0:
+            return extra
+        return torch.cat([dev_rows, extra])
 
 
 def _to_tensors(params: dict, device) -> dict:

@@ -456,7 +456,11 @@ def _pairs_keep_mask(qg, q0g, eg, e0g, eps: float) -> torch.Tensor:
     return dominance_scan_pairs(qg, q0g, eg, e0g, eps=eps)
 
 
-def _split_rows(rows, q_ids, keep, Q: int) -> list:
+def _split_rows(rows, q_ids, keep, Q: int, dead=None) -> list:
+    """Kept pairs → row tensors per query; ``dead`` (P,) bool, where given,
+    drops the tombstoned rows first, one gather over all the queries."""
+    if dead is not None:
+        keep = keep & ~dead[rows]
     rows = rows[keep]
     counts = torch.bincount(q_ids[keep], minlength=Q)
     return list(torch.split(rows, counts.tolist()))
@@ -522,7 +526,7 @@ NO_SIDECAR = (
 )
 
 
-def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool):
+def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool, dead: list):
     """The two-level probe over several partitions (``use_groups=True``).
 
     The block descent is the per-path probe's; then
@@ -537,7 +541,7 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
     the member predicates are unchanged) from fewer leaf pairs.
     """
     packs = []
-    for index, q_emb, q_emb0, q_multi, q_label_hash in items:
+    for (index, q_emb, q_emb0, q_multi, q_label_hash), dead_i in zip(items, dead):
         Q = q_emb.shape[0]
         if q_multi is None:
             q_multi = q_emb.new_zeros((index.emb_multi.shape[0], Q, q_emb.shape[1]))
@@ -550,7 +554,7 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
         g_ids, q_ids_g = _pack_group_pairs(index.groups, cand, alive)
         _GROUP_PAIRS.inc(int(g_ids.numel()))
         packs.append({
-            "Q": Q, "empty": False, "alive": alive, "index": index, "g_ids": g_ids,
+            "Q": Q, "empty": False, "alive": alive, "index": index, "g_ids": g_ids, "dead": dead_i,
             "q_ids_g": q_ids_g, "query": (q_emb, q_emb0, q_multi, q_label_hash),
             "g_ops": _gather_group_operands(index.groups, g_ids, q_ids_g, q_emb, q_emb0, q_multi),
         })
@@ -591,7 +595,7 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
                 stats.append([dict(_NO_GROUP_STATS) for _ in range(Q)])
             continue
         keep = p.get("keep", torch.zeros((0,), dtype=torch.bool, device=p["rows"].device))
-        results.append(_split_rows(p["rows"], p["q_ids"], keep, Q))
+        results.append(_split_rows(p["rows"], p["q_ids"], keep, Q, p["dead"]))
         if return_stats:
             stats.append([dict(zip(_NO_GROUP_STATS, map(int, row))) for row in p["stats"]])
     if return_stats:
@@ -604,6 +608,7 @@ def query_index_batch_multi(
     eps: float = 1e-6,
     return_stats: bool = False,
     use_groups: bool = False,
+    dead: list | None = None,
 ):
     """Batched traversal over SEVERAL indexes (partitions) at once.
 
@@ -618,11 +623,14 @@ def query_index_batch_multi(
 
     ``use_groups=True`` runs the GNN-PGE two-level probe instead: the same
     rows, fewer leaf pairs; every non-empty index needs the group sidecar.
+    ``dead`` (per item a (P,) bool tombstone mask or None) drops the dead
+    rows of each index from its results, keeping their order.
     """
+    dead = dead if dead is not None else [None] * len(items)
     if use_groups:
-        return _query_index_batch_multi_grouped(items, eps, return_stats)
+        return _query_index_batch_multi_grouped(items, eps, return_stats, dead)
     packs = []
-    for index, q_emb, q_emb0, q_multi, q_label_hash in items:
+    for (index, q_emb, q_emb0, q_multi, q_label_hash), dead_i in zip(items, dead):
         Q = q_emb.shape[0]
         if q_multi is None:
             q_multi = q_emb.new_zeros((index.emb_multi.shape[0], Q, q_emb.shape[1]))
@@ -634,7 +642,7 @@ def query_index_batch_multi(
         packs.append(
             {
                 "Q": Q, "empty": False, "alive": alive, "rows": rows, "q_ids": q_ids,
-                "bs": index.block_size,
+                "bs": index.block_size, "dead": dead_i,
                 "ops": _gather_pair_operands(index, rows, q_ids, q_emb, q_emb0, q_multi),
             }
         )
@@ -653,7 +661,7 @@ def query_index_batch_multi(
         keep = p.get("keep")
         if keep is None:  # no pairs survived the descent
             keep = torch.zeros((0,), dtype=torch.bool, device=p["rows"].device)
-        results.append(_split_rows(p["rows"], p["q_ids"], keep, Q))
+        results.append(_split_rows(p["rows"], p["q_ids"], keep, Q, p["dead"]))
         if return_stats:
             scanned = p["alive"].sum(dim=1).tolist()
             stats.append(

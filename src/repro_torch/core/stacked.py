@@ -25,9 +25,9 @@ blocks per level and level count, so they stack by padding:
     partition ``i`` to its slot.
 
 Padding is the price of density; ``padding_stats()`` reports it and the
-engine records it in ``offline_stats`` (``stacked_*`` keys).  Re-stacking
-one slot after a compaction comes with live updates (ROADMAP queue 1
-item 12).
+engine records it in ``offline_stats`` (``stacked_*`` keys).  After a
+partition compacts, ``restack_slot`` rewrites its slot alone (elastic
+re-stacking), growing the padded tensors where the new index is wider.
 """
 from __future__ import annotations
 
@@ -38,8 +38,10 @@ import torch
 
 from .index import NO_SIDECAR, PackedIndex, _eps, _nbytes
 
-__all__ = ["StackedIndex", "StackedGroups", "build_stacked", "plan_shards", "stacked_masks_ref"]
-
+__all__ = [
+    "StackedIndex", "StackedGroups", "build_stacked", "plan_shards", "restack_slot",
+    "stacked_masks_ref",
+]
 
 
 def _reject_level(nb: int, d_cat: int, d0: int, device) -> tuple:
@@ -134,6 +136,8 @@ class StackedIndex:
     label_hash: torch.Tensor | None  # (S, P_max) int64
     groups: StackedGroups | None
     real_bytes: int  # Σ source-index bytes these tensors cover
+    # each slot's share of real_bytes, kept by ``restack_slot``
+    slot_real_bytes: np.ndarray | None = None  # (S,) int64, host
 
     @property
     def n_levels(self) -> int:
@@ -288,7 +292,7 @@ def build_stacked(indexes: list) -> StackedIndex:
         emb_q = torch.zeros((n_slots, p_max, d_cat), dtype=torch.int8, device=dev)
     if hashed:
         label_hash = torch.zeros((n_slots, p_max), dtype=torch.int64, device=dev)
-    real_bytes = 0
+    slot_real_bytes = np.zeros(n_slots, np.int64)
     for i, ix in enumerate(indexes):
         P = ix.n_paths
         if P == 0:
@@ -300,7 +304,7 @@ def build_stacked(indexes: list) -> StackedIndex:
             emb_q[s, :P] = ix.emb_q
         if hashed:
             label_hash[s, :P] = ix.label_hash
-        real_bytes += _index_real_bytes(ix)
+        slot_real_bytes[s] = _index_real_bytes(ix)
     groups = _stack_groups(indexes, slot_of, n_slots, level_hi[-1].shape[1], d_cat, d0)
     return StackedIndex(
         n_parts=n_parts,
@@ -318,8 +322,127 @@ def build_stacked(indexes: list) -> StackedIndex:
         emb_q=emb_q,
         label_hash=label_hash,
         groups=groups,
-        real_bytes=real_bytes,
+        real_bytes=int(slot_real_bytes.sum()),
+        slot_real_bytes=slot_real_bytes,
     )
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-stacking: rewrite ONE slot after a partition compaction
+# ---------------------------------------------------------------------------
+
+
+def _grow_dim1(x: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """Pad ``x`` along dim 1 up to ``width`` with a constant sentinel."""
+    if x.shape[1] >= width:
+        return x
+    pad = x.new_full((x.shape[0], width - x.shape[1]) + tuple(x.shape[2:]), fill)
+    return torch.cat([x, pad], dim=1)
+
+
+def restack_slot(st: StackedIndex, slot: int, index: PackedIndex) -> bool:
+    """Rewrite slot ``slot`` in place from a freshly compacted index; every
+    other slot keeps its values.
+
+    Where the new partition fits the padded widths this is row writes;
+    where it is wider (more paths, blocks or groups) the tensors grow by a
+    pad-and-copy, never by re-stacking the other partitions.  Returns False
+    where the slot cannot take it in this layout (more levels than the
+    stack, other widths or sidecars, a finer grouping): the caller stacks
+    anew.
+    """
+    quantized = st.emb_q is not None
+    hashed = st.label_hash is not None
+    P = index.n_paths
+    if P:
+        if (index.block_size, index.fanout, index.emb_multi.shape[0]) != (
+            st.block_size, st.fanout, st.n_gnn,
+        ):
+            return False
+        if (index.emb.shape[1] * (1 + st.n_gnn), index.emb0.shape[1]) != (
+            st.emb_cat.shape[2], st.emb0.shape[2],
+        ):
+            return False
+        if (index.emb_q is not None) != quantized or (index.label_hash is not None) != hashed:
+            return False
+        if len(index.levels) > st.n_levels or (st.groups is not None) != (index.groups is not None):
+            return False
+        gsz = int(index.groups.group_size) if index.groups is not None else 0
+        if st.groups is not None and -(-index.block_size // gsz) > st.groups.gpb:
+            return False
+
+    # ---- levels: grow the widths, reject-fill the slot, write it -----------
+    lvls = _slot_levels(index, st.n_levels, st.fanout) if P else None
+    level_hi, level_lo0, level_hi0 = list(st.level_hi), list(st.level_lo0), list(st.level_hi0)
+    for li in range(st.n_levels):
+        need = lvls[li][0].shape[0] if lvls is not None else 0
+        level_hi[li] = _grow_dim1(level_hi[li], need, -torch.inf)
+        level_lo0[li] = _grow_dim1(level_lo0[li], need, torch.inf)
+        level_hi0[li] = _grow_dim1(level_hi0[li], need, -torch.inf)
+        level_hi[li][slot] = -torch.inf
+        level_lo0[li][slot] = torch.inf
+        level_hi0[li][slot] = -torch.inf
+        if lvls is not None:
+            h, l0, h0 = lvls[li]
+            level_hi[li][slot, : h.shape[0]] = h
+            level_lo0[li][slot, : l0.shape[0]] = l0
+            level_hi0[li][slot, : h0.shape[0]] = h0
+    st.level_hi, st.level_lo0, st.level_hi0 = tuple(level_hi), tuple(level_lo0), tuple(level_hi0)
+
+    # ---- leaf payload -----------------------------------------------------
+    st.emb_cat = _grow_dim1(st.emb_cat, P, 0.0)
+    st.emb0 = _grow_dim1(st.emb0, P, 0.0)
+    st.emb_cat[slot] = 0.0
+    st.emb0[slot] = 0.0
+    if quantized:
+        st.emb_q = _grow_dim1(st.emb_q, P, 0)
+        st.emb_q[slot] = 0
+    if hashed:
+        st.label_hash = _grow_dim1(st.label_hash, P, 0)
+        st.label_hash[slot] = 0
+    if P:
+        st.emb_cat[slot, :P] = torch.cat([index.emb, *index.emb_multi], dim=1)
+        st.emb0[slot, :P] = index.emb0
+        if quantized:
+            st.emb_q[slot, :P] = index.emb_q
+        if hashed:
+            st.label_hash[slot, :P] = index.label_hash
+
+    # ---- group sidecar ----------------------------------------------------
+    g = st.groups
+    if g is not None:
+        G = st.level_hi[-1].shape[1] * g.gpb  # the leaf width may have grown
+        g.hi = _grow_dim1(g.hi, G, -torch.inf)
+        g.lo0 = _grow_dim1(g.lo0, G, torch.inf)
+        g.hi0 = _grow_dim1(g.hi0, G, -torch.inf)
+        g.start = _grow_dim1(g.start, G, 0)
+        g.count = _grow_dim1(g.count, G, 0)
+        g.hi[slot] = -torch.inf
+        g.lo0[slot] = torch.inf
+        g.hi0[slot] = -torch.inf
+        g.start[slot] = 0
+        g.count[slot] = 0
+        if P:
+            gg = index.groups
+            bgs = gg.block_group_start
+            per_block = torch.diff(bgs)
+            blocks = torch.arange(per_block.shape[0], device=bgs.device)
+            blk = torch.repeat_interleave(blocks, per_block)
+            within = torch.arange(gg.n_groups, device=bgs.device) - torch.repeat_interleave(
+                bgs[:-1], per_block
+            )
+            slots = blk * g.gpb + within
+            g.hi[slot, slots] = gg.mbr_hi
+            g.lo0[slot, slots] = gg.mbr0[:, :, 0]
+            g.hi0[slot, slots] = gg.mbr0[:, :, 1]
+            g.start[slot, slots] = gg.group_start[:-1]
+            g.count[slot, slots] = gg.member_counts()
+
+    st.n_paths[slot] = P
+    new_real = _index_real_bytes(index) if P else 0
+    st.real_bytes = int(st.real_bytes - int(st.slot_real_bytes[slot]) + new_real)
+    st.slot_real_bytes[slot] = new_real
+    return True
 
 
 def stacked_masks_ref(

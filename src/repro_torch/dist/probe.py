@@ -25,9 +25,10 @@ vertices gather on the device and compact into one int32 tensor per probe,
 concatenated across the partitions in slot order, and only counts come
 back to the host.  Where the pairs exceed ``leaf_pair_cap`` it takes
 ``probe``'s chunked path and concatenates in engine order, as the JAX
-package does.  ``update_slot`` and the tombstone mask come with live
-updates (ROADMAP queue 1 item 12), the multi-device mesh with the cluster
-(item 15).
+package does.  Under live updates both take ``live_mask``, the engine's
+(S, P_max) tombstone mask, applied to the pairs after the prefilter, and
+``update_slot`` re-stacks one compacted partition's slot.  The
+multi-device mesh comes with the cluster (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import torch
 
 from ..core import index as index_mod
 from ..core.index import NO_SIDECAR, _eps, _expand_segments, quantize_query
-from ..core.stacked import build_stacked, stacked_masks_ref
+from ..core.stacked import build_stacked, restack_slot, stacked_masks_ref
 
 __all__ = ["StackedProbe"]
 
@@ -63,19 +64,37 @@ class StackedProbe:
         st = self.stacked
         self._indexes = list(indexes)  # the hand-off's paths tensor is built from them
         self._paths: torch.Tensor | None = None
-        # groups present in each leaf block, (S, B_leaf): the group pairs a
-        # surviving block costs
-        self._gib = None
-        if st.groups is not None:
-            self._gib = (st.groups.count.reshape(st.n_slots, -1, st.groups.gpb) > 0).sum(dim=2)
         self._slot_of = torch.as_tensor(st.slot_of, device=st.device)
-        self._total_paths = int(st.n_paths.sum())
+        self._refresh()
         # per-partition (query, row) leaf pairs scanned, engine order,
         # cumulative over the probe's lifetime like the pair counter
         self.part_leaf_pairs = np.zeros(st.n_parts, np.int64)
         # calls whose leaf stage split rows per (partition, query) through
         # ``probe`` (``probe_device`` moves it only on its fallback)
         self.host_expansions = 0
+
+    def _refresh(self) -> None:
+        """The tensors derived from the stacked layout: the groups present in
+        each leaf block, (S, B_leaf) (the group pairs a surviving block
+        costs), and the path total."""
+        st = self.stacked
+        self._gib = None
+        if st.groups is not None:
+            self._gib = (st.groups.count.reshape(st.n_slots, -1, st.groups.gpb) > 0).sum(dim=2)
+        self._total_paths = int(st.n_paths.sum())
+
+    def update_slot(self, part_i: int, index) -> bool:
+        """Elastic re-stacking after partition ``part_i`` compacted: only its
+        slot is rewritten (``core.stacked.restack_slot``) and the hand-off's
+        paths tensor is dropped, to be built again at the next hand-off;
+        ``slot_of`` stays.  False where the slot cannot take the new index
+        (its level count grew): the caller stacks anew."""
+        if not restack_slot(self.stacked, int(self.stacked.slot_of[part_i]), index):
+            return False
+        self._indexes[part_i] = index
+        self._paths = None
+        self._refresh()
+        return True
 
     def _leaf_tensors(self) -> torch.Tensor:
         """Every partition's path vertices as one (S, P_max, L) int32 tensor
@@ -190,17 +209,23 @@ class StackedProbe:
             qh = q_label_hash.to(st.device)
         return quantize_query(q_cat), qh
 
-    def _pairs(self, pi, qi, starts, counts, n: int, q_cat, q0, qq, qh, eps: float) -> tuple:
+    def _pairs(self, pi, qi, starts, counts, n: int, q_cat, q0, qq, qh, eps: float,
+               live=None) -> tuple:
         """Cells with ``n`` rows in all → their pairs, through the prefilter
-        and ONE fused verdict → the kept (rows, pr, qr), in cell order."""
+        and the tombstone mask ``live`` (S, P_max), then ONE fused verdict →
+        the kept (rows, pr, qr), in cell order."""
         st = self.stacked
         rows = _expand_segments(starts, counts, n)
         pr = torch.repeat_interleave(pi, counts, output_size=n)
         qr = torch.repeat_interleave(qi, counts, output_size=n)
+        pre = None
         if qq is not None:  # the conservative int8 + label-hash prefilter
             pre = (qq[pr, qr] <= st.emb_q[pr, rows]).all(dim=1)
             if qh is not None:
                 pre &= st.label_hash[pr, rows] == qh[qr]
+        if live is not None:  # tombstoned main rows are no candidates
+            pre = live[pr, rows] if pre is None else pre & live[pr, rows]
+        if pre is not None:
             sel = torch.nonzero(pre).flatten()
             rows, pr, qr = rows[sel], pr[sel], qr[sel]
         # exact Lemma 4.1 + 4.2 verdicts: one fused pass
@@ -249,15 +274,16 @@ class StackedProbe:
         use_groups: bool = False,
         device_stage: str = "batched",
         return_stats: bool = False,
+        live_mask: torch.Tensor | None = None,  # (S, P_max) bool; None: all live
     ):
         """Candidate rows for Q query paths against every partition.
 
         Returns a list (per partition, engine order) of lists (per query)
         of int64 row tensors: the rows, in the order, of
         ``query_index_batch_multi`` over the source indexes (with
-        ``use_groups``, its two-level probe); with ``return_stats`` also its
-        per-partition per-query stats dicts.  The leaf pairs scanned add to
-        ``part_leaf_pairs``.
+        ``use_groups``, its two-level probe), less the rows ``live_mask``
+        marks dead; with ``return_stats`` also its per-partition per-query
+        stats dicts.  The leaf pairs scanned add to ``part_leaf_pairs``.
         """
         st = self.stacked
         dev = st.device
@@ -301,7 +327,7 @@ class StackedProbe:
             lo, hi = int(host[0, c]), int(host[0, c + 1])
             rows, pr, qr = self._pairs(
                 pi[lo:hi], qi[lo:hi], starts[lo:hi], counts[lo:hi],
-                int(host[1, c + 1] - host[1, c]), q_cat, q0, qq, qh, eps,
+                int(host[1, c + 1] - host[1, c]), q_cat, q0, qq, qh, eps, live_mask,
             )
             kept_rows.append(rows)
             kept_combo.append(pr * Q + qr)
@@ -343,6 +369,7 @@ class StackedProbe:
         eps: float = 1e-6,
         use_groups: bool = False,
         return_stats: bool = False,
+        live_mask: torch.Tensor | None = None,  # (S, P_max) bool; None: all live
     ):
         """Device-resident candidates of Q probes for the device join.
 
@@ -351,7 +378,8 @@ class StackedProbe:
           * ``per_probe[b]``: the (n_b, L) int32 device tensor of probe b's
             candidate path vertices, the kept rows of every partition
             concatenated in slot order (``stacked.slot_of``), each
-            partition's in ``probe``'s row order;
+            partition's in ``probe``'s row order, less the rows
+            ``live_mask`` marks dead;
           * ``part_counts`` (host, (n_parts, Q) int64): probe b's kept rows
             in engine partition ``i``;
           * ``stats``: ``probe``'s per-partition per-query dicts.
@@ -385,7 +413,7 @@ class StackedProbe:
             # a fan-out past the cap: probe's chunked leaf stage (which
             # keeps the counters itself), then one gather per probe
             return self._probe_device_fallback(
-                q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats
+                q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats, live_mask
             )
         index_mod._LEAF_PAIRS.inc(total)
         index_mod._GROUP_PAIRS.inc(int(head[S]))
@@ -394,7 +422,9 @@ class StackedProbe:
         out = empty
         if total:
             qq, qh = self._prefilter_queries(q_cat, q_label_hash, True)
-            rows, pr, qr = self._pairs(pi, qi, starts, counts, total, q_cat, q0, qq, qh, eps)
+            rows, pr, qr = self._pairs(
+                pi, qi, starts, counts, total, q_cat, q0, qq, qh, eps, live_mask
+            )
             # probe-major compaction without a sort: the kept pairs come
             # (slot, probe)-major, so a pair's place is its probe's offset,
             # plus the kept pairs of its probe in earlier slots, plus its rank
@@ -420,13 +450,13 @@ class StackedProbe:
         return per_probe, part_counts, self._stats_dicts(small[S * Q :].reshape(S, Q, -1), use_groups)
 
     def _probe_device_fallback(
-        self, q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats
+        self, q_emb, q_emb0, q_multi, q_label_hash, eps, use_groups, return_stats, live_mask
     ):
         """``probe``'s chunked leaf stage, then each probe's rows gathered
         partition by partition in engine order: the same candidates."""
         out = self.probe(
             q_emb, q_emb0, q_multi, q_label_hash=q_label_hash, eps=eps,
-            use_groups=use_groups, return_stats=return_stats,
+            use_groups=use_groups, return_stats=return_stats, live_mask=live_mask,
         )
         results, stats = out if return_stats else (out, None)
         n_parts, Q = q_emb.shape[:2]

@@ -1,5 +1,7 @@
 """Thread-safe labeled counters: the subset of ``repro.obs.metrics`` the
-index needs (``gnnpe_probe_pairs_total``).
+port needs so far (the index's ``gnnpe_probe_pairs_total``, the result
+cache's ``gnnpe_cache_events_total`` and the engine's
+``gnnpe_result_cache_lookups_total``).
 
 A counter created with ``labels=("kind",)`` is a parent;
 ``c.labels(kind="leaf_pairs")`` returns (and caches) the child holding

@@ -1,4 +1,9 @@
-"""Serving front ends of the port: so far the LM decode engine."""
+"""Serving front ends of the port: the LM decode engine and GNN-PE's
+signature-keyed result cache."""
+from .cache import CacheStats, ResultCache, canonical_matches, remap_matches
 from .engine import DecodeEngine, ServeConfig
 
-__all__ = ["DecodeEngine", "ServeConfig"]
+__all__ = [
+    "DecodeEngine", "ServeConfig", "ResultCache", "CacheStats", "canonical_matches",
+    "remap_matches",
+]

@@ -567,3 +567,85 @@ def test_lm_serving_on_the_card_equals_the_cpu(cuda):
         eng.submit(p, max_new=4)
     done = eng.run_until_drained()
     assert sorted(done) == [0, 1, 2] and all(len(t) == 4 for t in done.values())
+
+
+@pytest.mark.cuda
+def test_live_updates_on_the_card_equal_the_cpu(cuda):
+    """Live updates on the card: each epoch's summary, and every probe ×
+    join's lists, equal the CPU engine's, compactions and slot updates
+    included; the delta buffers' scan is one K1 launch a probe batch, equal
+    to its plain version on its real operands."""
+    import itertools
+
+    from repro_torch.core import GnnPeConfig, GnnPeEngine, GraphUpdate
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(400, k=4, p=0.15, n_labels=4, seed=3)
+    cfg = GnnPeConfig(n_partitions=3, encoder="monotone", probe_impl="stacked",
+                      delta_compact_min=500, delta_compact_frac=0.02, cache=True)
+    qs = [random_connected_query(g, 6, seed=s) for s in range(4)]
+    cpu = GnnPeEngine(cfg, device="cpu").build(g)
+    eng = GnnPeEngine(cfg, device=cuda).build(g)
+    rng = np.random.default_rng(0)
+    compacted = 0
+    for _ in range(4):
+        e = cpu.graph.edge_array()
+        upd = GraphUpdate(remove_edges=e[rng.choice(e.shape[0], 4, replace=False)],
+                          add_edges=rng.integers(0, cpu.graph.n_vertices, (4, 2)))
+        s = eng.apply_updates(upd)
+        assert s == cpu.apply_updates(upd)
+        compacted += len(s["compacted"])
+        seen = []
+        saved = delta_mod._pairs_keep_mask
+        delta_mod._pairs_keep_mask = lambda *a: seen.append(a) or saved(*a)
+        before = ops.LAUNCHES
+        try:
+            got = eng._match_many_core(qs, "path", "loop", "numpy")[0]
+        finally:
+            delta_mod._pairs_keep_mask = saved
+        assert len(seen) == int(eng.delta.any_rows())
+        assert ops.LAUNCHES == before + 1 + len(seen)
+        for a in seen:
+            assert torch.equal(ops.dominance_scan_pairs(*a), dominance_scan_pairs_ref(*a))
+        assert got == cpu._match_many_core(qs, "path", "loop", "numpy")[0]
+        for probe, join in itertools.product(("loop", "stacked"), ("numpy", "device")):
+            kw = dict(probe_impl=probe, join_impl=join)
+            assert eng.match_many(qs, **kw) == cpu.match_many(qs, **kw), kw
+    assert compacted and eng.stacked_probe() is not None
+
+
+@pytest.mark.cuda
+def test_probe_device_live_mask_on_the_card_equals_the_host_filter(cuda):
+    """``probe_device``'s tombstone mask on the card: each probe's
+    candidates equal the unmasked probe's rows less the dead ones, filtered
+    on the host, in slot order; some rows were dead."""
+    from repro_torch.core import GnnPeConfig, GnnPeEngine, GraphUpdate
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(400, k=4, p=0.15, n_labels=4, seed=3)
+    eng = GnnPeEngine(GnnPeConfig(n_partitions=3, encoder="monotone", probe_impl="stacked",
+                                  delta_compact_min=10**9), device=cuda).build(g)
+    eng.apply_updates(GraphUpdate(remove_edges=g.edge_array()[::40]))
+    probe = eng.stacked_probe()
+    live = eng._stacked_live_mask(probe)
+    assert live is not None and not bool(live.all())
+    qs = [random_connected_query(g, 6, seed=s) for s in range(6)]
+    q_embs = eng._query_node_embeddings_many(qs)
+    reqs = [(qi, p) for qi, q in enumerate(qs) for p in eng._deg_plan_cached(q).paths]
+    dev_memo, dev_counts = {}, {}
+    eng._probe_batch(reqs, q_embs, {}, qs, "stacked", dev_memo=dev_memo, dev_counts=dev_counts)
+    unmasked = {}
+    eng._live_mask_cache = (eng.epoch, probe.stacked, None)  # the probe without the mask
+    eng._probe_batch(reqs, q_embs, unmasked, qs, "stacked")
+    live_h, dropped = live.cpu(), 0
+    for qi, p in dev_memo:
+        parts = []
+        for mi in np.argsort(probe.stacked.slot_of):
+            rows = unmasked[(mi, qi, p)].cpu()
+            kept = rows[live_h[int(probe.stacked.slot_of[mi]), rows]]
+            dropped += rows.numel() - kept.numel()
+            assert dev_counts[(mi, qi, p)] == kept.numel()
+            parts.append(eng.models[mi].index.paths[kept.to(cuda)])
+        assert torch.equal(dev_memo[(qi, p)], torch.cat(parts).to(torch.int32))
+    assert dropped > 0

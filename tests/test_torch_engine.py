@@ -106,8 +106,35 @@ def test_own_params_match_vf2(graph, encoder):
 
 @pytest.mark.parametrize("fields,item", [({"cache": True}, "item 12")])
 def test_later_slices_raise(fields, item):
-    with pytest.raises(NotImplementedError, match=item):
-        GnnPeEngine(GnnPeConfig(**fields), device="cpu")
+    """No config value waits for a later slice any more: ``_LATER`` is empty
+    and ``cache=True``, the last value there (ROADMAP queue 1 item 12),
+    builds an engine with its result cache."""
+    from repro_torch.core.engine import _LATER
+
+    assert _LATER == {}
+    eng = GnnPeEngine(GnnPeConfig(**fields), device="cpu")
+    assert eng._result_cache is not None and eng._result_cache.capacity == 2048
+
+
+@pytest.mark.parametrize(
+    "fields",
+    [{"plan_strategy": "oip"}, {"plan_strategy": "eip"}, {"induced": True},
+     {"induced": True, "join_impl": "device"}],
+)
+def test_plan_strategies_and_induced_match_the_reference(graph, fields):
+    """``plan_strategy`` oip / eip and engine-level ``induced=True`` (with
+    both joins) give the reference engine's match lists and VF2's sets."""
+    cfg = dict(CONFIGS["monotone"], **fields)
+    ref = RefEngine(RefConfig(**cfg)).build(graph)
+    port = GnnPeEngine(GnnPeConfig(**cfg), device="cpu").build(
+        port_graph(graph), params=partition_state_from_reference(ref.models)
+    )
+    qs = queries(graph, 4, seed0=900)
+    got = port.match_many(qs)
+    assert got == ref.match_many(qs) and sum(map(len, got)) > 0
+    g = port_graph(graph)
+    for q, m in zip(qs, got):
+        assert set(m) == set(vf2_match(g, q, induced=cfg.get("induced", False)))
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,8 @@
 imports ``repro_torch``, builds and matches on the CPU through both joins,
 also with the int8 sidecar, dr plans and the stacked probe, with a grouped
 index (auto group sizes) and the stacked probe's hand-off to the device
-join, and through the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
+join, under live updates with compaction and the result cache, and through
+the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -42,6 +43,19 @@ before = eng_g.stacked_probe().host_expansions
 for q, m, l in zip(qs, eng_g.match_many(qs), eng_g.match_many(qs, probe_impl="loop", join_impl="numpy")):
     assert set(m) == set(vf2_match(g, q)) == set(l)
 assert eng_g.stacked_probe().host_expansions == before
+import numpy as np
+from repro_torch.core import GraphUpdate
+cfg = GnnPeConfig(encoder="monotone", n_partitions=2, probe_impl="stacked", cache=True,
+                  delta_compact_min=4, delta_compact_frac=0.01)
+eng_u = GnnPeEngine(cfg, device="cpu").build(g)
+e = g.edge_array()
+for k in range(2):
+    upd = GraphUpdate(remove_edges=e[k : k + 2], add_edges=np.array([[0, 77 + k]]))
+    s = eng_u.apply_updates(upd)
+    assert s["mutated"] and s["compacted"]
+    for q, m, d in zip(qs, eng_u.match_many(qs), eng_u.match_many(qs, join_impl="device")):
+        assert set(m) == set(vf2_match(eng_u.graph, q)) == set(d)
+assert eng_u.match_many(qs) and eng_u.delta_stats()["cache"]["hits"] > 0
 import torch
 from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index
