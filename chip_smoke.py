@@ -118,7 +118,35 @@ Phases, each printing its seconds:
      and the repeat-heavy stream with the cache off and on; 8c,
      phase 4's GAT engine after one update: its re-embedded rows against
      ``rebuild_indexes()``'s, bit for bit (printed), and its sets against
-     VF2's.
+     VF2's;
+  9. the serving tier over phase 3's engine and queries (and phase 3g's
+     grouped engine): 9a, one traced warm ``match_many`` on the loop probe,
+     the stacked probe, the hand-off to the device join and the grouped
+     loop probe, each trace holding ``embed``, ``plan``, ``probe``,
+     ``assemble`` and ``join`` once, its leaf and group pairs equal to the
+     pair counters' deltas, its candidates and matches equal to the
+     engine's counts and phase 3's, its stages summing to 0.5–1.01 of the
+     root span; K2 on the hand-off's real steps equal to its plain version;
+     the registry's Prometheus text through ``parse_prometheus`` and its
+     JSON snapshot (``experiments/phase9_metrics.json``) against
+     ``snapshot()``; warm ``match_many`` with obs on and off, interleaved,
+     5 each (printed only); 9b, ``MatchServer`` (``max_batch`` 8,
+     cost-ranked ticks) on 64 requests (phase 3's 16 queries x 4, shuffled
+     by ``default_rng(0)``) in 4 rounds, each after an update tick of 2
+     coalesced edge-churn batches: every answer equal to ``match_many`` at
+     its epoch, the last epoch's sets equal to VF2's, K1 launching and one
+     tick's verdicts equal to the plain version; qps and p50 / p95 per
+     request on the host clock; 9c, 4 subscriptions through the server over
+     6 epochs (5 of edge churn, the sixth one edge removed where no
+     candidate partition of one subscription reaches): after each epoch the
+     accumulated sets equal a from-scratch ``match_many``, the fresh-row
+     probe's K1 equal to its plain version, and the untouched subscription
+     skipped with no K1 launch; 9d, ``MatchService`` over a
+     ``FlakyEngine`` (two tenants, 32 requests and a poisoned one, seeded
+     transient faults, one hang past the attempt time-out, stacked probe):
+     every ok answer byte-identical to the fault-free one, the statuses
+     summing to the requests submitted, the poisoned request alone
+     quarantined.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -276,6 +304,12 @@ def counters():
         "K3-single": ds.SINGLE_LAUNCHES, "K3-batch": ds.BATCH_LAUNCHES,
         "K4": sa.LAUNCHES, "K5": ci.LAUNCHES, "K6": fa.LAUNCHES,
     }
+
+
+def pair_counts() -> dict:
+    from repro_torch.core import index as index_mod
+
+    return {k: index_mod.PAIR_METRIC.get(kind=k) for k in ("leaf_pairs", "group_pairs")}
 
 
 def reset_counters() -> None:
@@ -990,7 +1024,7 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     device_join_breakdown(eng, queries, dev, "50K cell, stacked probe's hand-off",
                           probe_impl="stacked")
     out["ctx"] = {"g": g, "queries": queries, "cfg": cfg, "matches": matches,
-                  "index_bytes": os_["index_bytes"], "leaf_pairs": leaf_pairs}
+                  "index_bytes": os_["index_bytes"], "leaf_pairs": leaf_pairs, "eng": eng}
     return out
 
 
@@ -1216,7 +1250,6 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
     member level, leaf and group pairs, the groups form timed on its real
     operands, an auto-size engine and the grouped dr cost model."""
     from repro_torch.core import GnnPeEngine, sort_matches
-    from repro_torch.core import index as index_mod
     from repro_torch.core.grouping import choose_group_size
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
@@ -1237,19 +1270,16 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
         sync(dev)
         return eng, time.perf_counter() - t
 
-    def pairs() -> dict:
-        return {k: index_mod.PAIR_METRIC.get(kind=k) for k in ("leaf_pairs", "group_pairs")}
-
     def run(eng, what: str, **kw):
         """One match_many: its K1 (and K2) launches and pairs, each counted from 0
         just before it; its lists equal phase 3's sets."""
         reset_counters()
-        p0 = pairs()
+        p0 = pair_counts()
         t = time.perf_counter()
         res = eng.match_many(queries, **kw)
         sync(dev)
         ms = (time.perf_counter() - t) * 1e3
-        c, p1 = counters(), pairs()
+        c, p1 = counters(), pair_counts()
         d = {k: int(p1[k] - p0[k]) for k in p0}
         for qi, m in enumerate(res):
             require(sort_matches(m) == want[qi], f"{what}: query {qi} differs from phase 3's set")
@@ -1341,6 +1371,7 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
     eng_d._plan_cache.clear()
     run(eng_d, "cold dr batch, grouped, stacked probe, device join (dr weights from the "
         "hand-off's stats)", probe_impl="stacked", join_impl="device")
+    out["eng"] = eng  # phase 9 traces it
     return out
 
 
@@ -2769,6 +2800,315 @@ def phase8c_gat_bits(dev, eng, queries) -> None:
         f"the update and after the rebuild")
 
 
+# ---- phase 9 ----------------------------------------------------------------
+
+
+def p50_p95(xs) -> list:
+    return [float(np.percentile(np.asarray(xs, np.float64), q)) for q in (50, 95)]
+
+
+def phase9a_obs(dev, ctx: dict, eng_g, out: dict) -> None:
+    """One traced warm ``match_many`` on four paths: the funnel against the
+    pair counters and the engine's own counts, the stage tree and its sums;
+    the registry through Prometheus text and a JSON snapshot; warm batches
+    with obs on and off, interleaved."""
+    from repro_torch import obs
+    from repro_torch.core import sort_matches
+
+    eng, queries = ctx["eng"], ctx["queries"]
+    want_sets = [sort_matches(m) for m in ctx["matches"]]
+    n_matches = sum(len(m) for m in ctx["matches"])
+    obs.TRACER.trace_rate = 1.0
+    paths = [
+        ("loop probe, host join", eng, {}),
+        ("stacked probe, host join", eng, dict(probe_impl="stacked")),
+        ("the hand-off, device join", eng, dict(probe_impl="stacked", join_impl="device")),
+        ("grouped, loop probe, host join", eng_g, {}),
+    ]
+    n_cands = None
+    for what, e, kw in paths:
+        lists, st = e.match_many(queries, return_stats=True, **kw)  # warm, untraced
+        sync(dev)
+        cands = sum(s.candidate_paths for s in st)
+        n_cands = cands if n_cands is None else n_cands
+        require(cands == n_cands, f"9a {what}: {cands} candidates, the loop probe counts {n_cands}")
+        require([sort_matches(m) for m in lists] == want_sets, f"9a {what}: sets differ from phase 3's")
+        reset_counters()
+        p0 = pair_counts()
+        with obs.trace_query(what) as tr:
+            e.match_many(queries, **kw)
+        sync(dev)
+        c, p1 = counters(), pair_counts()
+        out["K1"] += c["K1"]
+        out["K2"] += c["K2"]
+        require(c["K1"] > 0, f"9a {what}: K1 never launched")
+        if kw.get("join_impl") == "device":
+            require(c["K2"] > 0, f"9a {what}: K2 never launched")
+        f = tr.funnel
+        require(f["leaf_pairs"] == p1["leaf_pairs"] - p0["leaf_pairs"] > 0
+                and f["group_pairs"] == p1["group_pairs"] - p0["group_pairs"],
+                f"9a {what}: funnel pairs {f} differ from the counters' deltas")
+        require(f["candidates"] == n_cands and f["matches"] == n_matches,
+                f"9a {what}: funnel {f} against {n_cands} candidates, {n_matches} matches")
+        require((f["surviving_groups"] > 0) == (e is eng_g), f"9a {what}: surviving groups {f}")
+        for name in ("embed", "plan", "probe", "assemble", "join"):
+            require(len(tr.root.find(name)) == 1, f"9a {what}: span {name} not once")
+        parts = tr.root.find("partition")
+        require([s.attrs["part"] for s in parts] == list(range(len(e.models))),
+                f"9a {what}: partition spans")
+        require(sum(s.attrs["main_rows"] for s in parts) == n_cands,
+                f"9a {what}: partition rows differ from the candidates")
+        stages = {s.name: s.duration_s * 1e3 for s in tr.root.children}
+        wall = tr.root.duration_s * 1e3
+        ratio = sum(stages.values()) / wall
+        require(0.5 <= ratio <= 1.01, f"9a {what}: stages sum to {ratio:.3f} of the root span")
+        log(f"9a traced {what}: root {wall:.3f} ms, stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f" (sum {ratio:.3f} of the root); funnel group pairs {f['group_pairs']}, surviving "
+            f"groups {f['surviving_groups']}, leaf pairs {f['leaf_pairs']}, candidates "
+            f"{f['candidates']}, matches {f['matches']} (pruning power {tr.pruning_power():.6f}); "
+            f"K1 launches {c['K1']}, K2 {c['K2']}")
+    steps = k2_steps(eng, queries, probe_impl="stacked")
+    log(f"9a K2 on the hand-off's {len(steps)} real join steps equal to the plain version")
+    text = obs.to_prometheus()
+    parsed = obs.parse_prometheus(text)
+    snap = obs.REGISTRY.snapshot()
+    for name, m in snap.items():
+        if m["type"] in ("counter", "gauge"):
+            for v in m["values"]:
+                lab = ",".join(f'{k}="{x}"' for k, x in v["labels"].items())
+                key = f"{name}{{{lab}}}" if lab else name
+                require(parsed[key] == v["value"], f"9a Prometheus text: {key}")
+        elif m["type"] == "histogram":
+            for v in m["values"]:
+                lab = ",".join(f'{k}="{x}"' for k, x in v["labels"].items())
+                key = f"{name}_count{{{lab}}}" if lab else f"{name}_count"
+                require(parsed[key] == v["count"], f"9a Prometheus text: {key}")
+    path = ROOT / "experiments" / "phase9_metrics.json"
+    path.parent.mkdir(exist_ok=True)
+    doc = obs.write_json_snapshot(str(path), extra={"phase": "9a"})
+    require(json.loads(path.read_text())["metrics"] == obs.REGISTRY.snapshot() == doc["metrics"],
+            "9a the JSON snapshot differs from snapshot()")
+    log(f"9a registry: {len(snap)} metrics, {len(parsed)} Prometheus series round-trip through "
+        f"parse_prometheus; the JSON snapshot ({path.relative_to(ROOT)}) equals snapshot()")
+    on, off = [], []
+    try:
+        for _ in range(5):
+            obs.enable()
+            on += warm_ms(lambda: eng.match_many(queries), dev, 1)
+            obs.disable()
+            off += warm_ms(lambda: eng.match_many(queries), dev, 1)
+    finally:
+        obs.enable()
+    log(f"9a warm match_many (loop probe, host join), interleaved: obs on {fmt(on)} ms, obs "
+        f"off {fmt(off)} ms; medians {np.median(on):.3f} / {np.median(off):.3f}")
+
+
+def phase9b_server(dev, ctx: dict, out: dict) -> None:
+    """``MatchServer``: 64 requests (phase 3's 16 queries x 4, shuffled),
+    ``max_batch`` 8, cost-ranked ticks, 4 update ticks of 2 coalesced
+    edge-churn batches; every answer against ``match_many`` at its epoch."""
+    import torch
+
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.serve import MatchServeConfig, MatchServer
+
+    eng, queries = ctx["eng"], ctx["queries"]
+    rng = np.random.default_rng(0)
+    stream = [int(i) for i in rng.permutation(np.repeat(np.arange(len(queries)), 4))]
+    srv = MatchServer(eng, MatchServeConfig(max_batch=8, schedule="cost"))
+    upd_rng = np.random.default_rng(9)
+    chunk = len(stream) // 4
+    drive_s, n_checked, seen = 0.0, 0, None
+    for k in range(4):
+        for _ in range(2):
+            srv.submit_update(rand_update(upd_rng, eng.graph))
+        rids = [(srv.submit(queries[qi]), qi) for qi in stream[k * chunk:(k + 1) * chunk]]
+        reset_counters()
+        t = time.perf_counter()
+        if k == 0:  # one tick's verdicts recorded on their real operands
+            seen = recorded_verdicts(srv.step)
+        srv.run_until_drained()
+        sync(dev)
+        drive_s += time.perf_counter() - t
+        c = counters()
+        out["K1"] += c["K1"]
+        out["server_K1"] = out.get("server_K1", 0) + c["K1"]
+        require(c["K1"] > 0, f"9b round {k}: K1 never launched")
+        want = eng.match_many(queries)
+        for rid, qi in rids:
+            require(srv.finished[rid] == want[qi],
+                    f"9b round {k}: request {rid} (query {qi}) differs from match_many at epoch "
+                    f"{eng.epoch}")
+            n_checked += 1
+    require(seen, "9b the recorded tick made no verdict")
+    for a, keep in seen:
+        require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+                "9b K1 on a server tick's pairs differs from the plain version")
+    n = check_against_vf2(eng.graph, queries, want, "9b last epoch")
+    lat = [srv.latency_s[r] * 1e3 for r in srv.latency_s]
+    ticks = [t["wall_s"] * 1e3 for t in srv.tick_stats]
+    require(srv.n_updates_applied == 8 and len(srv.update_s) == 4, "9b updates not coalesced 2 a tick")
+    log(f"9b MatchServer: {n_checked} answers equal match_many at their epoch ({eng.epoch}), the "
+        f"last epoch's {n} matches equal VF2's; {len(stream)} requests in {drive_s:.3f} s = "
+        f"{len(stream) / drive_s:.3f} qps (update ticks included); per request (submit to "
+        f"answer, host clock) p50 {p50_p95(lat)[0]:.3f} ms, p95 {p50_p95(lat)[1]:.3f} ms; "
+        f"{len(ticks)} query ticks p50 {p50_p95(ticks)[0]:.3f} ms, p95 {p50_p95(ticks)[1]:.3f} ms; "
+        f"{srv.n_updates_applied} updates coalesced into {len(srv.update_s)} epochs "
+        f"({fmt([s * 1e3 for s in srv.update_s])} ms); K1 launches {out['server_K1']}, one "
+        f"tick's {len(seen)} verdicts (T = {sum(a[0].shape[0] for a, _ in seen)}) equal to plain")
+
+
+def phase9c_standing(dev, ctx: dict, out: dict) -> None:
+    """4 subscriptions through the server over 6 churn epochs (5 of 4 + 4
+    edges; the sixth removes one edge that no partition holding a candidate
+    of the least spread subscription reaches): after each epoch every
+    accumulated set against a from-scratch ``match_many``; the fresh-row
+    probe's K1 against its plain version; no probe for an unaffected
+    subscription."""
+    from repro_torch.core import GnnPeEngine, GraphUpdate
+    from repro_torch.kernels.dominance_scan import ops as ds
+    from repro_torch.serve import MatchServer
+
+    eng, queries = ctx["eng"], ctx["queries"]
+    srv = MatchServer(eng)
+    sub_qs = queries[:4]
+    sids = [srv.subscribe(q) for q in sub_qs]
+    work: list = []  # (query index, last_work, K1 launches) per match_incremental
+
+    def counted(q, state=None):
+        before = ds.LAUNCHES
+        res = GnnPeEngine.match_incremental(eng, q, state)
+        work.append((next(i for i, s in enumerate(sub_qs) if s is q), res[0].last_work,
+                     ds.LAUNCHES - before))
+        return res
+
+    eng.match_incremental = counted
+    rng = np.random.default_rng(23)
+    launches, verdict_T = 0, 0
+    try:
+        for ep in range(6):
+            upd = rand_update(rng, eng.graph)
+            if ep == 5:
+                states = [srv.registry.subscription(sid).state for sid in sids]
+                aside = min(range(len(sids)), key=lambda i: len(states[i].contributing))
+                near = [eng.models[mi].vertex_set for mi in states[aside].contributing]
+                e = eng.graph.edge_array()
+                far = e[~np.isin(e, np.concatenate(near) if near else []).any(axis=1)]
+                require(far.shape[0] > 0, "9c no edge lies outside the subscription's partitions")
+                upd = GraphUpdate(remove_edges=far[rng.integers(far.shape[0])][None])
+            srv.submit_update(upd)
+            reset_counters()
+            with DeltaScanProbe() as probe:
+                srv.apply_update_tick()
+            sync(dev)
+            c = counters()
+            out["K1"] += c["K1"]
+            launches += c["K1"]
+            probe.check(f"9c epoch {ep + 1}")
+            verdict_T += probe.pairs
+            want = eng.match_many(sub_qs)
+            for sid, q, w in zip(sids, sub_qs, want):
+                acc: set = set()
+                for d in srv.match_deltas[sid]:
+                    acc = (acc - set(d.retracted)) | set(d.added)
+                require(acc == set(w), f"9c epoch {ep + 1}: subscription {sid} differs from "
+                        "a from-scratch match_many")
+    finally:
+        del eng.match_incremental
+    rungs = {w for _, w, _ in work}
+    require(work[-len(sids) + aside][:2] == (aside, "skip"),
+            f"9c the last epoch did not leave subscription {aside} aside: {work[-len(sids):]}")
+    skips = [n for _, w, n in work if w == "skip"]
+    incr = [n for _, w, n in work if w == "incremental"]
+    require(incr and sum(incr) > 0, "9c the fresh-row probe never launched K1")
+    require(skips, "9c no subscription was left untouched by an epoch: the check is vacuous")
+    require(all(n == 0 for n in skips), "9c an unaffected subscription launched K1")
+    log(f"9c standing: {len(sids)} subscriptions over 6 epochs, accumulated sets equal "
+        f"from-scratch after each; steps {len(work)}: {len(incr)} incremental ({sum(incr)} K1 "
+        f"launches, verdicts T = {verdict_T} in all, equal to plain), {len(skips)} skipped with "
+        f"no launch, rungs {sorted(rungs)}; registry {srv.registry.stats()}; K1 launches in the "
+        f"subscription ticks {launches}")
+
+
+def phase9d_service(dev, ctx: dict, out: dict) -> None:
+    """``MatchService`` over a ``FlakyEngine``: two tenants, seeded
+    transient faults, one hang past the attempt time-out, one poisoned
+    query; every ok answer byte-identical to the fault-free one, the
+    statuses summing to the requests submitted."""
+    import asyncio
+
+    from repro_torch.graphs import random_connected_query
+    from repro_torch.serve import FaultSpec, FlakyEngine, MatchService, ServiceConfig
+
+    eng, queries = ctx["eng"], ctx["queries"]
+    poisoned = random_connected_query(eng.graph, 8, seed=999)
+    want = eng.match_many(queries, probe_impl="stacked")
+    # seed 10's draws: call 1 draws 0.956 (no transient, so the planned hang
+    # runs), call 2 draws 0.208 (a transient); fifo ticks keep the poisoned
+    # request, submitted last, out of every call before its own
+    flaky = FlakyEngine(eng, FaultSpec(p_transient=0.25, seed=10, hang_on=(1,), hang_s=2.5,
+                                       poison=lambda q: q is poisoned))
+    svc = MatchService(flaky, ServiceConfig(
+        max_batch=8, probe_impl="stacked", schedule="fifo", attempt_timeout_s=2.0,
+        max_retries=10, backoff_base_s=0.01, backoff_max_s=0.05, idle_tick_s=0.02,
+        cache_fastpath=False,
+    ))
+    order = [(i % len(queries), "a" if i % 2 else "b") for i in range(2 * len(queries))]
+
+    async def run():
+        await svc.start()
+        futs = [svc.submit(queries[qi], tenant=t)[1] for qi, t in order]
+        futs.append(svc.submit(poisoned, tenant="a")[1])
+        resps = await asyncio.gather(*futs)
+        await svc.stop()
+        return resps
+
+    reset_counters()
+    t = time.perf_counter()
+    resps = asyncio.run(asyncio.wait_for(run(), 300))
+    sync(dev)
+    wall = time.perf_counter() - t
+    c = counters()
+    out["K1"] += c["K1"]
+    require(c["K1"] > 0, "9d K1 never launched")
+    poison_resp = resps.pop()
+    require(poison_resp.status == "error" and "PoisonedQueryError" in poison_resp.reason,
+            f"9d the poisoned request ended {poison_resp.status}: {poison_resp.reason}")
+    for (qi, tenant), r in zip(order, resps):
+        require(r.ok, f"9d query {qi} of tenant {tenant} ended {r.status}: {r.reason}")
+        require(repr(r.matches) == repr(want[qi]), f"9d query {qi}: differs from the fault-free answer")
+    cnt = svc.counters
+    statuses = ("ok", "rejected", "shed", "expired", "error", "retry-exhausted")
+    require(sum(cnt[s] for s in statuses) == cnt["submitted"] == len(order) + 1,
+            f"9d the statuses do not sum to the requests submitted: {dict(cnt)}")
+    require(cnt["error"] == 1 and cnt["attempt_timeouts"] >= 1 and flaky.n_transient >= 1,
+            f"9d the fault schedule did not fire as planned: {dict(cnt)}")
+    lat = [r.latency_s * 1e3 for r in resps]
+    log(f"9d MatchService (stacked probe, host join), tenants a / b: {len(resps)} ok of "
+        f"{cnt['submitted']} submitted in {wall:.3f} s, each byte-identical to the fault-free "
+        f"answer, the poisoned request alone quarantined; {flaky.n_transient} transient faults, "
+        f"{flaky.n_hangs} hang of 2.5 s, {cnt['attempt_timeouts']} attempt time-outs, "
+        f"{cnt['retries']} retries over {flaky.n_calls} engine calls; per request p50 "
+        f"{p50_p95(lat)[0]:.3f} ms, p95 {p50_p95(lat)[1]:.3f} ms; statuses "
+        + ", ".join(f"{s} {cnt[s]}" for s in statuses) + f"; K1 launches {c['K1']}")
+
+
+def phase9_serving(dev, ctx: dict, eng_g) -> dict:
+    """Phase 9 (the module doc): the serving tier over phase 3's engine."""
+    out = {"K1": 0, "K2": 0}
+    for name, fn, args in (
+        ("9a observability", phase9a_obs, (dev, ctx, eng_g, out)),
+        ("9b MatchServer", phase9b_server, (dev, ctx, out)),
+        ("9c standing queries", phase9c_standing, (dev, ctx, out)),
+        ("9d MatchService under faults", phase9d_service, (dev, ctx, out)),
+    ):
+        t = time.perf_counter()
+        fn(*args)
+        log(f"  {name}: {time.perf_counter() - t:.3f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2846,6 +3186,11 @@ def main() -> int:
     phase8c_gat_bits(dev, gat_eng, gat_queries)
     log(f"phase 8c GAT bits after an update: {time.perf_counter() - t:.3f} s")
 
+    t = time.perf_counter()
+    p9 = phase9_serving(dev, p3["ctx"], p3g.pop("eng"))
+    log(f"phase 9 the serving tier on the 50K cell (obs, MatchServer, standing queries, "
+        f"MatchService): {time.perf_counter() - t:.3f} s; card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2860,20 +3205,22 @@ def main() -> int:
     records = [
         # K1's launches (the pairs form and the groups form): the loop and stacked
         # probes' cold batches of phase 3 and its hand-off, phase 3q's and phase 3g's
-        # batches and phase 8a's (main probe and delta-buffer scan), each counted
-        # from 0 just before it; its times at phase 3's pairs (the groups form's
-        # are in the log)
+        # batches, phase 8a's (main probe and delta-buffer scan) and phase 9's
+        # (traced batches, server ticks, subscription ticks, service ticks), each
+        # counted from 0 just before it; its times at phase 3's pairs (the groups
+        # form's are in the log)
         record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
-               p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"],
+               p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
+               + p9["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
-        # hand-off), phase 3q's, phase 3g's and phase 8a's device joins and
-        # phase 5's batches (loop, then the hand-off), each counted from 0 just
-        # before it
+        # hand-off), phase 3q's, phase 3g's, phase 8a's and phase 9a's device
+        # joins and phase 5's batches (loop, then the hand-off), each counted
+        # from 0 just before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
                p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"]
-               + p8["K2"],
+               + p8["K2"] + p9["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),

@@ -45,6 +45,24 @@ mask).  An over-full partition compacts alone, and a stacked probe
 re-stacks only its slot.  ``cache=True`` adds the signature-keyed result
 cache (``serve/cache.py``) with partition-scoped invalidation.
 
+Observability (``repro_torch.obs``, the JAX package's names): a batch
+opens the spans ``cache_lookup``, ``embed``, ``plan``, ``probe`` (one
+``partition`` child per model with its main and buffer rows), ``assemble``,
+``join`` and ``cache_store`` under the thread's current trace, observes
+each stage's seconds (``gnnpe_engine_stage_seconds``) and feeds the
+pruning funnel (group pairs, surviving groups, leaf pairs, candidates,
+matches) to the trace and to ``gnnpe_funnel_total``.  Spans and histograms
+read the host clock only: they add no ``torch.cuda.synchronize``, no
+``.item()`` and no read-back of their own, so on the card a stage's span
+holds its device work only as far as the stage already reads back (the
+probe's per-query row splits, the join's match lists).  With
+``obs.disable()`` every mutation is a no-op.
+
+The serving tier calls ``match_many_isolated`` (bisecting quarantine of
+request faults; kernel and device faults are re-raised),
+``match_incremental`` (standing queries), ``cache_peek`` and
+``plan_cost``.
+
 The engine runs on the card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -56,10 +74,12 @@ import time
 import numpy as np
 import torch
 
-from ..device import default_device
+from ..device import default_device, is_device_fault
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
 from ..kernels.dominance_scan.ref import dominance_scan_pairs_ref
+from ..obs import trace as obs_trace
 from ..obs.metrics import REGISTRY
+from . import index as index_mod
 from .delta import (
     DeltaIndex,
     apply_graph_update,
@@ -83,8 +103,23 @@ __all__ = ["GnnPeConfig", "PartitionModel", "GnnPeEngine", "QueryStats"]
 # eviction keeps a long-lived engine from growing without limit
 _PLAN_CACHE_MAX = 4096
 
+# engine-level registry metrics under the JAX package's names: batch
+# latency, per-stage seconds, result-cache lookup outcomes and the pruning
+# funnel, the process-wide cumulative complement to a trace's funnel
+_M_QUERIES = REGISTRY.counter("gnnpe_engine_queries_total", "Queries matched via match_many")
+_M_BATCH_S = REGISTRY.histogram(
+    "gnnpe_engine_match_batch_seconds", "Wall seconds per match_many call"
+)
+_M_STAGE_S = REGISTRY.histogram(
+    "gnnpe_engine_stage_seconds", "Wall seconds per fused pipeline stage", labels=("stage",)
+)
 _M_RCACHE = REGISTRY.counter(
     "gnnpe_result_cache_lookups_total", "Result-cache lookups by outcome", labels=("result",)
+)
+_M_FUNNEL = REGISTRY.counter(
+    "gnnpe_funnel_total",
+    "Cumulative pruning-funnel counts (candidates surviving each level)",
+    labels=("stage",),
 )
 
 
@@ -783,7 +818,7 @@ class GnnPeEngine:
             return []
         cfg = self.cfg
         return sorted(
-            self._pending_compaction,
+            set(self._pending_compaction),  # a copy: the service reads it off the engine thread
             key=lambda mi: -self.delta.compaction_urgency(
                 mi, self.models[mi].index, cfg.delta_compact_frac, cfg.delta_compact_min
             ),
@@ -824,6 +859,69 @@ class GnnPeEngine:
         mutated partition to its appended rows (``FreshRows``); a rebuild
         epoch carries no rows; None before the first update."""
         return self._last_epoch_update
+
+    # ------------------------------------------------------------------
+    # The serving tier's entry points (serve/match_server.py, service.py)
+    # ------------------------------------------------------------------
+    def match_many_isolated(
+        self,
+        queries: list,
+        index_kind: str | None = None,
+        probe_impl: str | None = None,
+        join_impl: str | None = None,
+    ) -> list:
+        """``match_many`` with per-request fault quarantine → ``[(ok,
+        value), ...]`` aligned with ``queries``: ``(True, matches)``, or
+        ``(False, exception)`` for the requests whose presence makes the
+        batch raise.  A raising batch re-runs by bisection, so one poisoned
+        query costs O(log batch) extra calls while every other request gets
+        exactly what a fault-free batch gives (a query's matches do not
+        depend on its batch).
+
+        An exception marked ``transient`` (``serve.errors.TransientError``)
+        fails the whole batch without bisecting: the fault is the attempt's,
+        and the caller's retry policy decides.  A kernel or device fault
+        (``device.is_device_fault``) is no request's and is re-raised.
+        """
+        kw = dict(index_kind=index_kind, probe_impl=probe_impl, join_impl=join_impl)
+        if not queries:
+            return []
+        try:
+            return [(True, r) for r in self.match_many(queries, **kw)]
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise
+            if len(queries) == 1 or getattr(exc, "transient", False):
+                return [(False, exc)] * len(queries)
+            mid = len(queries) // 2
+            return self.match_many_isolated(queries[:mid], **kw) + self.match_many_isolated(
+                queries[mid:], **kw
+            )
+
+    def match_incremental(self, q: Graph, state=None):
+        """One standing-query step → ``(state, MatchDelta)``: with
+        ``state=None`` a full evaluation, every match reported as added;
+        after that, the state advanced to the current epoch by probing only
+        the epoch's fresh buffer rows (``serve/standing.py``)."""
+        from ..serve.standing import advance_standing  # the serve package imports core
+
+        return advance_standing(self, q, state)
+
+    def cache_peek(self, q: Graph):
+        """The result cache's answer for ``q`` without running the pipeline
+        (its matches in ``q``'s own vertex order), or None: the serving
+        tier's fast path, which answers a repeat even when its queue is
+        full."""
+        if self._result_cache is None:
+            return None
+        from ..serve.cache import remap_matches
+
+        perm, key = canonical_form(q)
+        ent = self._result_cache.get(key, record=False)
+        if ent is None:
+            return None
+        self._result_cache.stats.hits += 1
+        return remap_matches(ent.matches, perm)
 
     # ------------------------------------------------------------------
     # Plans under a canonical-signature cache
@@ -879,6 +977,13 @@ class GnnPeEngine:
         )
         self._plan_cache_put(q, full_key, perm, plan)
         return plan
+
+    def plan_cost(self, q: Graph) -> float:
+        """The cached ``weight="deg"`` plan's cost: one planner run per
+        canonical signature, the same for relabeled-isomorphic copies.  The
+        server's cost-ranked ticks and the service's deadline ranks read
+        it."""
+        return float(self._deg_plan_cached(q).cost)
 
     def _plan_cached(self, q: Graph, weight_fn=None, group_size: int = 1) -> QueryPlan:
         """``plan_query`` under the canonical-signature cache: ``deg`` plans
@@ -1280,9 +1385,12 @@ class GnnPeEngine:
         nq = len(queries)
         if not nq:
             return ([], []) if return_stats else []
+        t_start = time.perf_counter()
         cache = self._result_cache
         if cache is None:
             results, stats, _ = self._match_many_core(queries, kind, impl, jimpl)
+            _M_QUERIES.inc(nq)
+            _M_BATCH_S.observe(time.perf_counter() - t_start)
             return (results, stats) if return_stats else results
         from ..serve.cache import canonical_matches, remap_matches
 
@@ -1290,20 +1398,24 @@ class GnnPeEngine:
         results: list = [None] * nq
         stats: list = [None] * nq
         miss: list[int] = []
-        for qi, (perm, key) in enumerate(canon):
-            ent = cache.get(key)
-            if ent is None:
-                miss.append(qi)
-                continue
-            results[qi] = remap_matches(ent.matches, perm)
-            st = QueryStats(cache_hit=True, n_matches=len(results[qi]))
-            if ent.plan is not None:  # canonical ids → this query's ids
-                st.plan = QueryPlan(
-                    paths=[tuple(int(perm[v]) for v in p) for p in ent.plan.paths],
-                    cost=ent.plan.cost,
-                    strategy=ent.plan.strategy,
-                )
-            stats[qi] = st
+        with obs_trace.span("cache_lookup") as lk_span:
+            for qi, (perm, key) in enumerate(canon):
+                ent = cache.get(key)
+                if ent is None:
+                    miss.append(qi)
+                    continue
+                results[qi] = remap_matches(ent.matches, perm)
+                st = QueryStats(cache_hit=True, n_matches=len(results[qi]))
+                if ent.plan is not None:  # canonical ids → this query's ids
+                    st.plan = QueryPlan(
+                        paths=[tuple(int(perm[v]) for v in p) for p in ent.plan.paths],
+                        cost=ent.plan.cost,
+                        strategy=ent.plan.strategy,
+                    )
+                stats[qi] = st
+            if lk_span is not None:
+                lk_span.attrs["hits"] = nq - len(miss)
+                lk_span.attrs["misses"] = len(miss)
         if nq - len(miss):
             _M_RCACHE.labels(result="hit").inc(nq - len(miss))
         if miss:
@@ -1311,27 +1423,32 @@ class GnnPeEngine:
             sub_results, sub_stats, contributing = self._match_many_core(
                 [queries[qi] for qi in miss], kind, impl, jimpl
             )
-            for k, qi in enumerate(miss):
-                results[qi], stats[qi] = sub_results[k], sub_stats[k]
-                q = queries[qi]
-                perm, key = canon[qi]
-                plan = sub_stats[k].plan
-                labels = torch.as_tensor(q.labels.astype(np.int64))
-                plan_hashes = {int(hash_labels(labels[list(p)][None, :])[0]) for p in plan.paths}
-                inv = np.empty(q.n_vertices, np.int64)
-                inv[perm] = np.arange(q.n_vertices)
-                cache.put(
-                    key,
-                    canonical_matches(sub_results[k], perm, q.n_vertices),
-                    contributing[k],
-                    plan_hashes,
-                    self.epoch,
-                    plan=QueryPlan(
-                        paths=[tuple(int(inv[v]) for v in p) for p in plan.paths],
-                        cost=plan.cost,
-                        strategy=plan.strategy,
-                    ),
-                )
+            with obs_trace.span("cache_store", n_entries=len(miss)):
+                for k, qi in enumerate(miss):
+                    results[qi], stats[qi] = sub_results[k], sub_stats[k]
+                    q = queries[qi]
+                    perm, key = canon[qi]
+                    plan = sub_stats[k].plan
+                    labels = torch.as_tensor(q.labels.astype(np.int64))
+                    plan_hashes = {
+                        int(hash_labels(labels[list(p)][None, :])[0]) for p in plan.paths
+                    }
+                    inv = np.empty(q.n_vertices, np.int64)
+                    inv[perm] = np.arange(q.n_vertices)
+                    cache.put(
+                        key,
+                        canonical_matches(sub_results[k], perm, q.n_vertices),
+                        contributing[k],
+                        plan_hashes,
+                        self.epoch,
+                        plan=QueryPlan(
+                            paths=[tuple(int(inv[v]) for v in p) for p in plan.paths],
+                            cost=plan.cost,
+                            strategy=plan.strategy,
+                        ),
+                    )
+        _M_QUERIES.inc(nq)
+        _M_BATCH_S.observe(time.perf_counter() - t_start)
         return (results, stats) if return_stats else results
 
     def _match_many_core(self, queries: list, kind: str, probe_impl: str, join_impl: str):
@@ -1344,6 +1461,11 @@ class GnnPeEngine:
         engine order its live main rows, then its buffer rows; with the
         hand-off, the probe's device rows (slot order), then the buffer rows
         in engine order.
+
+        Each stage opens its span (``embed``, ``plan``, ``probe`` with one
+        ``partition`` child per model, ``assemble``, ``join``) under the
+        thread's current trace and observes ``gnnpe_engine_stage_seconds``;
+        the funnel's rungs go to the trace and to ``gnnpe_funnel_total``.
         """
         cfg = self.cfg
         use_groups = kind == "grouped"
@@ -1351,8 +1473,13 @@ class GnnPeEngine:
         n_models = len(self.models)
         delta = self.delta
         stats = [QueryStats() for _ in range(nq)]
+        trace = obs_trace.current_trace()
+        pairs_before = (index_mod._GROUP_PAIRS.value, index_mod._LEAF_PAIRS.value)
         t0 = time.perf_counter()
-        q_embs = self._query_node_embeddings_many(queries)
+        with obs_trace.span("embed", n_queries=nq):
+            q_embs = self._query_node_embeddings_many(queries)
+        t_embed = time.perf_counter()
+        _M_STAGE_S.labels(stage="embed").observe(t_embed - t0)
         memo: dict = {}
         delta_memo: dict = {}
         # the stacked probe hands the device join its device-resident
@@ -1371,49 +1498,54 @@ class GnnPeEngine:
         cached_plans: list = [None] * nq
         weight_fns: list = [None] * nq
         plan_group_size = cfg.group_size if use_groups else 1
-        if cfg.plan_weight == "dr":
-            cached_plans = [self._dr_plan_peek(q, plan_group_size) for q in queries]
-            probe_reqs = [
-                (qi, p)
-                for qi, q in enumerate(queries)
-                if cached_plans[qi] is None
-                for p in candidate_plan_paths(q, cfg.path_length)
-            ]
-            stats_memo: dict = {}
-            if probe_reqs:
-                self._probe_batch(
-                    probe_reqs, q_embs, memo, queries, probe_impl,
-                    stats_memo=stats_memo if use_groups else None, **probe_kw,
-                )
-
-            def weight(qi, p) -> float:
-                """A plan path's dr weight: surviving groups on a grouped
-                probe (its unit of leaf work; buffer rows count as
-                ceil(rows / group_size) groups), else candidate rows, main
-                and buffer."""
-                keys = [(mi, qi, p) for mi in range(n_models)]
-                if use_groups:
-                    gsz = max(cfg.group_size, 1)
-                    return float(
-                        sum(stats_memo[k]["surviving_groups"] for k in keys if k in stats_memo)
-                        + sum(-(-delta_rows(*k) // gsz) for k in keys)
+        stats_memo: dict = {}
+        with obs_trace.span("plan", n_queries=nq) as plan_span:
+            if cfg.plan_weight == "dr":
+                cached_plans = [self._dr_plan_peek(q, plan_group_size) for q in queries]
+                probe_reqs = [
+                    (qi, p)
+                    for qi, q in enumerate(queries)
+                    if cached_plans[qi] is None
+                    for p in candidate_plan_paths(q, cfg.path_length)
+                ]
+                if probe_reqs:
+                    self._probe_batch(
+                        probe_reqs, q_embs, memo, queries, probe_impl,
+                        stats_memo=stats_memo if use_groups else None, **probe_kw,
                     )
-                if device_assembly:
-                    main = sum(dev_counts.get(k, 0) for k in keys)
-                else:
-                    main = sum(memo[k].numel() for k in keys if k in memo)
-                return float(main + sum(delta_rows(*k) for k in keys))
 
-            weight_fns = [
-                (lambda p, qi=qi: weight(qi, p)) if cached_plans[qi] is None else None
-                for qi in range(nq)
+                def weight(qi, p) -> float:
+                    """A plan path's dr weight: surviving groups on a grouped
+                    probe (its unit of leaf work; buffer rows count as
+                    ceil(rows / group_size) groups), else candidate rows,
+                    main and buffer."""
+                    keys = [(mi, qi, p) for mi in range(n_models)]
+                    if use_groups:
+                        gsz = max(cfg.group_size, 1)
+                        return float(
+                            sum(stats_memo[k]["surviving_groups"] for k in keys if k in stats_memo)
+                            + sum(-(-delta_rows(*k) // gsz) for k in keys)
+                        )
+                    if device_assembly:
+                        main = sum(dev_counts.get(k, 0) for k in keys)
+                    else:
+                        main = sum(memo[k].numel() for k in keys if k in memo)
+                    return float(main + sum(delta_rows(*k) for k in keys))
+
+                weight_fns = [
+                    (lambda p, qi=qi: weight(qi, p)) if cached_plans[qi] is None else None
+                    for qi in range(nq)
+                ]
+            plans = [
+                cached_plans[qi]
+                if cached_plans[qi] is not None
+                else self._plan_cached(q, weight_fn=weight_fns[qi], group_size=plan_group_size)
+                for qi, q in enumerate(queries)
             ]
-        plans = [
-            cached_plans[qi]
-            if cached_plans[qi] is not None
-            else self._plan_cached(q, weight_fn=weight_fns[qi], group_size=plan_group_size)
-            for qi, q in enumerate(queries)
-        ]
+            if plan_span is not None:
+                plan_span.attrs["plan_cache_hits"] = sum(p is not None for p in cached_plans)
+        t_plan = time.perf_counter()
+        _M_STAGE_S.labels(stage="plan").observe(t_plan - t_embed)
         # ---- retrieval: one fused probe for the plan paths not yet probed
         todo = [
             (qi, p)
@@ -1424,80 +1556,135 @@ class GnnPeEngine:
                 or any((mi, qi, p) in memo or (mi, qi, p) in delta_memo for mi in range(n_models))
             )
         ]
-        if todo:
-            self._probe_batch(todo, q_embs, memo, queries, probe_impl, **probe_kw)
+        # the grouped probe's traversal stats feed the trace's surviving
+        # groups rung, only where a trace is open
+        probe_stats: dict | None = {} if (trace is not None and use_groups) else None
+        with obs_trace.span("probe", n_requests=len(todo)):
+            if todo:
+                self._probe_batch(
+                    todo, q_embs, memo, queries, probe_impl, stats_memo=probe_stats, **probe_kw
+                )
+            if trace is not None:
+                # one child span per partition: the probe is fused across
+                # partitions, so these attribute rows (main vs buffer), not time
+                main_rows = [0] * n_models
+                buffer_rows = [0] * n_models
+                for (mi, _qi, _p), rows in memo.items():
+                    main_rows[mi] += int(rows.numel())
+                for (mi, _qi, _p), cnt in dev_counts.items():
+                    main_rows[mi] += int(cnt)
+                for (mi, _qi, _p), rows in delta_memo.items():
+                    buffer_rows[mi] += int(rows.numel())
+                for mi in range(n_models):
+                    with obs_trace.span(
+                        "partition", part=mi, main_rows=main_rows[mi], delta_rows=buffer_rows[mi]
+                    ):
+                        pass
         filter_time = time.perf_counter() - t0
+        _M_STAGE_S.labels(stage="probe").observe(time.perf_counter() - t_plan)
+        g_pairs = index_mod._GROUP_PAIRS.value - pairs_before[0]
+        l_pairs = index_mod._LEAF_PAIRS.value - pairs_before[1]
+        _M_FUNNEL.labels(stage="group_pairs").inc(g_pairs)
+        _M_FUNNEL.labels(stage="leaf_pairs").inc(l_pairs)
+        if trace is not None:
+            trace.add_funnel(group_pairs=g_pairs, leaf_pairs=l_pairs)
+            if use_groups:
+                surv = sum(
+                    int(e.get("surviving_groups", 0))
+                    for sm in (probe_stats, stats_memo)
+                    for e in sm.values()
+                )
+                trace.add_funnel(surviving_groups=surv)
+                _M_FUNNEL.labels(stage="surviving_groups").inc(surv)
         # ---- per-query candidate assembly -------------------------------
+        t_asm = time.perf_counter()
         contributing: list[set] = [set() for _ in range(nq)]
         per_query_cands = []
-        for qi, plan in enumerate(plans):
-            st = stats[qi]
-            st.plan = plan
-            candidates = [[] for _ in plan.paths]
-            total_paths = 0
-            for mi, model in enumerate(self.models):
-                dp = delta.parts[mi] if delta is not None else None
-                n_live = model.index.n_paths
-                if dp is not None:
-                    n_live += dp.n_rows - dp.n_tombstones
-                if n_live <= 0:
-                    continue
-                total_paths += n_live
-                for pi, p in enumerate(plan.paths):
+        with obs_trace.span("assemble") as asm_span:
+            for qi, plan in enumerate(plans):
+                st = stats[qi]
+                st.plan = plan
+                candidates = [[] for _ in plan.paths]
+                total_paths = 0
+                for mi, model in enumerate(self.models):
+                    dp = delta.parts[mi] if delta is not None else None
+                    n_live = model.index.n_paths
+                    if dp is not None:
+                        n_live += dp.n_rows - dp.n_tombstones
+                    if n_live <= 0:
+                        continue
+                    total_paths += n_live
+                    for pi, p in enumerate(plan.paths):
+                        if device_assembly:
+                            if dev_counts.get((mi, qi, p), 0):
+                                contributing[qi].add(mi)
+                        else:
+                            rows = memo.get((mi, qi, p))
+                            if rows is not None and rows.numel():
+                                candidates[pi].append(model.index.paths[rows])
+                                contributing[qi].add(mi)
+                        drows = delta_memo.get((mi, qi, p))
+                        if drows is not None and drows.numel():
+                            candidates[pi].append(dp.paths[drows])
+                            contributing[qi].add(mi)
+                cand_arrays = []
+                for p, parts in zip(plan.paths, candidates):
                     if device_assembly:
-                        if dev_counts.get((mi, qi, p), 0):
-                            contributing[qi].add(mi)
+                        arr = self._device_candidates(dev_memo.get((qi, p)), parts, len(p))
+                    elif parts:
+                        arr = torch.cat(parts)
                     else:
-                        rows = memo.get((mi, qi, p))
-                        if rows is not None and rows.numel():
-                            candidates[pi].append(model.index.paths[rows])
-                            contributing[qi].add(mi)
-                    drows = delta_memo.get((mi, qi, p))
-                    if drows is not None and drows.numel():
-                        candidates[pi].append(dp.paths[drows])
-                        contributing[qi].add(mi)
-            cand_arrays = []
-            for p, parts in zip(plan.paths, candidates):
-                if device_assembly:
-                    arr = self._device_candidates(dev_memo.get((qi, p)), parts, len(p))
-                elif parts:
-                    arr = torch.cat(parts)
-                else:
-                    arr = torch.zeros((0, len(p)), dtype=torch.int64, device=self.device)
-                cand_arrays.append(arr)
-                st.n_candidates[p] = int(arr.shape[0])
-            per_query_cands.append(cand_arrays)
-            st.filter_time = filter_time / nq  # batch stage, amortized
-            st.total_paths = total_paths * max(len(plan.paths), 1)
-            st.candidate_paths = sum(int(arr.shape[0]) for arr in cand_arrays)
-            st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
+                        arr = torch.zeros((0, len(p)), dtype=torch.int64, device=self.device)
+                    cand_arrays.append(arr)
+                    st.n_candidates[p] = int(arr.shape[0])
+                per_query_cands.append(cand_arrays)
+                st.filter_time = filter_time / nq  # batch stage, amortized
+                st.total_paths = total_paths * max(len(plan.paths), 1)
+                st.candidate_paths = sum(int(arr.shape[0]) for arr in cand_arrays)
+                st.pruning_power = 1.0 - st.candidate_paths / max(st.total_paths, 1)
+            batch_cands = sum(st.candidate_paths for st in stats)
+            if asm_span is not None:
+                asm_span.attrs["candidates"] = batch_cands
+        _M_STAGE_S.labels(stage="assemble").observe(time.perf_counter() - t_asm)
+        _M_FUNNEL.labels(stage="candidates").inc(batch_cands)
+        if trace is not None:
+            trace.add_funnel(candidates=batch_cands)
         # ---- join + refine ----------------------------------------------
         # per-path candidates are duplicate-free (partitions are
         # root-disjoint; buffer rows are disjoint from live main rows), so
         # the join may skip its dedup sorts
-        if join_impl == "device":
-            # one batched device program per join step for every group of
-            # same-plan queries; the candidates are already device tensors
-            t1 = time.perf_counter()
-            results = match_from_candidates_many(
-                self.graph, self.dgraph, queries, [plan.paths for plan in plans],
-                per_query_cands, induced=cfg.induced, join_impl="device", assume_unique=True,
-            )
-            join_time = time.perf_counter() - t1
-            for st, matches in zip(stats, results):
-                st.join_time = join_time / nq  # batch stage, amortized
-                st.n_matches = len(matches)
-            return results, stats, contributing
-        results = []
-        for qi, (q, plan) in enumerate(zip(queries, plans)):
-            t1 = time.perf_counter()
-            matches = match_from_candidates(
-                self.graph, self.dgraph, q, plan.paths, per_query_cands[qi],
-                induced=cfg.induced, assume_unique=True,
-            )
-            stats[qi].join_time = time.perf_counter() - t1
-            stats[qi].n_matches = len(matches)
-            results.append(matches)
+        t_join0 = time.perf_counter()
+        with obs_trace.span("join", impl=join_impl, n_queries=nq) as join_span:
+            if join_impl == "device":
+                # one batched device program per join step for every group of
+                # same-plan queries; the candidates are already device tensors
+                results = match_from_candidates_many(
+                    self.graph, self.dgraph, queries, [plan.paths for plan in plans],
+                    per_query_cands, induced=cfg.induced, join_impl="device",
+                    assume_unique=True,
+                )
+                join_time = time.perf_counter() - t_join0
+                for st, matches in zip(stats, results):
+                    st.join_time = join_time / nq  # batch stage, amortized
+                    st.n_matches = len(matches)
+            else:
+                results = []
+                for qi, (q, plan) in enumerate(zip(queries, plans)):
+                    t1 = time.perf_counter()
+                    matches = match_from_candidates(
+                        self.graph, self.dgraph, q, plan.paths, per_query_cands[qi],
+                        induced=cfg.induced, assume_unique=True,
+                    )
+                    stats[qi].join_time = time.perf_counter() - t1
+                    stats[qi].n_matches = len(matches)
+                    results.append(matches)
+            n_matches = sum(len(m) for m in results)
+            if join_span is not None:
+                join_span.attrs["matches"] = n_matches
+        _M_STAGE_S.labels(stage="join").observe(time.perf_counter() - t_join0)
+        _M_FUNNEL.labels(stage="matches").inc(n_matches)
+        if trace is not None:
+            trace.add_funnel(matches=n_matches)
         return results, stats, contributing
 
     def _device_candidates(self, dev_rows, buffer_parts: list, path_len: int) -> torch.Tensor:

@@ -5,6 +5,10 @@ with a plain C interface, at first use, into ``src/repro_torch/build/``
 (listed in ``.gitignore``).  A library's file name carries a digest of
 its source and flags, so an edited source is rebuilt and never loaded
 stale.  ``build_all`` starts one ``nvcc`` per source, all at once.
+
+A source that does not compile raises ``KernelBuildError`` and a kernel
+that does not launch ``KernelLaunchError``: no caller may take either for
+a fault of one request (``device.is_device_fault``).
 """
 from __future__ import annotations
 
@@ -16,7 +20,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build_all", "load_library"]
+__all__ = [
+    "NVCC_FLAGS", "BUILD_DIR", "KernelBuildError", "KernelLaunchError", "build_all",
+    "load_library",
+]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -30,6 +37,14 @@ _LOADED: dict = {}
 BUILD_LOG: dict = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A CUDA source of the port did not compile, or no ``nvcc`` was found."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel of the port did not launch (the C entry returned an error)."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -37,7 +52,7 @@ def _nvcc() -> str:
     cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cuda.exists():
         return str(cuda)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    raise KernelBuildError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
 def _target(src: Path) -> Path:
@@ -62,7 +77,7 @@ def _finish(src: Path, out: Path, job) -> Path:
     proc, tmp, cmd = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     BUILD_LOG[src.stem] = log
     return out

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 
 __all__ = ["SOURCE", "kpad", "launch_cross_interact", "launch_prep", "smem_bytes"]
 
@@ -45,7 +45,7 @@ def smem_bytes() -> int:
 def _raise(rc: int, what: str) -> None:
     if rc != 0:
         why = f"CUDA error {rc}" if rc > 0 else f"tensor map encoding failed, CUresult {-rc}"
-        raise RuntimeError(f"cross_interact {what} launch failed: {why}")
+        raise KernelLaunchError(f"cross_interact {what} launch failed: {why}")
 
 
 def launch_prep(w, wt) -> None:

@@ -12,7 +12,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 
 __all__ = [
     "SOURCE",
@@ -49,7 +49,7 @@ def _lib() -> ctypes.CDLL:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise KernelLaunchError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def launch_dominance_scan_pairs(qg, q0g, eg, e0g, out, eps: float) -> None:

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 
 __all__ = ["SOURCE", "launch_flash_attention", "smem_bytes"]
 
@@ -49,4 +49,4 @@ def launch_flash_attention(q, k, v, out, causal: bool, window: int, scale: float
     )
     if rc != 0:
         what = f"CUDA error {rc}" if rc > 0 else f"tensor map encoding failed, CUresult {-rc}"
-        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
+        raise KernelLaunchError(f"flash_attention kernel launch failed: {what}")

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 
 __all__ = ["SOURCE", "launch_injectivity_mask", "ring_bytes"]
 
@@ -44,7 +44,7 @@ def launch_injectivity_mask(old, new, out, contiguous: bool) -> None:
         T, Co, new.shape[1], int(contiguous), dev.index, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"injectivity_mask kernel launch failed: CUDA error {rc}")
+        raise KernelLaunchError(f"injectivity_mask kernel launch failed: CUDA error {rc}")
 
 
 def ring_bytes(W: int) -> int:

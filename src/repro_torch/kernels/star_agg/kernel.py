@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import KernelLaunchError, load_library
 
 __all__ = ["SOURCE", "launch_star_agg"]
 
@@ -38,4 +38,4 @@ def launch_star_agg(idx, mask, table, out) -> None:
         idx.data_ptr(), mask.data_ptr(), table.data_ptr(), out.data_ptr(), N, K, V, E, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"star_agg kernel launch failed: CUDA error {rc}")
+        raise KernelLaunchError(f"star_agg kernel launch failed: CUDA error {rc}")

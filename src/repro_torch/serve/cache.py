@@ -44,6 +44,13 @@ _M_CACHE_EVENTS = REGISTRY.counter(
     "Result-cache events (hits, misses, insertions, invalidated, evicted)",
     labels=("event",),
 )
+# evictions of the locality-sharded cache by scope, under the JAX package's
+# name; its ShardedResultCache (ROADMAP item 15) is what increments it
+_M_CACHE_EVICT = REGISTRY.counter(
+    "gnnpe_cache_shard_evictions_total",
+    "ShardedResultCache evictions by locality scope",
+    labels=("scope",),
+)
 
 
 def canonical_matches(matches: list, perm: np.ndarray, n_vertices: int) -> np.ndarray:
@@ -105,14 +112,19 @@ class ResultCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def get(self, key: bytes) -> _Entry | None:
+    def get(self, key: bytes, record: bool = True) -> _Entry | None:
+        """``record=False`` is a peek: the hit and miss counts are left to
+        the caller (the serving fast path counts its own hits and would
+        otherwise count the pipeline's miss twice)."""
         ent = self._entries.get(key)
         if ent is None:
-            self.stats.misses += 1
+            if record:
+                self.stats.misses += 1
             return None
         del self._entries[key]  # LRU touch: to the back of the order
         self._entries[key] = ent
-        self.stats.hits += 1
+        if record:
+            self.stats.hits += 1
         return ent
 
     def put(self, key: bytes, matches: np.ndarray, contributing, plan_hashes, epoch: int,
