@@ -52,7 +52,8 @@ Phases, each printing its seconds:
      their plain versions on the real operands, the groups form timed
      there; group and leaf pairs against phase 3's; both probes with both
      joins, every list equal to phase 3's set; warm runs interleaved with
-     the path kind; an auto-size engine (sizes equal to the CPU's
+     the path kind; K1 alone timed on the groups form's concatenated
+     operands; an auto-size engine (sizes equal to the CPU's
      ``choose_group_size``) and the grouped dr cost model, cold and warm;
   4. the GAT encoder, trained on the card, on a 2,000-vertex graph;
   5. the join-heavy batch: 8 relabeled-isomorphic 8-vertex queries on a
@@ -146,7 +147,38 @@ Phases, each printing its seconds:
      transient faults, one hang past the attempt time-out, stacked probe):
      every ok answer byte-identical to the fault-free one, the statuses
      summing to the requests submitted, the poisoned request alone
-     quarantined.
+     quarantined;
+  10. the cluster tier (``repro_torch.dist.cluster``) on one card: 10a, the
+     50K cell through ``ClusterEngine`` at 1, 2 and 4 local hosts, for
+     phase 3's engine (loop probe, host join, phase 9's deltas pending) and
+     two new stacked-probe engines (host join, device join): every list
+     equal (order included) to the engine's own ``match_many``, the last
+     sets to VF2's, K1 launching on every cluster batch (K2 on the device
+     join's), a rebalance after a warm batch within its Graham bound with
+     every host owning partitions, K1 on each host's subset probe and equal
+     to its plain version on one host's real pairs, a host lost mid-gather
+     re-probed with equal lists; warm ms single-process and at 1 / 2 / 4
+     hosts, 5 each interleaved, and one profiled 4-host call's launches and
+     device-to-host copies; 10b, ``benchmarks/bench_cluster.py --full``'s
+     cell (10K vertices, 40 partitions, stacked probe, 10 queries): a
+     4-host cluster with the sharded cache (capacity 256) through 8
+     partition-local deletion epochs of 2 edges, each epoch's sets equal to
+     ``match_many``'s, evictions on the owner shards only
+     (``remote_evictions == 0 < local_evictions``), the hit rate printed;
+     10c, blue-green on that engine: ``rebuild_generation`` through a
+     ``CheckpointManager``, ``load_generation``'s indexes equal to the
+     installed ones field by field, the buffers drained, the sets
+     unchanged and the lists equal to ``match_many``'s, an install after a
+     newer epoch refused, a bit-flipped step raising
+     ``CorruptCheckpointError``; 10d, ``ClusterRouter`` on 32 requests in 4
+     ticks, two after an update, every answer equal to a cache-less
+     ``ClusterEngine.match_many`` at its epoch; 10e, a worker process
+     (``chip_smoke.py --cluster-worker``) serving host 1 from a replica of
+     the 10b cell over ``DirExchange`` and a gloo group of 2
+     (``init_distributed``, its mode printed) while this process
+     coordinates ``LocalHost(0)``: lists equal to single-process
+     ``match_many``, the worker's candidates equal to this process's
+     ``probe_candidates`` for the same parts.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1084,27 +1116,41 @@ def recorded_verdicts(fn) -> list:
     return seen
 
 
-def profiled_match(fn, dev, what: str) -> None:
-    """One warm ``match_many(..., return_stats=True)`` under ``torch.profiler``:
-    wall, filter and join on the host clock, device-busy time, kernel launches
-    and device-to-host copies."""
+def profile_counts(fn, dev) -> dict:
+    """One ``fn()`` under ``torch.profiler``: its result, wall ms (host
+    clock), device-busy ms, kernel launches, device-to-host copies and the
+    device events."""
     import torch
 
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
-        t_p = time.perf_counter()
-        _, st = fn()
+        t = time.perf_counter()
+        res = fn()
         sync(dev)
-        wall = (time.perf_counter() - t_p) * 1e3
+        wall = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    dtoh = sum(e.count for e in kernels if "DtoH" in e.key)
-    log(f"{what}, profiled warm match_many: {wall:.3f} ms wall; filter (embed + plan + probe) "
-        f"{sum(s.filter_time for s in st) * 1e3:.3f} ms, join + refine "
-        f"{sum(s.join_time for s in st) * 1e3:.3f} ms; device busy {busy:.3f} ms in "
-        f"{sum(e.count for e in kernels)} kernel launches, {dtoh} device-to-host copies")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+    return {
+        "result": res,
+        "kernels": kernels,
+        "wall": wall,
+        "busy": sum(e.self_device_time_total for e in kernels) / 1e3,
+        "launches": sum(e.count for e in kernels),
+        "dtoh": sum(e.count for e in kernels if "DtoH" in e.key),
+    }
+
+
+def profiled_match(fn, dev, what: str) -> None:
+    """One warm ``match_many(..., return_stats=True)`` under ``torch.profiler``:
+    wall, filter and join on the host clock, device-busy time, kernel launches
+    and device-to-host copies."""
+    prof = profile_counts(fn, dev)
+    st = prof["result"][1]
+    log(f"{what}, profiled warm match_many: {prof['wall']:.3f} ms wall; filter (embed + plan + "
+        f"probe) {sum(s.filter_time for s in st) * 1e3:.3f} ms, join + refine "
+        f"{sum(s.join_time for s in st) * 1e3:.3f} ms; device busy {prof['busy']:.3f} ms in "
+        f"{prof['launches']} kernel launches, {prof['dtoh']} device-to-host copies")
+    for e in sorted(prof["kernels"], key=lambda e: -e.self_device_time_total)[:5]:
         log(f"  device {e.self_device_time_total / 1e3:.3f} ms x{e.count}: {e.key[:90]}")
 
 
@@ -1333,6 +1379,19 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
         f"D0={D0}; K1 at widths {D + 2 * D0}, 1): {k['ms']:.6f} ms, bound "
         f"{k['bound'][0]:.6f} ms ({k['bound'][1]}), plain version {k['plain_ms']:.6f} ms; "
         f"member level T = {k['member_T']}")
+    # K1 alone on the operands the groups form concatenates: what the wrapper's
+    # two cats, negation and zero column add beside the kernel
+    qg, q0g, hi, lo0, hi0, eps = args
+    zeros = qg.new_zeros((T, 1))
+    flat = (torch.cat([qg, q0g, -q0g], dim=1), zeros, torch.cat([hi, hi0, -lo0], dim=1), zeros, eps)
+    require(torch.equal(ds.dominance_scan_pairs(*flat), seen[0][2]),
+            "K1 alone on the groups form's operands differs from the groups form")
+    k["alone_ms"] = time_ms(ds.dominance_scan_pairs, flat, 50, flush)
+    k["alone_bound"] = k1_bound_ms(T, D + 2 * D0, 1)
+    log(f"  K1 alone on the groups form's concatenated operands at T={T} (widths "
+        f"{D + 2 * D0}, 1): {k['alone_ms']:.6f} ms, its bound {k['alone_bound'][0]:.6f} ms "
+        f"({k['alone_bound'][1]}; {k['alone_bound'][0] / k['alone_ms']:.3f} of it), beside "
+        f"the groups form's {k['ms']:.6f} ms against {k['bound'][0]:.6f} ms")
     probe = eng.stacked_probe()
     for impl, join in (("loop", "device"), ("stacked", "numpy"), ("stacked", "device")):
         expansions = probe.host_expansions
@@ -3109,6 +3168,423 @@ def phase9_serving(dev, ctx: dict, eng_g) -> dict:
     return out
 
 
+# ---- phase 10 ---------------------------------------------------------------
+
+
+def cluster_cell_inputs(n: int = 10_000):
+    """``benchmarks/bench_cluster.py --full``'s cell with ``benchmarks/common.py``'s
+    defaults → (graph, queries, engine config): NWS n = 10,000, k = 4, p =
+    0.1, 100 labels, seed 23; 40 partitions of 250 vertices; l = 2, d = 2,
+    n_multi = 2, monotone; the stacked probe; 10 queries of 8 vertices from
+    seed 700."""
+    from repro_torch.core import GnnPeConfig, TrainConfig
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(n, k=4, p=0.1, n_labels=100, seed=23)
+    queries = []
+    for s in range(10):
+        try:
+            queries.append(random_connected_query(g, 8, seed=700 + s))
+        except RuntimeError:
+            continue
+    cfg = GnnPeConfig(path_length=2, emb_dim=2, n_multi=2, n_partitions=n // 250,
+                      encoder="monotone", train=TrainConfig(max_epochs=150),
+                      probe_impl="stacked")
+    return g, queries, cfg
+
+
+def cluster_worker(root: str, addr: str) -> int:
+    """Phase 10e's worker process (``chip_smoke.py --cluster-worker ROOT
+    ADDR``): joins the gloo group, builds a replica of the cluster cell's
+    engine on the card (the monotone encoder and the seeds make it the
+    coordinator's, bit for bit) and serves host 1 over the exchange
+    directory until the coordinator's stop blob."""
+    import torch
+
+    from repro_torch.core import GnnPeEngine
+    from repro_torch.dist import DirExchange, init_distributed, serve_exchange_host
+
+    boot = init_distributed(num_processes=2, process_id=1, coordinator_address=addr,
+                            timeout_s=120.0)
+    g, _, cfg = cluster_cell_inputs()
+    eng = GnnPeEngine(cfg).build(g)
+    n = serve_exchange_host(eng, 1, DirExchange(root), timeout=600.0)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    print(f"WORKER_OK {boot['mode']} {n}", flush=True)
+    return 0
+
+
+def counted(out: dict, fn):
+    """``fn()`` with every launch count set to 0 just before it; its K1 and K2
+    launches add to ``out`` → (result, counts)."""
+    reset_counters()
+    res = fn()
+    c = counters()
+    out["K1"] += c["K1"]
+    out["K2"] += c["K2"]
+    return res, c
+
+
+def plan_requests(eng, queries) -> list:
+    """Every (query, plan path) of a deg-planned batch."""
+    plans = [eng._deg_plan_cached(q) for q in queries]
+    return list(dict.fromkeys((qi, p) for qi, pl in enumerate(plans) for p in pl.paths))
+
+
+def phase10a_50k(dev, ctx: dict, smi: str, out: dict) -> None:
+    """The 50K cell at full width through ``ClusterEngine``: phase 3's engine
+    (loop probe, host join, phase 9's deltas pending) and two stacked-probe
+    engines (host join, device join), each at 1, 2 and 4 local hosts, every
+    list equal to the engine's own ``match_many``; a rebalance, K1 on every
+    host's subset probe and equal to plain on one host's real pairs, a host
+    loss, and warm ms interleaved with single-process."""
+    import torch
+
+    from repro_torch.core import GnnPeEngine, sort_matches
+    from repro_torch.dist import ClusterEngine
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+
+    g, queries = ctx["g"], ctx["queries"]
+    want_sets = [sort_matches(m) for m in ctx["matches"]]
+    engines = [("loop probe, host join (phase 3's engine after phase 9)", ctx["eng"])]
+    for join in ("numpy", "device"):
+        t = time.perf_counter()
+        eng = GnnPeEngine(dataclasses.replace(ctx["cfg"], probe_impl="stacked",
+                                              join_impl=join)).build(g)
+        sync(dev)
+        log(f"10a stacked-probe engine for the {join} join: build {time.perf_counter() - t:.3f} s")
+        engines.append((f"stacked probe, {'host' if join == 'numpy' else 'device'} join", eng))
+    clusters = {}
+    for what, eng in engines:
+        single, _ = counted(out, lambda: eng.match_many(queries))
+        ds = eng.delta_stats()
+        for n_hosts in (1, 2, 4):
+            cl = ClusterEngine(eng, n_hosts=n_hosts)
+            got, c = counted(out, lambda: cl.match_many(queries))
+            require(got == single, f"10a {what}, {n_hosts} hosts: lists differ from match_many")
+            require(c["K1"] > 0, f"10a {what}, {n_hosts} hosts: K1 never launched")
+            require(eng.cfg.join_impl != "device" or c["K2"] > 0,
+                    f"10a {what}, {n_hosts} hosts: the coordinator's device join never ran K2")
+        place = cl.rebalance()  # after a warm batch: the probe counters are live
+        require(place.balanced() and all(h.owned for h in cl.hosts),
+                f"10a {what}: the rebalanced placement is off its bound or leaves a host idle")
+        got, _ = counted(out, lambda: cl.match_many(queries))
+        require(got == single, f"10a {what}: lists after the rebalance differ")
+        if eng is ctx["eng"]:
+            n = check_against_vf2(eng.graph, queries, got, f"10a {what}")
+        else:
+            require([sort_matches(m) for m in got] == want_sets, f"10a {what}: sets differ")
+            n = sum(len(m) for m in got)
+        clusters[what] = (eng, cl, single)
+        log(f"10a {what}: lists equal match_many at 1, 2 and 4 hosts (delta rows "
+            f"{ds.get('delta_rows', 0)}, tombstones {ds.get('tombstones', 0)}), sets equal VF2's "
+            f"({n} matches); rebalanced loads {[round(x) for x in place.loads]} within the bound "
+            f"{place.bound:.0f}, owned {[len(h.owned) for h in cl.hosts]}")
+    eng, cl, single = clusters["stacked probe, host join"]
+    reqs = plan_requests(eng, queries)
+    per_host = []
+    for host in cl.hosts:
+        _, c = counted(out, lambda: host.probe(queries, reqs))
+        require(c["K1"] > 0, f"10a host {host.host_id}'s subset probe never launched K1")
+        per_host.append(c["K1"])
+    seen = recorded_verdicts(lambda: counted(
+        out, lambda: eng.probe_candidates(queries, reqs, parts=cl.hosts[0].owned)))
+    for args, keep in seen:
+        require(torch.equal(keep, dominance_scan_pairs_ref(*args)),
+                "10a K1 on host 0's subset-probe pairs differs from the plain version")
+    lost = ClusterEngine(eng, n_hosts=2)
+    lost.hosts[1].fail_next = True
+    got, _ = counted(out, lambda: lost.match_many(queries))
+    require(got == single and lost.stats["host_losses"] == 1,
+            f"10a a lost host changed the lists or was not counted ({lost.stats})")
+    log(f"10a subset probes: K1 launches per host {per_host}; host 0's {len(seen)} verdicts "
+        f"(T = {sum(a[0].shape[0] for a, _ in seen)}) equal to plain; a host lost mid-gather "
+        f"re-probed by the coordinator, lists equal, host_losses {lost.stats['host_losses']}")
+    for what, (eng, _, single) in list(clusters.items())[1:]:
+        cls = {h: ClusterEngine(eng, n_hosts=h) for h in (1, 2, 4)}
+        for c_ in cls.values():
+            c_.rebalance()
+        times = {k: [] for k in ("single", 1, 2, 4)}
+        for _ in range(5):
+            times["single"] += warm_ms(lambda: eng.match_many(queries), dev, 1)
+            for h, c_ in cls.items():
+                times[h] += warm_ms(lambda: c_.match_many(queries), dev, 1)
+        prof = profile_counts(lambda: cls[4].match_many(queries), dev)
+        log(f"10a warm ms, {what}, interleaved ({smi}): single-process {fmt(times['single'])}; "
+            f"1 host {fmt(times[1])}; 2 hosts {fmt(times[2])}; 4 hosts {fmt(times[4])}; "
+            f"profiled 4-host call: {prof['wall']:.3f} ms wall, device busy {prof['busy']:.3f} ms "
+            f"in {prof['launches']} kernel launches, {prof['dtoh']} device-to-host copies; "
+            f"scatter rounds {cls[4].stats['scatter_rounds']}")
+
+
+def interior_edges(g, members, k: int, skip: set) -> np.ndarray:
+    """Up to ``k`` not yet deleted edges with both ends in one partition's
+    members (``bench_cluster.py``'s partition-local deletion batch)."""
+    mset = set(int(v) for v in members)
+    found = []
+    for u, v in g.edge_array().tolist():
+        if u in mset and v in mset and (u, v) not in skip:
+            found.append((u, v))
+            if len(found) == k:
+                break
+    return np.array(found, np.int64).reshape(-1, 2)
+
+
+def phase10b_cache(dev, out: dict) -> dict:
+    """``bench_cluster.py --full``'s cache phase: a 4-host cluster with the
+    sharded cache (capacity 256) through 8 partition-local deletion epochs
+    of 2 edges, every epoch's sets equal to ``match_many``'s, evictions on
+    the owner shards only."""
+    from repro_torch.core import GnnPeEngine, GraphUpdate, sort_matches
+    from repro_torch.dist import ClusterEngine
+
+    g, queries, cfg = cluster_cell_inputs()
+    t = time.perf_counter()
+    eng = GnnPeEngine(cfg).build(g)
+    sync(dev)
+    log(f"10b cluster cell: {g.n_vertices} vertices, {len(eng.models)} partitions, "
+        f"{len(queries)} queries; build {time.perf_counter() - t:.3f} s")
+    cl = ClusterEngine(eng, n_hosts=4, cache_capacity=256)
+    first, _ = counted(out, lambda: cl.match_many(queries))
+    require(first == eng.match_many(queries), "10b the cold cluster batch differs from match_many")
+    deleted: set = set()
+    served = []
+    for epoch in range(8):
+        mi = epoch % len(eng.models)
+        rem = interior_edges(eng.graph, eng.models[mi].members, 2, deleted)
+        require(rem.size > 0, f"10b partition {mi} has no interior edge left")
+        deleted.update((int(u), int(v)) for u, v in rem)
+        cl.apply_updates(GraphUpdate(remove_edges=rem))
+        t = time.perf_counter()
+        got, _ = counted(out, lambda: cl.match_many(queries))
+        sync(dev)
+        served.append((time.perf_counter() - t) * 1e3)
+        require([sort_matches(m) for m in got] == [sort_matches(m) for m in eng.match_many(queries)],
+                f"10b epoch {epoch}: the cluster's sets differ from match_many's")
+    loc, st = cl.cache.locality(), cl.cache.stats_dict()
+    require(loc["remote_evictions"] == 0 and loc["local_evictions"] > 0,
+            f"10b the evictions left the owner shards: {loc}")
+    log(f"10b sharded cache over 8 deletion epochs: hit rate {st['hit_rate']:.3f} (hits "
+        f"{st['hits']}, misses {st['misses']}), evictions local {loc['local_evictions']}, remote "
+        f"{loc['remote_evictions']}, lazy {loc['lazy_evictions']}; shard sizes "
+        f"{st['shard_sizes']}; served batches {fmt(served)} ms")
+    return {"eng": eng, "cl": cl, "queries": queries, "g": g, "cfg": cfg}
+
+
+def index_equal(a, b) -> bool:
+    """Two packed indexes field for field (the group sidecar included)."""
+    import torch
+
+    def same(x, y):
+        return (x is None and y is None) or (x is not None and y is not None and torch.equal(x, y))
+
+    if not all(same(getattr(a, k), getattr(b, k))
+               for k in ("paths", "emb", "emb0", "emb_multi", "emb_q", "label_hash")):
+        return False
+    if len(a.levels) != len(b.levels) or any(
+        not same(la[k], lb[k]) for la, lb in zip(a.levels, b.levels)
+        for k in ("mbr", "mbr0", "mbr_multi")
+    ):
+        return False
+    if (a.groups is None) != (b.groups is None):
+        return False
+    return a.groups is None or all(
+        same(getattr(a.groups, k), getattr(b.groups, k))
+        for k in ("group_start", "mbr_hi", "mbr0", "block_group_start")
+    )
+
+
+def phase10c_blue_green(dev, cell: dict, out: dict) -> None:
+    """Blue-green on 10b's engine (its deletions pending): the generation
+    persisted through ``CheckpointManager``, read back field-equal, the
+    buffers drained and the sets unchanged; an update between snapshot and
+    install refuses the install; a bit-flipped step raises."""
+    import tempfile
+
+    from repro_torch.core import sort_matches
+    from repro_torch.dist import ClusterEngine, CorruptCheckpointError
+    from repro_torch.dist.checkpoint import CheckpointManager
+
+    eng, cl, queries = cell["eng"], cell["cl"], cell["queries"]
+    plain = ClusterEngine(eng, n_hosts=4)
+    before, _ = counted(out, lambda: plain.match_many(queries))
+    pending = eng.delta_stats()
+    require(pending["tombstones"] > 0, "10c no tombstone pending before the swap")
+    with tempfile.TemporaryDirectory() as root:
+        store = CheckpointManager(root)
+        t = time.perf_counter()
+        res = cl.rebuild_generation(store=store)
+        sync(dev)
+        swap_ms = (time.perf_counter() - t) * 1e3
+        require(res["installed"] and store.latest_step() == res["generation"],
+                f"10c the generation was not installed and persisted: {res}")
+        ds = eng.delta_stats()
+        require(ds["delta_rows"] == 0 and ds["tombstones"] == 0, "10c the swap left deltas")
+        after, _ = counted(out, lambda: plain.match_many(queries))
+        require([sort_matches(m) for m in after] == [sort_matches(m) for m in before],
+                "10c the swap changed a match set")
+        require(after == eng.match_many(queries), "10c lists after the swap differ from match_many")
+        t = time.perf_counter()
+        loaded = cl.load_generation(store)
+        load_ms = (time.perf_counter() - t) * 1e3
+        require(loaded["generation"] == res["generation"] and all(
+            index_equal(ix, m.index) for ix, m in zip(loaded["indexes"], eng.models)),
+            "10c load_generation's indexes differ from the installed ones")
+        snap = eng.prepare_generation()
+        built = eng.build_generation(snap)
+        cl.apply_updates(rand_update(np.random.default_rng(10), eng.graph, 2))
+        require(eng.install_generation(snap, built) is False,
+                "10c an install after a newer epoch was not refused")
+        path = store._path(res["generation"])
+        data = bytearray(path.read_bytes())
+        data[len(data) // 2] ^= 0x20
+        path.write_bytes(bytes(data))
+        try:
+            cl.load_generation(store, generation=res["generation"])
+            raise AssertionError("10c a bit-flipped generation loaded")
+        except CorruptCheckpointError:
+            pass
+    log(f"10c blue-green: generation {res['generation']} built, persisted and installed in "
+        f"{swap_ms:.3f} ms (pending before: {pending['delta_rows']} buffer rows, "
+        f"{pending['tombstones']} tombstones, drained), read back field-equal in {load_ms:.3f} ms; "
+        "sets unchanged, lists equal match_many; a stale install refused; a bit-flipped step "
+        "raised CorruptCheckpointError")
+
+
+def phase10d_router(dev, cell: dict, out: dict) -> None:
+    """``ClusterRouter`` over a 4-host cluster with the sharded cache: 32
+    requests in 4 ticks of 8, two of them after an update; every answer
+    equal to a cache-less ``ClusterEngine.match_many`` at its epoch."""
+    from repro_torch.dist import ClusterEngine
+    from repro_torch.serve import ClusterRouter
+
+    eng, queries = cell["eng"], cell["queries"]
+    rt = ClusterRouter(ClusterEngine(eng, n_hosts=4, cache_capacity=256), max_batch=8)
+    check = ClusterEngine(eng, n_hosts=4)
+    rng = np.random.default_rng(0)
+    order = [queries[int(i)] for i in rng.integers(0, len(queries), 32)]
+    asked = {}
+    ticks = []
+    t0 = time.perf_counter()
+    for rnd in range(4):
+        if rnd in (1, 3):
+            rt.submit_update(rand_update(rng, eng.graph, 2))
+        for q in order[8 * rnd : 8 * rnd + 8]:
+            asked[rt.submit(q)] = q
+        done = set(rt.finished)
+        t = time.perf_counter()
+        n, _ = counted(out, rt.step)
+        sync(dev)
+        ticks.append((time.perf_counter() - t) * 1e3)
+        new = [r for r in rt.finished if r not in done]
+        require(n == 8 and len(new) == 8, f"10d tick {rnd} served {n}")
+        want, _ = counted(out, lambda: check.match_many([asked[r] for r in new]))
+        require([rt.finished[r] for r in new] == want,
+                f"10d tick {rnd}: an answer differs from ClusterEngine.match_many at its epoch")
+    wall = time.perf_counter() - t0
+    st = rt.stats()
+    lat = [v * 1e3 for v in rt.latency_s.values()]
+    rt.close()
+    log(f"10d ClusterRouter: 32 requests in 4 ticks (2 after an update), every answer equal "
+        f"to ClusterEngine.match_many at its epoch; ticks {fmt(ticks)} ms; per request p50 "
+        f"{p50_p95(lat)[0]:.3f} ms, p95 {p50_p95(lat)[1]:.3f} ms; cache hit rate "
+        f"{st['cache']['hit_rate']:.3f}; epoch {eng.epoch}; {wall:.3f} s with the checks")
+
+
+def phase10e_two_process(dev, root: str, worker, boot_thread, boot: dict, out: dict) -> None:
+    """Two processes on one card: this process coordinates ``LocalHost(0)``
+    and ``ExchangeHost(1)``, the worker serves host 1 from its replica of
+    the cluster cell; the lists equal single-process ``match_many`` and the
+    worker's candidates equal this process's own ``probe_candidates``."""
+    from repro_torch.core import GnnPeEngine
+    from repro_torch.dist import ClusterEngine, DirExchange, ExchangeHost, LocalHost
+
+    g, queries, cfg = cluster_cell_inputs()
+    eng = GnnPeEngine(cfg).build(g)
+    single, _ = counted(out, lambda: eng.match_many(queries))
+    boot_thread.join(timeout=150)
+    require(not boot_thread.is_alive(), "10e init_distributed never returned")
+    remote = ExchangeHost(1, DirExchange(root), timeout=300.0)
+    cl = ClusterEngine(eng, hosts=[LocalHost(0, eng), remote])
+    require(remote.owned, "10e placement left the worker idle")
+    t = time.perf_counter()
+    got, _ = counted(out, lambda: cl.match_many(queries))
+    ms = (time.perf_counter() - t) * 1e3
+    require(got == single and cl.stats["host_losses"] == 0,
+            f"10e the two-process lists differ from match_many ({cl.stats})")
+    reqs = plan_requests(eng, queries)
+    theirs = remote.probe(queries, reqs)
+    mine, _ = counted(out, lambda: eng.probe_candidates(queries, reqs, parts=remote.owned))
+    require(list(theirs) == list(mine) and all(
+        np.array_equal(a, b) for k in mine for a, b in zip(theirs[k], mine[k])),
+        "10e the worker's candidates differ from this process's for the same parts")
+    cl.shutdown()
+    rc = worker.wait(timeout=120)
+    w_out = (Path(root) / "worker.out").read_text()
+    require(rc == 0 and "WORKER_OK" in w_out,
+            f"10e the worker ended {rc}: {w_out[-2000:]}"
+            f"{(Path(root) / 'worker.err').read_text()[-2000:]}")
+    log(f"10e two processes on one card: init_distributed mode {boot.get('mode')} "
+        f"({boot.get('error', 'gloo group of 2')}); worker: {w_out.strip()}; lists equal "
+        f"match_many ({ms:.3f} ms, cold on the worker's side); the worker's {len(theirs)} "
+        f"candidate entries equal this process's for parts {remote.owned}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def timed_step(name: str, fn, *args):
+    t = time.perf_counter()
+    res = fn(*args)
+    log(f"  {name}: {time.perf_counter() - t:.3f} s")
+    return res
+
+
+def phase10_cluster(dev, ctx: dict, smi: str) -> dict:
+    """Phase 10 (the module doc): the cluster tier on one card."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.dist import init_distributed
+
+    out = {"K1": 0, "K2": 0}
+    addr = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as root:
+        # the worker starts first: its start-up and build overlap 10a-d
+        with open(Path(root) / "worker.out", "w") as wo, open(Path(root) / "worker.err", "w") as we:
+            worker = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--cluster-worker", root, addr],
+                stdout=wo, stderr=we,
+            )
+        boot: dict = {}
+        boot_thread = threading.Thread(
+            target=lambda: boot.update(init_distributed(2, 0, addr, timeout_s=120.0)), daemon=True
+        )
+        boot_thread.start()
+        try:
+            timed_step("10a the 50K cell through ClusterEngine", phase10a_50k, dev, ctx, smi, out)
+            cell = timed_step("10b the cluster cell's sharded cache", phase10b_cache, dev, out)
+            timed_step("10c blue-green generations", phase10c_blue_green, dev, cell, out)
+            timed_step("10d ClusterRouter", phase10d_router, dev, cell, out)
+            timed_step("10e two processes", phase10e_two_process, dev, root, worker, boot_thread,
+                       boot, out)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3191,6 +3667,11 @@ def main() -> int:
     log(f"phase 9 the serving tier on the 50K cell (obs, MatchServer, standing queries, "
         f"MatchService): {time.perf_counter() - t:.3f} s; card: {smi}")
 
+    t = time.perf_counter()
+    p10 = phase10_cluster(dev, p3["ctx"], smi)
+    log(f"phase 10 the cluster tier (50K cell through ClusterEngine, sharded cache, blue-green, "
+        f"ClusterRouter, two processes): {time.perf_counter() - t:.3f} s; card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3205,22 +3686,24 @@ def main() -> int:
     records = [
         # K1's launches (the pairs form and the groups form): the loop and stacked
         # probes' cold batches of phase 3 and its hand-off, phase 3q's and phase 3g's
-        # batches, phase 8a's (main probe and delta-buffer scan) and phase 9's
-        # (traced batches, server ticks, subscription ticks, service ticks), each
-        # counted from 0 just before it; its times at phase 3's pairs (the groups
+        # batches, phase 8a's (main probe and delta-buffer scan), phase 9's
+        # (traced batches, server ticks, subscription ticks, service ticks) and
+        # phase 10's (single-process and cluster batches, host probes, router
+        # ticks; the worker process's own are not counted), each counted from 0
+        # just before it; its times at phase 3's pairs (the groups
         # form's are in the log)
         record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
                p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
-               + p9["K1"],
+               + p9["K1"] + p10["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
-        # hand-off), phase 3q's, phase 3g's, phase 8a's and phase 9a's device
-        # joins and phase 5's batches (loop, then the hand-off), each counted
-        # from 0 just before it
+        # hand-off), phase 3q's, phase 3g's, phase 8a's, phase 9a's and phase
+        # 10a's device joins and phase 5's batches (loop, then the hand-off),
+        # each counted from 0 just before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
                p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"]
-               + p8["K2"] + p9["K2"],
+               + p8["K2"] + p9["K2"] + p10["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),
@@ -3252,4 +3735,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--cluster-worker":
+        sys.exit(cluster_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -61,7 +61,10 @@ probe's per-query row splits, the join's match lists).  With
 The serving tier calls ``match_many_isolated`` (bisecting quarantine of
 request faults; kernel and device faults are re-raised),
 ``match_incremental`` (standing queries), ``cache_peek`` and
-``plan_cost``.
+``plan_cost``; the cluster tier (``dist/cluster.py``) ``partition_stats``,
+``probe_candidates`` (a host's probe of the partitions it owns, over a
+stack of just those) and ``prepare / build / install_generation``
+(blue-green index generations).
 
 The engine runs on the card unless it is given ``device="cpu"``.
 """
@@ -256,8 +259,14 @@ class GnnPeEngine:
         self.epoch: int = 0
         self._pending_compaction: set[int] = set()
         self._last_epoch_update: dict | None = None
-        self._live_mask_cache = None
+        self._live_mask_cache: dict = {}  # parts (None: all) -> (epoch, stacked, mask)
         self._result_cache = None
+        # the cluster tier (dist/cluster.py): per-partition probe-cost counters
+        # behind partition_stats(), and the host-scoped stacked probes keyed by
+        # the owned-partition tuple a placement assigned
+        self._part_leaf_pairs = np.zeros(0, np.int64)
+        self._part_probe_rows = np.zeros(0, np.int64)
+        self._subset_probes: dict = {}
         if cfg.cache:
             from ..serve.cache import ResultCache  # the serve package imports core
 
@@ -388,7 +397,10 @@ class GnnPeEngine:
         self._pending_compaction.clear()
         self.epoch = 0
         self._last_epoch_update = None
-        self._live_mask_cache = None
+        self._live_mask_cache.clear()
+        self._subset_probes.clear()
+        self._part_leaf_pairs = np.zeros(len(self.models), np.int64)
+        self._part_probe_rows = np.zeros(len(self.models), np.int64)
         self._emb_fingerprint = self._content_fingerprint()
         # dr plans probed the previous build's indexes: drop every plan
         self._plan_cache.clear()
@@ -471,6 +483,59 @@ class GnnPeEngine:
             )
             self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
         return self._stacked_probe
+
+    def _subset_probe(self, parts: tuple):
+        """The stacked probe over just ``parts`` (ascending model indices):
+        a cluster host stacks and scans only the partitions placement gave
+        it.  Kept per parts tuple; dropped whenever an index object changes
+        (a compaction's install, ``rebuild_indexes``, a generation swap)."""
+        probe = self._subset_probes.get(parts)
+        if probe is None:
+            from ..dist.probe import StackedProbe  # the dist package imports core
+
+            probe = StackedProbe(
+                [self.models[mi].index for mi in parts],
+                leaf_pair_cap=self.cfg.stacked_leaf_pair_cap,
+            )
+            self._subset_probes[parts] = probe
+        return probe
+
+    def _ensure_part_counters(self) -> None:
+        n = len(self.models)
+        if self._part_leaf_pairs.size != n:
+            self._part_leaf_pairs = np.zeros(n, np.int64)
+            self._part_probe_rows = np.zeros(n, np.int64)
+
+    def partition_stats(self) -> list:
+        """Per-partition cost and size records for the cluster tier's
+        placement (``dist/placement.py``), one dict per partition model:
+
+          * ``part_id``: the partition's id in the engine's partitioning;
+          * ``rows``: main-index paths;
+          * ``nbytes``: index bytes;
+          * ``leaf_pairs``: (query, row) leaf pairs the stacked probes
+            scanned in this partition, cumulative (0 until one ran:
+            placement then falls back to rows);
+          * ``probe_rows``: candidate rows this partition gave probes,
+            cumulative (every probe form, main and buffer rows);
+          * ``delta_rows``, ``tombstones``: the current delta pressure.
+        """
+        self._ensure_part_counters()
+        out = []
+        for mi, m in enumerate(self.models):
+            dp = self.delta.parts[mi] if self.delta is not None else None
+            out.append(
+                {
+                    "part_id": int(m.part_id),
+                    "rows": int(m.index.n_paths),
+                    "nbytes": int(m.index.nbytes()),
+                    "leaf_pairs": int(self._part_leaf_pairs[mi]),
+                    "probe_rows": int(self._part_probe_rows[mi]),
+                    "delta_rows": int(dp.n_rows) if dp is not None else 0,
+                    "tombstones": int(dp.n_tombstones) if dp is not None else 0,
+                }
+            )
+        return out
 
     def _content_fingerprint(self) -> bytes:
         """Digest of the index content the dr-plan cache keys on: the seed
@@ -721,6 +786,9 @@ class GnnPeEngine:
                     )
                     self._pending_compaction.discard(mi)
                     compacted.append(mi)
+        if compacted:
+            # the subset probes stack index objects a compaction replaced
+            self._subset_probes.clear()
         # elastic re-stacking: only the compacted partitions' slots
         if self._stacked_probe is not None and compacted:
             for mi in compacted:
@@ -758,19 +826,43 @@ class GnnPeEngine:
             **delta.stats(),
         }
 
-    def _rebuild_partition(self, model: PartitionModel) -> dict:
+    def _rebuild_partition(self, g: Graph, partitioning: Partitioning, model: PartitionModel,
+                           members=None, dg=None) -> dict:
         """One partition's from-scratch embed → paths → index under its
-        FROZEN GNNs, over the engine's current graph and partitioning; reads
-        only frozen model state and returns the artifacts without installing
-        them."""
+        FROZEN GNNs, over the graph ``g`` (``dg`` its device copy) and
+        ``partitioning`` given, with ``members`` (default the model's).
+        Reads only frozen model state and what it is given, and returns the
+        artifacts without installing them: ``rebuild_indexes`` installs them
+        at once, the blue-green generation path (``prepare / build /
+        install_generation``) builds off the serving path against a snapshot
+        and installs under an epoch check."""
         cfg = self.cfg
-        g, dg = self.graph, self.dgraph
-        vset = expanded_partition(g, self.partitioning, model.part_id, cfg.path_length)
+        dg = device_graph(g, self.device) if dg is None else dg
+        members = model.members if members is None else members
+        vset = expanded_partition(g, partitioning, model.part_id, cfg.path_length)
         stars = build_star_tensors(dg, vset, cfg.theta)
         stars_multi = [self._relabel_stars(stars, self._perms[i]) for i in range(cfg.n_multi)]
-        out = self._partition_artifacts(g, dg, model, vset, model.members, stars, stars_multi)
+        out = self._partition_artifacts(g, dg, model, vset, members, stars, stars_multi)
         del out["embed_time"], out["index_time"]
         return out
+
+    def _install_rebuilt(self, built: list) -> None:
+        """Install every partition's rebuilt artifacts: the buffers and
+        tombstones drain, and every stacked probe and cached mask goes."""
+        for mi, (model, out) in enumerate(zip(self.models, built)):
+            self._install_artifacts(model, out)
+            if self.delta is not None:
+                self.delta.reset_part(mi, out["index"])
+        self._pending_compaction.clear()
+        self.offline_stats["n_paths"] = int(sum(m.index.n_paths for m in self.models))
+        self.offline_stats["index_bytes"] = int(sum(m.index.nbytes() for m in self.models))
+        # tombstones vanished without an epoch bump: the masks cached per
+        # epoch would be stale
+        self._live_mask_cache.clear()
+        self._stacked_probe = None
+        self._subset_probes.clear()
+        if self.cfg.probe_impl == "stacked" and self.models:
+            self.stacked_probe()
 
     def rebuild_indexes(self) -> "GnnPeEngine":
         """Re-embed, re-enumerate and re-pack EVERY partition from scratch
@@ -778,19 +870,50 @@ class GnnPeEngine:
         against, and the equivalence oracle of the update tests (a full
         ``build`` would also re-train)."""
         assert self.graph is not None, "call build() first"
-        for mi, model in enumerate(self.models):
-            out = self._rebuild_partition(model)
-            self._install_artifacts(model, out)
-            if self.delta is not None:
-                self.delta.reset_part(mi, out["index"])
-        self._pending_compaction.clear()
-        self.offline_stats["n_paths"] = int(sum(m.index.n_paths for m in self.models))
-        self.offline_stats["index_bytes"] = int(sum(m.index.nbytes() for m in self.models))
-        self._stacked_probe = None
-        self._live_mask_cache = None
-        if self.cfg.probe_impl == "stacked" and self.models:
-            self.stacked_probe()
+        self._install_rebuilt([
+            self._rebuild_partition(self.graph, self.partitioning, model, dg=self.dgraph)
+            for model in self.models
+        ])
         return self
+
+    # ---- blue-green index generations: snapshot → build → install -------
+    # A generation's content equals rebuild_indexes' at the snapshot epoch
+    # (delta ≡ rebuild), so an install changes no match set and, like a
+    # compaction, bumps no fingerprint.
+    def prepare_generation(self) -> dict:
+        """A snapshot of what a generation build reads (cheap, on the thread
+        that owns the engine).  ``apply_updates`` replaces the graph, its
+        device copy and the partitioning and never mutates them, so holding
+        them is a true snapshot; members are copied, as a vertex-adding
+        update extends them."""
+        assert self.graph is not None, "call build() first"
+        return {
+            "generation": self.epoch + 1,
+            "epoch": self.epoch,
+            "graph": self.graph,
+            "dgraph": self.dgraph,
+            "partitioning": self.partitioning,
+            "members": [m.members.copy() for m in self.models],
+        }
+
+    def build_generation(self, snap: dict) -> list:
+        """The full rebuild against the snapshot: it reads only frozen
+        model state and the snapshot, so it may run on another thread while
+        the engine serves."""
+        return [
+            self._rebuild_partition(snap["graph"], snap["partitioning"], model, members,
+                                    dg=snap["dgraph"])
+            for model, members in zip(self.models, snap["members"])
+        ]
+
+    def install_generation(self, snap: dict, built: list) -> bool:
+        """The blue-green swap.  False, with the serving generation left as
+        it is, where an update epoch landed after the snapshot (the build
+        saw a stale graph): the caller snapshots and builds again."""
+        if self.epoch != snap["epoch"] or len(built) != len(self.models):
+            return False
+        self._install_rebuilt(built)
+        return True
 
     def delta_stats(self) -> dict:
         """The epoch, delta and tombstone pressure, and the cache's stats."""
@@ -844,8 +967,10 @@ class GnnPeEngine:
             return False
         self.models[snap.mi].index = new_index
         self._pending_compaction.discard(snap.mi)
-        # the tombstone mask is cached per epoch, which an install does not bump
-        self._live_mask_cache = None
+        # the tombstone masks are cached per epoch, which an install does not
+        # bump, and the subset probes stack the old index
+        self._live_mask_cache.clear()
+        self._subset_probes.clear()
         if self._stacked_probe is not None:
             if self._stacked_probe.update_slot(snap.mi, new_index):
                 self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
@@ -1197,27 +1322,29 @@ class GnnPeEngine:
         cat = [(o_all[mi], o0_all[mi], om_all[:, mi]) for mi in range(len(self.models))]
         return cat, spans, (o_all, o0_all, om_all)
 
-    def _stacked_live_mask(self, probe) -> torch.Tensor | None:
-        """(S, P_max) device bool mask over the stacked leaf rows (False:
-        tombstoned), or None where no partition has tombstones.  Tombstones
-        change only in ``apply_updates``, which bumps the epoch, so the mask
-        is cached per (epoch, stacked layout); ``install_compaction`` and
-        ``rebuild_indexes`` drop it."""
+    def _stacked_live_mask(self, probe, parts: tuple | None = None) -> torch.Tensor | None:
+        """(S, P_max) device bool mask over the stacked leaf rows of
+        ``probe`` (False: tombstoned), or None where none of its partitions
+        has tombstones.  ``parts`` names the probe's partitions in its order
+        (a subset probe's), None every partition.  Tombstones change only in
+        ``apply_updates``, which bumps the epoch, so the mask is cached per
+        (parts, epoch, stacked layout); every install drops the cache."""
         if self.delta is None:
             return None
         st = probe.stacked
-        cached = self._live_mask_cache
+        cached = self._live_mask_cache.get(parts)
         if cached is not None and cached[0] == self.epoch and cached[1] is st:
             return cached[2]
         mask = None
-        for mi, dp in enumerate(self.delta.parts):
+        for li, mi in enumerate(range(len(self.models)) if parts is None else parts):
+            dp = self.delta.parts[mi]
             if dp.n_tomb:
                 if mask is None:
                     mask = torch.ones((st.n_slots, st.emb_cat.shape[1]), dtype=torch.bool,
                                       device=st.device)
                 n = min(dp.tombstone.numel(), mask.shape[1])
-                mask[int(st.slot_of[mi]), :n] = ~dp.tombstone[:n]
-        self._live_mask_cache = (self.epoch, st, mask)
+                mask[int(st.slot_of[li]), :n] = ~dp.tombstone[:n]
+        self._live_mask_cache[parts] = (self.epoch, st, mask)
         return mask
 
     def _probe_batch(
@@ -1225,6 +1352,7 @@ class GnnPeEngine:
         probe_impl: str | None = None, *, use_groups: bool = False,
         stats_memo: dict | None = None, dev_memo: dict | None = None,
         dev_counts: dict | None = None, delta_memo: dict | None = None,
+        parts: list | None = None,
     ) -> None:
         """One fused index probe for many (query, path) pairs × partitions.
 
@@ -1246,6 +1374,14 @@ class GnnPeEngine:
         ``delta_memo`` the delta buffers' rows land in
         ``delta_memo[(mi, qi, path)]``, from one ``probe_delta_multi`` over
         every partition with buffer rows.
+
+        ``parts`` (the cluster tier) restricts the probe to those model
+        indices, as a host probes only the partitions placement gave it: the
+        stacked probe then runs over a subset stack (``_subset_probe``) with
+        its own tombstone mask, and never hands off (``dev_memo`` stays
+        empty; the hand-off's layout is the full stack's).  The entries of
+        the covered partitions equal an unrestricted probe's.  Every probe
+        adds to the per-partition counters behind ``partition_stats``.
         """
         cfg = self.cfg
         dev = self.device
@@ -1279,41 +1415,54 @@ class GnnPeEngine:
             )
 
         impl = probe_impl or cfg.probe_impl
-        if impl == "stacked" and self.models:
-            # one batched descent over every partition's stacked tensors
+        self._ensure_part_counters()
+        mis = list(range(len(self.models))) if parts is None else sorted({int(mi) for mi in parts})
+        use_dev = dev_memo is not None and parts is None
+        if impl == "stacked" and mis:
+            # one batched descent over the partitions' stacked tensors
             L = self.models[0].index.paths.shape[1]
             if L not in layouts:
                 return
             sel, gidx, qh = layouts[L]
-            B, m = len(sel), len(self.models)
+            B, m = len(sel), len(mis)
             o_all, o0_all, om_all = stacked
+            if parts is not None:
+                mt = torch.as_tensor(mis, device=dev)
+                o_all, o0_all, om_all = o_all[mt], o0_all[mt], om_all[:, mt]
             q_multi = None
             if cfg.n_multi:
                 q_multi = om_all[:, :, gidx].reshape(cfg.n_multi, m, B, -1)
             args = (o_all[:, gidx].reshape(m, B, -1), o0_all[:, gidx].reshape(m, B, -1), q_multi)
-            probe = self.stacked_probe()
+            key = None if parts is None else tuple(mis)
+            probe = self.stacked_probe() if parts is None else self._subset_probe(key)
             kw = dict(q_label_hash=qh, use_groups=use_groups, return_stats=stats_memo is not None,
-                      live_mask=self._stacked_live_mask(probe))
-            out = (probe.probe if dev_memo is None else probe.probe_device)(*args, **kw)
+                      live_mask=self._stacked_live_mask(probe, key))
+            lp_before = probe.part_leaf_pairs.copy()
+            out = (probe.probe_device if use_dev else probe.probe)(*args, **kw)
+            self._part_leaf_pairs[mis] += probe.part_leaf_pairs - lp_before
             stats = out[-1] if stats_memo is not None else None
-            if dev_memo is not None:
+            if use_dev:
                 per_probe, part_counts = out[:2]
+                self._part_probe_rows[mis] += part_counts.sum(axis=1)
                 for b, (qi, p) in enumerate(sel):
                     dev_memo[(qi, p)] = per_probe[b]
-                    for mi in range(m):
-                        dev_counts[(mi, qi, p)] = int(part_counts[mi, b])
+                    for li, mi in enumerate(mis):
+                        dev_counts[(mi, qi, p)] = int(part_counts[li, b])
             results = out[0] if stats is not None else out
-            for mi, model in enumerate(self.models):
-                if model.index.n_paths == 0:
+            for li, mi in enumerate(mis):
+                if self.models[mi].index.n_paths == 0:
                     continue  # as the loop probe, which skips them
                 for b, (qi, p) in enumerate(sel):
-                    if dev_memo is None:
-                        memo[(mi, qi, p)] = results[mi][b]
+                    if not use_dev:
+                        rows = results[li][b]
+                        memo[(mi, qi, p)] = rows
+                        self._part_probe_rows[mi] += rows.numel()
                     if stats is not None:
-                        stats_memo[(mi, qi, p)] = stats[mi][b]
+                        stats_memo[(mi, qi, p)] = stats[li][b]
         else:
             items, sels, dead = [], [], []
-            for mi, model in enumerate(self.models):
+            for mi in mis:
+                model = self.models[mi]
                 L = model.index.paths.shape[1]
                 if model.index.n_paths == 0 or L not in layouts:
                     continue
@@ -1329,6 +1478,7 @@ class GnnPeEngine:
                 for k, ((mi, sel), rows_list) in enumerate(zip(sels, results)):
                     for b, (qi, p) in enumerate(sel):
                         memo[(mi, qi, p)] = rows_list[b]
+                        self._part_probe_rows[mi] += rows_list[b].numel()
                         if stats_memo is not None:
                             stats_memo[(mi, qi, p)] = stats[k][b]
         # ---- delta buffers: brute (query, row) pairs, one fused verdict ----
@@ -1338,7 +1488,7 @@ class GnnPeEngine:
         if L not in layouts:
             return
         sel, gidx, qh = layouts[L]
-        d_mis = [mi for mi, dp in enumerate(self.delta.parts) if dp.n_rows]
+        d_mis = [mi for mi in mis if self.delta.parts[mi].n_rows]
         d_items = [
             (self.delta.parts[mi], *query_tensors(mi, gidx, len(sel)), qh) for mi in d_mis
         ]
@@ -1346,6 +1496,61 @@ class GnnPeEngine:
         for mi, rows_list in zip(d_mis, d_results):
             for b, (qi, p) in enumerate(sel):
                 delta_memo[(mi, qi, p)] = rows_list[b]
+                self._part_probe_rows[mi] += rows_list[b].numel()
+
+    def probe_candidates(
+        self,
+        queries: list,
+        requests: list,
+        parts: list | None = None,
+        index_kind: str | None = None,
+        probe_impl: str | None = None,
+        return_stats: bool = False,
+    ):
+        """The cluster tier's scatter primitive (``dist/cluster.py``): probe
+        ``requests``, (qi, path) pairs over ``queries``, against the
+        partitions ``parts`` (default all) → the candidate VERTEX arrays
+
+            {(mi, qi, path): (main_verts, delta_verts)}
+
+        as host int32 NumPy arrays (the wire form), one entry per probed
+        partition: the live main rows in index order, then the buffer rows
+        in buffer order, the arrays ``_match_many_core`` concatenates, so a
+        coordinator that assembles them by ascending ``mi`` (main, then
+        buffer rows) has the single-process candidates.  Every row gathers
+        on the device and comes back in ONE copy, split on the host.  With
+        ``return_stats`` also ``{(mi, qi, path): stats}`` (the grouped dr
+        weights read ``surviving_groups`` there).
+        """
+        assert self.graph is not None, "call build() first"
+        kind = index_kind or self.cfg.index_kind
+        q_embs = self._query_node_embeddings_many(queries)
+        memo: dict = {}
+        delta_memo: dict = {}
+        stats_memo: dict | None = {} if return_stats else None
+        self._probe_batch(
+            list(requests), q_embs, memo, queries, probe_impl, use_groups=kind == "grouped",
+            stats_memo=stats_memo, delta_memo=delta_memo, parts=parts,
+        )
+        # one gather a partition and source, one read-back in all
+        pieces, spans = [], []
+        for src, table in ((memo, lambda mi: self.models[mi].index.paths),
+                           (delta_memo, lambda mi: self.delta.parts[mi].paths)):
+            by_part: dict = {}
+            for key, rows in src.items():
+                by_part.setdefault(key[0], []).append((key, rows))
+            for mi, ents in by_part.items():
+                pieces.append(table(mi)[torch.cat([r for _, r in ents])].to(torch.int32))
+                spans += [(key, src is delta_memo, int(r.numel())) for key, r in ents]
+        flat = torch.cat(pieces).cpu().numpy() if pieces else None
+        ends = np.cumsum([n for _, _, n in spans])
+        got = {(key, d): flat[end - n : end] for (key, d, n), end in zip(spans, ends) if n}
+        out: dict = {}
+        empty: dict = {}
+        for key in list(memo) + [k for k in delta_memo if k not in memo]:
+            ev = empty.setdefault(len(key[2]), np.zeros((0, len(key[2])), np.int32))
+            out[key] = (got.get((key, False), ev), got.get((key, True), ev))
+        return (out, stats_memo) if return_stats else out
 
     def match_many(
         self,

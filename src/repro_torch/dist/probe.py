@@ -27,8 +27,10 @@ back to the host.  Where the pairs exceed ``leaf_pair_cap`` it takes
 ``probe``'s chunked path and concatenates in engine order, as the JAX
 package does.  Under live updates both take ``live_mask``, the engine's
 (S, P_max) tombstone mask, applied to the pairs after the prefilter, and
-``update_slot`` re-stacks one compacted partition's slot.  The
-multi-device mesh comes with the cluster (ROADMAP queue 1 item 15).
+``update_slot`` re-stacks one compacted partition's slot.  A cluster host
+(``dist/cluster.py``) runs the same probe over a stack of just the
+partitions it owns.  The multi-card ``("part",)`` mesh is ROADMAP queue 1
+item 15b.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Serving front ends of the port: the LM decode engine, and GNN-PE's
-signature-keyed result cache, batched ``MatchServer``, standing queries
-and the async multi-tenant ``MatchService``, with their admission
-control, error taxonomy and fault injector."""
+signature-keyed result cache (and its partition-owner-sharded form),
+batched ``MatchServer``, standing queries, the async multi-tenant
+``MatchService`` and the cluster tier's ``ClusterRouter``, with their
+admission control, error taxonomy and fault injector."""
 from .admission import AdmissionConfig, AdmissionController, TenantQuota
-from .cache import CacheStats, ResultCache, canonical_matches, remap_matches
+from .cache import CacheStats, ResultCache, ShardedResultCache, canonical_matches, remap_matches
 from .engine import DecodeEngine, ServeConfig
 from .errors import PoisonedQueryError, QueueFull, ServeError, TransientError
 from .faults import FaultSpec, FlakyEngine
 from .match_server import MatchServeConfig, MatchServer
+from .router import ClusterRouter
 from .service import MatchService, Response, ServiceConfig, SubscriptionHandle
 from .standing import (
     MatchDelta,
@@ -23,5 +25,5 @@ __all__ = [
     "TenantQuota", "AdmissionConfig", "AdmissionController", "FaultSpec", "FlakyEngine",
     "MatchServeConfig", "MatchServer", "MatchDelta", "StandingState", "Subscription",
     "StandingQueryRegistry", "advance_standing", "ServiceConfig", "Response",
-    "SubscriptionHandle", "MatchService",
+    "SubscriptionHandle", "MatchService", "ShardedResultCache", "ClusterRouter",
 ]

@@ -2,8 +2,8 @@
 imports ``repro_torch``, builds and matches on the CPU through both joins,
 also with the int8 sidecar, dr plans and the stacked probe, with a grouped
 index (auto group sizes) and the stacked probe's hand-off to the device
-join, under live updates with compaction and the result cache, and through
-the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
+join, under live updates with compaction and the result cache, through a
+2-host ``ClusterEngine`` and through the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -56,6 +56,9 @@ for k in range(2):
     for q, m, d in zip(qs, eng_u.match_many(qs), eng_u.match_many(qs, join_impl="device")):
         assert set(m) == set(vf2_match(eng_u.graph, q)) == set(d)
 assert eng_u.match_many(qs) and eng_u.delta_stats()["cache"]["hits"] > 0
+from repro_torch.dist import ClusterEngine
+cl = ClusterEngine(eng_u, n_hosts=2, cache_capacity=8)
+assert cl.match_many(qs) == eng_u.match_many(qs) and all(h.owned for h in cl.hosts)
 import torch
 from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index
