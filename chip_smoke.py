@@ -8,19 +8,25 @@ Phases, each printing its seconds:
   1. build every CUDA kernel of the port from ``src/`` (one ``nvcc`` per
      source, all at once) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card,
-     bit for bit: K1 on seeded pairs and its groups form on seeded group
-     bounds (ties exactly at each eps edge and one ulp either side), K2 on
+     bit for bit: K1's four forms, packed pairs and packed groups on seeded
+     operands and both verdicts on seeded indexed segments (ties exactly at
+     each eps edge and one ulp either side; an empty segment, more segments
+     than shared memory keeps, bases 4 bytes off 8, widths read at run
+     time), K2 on
      seeded join rows (T = 3, 4,
      5, 4,097 and 524,293; W = 2 to 64; one contiguous table, bases off
      16 bytes, separate tensors, a wider parent table, rows of all
      sentinels), K3-single and K3-batch on seeded dense scans (ties at
-     eps, +inf / NaN rows, sentinel and pad ids); ptxas's report of K2
+     eps, +inf / NaN rows, sentinel and pad ids); ptxas's report of K1, K2
      and K3 (no spill);
   3. the main path at paper scale: ``GnnPeEngine.build`` then
      ``match_many`` on a 50K-vertex NWS graph in 80 partitions with 16
      queries of 8 vertices; every match set must equal VF2's, K1 must
-     have run on that path, and its verdict on the real probe's pairs
-     must equal the plain version's; K1 is timed there.  Then the device
+     have run on that path, one launch on the partitions' own tables, and
+     its verdict on the real probe's pairs must equal the plain version's;
+     K1 is timed there as it ran (indexed), beside the route it replaced
+     (gathers, cats, packed K1) and the packed form on the same pairs
+     gathered, by CUDA events and by ``torch.profiler``.  Then the device
      join on the same engine (``join_impl="device"``, K2 must run, every
      launch on the contiguous layout; its match sets equal VF2's and the
      host join's, K2's verdict on every real step equals the plain
@@ -48,12 +54,13 @@ Phases, each printing its seconds:
      against K1's T after it;
   3g. the same graph and queries with ``index_kind="grouped",
      group_size=16`` (``benchmarks/bench_grouped.py --full``): K1 at the
-     group level (its groups form) and the member level, both equal to
-     their plain versions on the real operands, the groups form timed
-     there; group and leaf pairs against phase 3's; both probes with both
+     group level (its groups verdict) and the member level, one launch
+     each, both equal to their plain versions on the real operands, the
+     groups verdict timed there, indexed and packed, beside the route it
+     replaced; group and leaf pairs against phase 3's; both probes with both
      joins, every list equal to phase 3's set; warm runs interleaved with
-     the path kind; K1 alone timed on the groups form's concatenated
-     operands; an auto-size engine (sizes equal to the CPU's
+     the path kind; one profiled warm call of each probe; an auto-size
+     engine (sizes equal to the CPU's
      ``choose_group_size``) and the grouped dr cost model, cold and warm;
   4. the GAT encoder, trained on the card, on a 2,000-vertex graph;
   5. the join-heavy batch: 8 relabeled-isomorphic 8-vertex queries on a
@@ -217,7 +224,8 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None) -> float:
+def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None,
+            spin: int = SPIN_CYCLES) -> float:
     """Mean device ms of ``fn(*args)``, with L2 flushed before each call
     (the main path gathers fresh operands that mostly miss L2) and the
     card held busy by a spin while the host enqueues the call, so the
@@ -226,7 +234,8 @@ def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None) -> flo
     to write back as its reads evict them; ``clean`` flushes by reading
     ``flush`` instead, so that L2 holds clean lines.  ``before``, where
     given, runs after the flush (``k2_readings`` rewrites the operands
-    there)."""
+    there).  ``spin``: the spin's cycles, more than the call's host work
+    takes to enqueue."""
     import torch
 
     for _ in range(3):
@@ -239,7 +248,7 @@ def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None) -> flo
             flush.zero_()
         if before is not None:
             before()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
@@ -262,6 +271,101 @@ def bound_ms(n_bytes: float, n_ops: float,
 def k1_bound_ms(T: int, D: int, D0: int) -> tuple[float, str]:
     """T pairs: inputs once, 1-byte output; add+cmp per D, sub+abs+cmp per D0."""
     return bound_ms(T * 4 * (2 * D + 2 * D0) + T, T * (2 * D + 3 * D0))
+
+
+def verdict_pairs(args) -> int:
+    """The pairs of one recorded K1 verdict call, ``(segments, eps)``."""
+    return sum(s.rows.numel() for s in args[0])
+
+
+def k1_indexed_bound_ms(segs, groups: bool = False, eps: float = 1e-6) -> tuple[float, str]:
+    """An indexed K1 call: its int64 indices (16 bytes a pair) and a byte a
+    pair; each distinct row read once, the labels of every data and query
+    row its pairs name and the dominance columns only of the rows whose
+    pairs pass the labels (a labels-first kernel needs no others: the bytes
+    this run's data needs); against the label compares of every pair and
+    the dominance compares of those passing."""
+    import torch
+
+    T = sum(s.rows.numel() for s in segs)
+    n_bytes, n_ops = 17 * T, 0
+    for s in segs:
+        if not s.rows.numel():
+            continue
+        D, D0 = sum(t.shape[1] for t in s.query[:-1]), s.query[-1].shape[1]
+        e = torch.tensor(eps, dtype=torch.float32, device=s.rows.device)
+        q0, e0 = s.query[-1][s.q_ids], s.data[-1][s.rows]
+        if groups:
+            ok = ((q0 <= e0[:, :, 1] + e) & (q0 >= e0[:, :, 0] - e)).all(dim=1)
+        else:
+            ok = ((e0 - q0).abs() <= e).all(dim=1)
+        rows, q_ids = torch.unique(s.rows), torch.unique(s.q_ids)
+        n_bytes += rows.numel() * 4 * D0 * (2 if groups else 1) + q_ids.numel() * 4 * D0
+        n_bytes += (torch.unique(s.rows[ok]).numel() + torch.unique(s.q_ids[ok]).numel()) * 4 * D
+        n_ops += s.rows.numel() * (4 if groups else 3) * D0 + int(ok.sum()) * 2 * D
+    return bound_ms(n_bytes, n_ops)
+
+
+def segments_on(segs, dev, floats: int = 0) -> list:
+    """``segs`` on ``dev``, each table starting ``floats`` floats into its own
+    allocation (0: a plain copy)."""
+    import torch
+
+    from repro_torch.kernels.dominance_scan.ref import Segment
+
+    def place(t):
+        if not floats:
+            return t.to(dev)
+        buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=dev)
+        buf[floats:] = t.reshape(-1).to(dev)
+        return buf[floats:].view(t.shape)
+
+    return [Segment(s.rows.to(dev), s.q_ids.to(dev), tuple(map(place, s.data)),
+                    tuple(map(place, s.query))) for s in segs]
+
+
+def replaced_route(segs, eps: float, groups: bool = False):
+    """The route the indexed K1 replaced, on the same segments: each
+    segment's table gathers and their concatenation, the segments
+    concatenated, then the packed K1 (for the groups verdict PR 20's
+    wrapper: (qg, q0g, -q0g) against (hi, hi0, -lo0) with a zero label
+    column)."""
+    import torch
+
+    from repro_torch.kernels.dominance_scan import ops as ds
+    from repro_torch.kernels.dominance_scan.ref import gather_group_operands, gather_pair_operands
+
+    parts = [(gather_group_operands if groups else gather_pair_operands)(s) for s in segs]
+    cat = [torch.cat([p[k] for p in parts]) for k in range(len(parts[0]))]
+    if not groups:
+        return ds.dominance_scan_pairs(*cat, eps)
+    qg, q0g, hi, lo0, hi0 = cat
+    zeros = qg.new_zeros((qg.shape[0], 1))
+    return ds.dominance_scan_pairs(torch.cat([qg, q0g, -q0g], dim=1), zeros,
+                                   torch.cat([hi, hi0, -lo0], dim=1), zeros, eps)
+
+
+def fmt_ms(x: float) -> str:
+    return "not measured" if x != x else f"{x:.6f} ms"
+
+
+LONG_SPIN = 40 * SPIN_CYCLES  # about 40 ms: longer than a K1 route's host enqueue
+
+
+def host_ms(fn, args, reps: int = 10) -> float:
+    """Mean host ms to enqueue ``fn(*args)`` (the host clock around the call,
+    the card synchronized between calls): a wrapper's Python and launch
+    cost, which the device times leave out."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*args)
+        total += time.perf_counter() - t
+    torch.cuda.synchronize()
+    return total / reps * 1e3
 
 
 def k2_bound_ms(T: int, Co: int, Cn: int) -> tuple[float, str]:
@@ -528,12 +632,12 @@ def k2_readings(fn, table, ops, reps: int, flush) -> dict:
     }
 
 
-def k2_profiled_ms(fn, ops, flush, reps: int = 20) -> tuple[float, int]:
-    """K2's mean kernel duration under ``torch.profiler`` (the device's own
-    start and end of each launch, without the events' floor), L2 flushed
-    by a read before each call → (ms, launches the profiler listed): it
-    may list fewer than ``reps`` (§7 of PERF.md), and the mean is over
-    those it lists (NaN where none)."""
+def profiled_ms(fn, ops, key: str, flush, reps: int = 20) -> tuple[float, int]:
+    """The mean duration of the kernels whose name holds ``key`` under
+    ``torch.profiler`` (the device's own start and end of each launch,
+    without the events' floor), L2 flushed by a read before each call →
+    (ms, launches the profiler listed): it may list fewer than ``reps`` (§7
+    of PERF.md), and the mean is over those it lists (NaN where none)."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -542,7 +646,7 @@ def k2_profiled_ms(fn, ops, flush, reps: int = 20) -> tuple[float, int]:
             fn(*ops)
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and "injectivity_mask" in e.key]
+           if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
     listed = sum(e.count for e in evs)
     total = sum(e.self_device_time_total for e in evs) / 1e3
     return (total / listed if listed else float("nan")), listed
@@ -553,6 +657,42 @@ def fmt_readings(r: dict, bound: float) -> str:
 
 
 # ---- phase 2 ----------------------------------------------------------------
+
+
+def k1_ptxas_report() -> None:
+    """ptxas's registers, spills and shared memory for every instantiation of
+    K1 (from this run's build); fails on a spill."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+
+    text = kbuild.BUILD_LOG.get("dominance_scan")
+    require(text is not None, "K1 was not built in this run: no ptxas report")
+    rep: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"dominance_scan_(packed|indexed)_kernelI((?:L[ib]\d+E)+)E", m.group(1))
+            cur = None
+            if k:
+                cur = f"{k.group(1)} <{', '.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+            if cur:
+                rep[cur] = {}
+        elif cur is not None and "spill stores" in line:
+            rep[cur]["stack"], rep[cur]["stores"], rep[cur]["loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            rep[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            rep[cur]["static_smem"] = int(s.group(1)) if s else 0
+    require(len(rep) == 10, f"K1 ptxas report names {sorted(rep)}, not 4 packed and 6 indexed")
+    for name, r in sorted(rep.items()):
+        log(f"K1 ptxas, {name}: {r['registers']} registers a thread, static shared memory "
+            f"{r['static_smem']} bytes, spill stores {r['stores']} bytes, spill loads "
+            f"{r['loads']} bytes, stack {r['stack']} bytes")
+        require(r["stores"] == 0 and r["loads"] == 0,
+                f"K1 {name} spills ({r['stores']} / {r['loads']} bytes)")
 
 
 def k3_ptxas_report() -> None:
@@ -680,12 +820,15 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
         dominance_scan_batch_ref,
+        dominance_scan_groups_indexed_ref,
         dominance_scan_groups_ref,
+        dominance_scan_pairs_indexed_ref,
         dominance_scan_pairs_ref,
         dominance_scan_ref,
         make_groups,
         make_pairs,
         make_scan,
+        make_segments,
     )
     from repro_torch.kernels.merge_join import ops as mj
     from repro_torch.kernels.merge_join.ref import injectivity_mask_ref, make_join_rows
@@ -696,6 +839,7 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
                 f"{what} differs from its plain version")
         return float((got.int() - want.int()).abs().max()) if got.numel() else 0.0
 
+    k1_ptxas_report()
     k3_ptxas_report()
     k2_ptxas_report()
     errs = {"K1": 0.0, "K2": 0.0, "K3-single": 0.0, "K3-batch": 0.0}
@@ -704,7 +848,7 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
         got = ds.dominance_scan_pairs(*args)
         errs["K1"] = max(errs["K1"], err(got, dominance_scan_pairs_ref(*args), f"K1 at T={T}"))
         log(f"K1 T={T}: bit-equal to the plain version, kept {int(got.sum())}")
-    # K1's groups form: one K1 launch over (qg, q0g, -q0g) against (hi, hi0, -lo0), ties
+    # K1's packed groups form: one launch reading (hi, lo0, hi0) as they are, ties
     # exactly at hi + eps, hi0 + eps and lo0 - eps and one ulp either side of each
     for T in (1, 1000, big):
         args = [torch.from_numpy(a).to(dev) for a in make_groups(T, seed=T)]
@@ -713,8 +857,31 @@ def phase2_kernels(dev, big: int = (1 << 20) + 7) -> dict:
         require(ds.LAUNCHES == before + 1, "K1's groups form did not launch K1 once")
         errs["K1"] = max(errs["K1"], err(got, dominance_scan_groups_ref(*args),
                                          f"K1's groups form at T={T}"))
-        log(f"K1 groups form T={T} (D=18, D0=6: one K1 launch at widths 30, 1): bit-equal to "
-            f"the direct three compares, kept {int(got.sum())}")
+        log(f"K1 packed groups T={T} (D=18, D0=6, one launch): bit-equal to the direct three "
+            f"compares, kept {int(got.sum())}")
+    # K1's indexed forms: segments over their own shuffled tables (separate o(p), o'(p)
+    # tensors, or column views of one table), an empty segment among them, the ties of
+    # make_pairs / make_groups reaching the kernel through the indices; then more
+    # segments than a block keeps in shared memory, tables 4 bytes off 8 (4-byte
+    # loads), and widths read at run time
+    for groups in (False, True):
+        form = "groups" if groups else "pairs"
+        fn = ds.dominance_scan_groups_indexed if groups else ds.dominance_scan_pairs_indexed
+        plain = dominance_scan_groups_indexed_ref if groups else dominance_scan_pairs_indexed_ref
+        cases = [(T, dict(n_seg=5, views=v), 0) for T in (1, 1001, big) for v in (False, True)]
+        cases += [(200_003, dict(n_seg=300), 0), (100_003, dict(n_seg=5), 1),
+                  (40_001, dict(n_seg=4, W=5, N=2, D0=3), 0)]
+        for T, kw, floats in cases:
+            segs = make_segments(T, seed=T + groups, groups=groups, device=dev, **kw)
+            segs = segments_on(segs, dev, floats) if floats else segs
+            lay = ds.segment_layout(segs, groups)
+            before = ds.LAUNCHES
+            got = fn(segs)
+            require(ds.LAUNCHES == before + 1, f"K1 indexed {form} did not launch K1 once")
+            label = f"K1 indexed {form} at T={T}, {lay.n_seg} segments, {kw}, base +{4 * floats} B"
+            errs["K1"] = max(errs["K1"], err(got, plain(segs), label))
+            log(f"{label} (widths {lay.width} x {lay.tables}, {lay.labels}; 8-byte loads "
+                f"{lay.vec}): bit-equal to the plain version, kept {int(got.sum())}")
     for T in (1, 1000, big):
         for Co, Cn in ((7, 1), (5, 2), (0, 3), (3, 2), (56, 8)):
             old, new = (torch.from_numpy(a).to(dev) for a in make_join_rows(T, Co, Cn, seed=T + Co))
@@ -842,8 +1009,10 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
         dominance_scan_batch_ref,
+        dominance_scan_pairs_indexed_ref,
         dominance_scan_pairs_ref,
         dominance_scan_ref,
+        gather_pair_operands,
     )
     from repro_torch.kernels.merge_join import ops as mj
 
@@ -868,18 +1037,43 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         sync(dev)
         warm.append((time.perf_counter() - t_w) * 1e3)
         require(again == matches, "warm match_many differs from the cold run")
-    # the real probe's verdict, recorded and re-run through the plain version
+    # the real probe's verdict: one K1 launch on the partitions' own tables, recorded
+    # and re-run through the plain version; timed as it runs (indexed), beside the
+    # route it replaced and the packed form on the same pairs gathered
     seen = recorded_verdicts(lambda: eng.match_many(queries))
     require(len(seen) == 1, f"expected one fused verdict per match_many, saw {len(seen)}")
-    (qg, q0g, eg, e0g, eps), keep = seen[0]
-    out["K1_T"] = qg.shape[0]
-    require(torch.equal(keep, dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps)),
+    (segs, eps), keep = seen[0]
+    tables_in_place(segs, [m.index for m in eng.models], "phase 3 loop probe")
+    out["K1_T"] = T = verdict_pairs(seen[0][0])
+    require(torch.equal(keep, dominance_scan_pairs_indexed_ref(segs, eps)),
             "K1 on the real probe's pairs differs from the plain version")
-    T, D = qg.shape
-    D0 = q0g.shape[1]
-    out["K1_ms"] = time_ms(ds.dominance_scan_pairs, (qg, q0g, eg, e0g, eps), 50, flush)
-    out["K1_plain_ms"] = time_ms(dominance_scan_pairs_ref, (qg, q0g, eg, e0g, eps), 50, flush)
-    out["K1_bound"] = k1_bound_ms(T, D, D0)
+    lay = ds.segment_layout(segs)
+    D, D0 = lay.width * lay.tables, lay.labels
+    out["K1_ms"] = time_ms(ds.dominance_scan_pairs_indexed, (segs, eps), 20, flush,
+                           spin=LONG_SPIN)
+    out["K1_plain_ms"] = time_ms(dominance_scan_pairs_indexed_ref, (segs, eps), 10, flush,
+                                 spin=LONG_SPIN)
+    k1_host = host_ms(ds.dominance_scan_pairs_indexed, (segs, eps))
+    out["K1_bound"] = k1_indexed_bound_ms(segs)
+    k1_prof = profiled_ms(ds.dominance_scan_pairs_indexed, (segs, eps),
+                          "dominance_scan_indexed_kernel", flush)[0]
+    require(torch.equal(replaced_route(segs, eps), keep),
+            "the replaced route (gathers, cats, packed K1) differs from the indexed K1")
+    route_ms = time_ms(replaced_route, (segs, eps), 10, flush, spin=LONG_SPIN)
+    route_host = host_ms(replaced_route, (segs, eps))
+    parts = [gather_pair_operands(s_) for s_ in segs]
+    packed = tuple(torch.cat([p_[k] for p_ in parts]) for k in range(4)) + (eps,)
+    require(torch.equal(ds.dominance_scan_pairs(*packed), keep),
+            "the packed K1 on the gathered pairs differs from the indexed K1")
+    pk_ms = time_ms(ds.dominance_scan_pairs, packed, 50, flush)
+    pk_prof = profiled_ms(ds.dominance_scan_pairs, packed, "dominance_scan_packed_kernel",
+                          flush)[0]
+    pk_plain = time_ms(dominance_scan_pairs_ref, packed, 20, flush)
+    pk_bound = k1_bound_ms(T, D, D0)
+    out["K1_forms"] = {"indexed_pairs": (out["K1_ms"], k1_prof, out["K1_bound"][0], route_ms,
+                                         k1_host, route_host),
+                       "packed_pairs": (pk_ms, pk_prof, pk_bound[0], pk_plain, None, None)}
+    del parts, packed
     t_vf2 = time.perf_counter()
     n_matches = check_against_vf2(g, queries, matches, "host join")
     log(f"VF2 check of {n_queries} queries: {time.perf_counter() - t_vf2:.3f} s, "
@@ -890,8 +1084,16 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         f"embed {eng.offline_stats['embed_time']:.3f}, index {eng.offline_stats['index_time']:.3f})")
     log(f"match_many cold: {cold_s * 1e3:.3f} ms; warm: {fmt(warm)} ms")
     log(f"K1 launches on the main path (build + cold match_many): {out['K1']}")
-    log(f"K1 at T={T}: {out['K1_ms']:.6f} ms, bound {out['K1_bound'][0]:.6f} ms "
-        f"({out['K1_bound'][1]}), plain version {out['K1_plain_ms']:.6f} ms")
+    log(f"K1 indexed pairs on the loop probe's real call, T={T} in {lay.n_seg} segments "
+        f"(widths {lay.width} x {lay.tables}, {D0}; 8-byte loads {lay.vec}): "
+        f"{out['K1_ms']:.6f} ms (events: the descriptor's copy and the kernel), "
+        f"{fmt_ms(k1_prof)} (profiler, kernel alone); bound {out['K1_bound'][0]:.6f} ms "
+        f"({out['K1_bound'][1]}: indices, distinct rows, verdicts); plain version "
+        f"{out['K1_plain_ms']:.6f} ms; the route it replaced (gathers, cats, packed K1) "
+        f"{route_ms:.6f} ms; host enqueue {k1_host:.6f} ms a call, the route's {route_host:.6f}")
+    log(f"K1 packed pairs on the same pairs gathered, T={T} (D={D}, D0={D0}): {pk_ms:.6f} ms "
+        f"(events), {fmt_ms(pk_prof)} (profiler); bound {pk_bound[0]:.6f} ms ({pk_bound[1]}; "
+        f"{pk_bound[0] / pk_ms:.3f} of it by events); plain version {pk_plain:.6f} ms")
 
     # ---- the device join on the same engine ------------------------------
     reset_counters()
@@ -1026,12 +1228,30 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
         f"({probe.host_expansions}); the device candidates of {n_handoff} probes equal the loop "
         "probe's rows in slot order, and the lists equal the device join over those")
     seen = recorded_verdicts(lambda: eng.match_many(queries, probe_impl="stacked"))
-    T_st = sum(a[0].shape[0] for a, _ in seen)
+    T_st = sum(verdict_pairs(a) for a, _ in seen)
+    emb_cat = eng.stacked_probe().stacked.emb_cat
     for args, keep_ in seen:
-        require(torch.equal(keep_, dominance_scan_pairs_ref(*args)),
+        require(torch.equal(keep_, dominance_scan_pairs_indexed_ref(*args)),
                 "K1 on the stacked probe's pairs differs from the plain version")
+        require(all(s_.data[0].data_ptr() == emb_cat.data_ptr() for s_ in args[0]),
+                "the stacked probe's K1 read a copy, not the stacked tables")
     require(T_st == out["K1_T"],
             f"the stacked probe's verdict T {T_st} != the loop probe's {out['K1_T']}")
+    st_args = max((a for a, _ in seen), key=verdict_pairs)
+    st_ms = time_ms(ds.dominance_scan_pairs_indexed, st_args, 20, flush, spin=LONG_SPIN)
+    st_host = host_ms(ds.dominance_scan_pairs_indexed, st_args)
+    st_bound = k1_indexed_bound_ms(st_args[0])
+    st_prof = profiled_ms(ds.dominance_scan_pairs_indexed, st_args,
+                          "dominance_scan_indexed_kernel", flush)[0]
+    st_route = time_ms(replaced_route, st_args, 10, flush, spin=LONG_SPIN)
+    st_route_host = host_ms(replaced_route, st_args)
+    out["K1_forms"]["indexed_pairs_stacked"] = (st_ms, st_prof, st_bound[0], st_route, st_host,
+                                                st_route_host)
+    log(f"K1 indexed pairs on the stacked probe's largest call (T={verdict_pairs(st_args)}, one "
+        f"segment, flat rows into the stacked tables): {st_ms:.6f} ms (events), "
+        f"{fmt_ms(st_prof)} (profiler); bound {st_bound[0]:.6f} ms ({st_bound[1]}); the route "
+        f"it replaced {st_route:.6f} ms; host enqueue {st_host:.6f} ms, the route's "
+        f"{st_route_host:.6f}")
     st_warm, loop_warm = [], []
     for _ in range(3):
         st_warm += warm_ms(lambda: eng.match_many(queries, probe_impl="stacked"), dev, 1)
@@ -1096,15 +1316,28 @@ def handoff_check(eng, queries, lists) -> int:
     return len(reqs)
 
 
+def tables_in_place(segs, indexes, what: str) -> None:
+    """Every data table of ``segs`` is one of ``indexes``' own tensors: K1
+    read the index where it lives, not a gathered copy."""
+    own = {t.data_ptr() for ix in indexes for t in (ix.emb, ix.emb0, *ix.emb_multi)}
+    require(all(t.data_ptr() in own for s in segs for t in s.data),
+            f"{what}: K1 read a gathered copy, not the index's tables")
+
+
 def recorded_verdicts(fn) -> list:
-    """Every fused verdict of one ``fn()`` call: ((qg, q0g, eg, e0g, eps), keep)."""
+    """Every fused verdict of one ``fn()`` call: ((segments, eps), keep), each
+    checked to be one K1 launch (none where it has no pairs)."""
     from repro_torch.core import index as index_mod
+    from repro_torch.kernels.dominance_scan import ops as ds
 
     seen = []
     keep_mask = index_mod._pairs_keep_mask
 
     def record(*a):
+        before = ds.LAUNCHES
         res = keep_mask(*a)
+        require(ds.LAUNCHES - before == int(verdict_pairs(a) > 0),
+                f"a fused verdict made {ds.LAUNCHES - before} K1 launches")
         seen.append((a, res))
         return res
 
@@ -1163,7 +1396,7 @@ def phase3q_quantized_dr(dev, ctx: dict) -> dict:
     from repro_torch.core import GnnPeEngine, sort_matches
     from repro_torch.core import index as index_mod
     from repro_torch.core.index import hash_labels, quantize_data
-    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
     from repro_torch.kernels.merge_join import ops as mj
 
     out: dict = {"K2": 0}
@@ -1198,11 +1431,11 @@ def phase3q_quantized_dr(dev, ctx: dict) -> dict:
         ms = (time.perf_counter() - t) * 1e3
         k1, k2 = counters()["K1"], counters()["K2"]
         pairs = int(index_mod.PAIR_METRIC.get(kind="leaf_pairs") - pairs0)
-        T = sum(a[0].shape[0] for a, _ in seen)
+        T = sum(verdict_pairs(a) for a, _ in seen)
         for qi, m in enumerate(res[0]):
             require(sort_matches(m) == want[qi], f"{what}: query {qi} differs from phase 3's set")
         for a, keep in seen:
-            require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+            require(torch.equal(keep, dominance_scan_pairs_indexed_ref(*a)),
                     f"{what}: K1 differs from the plain version")
         require(k1 > 0, f"{what}: K1 never launched")
         k2_note = ""
@@ -1252,15 +1485,20 @@ def phase3q_quantized_dr(dev, ctx: dict) -> dict:
 
 def recorded_level_verdicts(fn) -> list:
     """Every fused verdict of one ``fn()`` call at both probe levels:
-    (level, args, keep), level "groups" (K1's groups form) or "pairs"."""
+    (level, (segments, eps), keep), level "groups" (K1's groups verdict) or
+    "pairs", each checked to be one K1 launch."""
     from repro_torch.core import index as index_mod
+    from repro_torch.kernels.dominance_scan import ops as ds
 
     seen = []
     saved = index_mod._groups_keep_mask, index_mod._pairs_keep_mask
 
     def recording(level, verdict):
         def run(*a):
+            before = ds.LAUNCHES
             res = verdict(*a)
+            require(ds.LAUNCHES - before == int(verdict_pairs(a) > 0),
+                    f"a fused {level} verdict made {ds.LAUNCHES - before} K1 launches")
             seen.append((level, a, res))
             return res
         return run
@@ -1299,8 +1537,10 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
     from repro_torch.core.grouping import choose_group_size
     from repro_torch.kernels.dominance_scan import ops as ds
     from repro_torch.kernels.dominance_scan.ref import (
+        dominance_scan_groups_indexed_ref,
         dominance_scan_groups_ref,
-        dominance_scan_pairs_ref,
+        dominance_scan_pairs_indexed_ref,
+        gather_group_operands,
     )
     from repro_torch.kernels.merge_join import ops as mj
 
@@ -1364,34 +1604,53 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
     require([lv for lv, _, _ in seen] == ["groups", "pairs"],
             f"expected one group and one member verdict, saw {[lv for lv, _, _ in seen]}")
     for level, a, keep in seen:
-        plain = dominance_scan_groups_ref if level == "groups" else dominance_scan_pairs_ref
+        plain = (dominance_scan_groups_indexed_ref if level == "groups"
+                 else dominance_scan_pairs_indexed_ref)
         require(torch.equal(keep, plain(*a)), f"K1 at the {level} level differs from plain")
-    args = seen[0][1]
-    T, D, D0 = args[0].shape[0], args[0].shape[1], args[1].shape[1]
-    out["K1g"] = {
-        "T": T, "D": D, "D0": D0, "member_T": seen[1][1][0].shape[0],
-        "ms": time_ms(ds.dominance_scan_groups, args, 50, flush),
-        "plain_ms": time_ms(dominance_scan_groups_ref, args, 20, flush),
-        "bound": k1_groups_bound_ms(T, D, D0),
+    (segs, eps), g_keep = seen[0][1], seen[0][2]
+    T, lay = verdict_pairs(seen[0][1]), ds.segment_layout(seen[0][1][0], groups=True)
+    D, D0 = lay.width * lay.tables, lay.labels
+    require(torch.equal(replaced_route(segs, eps, groups=True), g_keep),
+            "the replaced group route (gathers, cats, PR 20's wrapper) differs from K1")
+    parts = [gather_group_operands(s_) for s_ in segs]
+    packed = tuple(torch.cat([p_[k] for p_ in parts]) for k in range(5)) + (eps,)
+    require(torch.equal(ds.dominance_scan_groups(*packed), g_keep),
+            "K1's packed groups form on the gathered bounds differs from the indexed form")
+    out["K1g"] = k = {
+        "T": T, "D": D, "D0": D0, "member_T": verdict_pairs(seen[1][1]),
+        "ms": time_ms(ds.dominance_scan_groups_indexed, (segs, eps), 20, flush, spin=LONG_SPIN),
+        "host_ms": host_ms(ds.dominance_scan_groups_indexed, (segs, eps)),
+        "prof_ms": profiled_ms(ds.dominance_scan_groups_indexed, (segs, eps),
+                               "dominance_scan_indexed_kernel", flush)[0],
+        "plain_ms": time_ms(dominance_scan_groups_indexed_ref, (segs, eps), 10, flush,
+                            spin=LONG_SPIN),
+        "route_ms": time_ms(replaced_route, (segs, eps, True), 10, flush, spin=LONG_SPIN),
+        "route_host_ms": host_ms(replaced_route, (segs, eps, True)),
+        "bound": k1_indexed_bound_ms(segs, groups=True),
+        "packed_ms": time_ms(ds.dominance_scan_groups, packed, 50, flush),
+        "packed_prof_ms": profiled_ms(ds.dominance_scan_groups, packed,
+                                      "dominance_scan_packed_kernel", flush)[0],
+        "packed_plain_ms": time_ms(dominance_scan_groups_ref, packed, 20, flush),
+        "packed_bound": k1_groups_bound_ms(T, D, D0),
     }
-    k = out["K1g"]
-    log(f"  K1 at both levels equal to the plain versions; groups form at T={T} (D={D}, "
-        f"D0={D0}; K1 at widths {D + 2 * D0}, 1): {k['ms']:.6f} ms, bound "
-        f"{k['bound'][0]:.6f} ms ({k['bound'][1]}), plain version {k['plain_ms']:.6f} ms; "
-        f"member level T = {k['member_T']}")
-    # K1 alone on the operands the groups form concatenates: what the wrapper's
-    # two cats, negation and zero column add beside the kernel
-    qg, q0g, hi, lo0, hi0, eps = args
-    zeros = qg.new_zeros((T, 1))
-    flat = (torch.cat([qg, q0g, -q0g], dim=1), zeros, torch.cat([hi, hi0, -lo0], dim=1), zeros, eps)
-    require(torch.equal(ds.dominance_scan_pairs(*flat), seen[0][2]),
-            "K1 alone on the groups form's operands differs from the groups form")
-    k["alone_ms"] = time_ms(ds.dominance_scan_pairs, flat, 50, flush)
-    k["alone_bound"] = k1_bound_ms(T, D + 2 * D0, 1)
-    log(f"  K1 alone on the groups form's concatenated operands at T={T} (widths "
-        f"{D + 2 * D0}, 1): {k['alone_ms']:.6f} ms, its bound {k['alone_bound'][0]:.6f} ms "
-        f"({k['alone_bound'][1]}; {k['alone_bound'][0] / k['alone_ms']:.3f} of it), beside "
-        f"the groups form's {k['ms']:.6f} ms against {k['bound'][0]:.6f} ms")
+    del parts, packed
+    msegs = seen[1][1][0]
+    k["member_ms"] = time_ms(ds.dominance_scan_pairs_indexed, seen[1][1], 20, flush,
+                             spin=LONG_SPIN)
+    k["member_bound"] = k1_indexed_bound_ms(msegs)
+    log(f"  K1 at both levels equal to the plain versions, one launch each; indexed groups at "
+        f"T={T} ({lay.n_seg} segments, widths {lay.width} x {lay.tables}, {D0}): "
+        f"{k['ms']:.6f} ms (events), {fmt_ms(k['prof_ms'])} (profiler); bound "
+        f"{k['bound'][0]:.6f} ms ({k['bound'][1]}); plain version {k['plain_ms']:.6f} ms; the "
+        f"route it replaced (gathers, cats, PR 20's five-launch groups form) "
+        f"{k['route_ms']:.6f} ms; host enqueue {k['host_ms']:.6f} ms a call, the route's "
+        f"{k['route_host_ms']:.6f}")
+    log(f"  K1 packed groups on the same pairs gathered, T={T} (D={D}, D0={D0}, one launch): "
+        f"{k['packed_ms']:.6f} ms (events), {fmt_ms(k['packed_prof_ms'])} (profiler, kernel "
+        f"alone); bound {k['packed_bound'][0]:.6f} ms ({k['packed_bound'][1]}); plain version "
+        f"{k['packed_plain_ms']:.6f} ms")
+    log(f"  K1 indexed pairs at the member level, T = {k['member_T']}: {k['member_ms']:.6f} ms "
+        f"(events), bound {k['member_bound'][0]:.6f} ms ({k['member_bound'][1]})")
     probe = eng.stacked_probe()
     for impl, join in (("loop", "device"), ("stacked", "numpy"), ("stacked", "device")):
         expansions = probe.host_expansions
@@ -1407,8 +1666,9 @@ def phase3g_grouped(dev, flush, ctx: dict) -> dict:
                           dev, 1)
         log(f"  warm match_many, {impl} probe, host join, interleaved: grouped {fmt(gw)} ms, "
             f"path {fmt(pw)} ms")
-    profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl="stacked"), dev,
-                   "50K cell grouped, host join, stacked probe")
+    for impl in ("loop", "stacked"):
+        profiled_match(lambda: eng.match_many(queries, return_stats=True, probe_impl=impl), dev,
+                       f"50K cell grouped, host join, {impl} probe")
     # auto sizes: each partition's pick equals the CPU's on the same index
     eng_a, build_s = build(index_kind="grouped", group_size_mode="auto")
     sizes = eng_a.offline_stats["group_sizes"]
@@ -1497,7 +1757,7 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     readings = k2_readings(mj.injectivity_mask, table, ops, 50, flush)
     out["K2_ms"] = readings["dirty"]
     out["K2_plain_ms"] = time_ms(injectivity_mask_ref, ops, 20, flush)
-    profiled, listed = k2_profiled_ms(mj.injectivity_mask, ops, flush)
+    profiled, listed = profiled_ms(mj.injectivity_mask, ops, "injectivity_mask", flush)
     log(f"K2 at the largest step T={T}, Co={Co}, Cn={Cn}, bound {out['K2_bound'][0]:.6f} ms "
         f"({out['K2_bound'][1]}): L2 flushed by a write, by a read, operands just rewritten: "
         f"{fmt_readings(readings, out['K2_bound'][0])}; kernel duration under torch.profiler "
@@ -2448,7 +2708,7 @@ class DeltaScanProbe:
             res = keep_mask(*a)
             self.launches += self.ops.LAUNCHES - before
             self.verdicts.append((a, res))
-            self.pairs += int(a[0].shape[0])
+            self.pairs += verdict_pairs(a)
             return res
 
         def measured(*a, **k):
@@ -2470,10 +2730,10 @@ class DeltaScanProbe:
         """Every recorded verdict equal to the plain version on its operands."""
         import torch
 
-        from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+        from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
 
         for a, keep in self.verdicts:
-            require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+            require(torch.equal(keep, dominance_scan_pairs_indexed_ref(*a)),
                     f"{what}: K1 on the delta scan's pairs differs from the plain version")
 
 
@@ -2969,7 +3229,7 @@ def phase9b_server(dev, ctx: dict, out: dict) -> None:
     edge-churn batches; every answer against ``match_many`` at its epoch."""
     import torch
 
-    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
     from repro_torch.serve import MatchServeConfig, MatchServer
 
     eng, queries = ctx["eng"], ctx["queries"]
@@ -3002,7 +3262,7 @@ def phase9b_server(dev, ctx: dict, out: dict) -> None:
             n_checked += 1
     require(seen, "9b the recorded tick made no verdict")
     for a, keep in seen:
-        require(torch.equal(keep, dominance_scan_pairs_ref(*a)),
+        require(torch.equal(keep, dominance_scan_pairs_indexed_ref(*a)),
                 "9b K1 on a server tick's pairs differs from the plain version")
     n = check_against_vf2(eng.graph, queries, want, "9b last epoch")
     lat = [srv.latency_s[r] * 1e3 for r in srv.latency_s]
@@ -3015,7 +3275,7 @@ def phase9b_server(dev, ctx: dict, out: dict) -> None:
         f"{len(ticks)} query ticks p50 {p50_p95(ticks)[0]:.3f} ms, p95 {p50_p95(ticks)[1]:.3f} ms; "
         f"{srv.n_updates_applied} updates coalesced into {len(srv.update_s)} epochs "
         f"({fmt([s * 1e3 for s in srv.update_s])} ms); K1 launches {out['server_K1']}, one "
-        f"tick's {len(seen)} verdicts (T = {sum(a[0].shape[0] for a, _ in seen)}) equal to plain")
+        f"tick's {len(seen)} verdicts (T = {sum(verdict_pairs(a) for a, _ in seen)}) equal to plain")
 
 
 def phase9c_standing(dev, ctx: dict, out: dict) -> None:
@@ -3243,7 +3503,7 @@ def phase10a_50k(dev, ctx: dict, smi: str, out: dict) -> None:
 
     from repro_torch.core import GnnPeEngine, sort_matches
     from repro_torch.dist import ClusterEngine
-    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
 
     g, queries = ctx["g"], ctx["queries"]
     want_sets = [sort_matches(m) for m in ctx["matches"]]
@@ -3291,7 +3551,7 @@ def phase10a_50k(dev, ctx: dict, smi: str, out: dict) -> None:
     seen = recorded_verdicts(lambda: counted(
         out, lambda: eng.probe_candidates(queries, reqs, parts=cl.hosts[0].owned)))
     for args, keep in seen:
-        require(torch.equal(keep, dominance_scan_pairs_ref(*args)),
+        require(torch.equal(keep, dominance_scan_pairs_indexed_ref(*args)),
                 "10a K1 on host 0's subset-probe pairs differs from the plain version")
     lost = ClusterEngine(eng, n_hosts=2)
     lost.hosts[1].fail_next = True
@@ -3299,7 +3559,7 @@ def phase10a_50k(dev, ctx: dict, smi: str, out: dict) -> None:
     require(got == single and lost.stats["host_losses"] == 1,
             f"10a a lost host changed the lists or was not counted ({lost.stats})")
     log(f"10a subset probes: K1 launches per host {per_host}; host 0's {len(seen)} verdicts "
-        f"(T = {sum(a[0].shape[0] for a, _ in seen)}) equal to plain; a host lost mid-gather "
+        f"(T = {sum(verdict_pairs(a) for a, _ in seen)}) equal to plain; a host lost mid-gather "
         f"re-probed by the coordinator, lists equal, host_losses {lost.stats['host_losses']}")
     for what, (eng, _, single) in list(clusters.items())[1:]:
         cls = {h: ClusterEngine(eng, n_hosts=h) for h in (1, 2, 4)}
@@ -3683,16 +3943,25 @@ def main() -> int:
 
     scan_cu = f"{SRC}/dominance_scan/csrc/dominance_scan.cu"
     scan_py = "src/repro/kernels/dominance_scan/kernel.py"
+    k1f, k1g = p3["K1_forms"], p3g["K1g"]
+    log("K1 forms (ms by events / by the profiler, bound, beside): "
+        + "; ".join(f"{name} {v[0]:.6f} / {fmt_ms(v[1])}, bound {v[2]:.6f}, beside {v[3]:.6f}"
+                    for name, v in k1f.items())
+        + f"; indexed groups {k1g['ms']:.6f} / {fmt_ms(k1g['prof_ms'])}, bound "
+        f"{k1g['bound'][0]:.6f}, beside {k1g['route_ms']:.6f}; packed groups "
+        f"{k1g['packed_ms']:.6f} / {fmt_ms(k1g['packed_prof_ms'])}, bound "
+        f"{k1g['packed_bound'][0]:.6f}, beside {k1g['packed_plain_ms']:.6f} (beside: the route "
+        f"an indexed form replaced, the plain version of a packed one); card: {smi}")
     records = [
-        # K1's launches (the pairs form and the groups form): the loop and stacked
-        # probes' cold batches of phase 3 and its hand-off, phase 3q's and phase 3g's
-        # batches, phase 8a's (main probe and delta-buffer scan), phase 9's
-        # (traced batches, server ticks, subscription ticks, service ticks) and
-        # phase 10's (single-process and cluster batches, host probes, router
-        # ticks; the worker process's own are not counted), each counted from 0
-        # just before it; its times at phase 3's pairs (the groups
-        # form's are in the log)
-        record("dominance_scan_pairs", "K1", scan_cu, f"{scan_py}:98",
+        # K1's launches (all four forms; the main path runs the indexed pairs and
+        # groups verdicts): the loop and stacked probes' cold batches of phase 3 and
+        # its hand-off, phase 3q's and phase 3g's batches, phase 8a's (main probe and
+        # delta-buffer scan), phase 9's (traced batches, server ticks, subscription
+        # ticks, service ticks) and phase 10's (single-process and cluster batches,
+        # host probes, router ticks; the worker process's own are not counted), each
+        # counted from 0 just before it; its times on phase 3's real call as it ran,
+        # the indexed pairs form (the other forms' are in the log)
+        record("dominance_scan_pairs_indexed", "K1", scan_cu, f"{scan_py}:98",
                p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
                + p9["K1"] + p10["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),

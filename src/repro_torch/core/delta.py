@@ -50,7 +50,7 @@ from .grouping import attach_groups
 from .index import (
     _LEAF_PAIRS,
     PackedIndex,
-    _gather_pair_operands,
+    _pair_segment,
     _pairs_keep_mask,
     _prefilter_pairs,
     _split_rows,
@@ -248,7 +248,7 @@ class PartitionDelta:
 
     The buffer duck-types a ``PackedIndex``'s leaf payload (``emb``,
     ``emb0``, ``emb_multi``, ``emb_q``, ``label_hash``), so the pair
-    prefilter and operand gather of ``core/index.py`` run on it unchanged.
+    prefilter and the K1 segment of ``core/index.py`` take it unchanged.
     """
 
     tombstone: torch.Tensor  # (P,) bool over the main index rows
@@ -530,10 +530,12 @@ def probe_delta_multi(items: list, eps: float = 1e-6, pair_cap: int = 1 << 21, v
     index's place.  Every (query, row) pair is formed (the buffer is small
     by construction), goes through the int8 + label-hash prefilter, and the
     pairs of ALL partitions settle in one fused verdict, in chunks of at
-    most ``pair_cap`` pairs: the Lemma 4.1 + 4.2 predicates of the main
-    leaf scan, so buffer rows survive exactly where a rebuilt index keeps
-    them.  ``verdict`` replaces the fused verdict (``_pairs_keep_mask``:
-    the kernel K1 on the card); the scalar match passes the plain version.
+    most ``pair_cap`` pairs, each buffer's slice of a chunk one segment
+    over its own tables: the Lemma 4.1 + 4.2 predicates of the main leaf
+    scan, so buffer rows survive exactly where a rebuilt index keeps them.
+    ``verdict`` replaces the fused verdict (``_pairs_keep_mask``: the
+    kernel K1 on the card, on segments); the scalar match passes the plain
+    version, ``dominance_scan_pairs_indexed_ref``.
 
     Returns a list (per item) of lists (per query) of int64 row tensors
     into each buffer, ascending per query.
@@ -560,14 +562,14 @@ def probe_delta_multi(items: list, eps: float = 1e-6, pair_cap: int = 1 << 21, v
     keeps = []
     for c0 in range(0, int(offs[-1]), max(int(pair_cap), 1)):
         c1 = min(c0 + int(pair_cap), int(offs[-1]))
-        ops = []
+        segs = []
         for p, a, b in zip(live, offs[:-1], offs[1:]):
             lo, hi = max(c0, int(a)) - int(a), min(c1, int(b)) - int(a)
             if lo < hi:
-                ops.append(_gather_pair_operands(
+                segs.append(_pair_segment(
                     p["delta"], p["rows"][lo:hi], p["q_ids"][lo:hi], *p["query"]
                 ))
-        keeps.append(verdict(*[torch.cat([o[k] for o in ops]) for k in range(4)], eps))
+        keeps.append(verdict(segs, eps))
     if keeps:
         for p, keep in zip(live, torch.split(torch.cat(keeps), sizes)):
             p["keep"] = keep

@@ -79,7 +79,7 @@ import torch
 
 from ..device import default_device, is_device_fault
 from ..graphs import Graph, Partitioning, device_graph, expanded_partition, partition_graph
-from ..kernels.dominance_scan.ref import dominance_scan_pairs_ref
+from ..kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
 from ..obs import trace as obs_trace
 from ..obs.metrics import REGISTRY
 from . import index as index_mod
@@ -1196,7 +1196,7 @@ class GnnPeEngine:
                             q_multi[:, None] if q_multi is not None else None,
                             torch.tensor([qh], device=dev) if qh is not None else None,
                         )],
-                        verdict=dominance_scan_pairs_ref,
+                        verdict=dominance_scan_pairs_indexed_ref,
                     )[0][0]
                 probe_memo[key] = (self._live_rows(mi, rows), drows)
             return probe_memo[key]

@@ -9,10 +9,11 @@ up into a super-block, level by level.
 
 A batch of query paths descends level-synchronously: one (Q, blocks, D)
 compare-reduce per level for every query at once.  The (query, row)
-pairs of each query's own surviving leaf blocks then pack into
-row-aligned operands, and the pairs of every partition go through ONE
-fused dominance verdict (``kernels/dominance_scan``): the hand-written
-CUDA kernel on the card, its plain version on the CPU.
+pairs of each query's own surviving leaf blocks then pack into (rows,
+q_ids) index pairs, and the pairs of every partition go through ONE fused
+dominance verdict (``kernels/dominance_scan``, K1's indexed form: each
+partition a segment whose tables the kernel reads in place): the
+hand-written CUDA kernel on the card, its plain version on the CPU.
 
 With ``quantize=True`` the index carries a conservative int8 copy of the
 leaf embeddings and a hash of each path's label sequence; the batched
@@ -33,7 +34,11 @@ import dataclasses
 
 import torch
 
-from ..kernels.dominance_scan.ops import dominance_scan_groups, dominance_scan_pairs
+from ..kernels.dominance_scan.ops import (
+    Segment,
+    dominance_scan_groups_indexed,
+    dominance_scan_pairs_indexed,
+)
 from ..obs.metrics import REGISTRY
 
 __all__ = [
@@ -443,17 +448,17 @@ def _pack_leaf_pairs(index: PackedIndex, cand, alive, q_emb, q_multi, q_label_ha
     return _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
 
 
-def _gather_pair_operands(index: PackedIndex, rows, q_ids, q_emb, q_emb0, q_multi):
-    """Row-aligned kernel operands for packed (query, row) pairs."""
-    n_gnn = q_multi.shape[0]
-    e_cat = torch.cat([index.emb[rows]] + [index.emb_multi[i][rows] for i in range(n_gnn)], dim=1)
-    q_cat = torch.cat([q_emb] + [q_multi[i] for i in range(n_gnn)], dim=1)
-    return q_cat[q_ids], q_emb0[q_ids], e_cat, index.emb0[rows]
+def _pair_segment(index: PackedIndex, rows, q_ids, q_emb, q_emb0, q_multi) -> Segment:
+    """Packed (query, row) pairs as one K1 segment over the index's tables
+    (o(p), each o'(p), o₀(p)) and the queries' (``index`` may be a delta
+    buffer, which has the same fields)."""
+    return Segment(rows, q_ids, (index.emb, *index.emb_multi, index.emb0),
+                   (q_emb, *q_multi, q_emb0))
 
 
-def _pairs_keep_mask(qg, q0g, eg, e0g, eps: float) -> torch.Tensor:
-    """Fused Lemma 4.1 + 4.2 verdict for row-aligned pairs."""
-    return dominance_scan_pairs(qg, q0g, eg, e0g, eps=eps)
+def _pairs_keep_mask(segments: list, eps: float) -> torch.Tensor:
+    """Fused Lemma 4.1 + 4.2 verdict of every segment's pairs, in order."""
+    return dominance_scan_pairs_indexed(segments, eps=eps)
 
 
 def _split_rows(rows, q_ids, keep, Q: int, dead=None) -> list:
@@ -491,30 +496,29 @@ def _pack_group_pairs(groups: PackedGroupIndex, cand, alive):
     return _expand_segments(bgs[blk], counts), torch.repeat_interleave(qi_pair, counts)
 
 
-def _gather_group_operands(groups: PackedGroupIndex, g_ids, q_ids, q_emb, q_emb0, q_multi):
-    """Row-aligned groups-form operands (qg, q0g, hi, lo0, hi0) for packed
-    (query, group) pairs."""
-    q_cat = torch.cat([q_emb] + [q_multi[i] for i in range(q_multi.shape[0])], dim=1)
-    mbr0 = groups.mbr0[g_ids]
-    return q_cat[q_ids], q_emb0[q_ids], groups.mbr_hi[g_ids], mbr0[:, :, 0], mbr0[:, :, 1]
+def _group_segment(groups: PackedGroupIndex, g_ids, q_ids, q_emb, q_emb0, q_multi) -> Segment:
+    """Packed (query, group) pairs as one K1 segment: the groups' upper
+    bounds read as column views of ``mbr_hi`` beside the query tables, and
+    their (lo, hi) label bounds in place."""
+    hi = groups.mbr_hi.split(q_emb.shape[1], dim=1)
+    return Segment(g_ids, q_ids, (*hi, groups.mbr0), (q_emb, *q_multi, q_emb0))
 
 
-def _groups_keep_mask(qg, q0g, hi, lo0, hi0, eps: float) -> torch.Tensor:
+def _groups_keep_mask(segments: list, eps: float) -> torch.Tensor:
     """Group verdict: q ⪯ MBR_max ∧ o₀(p_q) ∈ MBR₀ (eps-widened).  Any member
     passing the exact leaf predicates makes its group pass: no false
     dismissal."""
-    return dominance_scan_groups(qg, q0g, hi, lo0, hi0, eps=eps)
+    return dominance_scan_groups_indexed(segments, eps=eps)
 
 
-def _fused(packs: list, ops_key: str, n_key: str, keep_key: str, verdict, eps: float) -> None:
-    """ONE verdict over the row-aligned operands of every pack with pairs;
-    each pack's slice of it lands in ``pack[keep_key]``."""
-    live = [p for p in packs if not p["empty"] and p[n_key].numel()]
+def _fused(packs: list, seg_key: str, keep_key: str, verdict, eps: float) -> None:
+    """ONE verdict over the segments of every pack with pairs; each pack's
+    slice of it lands in ``pack[keep_key]``."""
+    live = [p for p in packs if not p["empty"] and p[seg_key].rows.numel()]
     if not live:
         return
-    n_ops = len(live[0][ops_key])
-    keep_all = verdict(*[torch.cat([p[ops_key][k] for p in live]) for k in range(n_ops)], eps)
-    for p, keep in zip(live, torch.split(keep_all, [p[n_key].numel() for p in live])):
+    keep_all = verdict([p[seg_key] for p in live], eps)
+    for p, keep in zip(live, torch.split(keep_all, [p[seg_key].rows.numel() for p in live])):
         p[keep_key] = keep
 
 
@@ -556,10 +560,10 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
         packs.append({
             "Q": Q, "empty": False, "alive": alive, "index": index, "g_ids": g_ids, "dead": dead_i,
             "q_ids_g": q_ids_g, "query": (q_emb, q_emb0, q_multi, q_label_hash),
-            "g_ops": _gather_group_operands(index.groups, g_ids, q_ids_g, q_emb, q_emb0, q_multi),
+            "g_seg": _group_segment(index.groups, g_ids, q_ids_g, q_emb, q_emb0, q_multi),
         })
     # ---- level 1: one fused group verdict across every partition ----------
-    _fused(packs, "g_ops", "g_ids", "g_keep", _groups_keep_mask, eps)
+    _fused(packs, "g_seg", "g_keep", _groups_keep_mask, eps)
     # ---- level 2: the member rows of surviving groups only ----------------
     for p in packs:
         if p["empty"]:
@@ -583,8 +587,8 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
             ], dim=1).tolist()
         rows, q_ids = _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
         p["rows"], p["q_ids"] = rows, q_ids
-        p["ops"] = _gather_pair_operands(index, rows, q_ids, q_emb, q_emb0, q_multi)
-    _fused(packs, "ops", "rows", "keep", _pairs_keep_mask, eps)
+        p["seg"] = _pair_segment(index, rows, q_ids, q_emb, q_emb0, q_multi)
+    _fused(packs, "seg", "keep", _pairs_keep_mask, eps)
     results = []
     stats = [] if return_stats else None
     for p in packs:
@@ -643,11 +647,11 @@ def query_index_batch_multi(
             {
                 "Q": Q, "empty": False, "alive": alive, "rows": rows, "q_ids": q_ids,
                 "bs": index.block_size, "dead": dead_i,
-                "ops": _gather_pair_operands(index, rows, q_ids, q_emb, q_emb0, q_multi),
+                "seg": _pair_segment(index, rows, q_ids, q_emb, q_emb0, q_multi),
             }
         )
     # ONE fused verdict across every partition's pairs
-    _fused(packs, "ops", "rows", "keep", _pairs_keep_mask, eps)
+    _fused(packs, "seg", "keep", _pairs_keep_mask, eps)
     results = []
     stats = [] if return_stats else None
     for p in packs:

@@ -12,10 +12,11 @@ partition's stacked tensors, then one leaf stage across all of them.
      ``stacked_masks_ref`` instead (the JAX package's name for the switch);
   2. **leaf stage**: the surviving (slot, query, block or group) cells
      expand to (query, row) pairs on the device (``repeat_interleave`` over
-     a ``cumsum``), in chunks of about ``leaf_pair_cap`` pairs, each through
-     the conservative int8 + label-hash prefilter and then one fused
-     verdict, ``index._pairs_keep_mask``: the kernel K1 on the card, its
-     plain version on the CPU.
+     a ``cumsum``) as flat indices into the stacked tables, in chunks of
+     about ``leaf_pair_cap`` pairs, each through the conservative int8 +
+     label-hash prefilter and then one fused verdict,
+     ``index._pairs_keep_mask``: the kernel K1 on the card, reading the
+     stacked tables in place, its plain version on the CPU.
 
 ``probe`` returns the rows per (partition, query), equal to
 ``query_index_batch_multi``'s over the source indexes, in the same order,
@@ -40,6 +41,7 @@ import torch
 from ..core import index as index_mod
 from ..core.index import NO_SIDECAR, _eps, _expand_segments, quantize_query
 from ..core.stacked import build_stacked, restack_slot, stacked_masks_ref
+from ..kernels.dominance_scan.ops import Segment
 
 __all__ = ["StackedProbe"]
 
@@ -214,28 +216,36 @@ class StackedProbe:
     def _pairs(self, pi, qi, starts, counts, n: int, q_cat, q0, qq, qh, eps: float,
                live=None) -> tuple:
         """Cells with ``n`` rows in all → their pairs, through the prefilter
-        and the tombstone mask ``live`` (S, P_max), then ONE fused verdict →
-        the kept (rows, pr, qr), in cell order."""
+        and the tombstone mask ``live`` (S, P_max), then ONE fused verdict:
+        K1 on one segment over the stacked tables, read in place through the
+        flat indices ``slot·P_max + row`` and ``slot·Q + query`` → the kept
+        (flat rows, flat queries), in cell order."""
         st = self.stacked
-        rows = _expand_segments(starts, counts, n)
-        pr = torch.repeat_interleave(pi, counts, output_size=n)
-        qr = torch.repeat_interleave(qi, counts, output_size=n)
+        S, P, Dcat = st.emb_cat.shape
+        Q = q_cat.shape[1]
+        rows = _expand_segments(pi * P + starts, counts, n)
+        combo = torch.repeat_interleave(pi * Q + qi, counts, output_size=n)
         pre = None
         if qq is not None:  # the conservative int8 + label-hash prefilter
-            pre = (qq[pr, qr] <= st.emb_q[pr, rows]).all(dim=1)
+            pre = (qq.reshape(S * Q, Dcat)[combo]
+                   <= st.emb_q.reshape(S * P, Dcat)[rows]).all(dim=1)
             if qh is not None:
-                pre &= st.label_hash[pr, rows] == qh[qr]
+                pre &= st.label_hash.reshape(-1)[rows] == qh.repeat(S)[combo]
         if live is not None:  # tombstoned main rows are no candidates
-            pre = live[pr, rows] if pre is None else pre & live[pr, rows]
+            alive = live.reshape(-1)[rows]
+            pre = alive if pre is None else pre & alive
         if pre is not None:
             sel = torch.nonzero(pre).flatten()
-            rows, pr, qr = rows[sel], pr[sel], qr[sel]
+            rows, combo = rows[sel], combo[sel]
         # exact Lemma 4.1 + 4.2 verdicts: one fused pass
-        keep = index_mod._pairs_keep_mask(
-            q_cat[pr, qr], q0[pr, qr], st.emb_cat[pr, rows], st.emb0[pr, rows], eps
+        W = Dcat // (1 + st.n_gnn)
+        seg = Segment(
+            rows, combo,
+            (*st.emb_cat.reshape(S * P, Dcat).split(W, dim=1), st.emb0.reshape(S * P, -1)),
+            (*q_cat.reshape(S * Q, Dcat).split(W, dim=1), q0.reshape(S * Q, -1)),
         )
-        sel = torch.nonzero(keep).flatten()
-        return rows[sel], pr[sel], qr[sel]
+        sel = torch.nonzero(index_mod._pairs_keep_mask([seg], eps)).flatten()
+        return rows[sel], combo[sel]
 
     def _stats(self, alive, gkeep, checked, pi, qi, counts) -> torch.Tensor:
         """(S, Q, k) per-(slot, query) stats, the loop probe's semantics, in
@@ -327,12 +337,12 @@ class StackedProbe:
         kept_rows, kept_combo = [], []
         for c in range(host.shape[1] - 1):
             lo, hi = int(host[0, c]), int(host[0, c + 1])
-            rows, pr, qr = self._pairs(
+            rows, combo = self._pairs(
                 pi[lo:hi], qi[lo:hi], starts[lo:hi], counts[lo:hi],
                 int(host[1, c + 1] - host[1, c]), q_cat, q0, qq, qh, eps, live_mask,
             )
-            kept_rows.append(rows)
-            kept_combo.append(pr * Q + qr)
+            kept_rows.append(rows % st.emb_cat.shape[1])
+            kept_combo.append(combo)
         rows_all = torch.cat(kept_rows) if kept_rows else empty
         combo_all = torch.cat(kept_combo) if kept_combo else empty
         # one read-back: kept rows per (slot, query), pairs per slot, stats
@@ -424,14 +434,13 @@ class StackedProbe:
         out = empty
         if total:
             qq, qh = self._prefilter_queries(q_cat, q_label_hash, True)
-            rows, pr, qr = self._pairs(
+            rows, combo = self._pairs(
                 pi, qi, starts, counts, total, q_cat, q0, qq, qh, eps, live_mask
             )
             # probe-major compaction without a sort: the kept pairs come
             # (slot, probe)-major, so a pair's place is its probe's offset,
             # plus the kept pairs of its probe in earlier slots, plus its rank
             # within its own (slot, probe) run
-            combo = pr * Q + qr
             combo_counts = torch.bincount(combo, minlength=S * Q)
             per_sb = combo_counts.view(S, Q)
             per_b = per_sb.sum(dim=0)
@@ -439,7 +448,7 @@ class StackedProbe:
             run_start = torch.cumsum(combo_counts, 0) - combo_counts
             pos = base_sb.flatten()[combo] + torch.arange(combo.numel(), device=dev) - run_start[combo]
             out = torch.empty((combo.numel(), L), dtype=torch.int32, device=dev)
-            out.index_put_((pos,), paths[pr, rows])
+            out.index_put_((pos,), paths.reshape(-1, L)[rows])
         small = [combo_counts]
         if return_stats:
             small.append(self._stats(alive, gkeep, checked, pi, qi, counts).flatten())

@@ -1,26 +1,61 @@
-// The dominance verdicts of the leaf filter: K1-pairs on packed pairs, and the dense
-// scans K3-single (one query against N rows) and K3-batch (Q queries x N rows).
+// The dominance verdicts of the leaf filter: K1 on (query path, data path) pairs and on
+// (query path, group bound) pairs, and the dense scans K3-single (one query against N
+// rows) and K3-batch (Q queries x N rows).
 //
-//   keep = all_j(q[j] <= e[j] + eps) && all_j(|e0[j] - q0[j]| <= eps)
+//   pairs:  keep = all_j(q[j] <= e[j] + eps) && all_j(|e0[j] - q0[j]| <= eps)
+//   groups: keep = all_j(q[j] <= hi[j] + eps) && all_j(lo0[j] - eps <= q0[j] <= hi0[j] + eps)
 //
 // Replaces the TPU kernels (src/repro/kernels/dominance_scan/kernel.py)
-//   K1-pairs   dominance_scan_pairs_kernel / dominance_scan_pairs_pallas  (:90, :98)
+//   K1         dominance_scan_pairs_kernel / dominance_scan_pairs_pallas  (:90, :98), and
+//              the groups form the JAX package builds on it (ops.py, dominance_scan_groups)
 //   K3-single  dominance_scan_kernel / dominance_scan_pallas              (:34, :129)
 //   K3-batch   dominance_scan_batch_kernel / dominance_scan_batch_pallas  (:44, :58)
-// Same contracts: float32 operands, all contiguous, at any 4-byte offset; the output is
-// one byte (0/1) per pair or cell.  No padding to 128 lanes and no padding or bucketing
-// of T, N or Q: a block masks its own ragged edge.  The kernels decide each element
-// through the same two comparisons (dominated, label_match; the dense scans take the
-// add of dominated once per data element, with the same bits), so their verdicts cannot
-// drift.
+// Float32 operands; the output is one byte (0/1) per pair or cell.  No padding to 128
+// lanes and no padding or bucketing of T, N or Q: a warp masks its own ragged edge.
+// Every form decides each element through the same three comparisons (dominated,
+// label_match, within), so their verdicts cannot drift.
 //
-// K1-pairs.  Bound: memory.  Each pair reads 4*(2*D + 2*D0) bytes and writes 1 (193
-// bytes at the paper's D = 18, D0 = 6) for 2*(D + D0) compares, so at 3.35 TB/s the
-// card needs T * 193 B / 3.35e12 B/s, about 58 us per million pairs; the compares are
-// nothing beside that.  Design: one block takes a tile of ROWS consecutive pairs.  The
-// tile's rows of each operand are one contiguous span in device memory, so the block
-// copies them into shared memory with consecutive threads on consecutive words (fully
-// coalesced), then each thread decides one pair from shared memory.
+// K1 is one kernel family: two operand forms x two verdicts, all persistent.
+//   * Packed: row-aligned operands (T, D) and (T, D0), as the JAX package's
+//     dominance_scan_pairs takes them, and (qg, q0g, hi, lo0, hi0) for the groups
+//     verdict, natively (no concatenation, negation or zero column).  Bound: memory;
+//     a pair reads 4*(2*D + 2*D0) bytes (pairs) or 4*(2*D + 3*D0) (groups) and writes 1,
+//     about 58 us per million pairs at the paper's D = 18, D0 = 6.  Design: K3's
+//     streaming pattern made to fit pairs.  A block's warps each walk tiles of 128
+//     consecutive pairs, 4 a lane; a warp stages its tile of every operand by cp.async
+//     (16-byte granules where an operand starts on 16 bytes, 4-byte words otherwise)
+//     into lane slots with an odd stride in granules, so a lane's 16-byte reads of its
+//     own 4 rows are conflict free, and decides it from shared memory.  One stage a warp
+//     and as many warps as shared memory holds (8) beat 2 or 3 stages with fewer warps:
+//     the warps' copies overlap each other's deciding (tools/k1_variants.py).  The
+//     paper's widths (18, 6) are one chunk; any other width goes through chunks of 16
+//     dominance and 8 label columns whose pads are never compared.
+//   * Indexed: the engine's form.  A pair t names a data row (or group) rows[t] and a
+//     query row q_ids[t] of its segment: one partition's pack, one delta buffer, or the
+//     stacked tables (flat rows).  The kernel reads the indices and the tables where
+//     they live, so no operand is gathered, concatenated or written before it.  A
+//     segment's descriptor (an int64 row of the table built by ops.segment_layout) holds
+//     its index arrays and, for the data and the query side, table 0 and its row
+//     stride, table 1, the stride between later tables and their row stride, the labels
+//     and their row stride.  A
+//     dominance row is N tables of W columns (the paper's 3 x 6: o(p) and two o'(p)),
+//     the groups form's data labels (lo0, hi0) interleaved, read in place.  Bound: bytes
+//     of the indices, of the distinct data and query rows, and of the verdicts.
+//     Design: persistent blocks of 8 warps; a warp takes 32 consecutive pairs, one a
+//     lane, so each index load is coalesced and neighbouring pairs of a pack hit
+//     neighbouring rows of the same sectors.  One pair a lane beats four at every size
+//     the engine makes (66 K to 1.06 M pairs): more warps in flight hide the chain of
+//     index, label and row loads better than one lane's four pairs do.  A pair
+//     finds its segment by binary search over the segments' first pairs, kept in
+//     shared memory with the descriptors up to kSegCap segments and read from device
+//     memory beyond.  Labels first: a pair reads its 24-byte label rows, and its
+//     dominance rows only if the labels hold; the verdict is an AND of comparisons,
+//     so the order changes no bit, NaN included (tools/k1_variants.py times both).  Rows
+//     are read as 8-byte vectors where every base and stride allows it (the paper's
+//     rows are 24 bytes), by ld.global.nc.  A ballot gives every lane the warp's 32
+//     verdicts, and 8 lanes store 4 consecutive bytes each as one 4-byte word.
+//     (W, N, D0) = (6, 3, 6) is compiled with the widths as constants; any other width
+//     takes the same kernel with the widths read at run time.
 //
 // K3 (both forms; K3-single is the same kernel at Q = 1).  Bound: memory.  Every data
 // row is 4*(D + D0) input bytes, every cell one output byte; a cell costs D compares and
@@ -56,11 +91,13 @@
 //     later chunk ANDs its verdicts into the output words the first one wrote.
 //
 // Exactness: the sums are __fadd_rn / __fsub_rn in float32 with eps passed as a float32,
-// as NumPy and JAX compute them (a float32 array against a weak Python scalar).  Build
-// without --use_fast_math: flushing denormals to zero could flip a tie.  NaN compares
-// false and +inf rows compare as IEEE says, as in the reference.
+// as NumPy and JAX compute them (a float32 array against a weak Python scalar); lo0 - eps
+// is __fsub_rn(lo0, eps), the bits of the groups reference's lo0 - e.  Build without
+// --use_fast_math: flushing denormals to zero could flip a tie.  NaN compares false and
+// +inf rows compare as IEEE says, as in the reference.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -73,44 +110,9 @@ __device__ __forceinline__ bool label_match(float q0, float e0, float eps) {
   return fabsf(__fsub_rn(e0, q0)) <= eps;
 }
 
-__global__ void dominance_scan_pairs_kernel(const float* __restrict__ qg,
-                                            const float* __restrict__ q0g,
-                                            const float* __restrict__ eg,
-                                            const float* __restrict__ e0g,
-                                            uint8_t* __restrict__ out, int64_t T, int D, int D0,
-                                            float eps) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  float* s_q = smem;
-  float* s_e = s_q + rows * D;
-  float* s_q0 = s_e + rows * D;
-  float* s_e0 = s_q0 + rows * D0;
-
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * rows;
-  const int n = static_cast<int>(T - t0 < rows ? T - t0 : rows);
-
-  const int64_t base = t0 * D;
-  for (int i = threadIdx.x; i < n * D; i += rows) {
-    s_q[i] = qg[base + i];
-    s_e[i] = eg[base + i];
-  }
-  const int64_t base0 = t0 * D0;
-  for (int i = threadIdx.x; i < n * D0; i += rows) {
-    s_q0[i] = q0g[base0 + i];
-    s_e0[i] = e0g[base0 + i];
-  }
-  __syncthreads();
-
-  const int r = threadIdx.x;
-  if (r >= n) return;
-  bool keep = true;
-  for (int j = 0; j < D; ++j) {
-    keep &= dominated(s_q[r * D + j], s_e[r * D + j], eps);
-  }
-  for (int j = 0; j < D0; ++j) {
-    keep &= label_match(s_q0[r * D0 + j], s_e0[r * D0 + j], eps);
-  }
-  out[t0 + r] = keep ? 1 : 0;
+// The groups verdict on one label column: q0 inside [lo0 - eps, hi0 + eps].
+__device__ __forceinline__ bool within(float q0, float lo0, float hi0, float eps) {
+  return (q0 <= __fadd_rn(hi0, eps)) & (q0 >= __fsub_rn(lo0, eps));
 }
 
 // ---- K3 ---------------------------------------------------------------------
@@ -397,13 +399,6 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The most rows (a power of two in [32, 256]) whose tile of `row_bytes` fits 48 KB.
-int tile_rows(int row_bytes) {
-  int rows = 256;
-  while (rows > 32 && rows * row_bytes > kDefaultSmem) rows /= 2;
-  return rows;
-}
-
 int ceil_div(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
 
 // A launch of the instantiation (CD, CD0): column chunks, queries a query tile, and
@@ -458,24 +453,408 @@ int launch_any(const void* q, const void* q0, const void* emb, const void* emb0,
   return launch_scan<16, 8>(q, q0, emb, emb0, out, Q, N, D, D0, eps, s);
 }
 
+
+// ---- K1, packed forms ---------------------------------------------------------
+
+constexpr int kPackedStages = 1;  // a warp's ring of tiles
+constexpr int kMaxPackedWarps = 8;
+
+// The layout of a packed instantiation: CD dominance and CD0 label columns a chunk;
+// a stage is the lane slots of q and e (or hi), then of q0 and e0 (or lo0 and hi0).
+template <int CD, int CD0, bool kGroups>
+struct Packed {
+  static constexpr int kSlot = slot_granules(CD);
+  static constexpr int kSlot0 = slot_granules(CD0);
+  static constexpr int kLabelArrays = kGroups ? 3 : 2;
+  static constexpr int kStageBytes = 32 * 16 * (2 * kSlot + kLabelArrays * kSlot0);
+  static constexpr int kFit = kMaxSmem / (kPackedStages * kStageBytes);
+  static constexpr int kWarps = kFit < kMaxPackedWarps ? kFit : kMaxPackedWarps;
+  static constexpr int kSmem = kWarps * kPackedStages * kStageBytes;
+};
+
+__device__ __forceinline__ uint32_t verdict_word(const bool (&keep)[4]) {
+  return static_cast<uint32_t>(keep[0]) | static_cast<uint32_t>(keep[1]) << 8 |
+         static_cast<uint32_t>(keep[2]) << 16 | static_cast<uint32_t>(keep[3]) << 24;
+}
+
+// One chunk of a lane's 4 staged pairs into `keep`: float f of a slot is row f / CW,
+// column f % CW; columns past the chunk's widths w, w0 were never copied and are not
+// compared.
+template <int CD, int CD0, bool kGroups>
+__device__ __forceinline__ void decide_packed(bool (&keep)[4], const float4* stage, int lane,
+                                              int w, int w0, float eps) {
+  using P = Packed<CD, CD0, kGroups>;
+  const float4* qs = stage + lane * P::kSlot;
+  const float4* es = stage + (32 + lane) * P::kSlot;
+#pragma unroll
+  for (int g = 0; g < CD; ++g) {
+    const float4 a = qs[g], b = es[g];
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int f = 4 * g + k;
+      if (f % CD < w) keep[f / CD] &= dominated(av[k], bv[k], eps);
+    }
+  }
+  const float4* s0 = stage + 64 * P::kSlot;
+  const float4* q0s = s0 + lane * P::kSlot0;
+  const float4* l0s = s0 + (32 + lane) * P::kSlot0;
+  const float4* h0s = s0 + (64 + lane) * P::kSlot0;  // groups only
+#pragma unroll
+  for (int g = 0; g < CD0; ++g) {
+    const float4 a = q0s[g], b = l0s[g];
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    float cv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (kGroups) {
+      const float4 c = h0s[g];
+      cv[0] = c.x, cv[1] = c.y, cv[2] = c.z, cv[3] = c.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int f = 4 * g + k;
+      if (f % CD0 < w0) {
+        keep[f / CD0] &= kGroups ? within(av[k], bv[k], cv[k], eps)
+                                 : label_match(av[k], bv[k], eps);
+      }
+    }
+  }
+}
+
+// Packed pairs (l0 = e0g, h0 unused) or groups (l0 = lo0, h0 = hi0) -> out (T,); nc
+// column chunks.  A warp's jobs are (tile, chunk) in order; job j goes to stage
+// j % kPackedStages, and every job commits one copy group, empty or not, so that the
+// groups count the jobs.
+template <int CD, int CD0, bool kGroups>
+__global__ void __launch_bounds__(32 * Packed<CD, CD0, kGroups>::kWarps, 1)
+    dominance_scan_packed_kernel(const float* __restrict__ q, const float* __restrict__ e,
+                                 const float* __restrict__ q0, const float* __restrict__ l0,
+                                 const float* __restrict__ h0, uint8_t* __restrict__ out,
+                                 int64_t T, int D, int D0, int nc, float eps) {
+  using P = Packed<CD, CD0, kGroups>;
+  extern __shared__ __align__(16) unsigned char packed_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* const ring = packed_smem + warp * kPackedStages * P::kStageBytes;
+  const int64_t n_tiles = (T + kTileRows - 1) / kTileRows;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * P::kWarps + warp;
+  const int64_t nw = static_cast<int64_t>(gridDim.x) * P::kWarps;
+  const int64_t n_jobs = (gw < n_tiles ? (n_tiles - gw + nw - 1) / nw : 0) * nc;
+  auto stage_of = [&](int64_t j) {
+    return reinterpret_cast<float4*>(ring + (j % kPackedStages) * P::kStageBytes);
+  };
+  auto stage_job = [&](int64_t j) {
+    if (j < n_jobs) {
+      const int c = static_cast<int>(j % nc);
+      const int64_t r0 = (gw + (j / nc) * nw) * kTileRows;
+      const int w = width(D - c * CD, CD), w0 = width(D0 - c * CD0, CD0);
+      float4* s = stage_of(j);
+      stage_rows<CD, P::kSlot>(s, q, T, D, c * CD, w, r0, lane);
+      stage_rows<CD, P::kSlot>(s + 32 * P::kSlot, e, T, D, c * CD, w, r0, lane);
+      float4* s0 = s + 64 * P::kSlot;
+      stage_rows<CD0, P::kSlot0>(s0, q0, T, D0, c * CD0, w0, r0, lane);
+      stage_rows<CD0, P::kSlot0>(s0 + 32 * P::kSlot0, l0, T, D0, c * CD0, w0, r0, lane);
+      if (kGroups) {
+        stage_rows<CD0, P::kSlot0>(s0 + 64 * P::kSlot0, h0, T, D0, c * CD0, w0, r0, lane);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int j = 0; j < kPackedStages; ++j) stage_job(j);
+  bool keep[4] = {true, true, true, true};
+  for (int64_t j = 0; j < n_jobs; ++j) {
+    cp_async_wait<kPackedStages - 1>();
+    __syncwarp();  // every lane's copies of job j have landed
+    const int c = static_cast<int>(j % nc);
+    decide_packed<CD, CD0, kGroups>(keep, stage_of(j), lane, width(D - c * CD, CD),
+                                    width(D0 - c * CD0, CD0), eps);
+    __syncwarp();  // every lane has read job j's stage: it takes job j + kPackedStages
+    stage_job(j + kPackedStages);
+    if (c == nc - 1) {
+      const int64_t r = (gw + (j / nc) * nw) * kTileRows + 4 * lane;
+      const int64_t left = T - r;
+      if (left > 0) put<false>(out + r, verdict_word(keep), left < 4 ? static_cast<int>(left) : 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) keep[i] = true;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Once per instantiation and device: the shared-memory opt-in; once per device: the
+// SM count.
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_sms[kMaxDevices];
+
+int sm_count(int device, int* sms) {
+  *sms = g_sms[device].load(std::memory_order_relaxed);
+  if (*sms > 0) return 0;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g_sms[device].store(*sms, std::memory_order_relaxed);
+  return 0;
+}
+
+template <int CD, int CD0, bool kGroups>
+int launch_packed(const float* q, const float* e, const float* q0, const float* l0,
+                  const float* h0, uint8_t* out, int64_t T, int D, int D0, float eps, int device,
+                  cudaStream_t stream) {
+  using P = Packed<CD, CD0, kGroups>;
+  auto kernel = dominance_scan_packed_kernel<CD, CD0, kGroups>;
+  static std::atomic<int> opted[kMaxDevices];
+  if (opted[device].load(std::memory_order_relaxed) == 0) {
+    const cudaError_t err = allow_smem(kernel, P::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[device].store(1, std::memory_order_relaxed);
+  }
+  int sms = 0;
+  if (const int rc = sm_count(device, &sms)) return rc;
+  int nc = ceil_div(D, CD) > ceil_div(D0, CD0) ? ceil_div(D, CD) : ceil_div(D0, CD0);
+  if (nc < 1) nc = 1;
+  const int64_t n_tiles = (T + kTileRows - 1) / kTileRows;
+  const int64_t want = (n_tiles + P::kWarps - 1) / P::kWarps;
+  const unsigned grid = static_cast<unsigned>(want < sms ? want : sms);
+  kernel<<<grid, 32 * P::kWarps, P::kSmem, stream>>>(q, e, q0, l0, h0, out, T, D, D0, nc, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGroups>
+int launch_packed_any(const void* q, const void* e, const void* q0, const void* l0,
+                      const void* h0, void* out, int64_t T, int D, int D0, float eps, int device,
+                      void* stream) {
+  if (T <= 0) return 0;
+  if (device < 0 || device >= kMaxDevices || D < 1 || D0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (paper_widths(D, D0)) {
+    return launch_packed<18, 6, kGroups>(f(q), f(e), f(q0), f(l0), f(h0), o, T, D, D0, eps,
+                                         device, s);
+  }
+  return launch_packed<16, 8, kGroups>(f(q), f(e), f(q0), f(l0), f(h0), o, T, D, D0, eps, device,
+                                       s);
+}
+
+// ---- K1, indexed forms --------------------------------------------------------
+
+constexpr int kSegFields = 16;  // a segment's descriptor, in int64 words (ops.py)
+constexpr int kSegCap = 128;    // segments whose descriptors a block keeps in shared memory
+constexpr int kIndexedWarps = 8;
+constexpr int kIndexedThreads = 32 * kIndexedWarps;
+constexpr bool kLabelsFirst = true;  // dominance rows read only where the labels hold
+
+// One side of a segment: row r of table 0 starts at t0 + r * rs0, of table k >= 1 at
+// t1 + (k - 1) * ts + r * rs1; its labels at lab + r * lrs.  Strides in floats.
+struct Side {
+  const float* t0;
+  int64_t rs0;
+  const float* t1;
+  int64_t ts, rs1;
+  const float* lab;
+  int64_t lrs;
+};
+
+__device__ __forceinline__ Side read_side(const int64_t* f) {
+  return {reinterpret_cast<const float*>(f[0]), f[1], reinterpret_cast<const float*>(f[2]), f[3],
+          f[4], reinterpret_cast<const float*>(f[5]), f[6]};
+}
+
+__device__ __forceinline__ const float* table_row(const Side& s, int k, int64_t r) {
+  return k == 0 ? s.t0 + r * s.rs0 : s.t1 + (k - 1) * s.ts + r * s.rs1;
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// The last segment whose first pair is at or before t (empty segments share their
+// first pair with the next one and are passed over).
+__device__ __forceinline__ int find_segment(const int64_t* starts, int n, int64_t t) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (starts[mid] <= t) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// The label test of data row r against query row q: pairs |e0 - q0| <= eps, groups
+// lo0 - eps <= q0 <= hi0 + eps with (lo0, hi0) interleaved.  kVec: 8-byte loads.
+template <int D0, bool kGroups, bool kVec>
+__device__ __forceinline__ bool labels_hold(const Side& es, const Side& qs, int64_t r,
+                                            int64_t q, int d0, float eps) {
+  const int n0 = D0 ? D0 : d0;
+  const float* e0 = es.lab + r * es.lrs;
+  const float* q0 = qs.lab + q * qs.lrs;
+  bool keep = true;
+  if (kVec) {
+#pragma unroll
+    for (int j = 0; j < n0; j += 2) {
+      const float2 a = ld2(q0 + j);
+      if (kGroups) {
+        const float2 b = ld2(e0 + 2 * j), c = ld2(e0 + 2 * j + 2);
+        keep &= within(a.x, b.x, b.y, eps) & within(a.y, c.x, c.y, eps);
+      } else {
+        const float2 b = ld2(e0 + j);
+        keep &= label_match(a.x, b.x, eps) & label_match(a.y, b.y, eps);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < n0; ++j) {
+      const float a = __ldg(q0 + j);
+      keep &= kGroups ? within(a, __ldg(e0 + 2 * j), __ldg(e0 + 2 * j + 1), eps)
+                      : label_match(a, __ldg(e0 + j), eps);
+    }
+  }
+  return keep;
+}
+
+// The dominance test of data row r against query row q over N tables of W columns.
+template <int W, int N, bool kVec>
+__device__ __forceinline__ bool dominance_holds(const Side& es, const Side& qs, int64_t r,
+                                                int64_t q, int w_rt, int n_rt, float eps) {
+  const int w = W ? W : w_rt, n = N ? N : n_rt;
+  bool keep = true;
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const float* e = table_row(es, k, r);
+    const float* qq = table_row(qs, k, q);
+    if (kVec) {
+#pragma unroll
+      for (int c = 0; c < w; c += 2) {
+        const float2 a = ld2(qq + c), b = ld2(e + c);
+        keep &= dominated(a.x, b.x, eps) & dominated(a.y, b.y, eps);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < w; ++c) keep &= dominated(__ldg(qq + c), __ldg(e + c), eps);
+    }
+  }
+  return keep;
+}
+
+// Indexed pairs or groups over n_seg segments -> out (T,).  `desc`: the segments' first
+// pairs (n_seg + 1 words, the last T), then kSegFields words a segment (ops.py).
+// (W, N, D0) nonzero: those widths as constants; 0: w, n, d0 at run time.  A warp's tile
+// is 32 consecutive pairs, one a lane.
+template <int W, int N, int D0, bool kGroups, bool kVec>
+__global__ void __launch_bounds__(kIndexedThreads)
+    dominance_scan_indexed_kernel(const int64_t* __restrict__ desc, int n_seg,
+                                  uint8_t* __restrict__ out, int64_t T, int w, int n, int d0,
+                                  float eps) {
+  __shared__ int64_t s_desc[kSegCap + 1 + kSegCap * kSegFields];
+  const int64_t* starts = desc;
+  const int64_t* fields = desc + n_seg + 1;
+  if (n_seg <= kSegCap) {
+    const int words = n_seg + 1 + n_seg * kSegFields;
+    for (int i = threadIdx.x; i < words; i += kIndexedThreads) s_desc[i] = desc[i];
+    __syncthreads();
+    starts = s_desc;
+    fields = s_desc + n_seg + 1;
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t n_tiles = (T + 31) / 32;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kIndexedWarps;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kIndexedWarps + (threadIdx.x >> 5);
+       tile < n_tiles; tile += warps) {
+    const int64_t t0 = tile * 32;
+    // the lane's pair; one past T reads the last pair, unstored
+    const int64_t t = t0 + lane < T ? t0 + lane : T - 1;
+    const int seg = find_segment(starts, n_seg, t);
+    const int64_t* f = fields + seg * kSegFields;
+    const int64_t local = t - starts[seg];
+    const int64_t r = __ldg(reinterpret_cast<const long long*>(f[0]) + local);
+    const int64_t q = __ldg(reinterpret_cast<const long long*>(f[1]) + local);
+    const Side es = read_side(f + 2), qs = read_side(f + 9);
+    bool keep = labels_hold<D0, kGroups, kVec>(es, qs, r, q, d0, eps);
+    if (!kLabelsFirst || keep) keep &= dominance_holds<W, N, kVec>(es, qs, r, q, w, n, eps);
+    // lane l < 8 stores pairs t0 + 4l .. 4l + 3: bits 4l .. 4l + 3 of the ballot
+    const unsigned nib = __ballot_sync(kAll, keep) >> ((4 * lane) & 31);
+    const uint32_t word = (nib & 1u) | (nib >> 1 & 1u) << 8 | (nib >> 2 & 1u) << 16 |
+                          (nib >> 3 & 1u) << 24;
+    const int64_t p = t0 + 4 * lane;
+    if (lane < 8 && p < T) put<false>(out + p, word, T - p < 4 ? static_cast<int>(T - p) : 4);
+  }
+}
+
+template <int W, int N, int D0, bool kGroups, bool kVec>
+int launch_indexed(const int64_t* desc, int n_seg, uint8_t* out, int64_t T, int w, int n, int d0,
+                   float eps, int device, cudaStream_t stream) {
+  auto kernel = dominance_scan_indexed_kernel<W, N, D0, kGroups, kVec>;
+  static std::atomic<int> fit[kMaxDevices];  // blocks an SM holds
+  int per_sm = fit[device].load(std::memory_order_relaxed);
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kIndexedThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    fit[device].store(per_sm, std::memory_order_relaxed);
+  }
+  int sms = 0;
+  if (const int rc = sm_count(device, &sms)) return rc;
+  const int64_t n_tiles = (T + 31) / 32;
+  const int64_t want = (n_tiles + kIndexedWarps - 1) / kIndexedWarps;
+  const int64_t most = static_cast<int64_t>(per_sm) * sms;
+  const unsigned grid = static_cast<unsigned>(want < most ? want : most);
+  kernel<<<grid, kIndexedThreads, 0, stream>>>(desc, n_seg, out, T, w, n, d0, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGroups>
+int launch_indexed_any(const void* desc, int n_seg, void* out, int64_t T, int w, int n, int d0,
+                       int vec, float eps, int device, void* stream) {
+  if (T <= 0) return 0;
+  if (n_seg < 1 || w < 1 || n < 1 || d0 < 0 || device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t* d = static_cast<const int64_t*>(desc);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == 6 && n == 3 && d0 == 6) {  // the paper's: l = 2, d = 2, two multi-GNNs
+    if (vec) {
+      return launch_indexed<6, 3, 6, kGroups, true>(d, n_seg, o, T, w, n, d0, eps, device,
+                                                          s);
+    }
+    return launch_indexed<6, 3, 6, kGroups, false>(d, n_seg, o, T, w, n, d0, eps, device,
+                                                         s);
+  }
+  return launch_indexed<0, 0, 0, kGroups, false>(d, n_seg, o, T, w, n, d0, eps, device, s);
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// K1, packed pairs: qg, eg (T, D), q0g, e0g (T, D0) -> out (T,).  Each entry launches
+// on `stream` for operands on CUDA device `device` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int dominance_scan_pairs(const void* qg, const void* q0g, const void* eg,
-                                    const void* e0g, void* out, int T, int D, int D0, float eps,
-                                    void* stream) {
-  if (T <= 0) return 0;
-  const int rows = tile_rows(4 * (2 * D + 2 * D0));
-  const int smem = rows * 4 * (2 * D + 2 * D0);
-  cudaError_t err = allow_smem(dominance_scan_pairs_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (static_cast<int64_t>(T) + rows - 1) / rows;
-  dominance_scan_pairs_kernel<<<static_cast<unsigned>(blocks), rows, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qg), static_cast<const float*>(q0g),
-      static_cast<const float*>(eg), static_cast<const float*>(e0g),
-      static_cast<uint8_t*>(out), T, D, D0, eps);
-  return static_cast<int>(cudaGetLastError());
+                                    const void* e0g, void* out, int64_t T, int D, int D0,
+                                    float eps, int device, void* stream) {
+  return launch_packed_any<false>(qg, eg, q0g, e0g, nullptr, out, T, D, D0, eps, device, stream);
+}
+
+// K1, packed groups: qg, hi (T, D), q0g, lo0, hi0 (T, D0) -> out (T,).
+extern "C" int dominance_scan_groups(const void* qg, const void* q0g, const void* hi,
+                                     const void* lo0, const void* hi0, void* out, int64_t T, int D,
+                                     int D0, float eps, int device, void* stream) {
+  return launch_packed_any<true>(qg, hi, q0g, lo0, hi0, out, T, D, D0, eps, device, stream);
+}
+
+// K1, indexed pairs (groups = 0) or groups (1): `desc` on the card holds n_seg segments'
+// first pairs and descriptors (ops.segment_layout); the rows are n tables of w columns and
+// d0 labels; vec = 1 where every base and stride takes 8-byte loads.
+extern "C" int dominance_scan_indexed(const void* desc, int n_seg, void* out, int64_t T, int w,
+                                      int n, int d0, int groups, int vec, float eps, int device,
+                                      void* stream) {
+  if (groups) {
+    return launch_indexed_any<true>(desc, n_seg, out, T, w, n, d0, vec, eps, device, stream);
+  }
+  return launch_indexed_any<false>(desc, n_seg, out, T, w, n, d0, vec, eps, device, stream);
 }
 
 // K3-single: q (D,), q0 (D0,), emb (N, D), emb0 (N, D0) -> out (N,): the batch kernel at

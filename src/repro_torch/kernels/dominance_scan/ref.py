@@ -1,18 +1,26 @@
-"""Plain PyTorch versions of the dominance verdicts: K1-pairs on packed
-pairs, K1's groups form on packed group bounds, K3-single and K3-batch as
-dense scans."""
+"""Plain PyTorch versions of the dominance verdicts: K1 on packed pairs and
+packed group bounds, and on indexed segments (which gather their operands
+and take the packed versions), K3-single and K3-batch as dense scans."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
+    "Segment",
+    "gather_pair_operands",
+    "gather_group_operands",
     "dominance_scan_pairs_ref",
     "dominance_scan_groups_ref",
+    "dominance_scan_pairs_indexed_ref",
+    "dominance_scan_groups_indexed_ref",
     "dominance_scan_ref",
     "dominance_scan_batch_ref",
     "make_pairs",
     "make_groups",
+    "make_segments",
     "make_scan",
 ]
 
@@ -35,6 +43,60 @@ def dominance_scan_groups_ref(qg, q0g, hi, lo0, hi0, eps: float = 1e-6) -> torch
     e = torch.tensor(eps, dtype=torch.float32, device=qg.device)
     dom = (qg <= hi + e).all(dim=1)
     return dom & ((q0g <= hi0 + e) & (q0g >= lo0 - e)).all(dim=1)
+
+
+class Segment(NamedTuple):
+    """One segment of an indexed K1 call: the pairs (``rows[i]``, ``q_ids[i]``)
+    against the tables they index.
+
+    ``data`` and ``query`` each hold N float32 tables of W columns, whose
+    concatenation along the columns is a dominance row (the engine's o(p)
+    then each o'(p), or views of one wider table), then the labels: (R, D0)
+    for pairs and the query side; for the groups verdict the data side's
+    last entry is the (G, D0, 2) [lo0, hi0] bounds.  ``rows``, ``q_ids``:
+    (n,) int64.
+    """
+
+    rows: torch.Tensor
+    q_ids: torch.Tensor
+    data: tuple
+    query: tuple
+
+
+def _gather(side: tuple, ids: torch.Tensor):
+    """A side's gathered dominance rows (n, N·W) and label rows."""
+    return torch.cat([t[ids] for t in side[:-1]], dim=1), side[-1][ids]
+
+
+def gather_pair_operands(seg: Segment) -> tuple:
+    """Row-aligned (qg, q0g, eg, e0g) of a pairs segment."""
+    qg, q0g = _gather(seg.query, seg.q_ids)
+    return (qg, q0g, *_gather(seg.data, seg.rows))
+
+
+def gather_group_operands(seg: Segment) -> tuple:
+    """Row-aligned (qg, q0g, hi, lo0, hi0) of a groups segment."""
+    qg, q0g = _gather(seg.query, seg.q_ids)
+    hi, bounds = _gather(seg.data, seg.rows)
+    return qg, q0g, hi, bounds[:, :, 0], bounds[:, :, 1]
+
+
+def _indexed_ref(segments: list, gather, verdict, eps: float) -> torch.Tensor:
+    if not segments:
+        raise ValueError("an indexed K1 call needs at least one segment")
+    return torch.cat([verdict(*gather(s), eps) for s in segments])
+
+
+def dominance_scan_pairs_indexed_ref(segments: list, eps: float = 1e-6) -> torch.Tensor:
+    """The pairs verdict of every segment's pairs, in order → (Σ n,) bool:
+    each segment gathers its operands and takes ``dominance_scan_pairs_ref``."""
+    return _indexed_ref(segments, gather_pair_operands, dominance_scan_pairs_ref, eps)
+
+
+def dominance_scan_groups_indexed_ref(segments: list, eps: float = 1e-6) -> torch.Tensor:
+    """The groups verdict of every segment's (query, group) pairs, in order:
+    each segment gathers and takes ``dominance_scan_groups_ref``."""
+    return _indexed_ref(segments, gather_group_operands, dominance_scan_groups_ref, eps)
 
 
 def dominance_scan_ref(q, q0, emb, emb0, eps: float = 1e-6) -> torch.Tensor:
@@ -149,3 +211,57 @@ def make_scan(Q: int, N: int, seed: int, D: int = 18, D0: int = 6,
         q0g = np.where(np.isfinite(q0g), q0g, np.float32(0)).astype(np.float32)
         emb0 = q0g[k].copy()
     return qg[:Q], q0g[:Q], emb, emb0
+
+
+def make_segments(T: int, seed: int, W: int = 6, N: int = 3, D0: int = 6, n_seg: int = 3,
+                  groups: bool = False, views: bool = False, device="cpu") -> list:
+    """Seeded indexed K1 operands: ``n_seg`` segments (the second one empty
+    where n_seg ≥ 3) over ``make_pairs``' (``groups``: ``make_groups``')
+    T pairs, so ties at every eps edge, ulps either side, +inf and NaN reach
+    the verdict through the indices.  Each segment has its own tables: its
+    pairs' rows in a shuffled order among as many filler rows, a fifth of
+    its pairs sharing the previous pair's query row.  The dominance columns
+    are N tables of W columns: separate tensors, the main one and an (N−1,
+    R, W) stack as the engine's o(p) and o'(p), or with ``views`` column
+    views of one (R, N·W) table, as the stacked tables and the group bounds
+    are read.  Tensors on ``device``; the gathered operands are the
+    reference's input."""
+    rng = np.random.default_rng(seed)
+    made = (make_groups if groups else make_pairs)(T, seed, D=W * N, D0=D0)
+    qg, q0g, eg = made[0], made[1], made[2]
+    e0 = np.stack(made[3:], axis=-1) if groups else made[3]
+    cuts = np.sort(rng.integers(0, T + 1, max(n_seg - 1, 0)))
+    bounds = np.concatenate([[0], cuts, [T]]).astype(np.int64)
+    if n_seg >= 3:
+        bounds[2] = bounds[1]
+
+    def table(dom, lab, n: int):
+        """(rows of the table holding ``n`` given rows, side tuple)."""
+        R = 2 * n + 1
+        fill = rng.random((R - n, W * N), dtype=np.float32)
+        fill0 = rng.random((R - n,) + lab.shape[1:], dtype=np.float32)
+        order = rng.permutation(R)  # table row order[i] holds source row i
+        dt = np.empty((R, W * N), np.float32)
+        lt = np.empty((R,) + lab.shape[1:], np.float32)
+        dt[order] = np.concatenate([dom, fill])
+        lt[order] = np.concatenate([lab, fill0])
+        dt, lt = torch.from_numpy(dt).to(device), torch.from_numpy(lt).to(device)
+        if views:
+            parts = list(dt.split(W, dim=1))
+        else:
+            parts = [dt[:, :W].contiguous()]
+            if N > 1:
+                stack = dt[:, W:].reshape(R, N - 1, W).permute(1, 0, 2).contiguous()
+                parts += list(stack)
+        return torch.from_numpy(order[:n].astype(np.int64)).to(device), (*parts, lt)
+
+    segs = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        n = int(b - a)
+        rows, data = table(eg[a:b], e0[a:b], n)
+        q_ids, query = table(qg[a:b], q0g[a:b], n)
+        share = np.flatnonzero(rng.random(n) < 0.2)
+        share = share[share > 0]
+        q_ids[share] = q_ids[share - 1]
+        segs.append(Segment(rows, q_ids, data, query))
+    return segs

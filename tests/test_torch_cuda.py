@@ -13,13 +13,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.dominance_scan import ops  # noqa: E402
 from repro_torch.kernels.dominance_scan.ref import (  # noqa: E402
+    Segment,
     dominance_scan_batch_ref,
+    dominance_scan_groups_indexed_ref,
     dominance_scan_groups_ref,
+    dominance_scan_pairs_indexed_ref,
     dominance_scan_pairs_ref,
     dominance_scan_ref,
     make_groups,
     make_pairs,
     make_scan,
+    make_segments,
 )
 from repro_torch.kernels.merge_join import ops as mj  # noqa: E402
 from repro_torch.kernels.merge_join.ref import (  # noqa: E402
@@ -71,8 +75,8 @@ def test_dominance_scan_pairs_other_widths(cuda, D, D0):
 @pytest.mark.parametrize("T", [1, 1000, (1 << 20) + 7])
 @pytest.mark.parametrize("D,D0", [(18, 6), (6, 6)])
 def test_dominance_scan_groups_bit_equal_to_plain_version(cuda, T, D, D0):
-    """K1's groups form (one K1 launch at width D + 2·D0, D0 = 1) against
-    the direct three compares, ties at every eps edge."""
+    """K1's packed groups form (one launch, the bounds read as they are)
+    against the direct three compares, ties at every eps edge."""
     args = [torch.from_numpy(a).to(cuda) for a in make_groups(T, seed=T + D, D=D, D0=D0)]
     before = ops.LAUNCHES
     got = ops.dominance_scan_groups(*args)
@@ -82,11 +86,126 @@ def test_dominance_scan_groups_bit_equal_to_plain_version(cuda, T, D, D0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 4097, 100_003])
+@pytest.mark.parametrize("groups", [False, True])
+def test_k1_packed_offset_bases(cuda, T, groups):
+    """Packed operands 4 bytes past a 16-byte boundary (4-byte copies), T not a
+    multiple of 4."""
+    made = (make_groups if groups else make_pairs)(T, seed=T + groups)
+    args = []
+    for a in made:
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=cuda)
+        buf[1:] = torch.from_numpy(a).reshape(-1).to(cuda)
+        args.append(buf[1:].view(a.shape))
+    fn, plain = ((ops.dominance_scan_groups, dominance_scan_groups_ref) if groups
+                 else (ops.dominance_scan_pairs, dominance_scan_pairs_ref))
+    assert torch.equal(fn(*args), plain(*args))
+
+
+@pytest.mark.cuda
 def test_empty_batch_launches_nothing(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in make_pairs(0, seed=0)]
     before = ops.LAUNCHES
     assert ops.dominance_scan_pairs(*args).shape == (0,)
     assert ops.LAUNCHES == before
+    for groups in (False, True):
+        segs = _on(make_segments(0, seed=0, n_seg=3, groups=groups), cuda)
+        fn = ops.dominance_scan_groups_indexed if groups else ops.dominance_scan_pairs_indexed
+        assert fn(segs).shape == (0,)
+    assert ops.LAUNCHES == before
+
+
+def _on(segs, dev, floats: int = 0) -> list:
+    """``segs`` on ``dev``, every table starting ``floats`` floats into its
+    own allocation."""
+    def place(t):
+        if not floats:
+            return t.to(dev)
+        buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=dev)
+        buf[floats:] = t.reshape(-1).to(dev)
+        return buf[floats:].view(t.shape)
+
+    return [Segment(s.rows.to(dev), s.q_ids.to(dev), tuple(map(place, s.data)),
+                    tuple(map(place, s.query))) for s in segs]
+
+
+def _indexed_equal(segs, groups: bool) -> torch.Tensor:
+    """One K1 launch on ``segs`` against the plain version, bit for bit."""
+    fn = ops.dominance_scan_groups_indexed if groups else ops.dominance_scan_pairs_indexed
+    plain = dominance_scan_groups_indexed_ref if groups else dominance_scan_pairs_indexed_ref
+    before = ops.LAUNCHES
+    got = fn(segs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    want = plain(segs)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1001, 4099, (1 << 20) + 7])
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("groups", [False, True])
+def test_k1_indexed_bit_equal_to_plain_version(cuda, T, views, groups):
+    """Both indexed verdicts at the paper's widths (T not a multiple of 4,
+    an empty segment among five), on separate tables and on column views."""
+    segs = _on(make_segments(T, seed=T + views, n_seg=5, groups=groups, views=views), cuda)
+    assert ops.segment_layout(segs, groups).vec
+    got = _indexed_equal(segs, groups)
+    assert T < 100 or 0 < int(got.sum()) < T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floats,vec", [(1, False), (2, True)])
+@pytest.mark.parametrize("groups", [False, True])
+def test_k1_indexed_offset_bases(cuda, floats, vec, groups):
+    """Tables 4 bytes past an allocation (4-byte loads) and 8 bytes past
+    (8-byte loads, off 16)."""
+    segs = _on(make_segments(100_003, seed=floats, n_seg=7, groups=groups), cuda, floats)
+    assert ops.segment_layout(segs, groups).vec is vec
+    _indexed_equal(segs, groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seg", [131, 300])
+@pytest.mark.parametrize("groups", [False, True])
+def test_k1_indexed_past_the_descriptor_capacity(cuda, n_seg, groups):
+    """More segments than a block keeps in shared memory: the search and the
+    descriptors read from device memory."""
+    segs = _on(make_segments(200_003, seed=n_seg, n_seg=n_seg, groups=groups), cuda)
+    assert ops.segment_layout(segs, groups).n_seg > 128
+    _indexed_equal(segs, groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,D0", [(6, 1, 6), (5, 2, 3), (8, 2, 4), (16, 1, 1), (3, 4, 2)])
+@pytest.mark.parametrize("groups", [False, True])
+def test_k1_indexed_other_widths(cuda, W, N, D0, groups):
+    """Widths read at run time (any other than the paper's 6 x 3, 6)."""
+    segs = make_segments(40_001, seed=W + N, W=W, N=N, D0=D0, n_seg=4, groups=groups,
+                         device=cuda)
+    _indexed_equal(segs, groups)
+
+
+@pytest.mark.cuda
+def test_k1_indexed_offsets_past_two_gigabytes(cuda):
+    """Rows of a 32 M-row table of 72-byte rows, whose byte offsets pass
+    2^31, read through int64 indices; the queries are copies of some of
+    those rows, so those pairs are kept."""
+    R, T, Q = 32_000_000, 65_537, 1000
+    g = torch.Generator(device=cuda).manual_seed(0)
+    emb = torch.rand((R, 18), device=cuda, generator=g)
+    emb0 = torch.floor(torch.rand((R, 6), device=cuda, generator=g) * 4)
+    rows = R - 1 - torch.randint(0, 1_000_000, (T,), device=cuda, generator=g)
+    assert int(rows.min()) * 72 > 2**31
+    q_ids = torch.randint(0, Q, (T,), device=cuda, generator=g)
+    q_ids[:Q] = torch.arange(Q, device=cuda)
+    qc, q0 = emb[rows[:Q]].clone(), emb0[rows[:Q]].clone()
+    seg = Segment(rows, q_ids, (*emb.split(6, dim=1), emb0), (*qc.split(6, dim=1), q0))
+    got = _indexed_equal([seg], False)
+    assert bool(got[:Q].all())
+    del emb, emb0
 
 
 @pytest.mark.cuda
@@ -332,9 +451,9 @@ def test_stacked_probe_on_the_card_equals_the_loop(cuda):
         finally:
             index_mod._pairs_keep_mask = keep_mask
         assert ops.LAUNCHES > before and seen
-        for qg, q0g, eg, e0g, eps in seen:
-            assert torch.equal(ops.dominance_scan_pairs(qg, q0g, eg, e0g, eps),
-                               dominance_scan_pairs_ref(qg, q0g, eg, e0g, eps))
+        for segs, eps in seen:
+            assert torch.equal(ops.dominance_scan_pairs_indexed(segs, eps),
+                               dominance_scan_pairs_indexed_ref(segs, eps))
         # the device join takes the stacked probe's hand-off, in slot order
         loop = eng.match_many(qs, probe_impl="loop", join_impl=join)
         assert [sort_matches(m) for m in got] == [sort_matches(m) for m in loop]
@@ -376,8 +495,9 @@ def test_grouped_engine_and_hand_off_on_the_card(cuda, mode):
         index_mod._groups_keep_mask, index_mod._pairs_keep_mask = saved
     assert ops.LAUNCHES >= before + 2 and {k for k, _ in seen} == {"groups", "pairs"}
     for kind, a in seen:
-        fn, plain = ((ops.dominance_scan_groups, dominance_scan_groups_ref) if kind == "groups"
-                     else (ops.dominance_scan_pairs, dominance_scan_pairs_ref))
+        fn, plain = ((ops.dominance_scan_groups_indexed, dominance_scan_groups_indexed_ref)
+                     if kind == "groups"
+                     else (ops.dominance_scan_pairs_indexed, dominance_scan_pairs_indexed_ref))
         assert torch.equal(fn(*a), plain(*a))
     assert got == cpu.match_many(qs, probe_impl="loop") and sum(map(len, got)) > 0
     for kind, probe, join in itertools.product(("path", "grouped"), ("loop", "stacked"),
@@ -607,7 +727,8 @@ def test_live_updates_on_the_card_equal_the_cpu(cuda):
         assert len(seen) == int(eng.delta.any_rows())
         assert ops.LAUNCHES == before + 1 + len(seen)
         for a in seen:
-            assert torch.equal(ops.dominance_scan_pairs(*a), dominance_scan_pairs_ref(*a))
+            assert torch.equal(ops.dominance_scan_pairs_indexed(*a),
+                               dominance_scan_pairs_indexed_ref(*a))
         assert got == cpu._match_many_core(qs, "path", "loop", "numpy")[0]
         for probe, join in itertools.product(("loop", "stacked"), ("numpy", "device")):
             kw = dict(probe_impl=probe, join_impl=join)
@@ -636,7 +757,7 @@ def test_probe_device_live_mask_on_the_card_equals_the_host_filter(cuda):
     dev_memo, dev_counts = {}, {}
     eng._probe_batch(reqs, q_embs, {}, qs, "stacked", dev_memo=dev_memo, dev_counts=dev_counts)
     unmasked = {}
-    eng._live_mask_cache = (eng.epoch, probe.stacked, None)  # the probe without the mask
+    eng._live_mask_cache[None] = (eng.epoch, probe.stacked, None)  # the probe without the mask
     eng._probe_batch(reqs, q_embs, unmasked, qs, "stacked")
     live_h, dropped = live.cpu(), 0
     for qi, p in dev_memo:

@@ -314,9 +314,9 @@ def test_probe_delta_multi_equals_reference(graph, quantize):
                 np.testing.assert_array_equal(a.numpy(), b)
     assert sum(r.numel() for rows in got for r in rows) > 0
     # the scalar match's plain verdict gives the same rows
-    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_ref
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
 
-    plain = PD.probe_delta_multi(items, verdict=dominance_scan_pairs_ref)
+    plain = PD.probe_delta_multi(items, verdict=dominance_scan_pairs_indexed_ref)
     assert all(torch.equal(a, b) for x, y in zip(plain, got) for a, b in zip(x, y))
     assert ops.LAUNCHES == launches, "the CPU path launches no kernel"
 

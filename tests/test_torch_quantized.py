@@ -168,7 +168,8 @@ def test_batched_probe_rows_equal_reference_and_scalar(quantize, monkeypatch):
     verdict_pairs = []
     keep_mask = PI._pairs_keep_mask
     monkeypatch.setattr(
-        PI, "_pairs_keep_mask", lambda *a: verdict_pairs.append(a[0].shape[0]) or keep_mask(*a)
+        PI, "_pairs_keep_mask",
+        lambda *a: verdict_pairs.append(sum(s.rows.numel() for s in a[0])) or keep_mask(*a),
     )
     parts = [build_both(600 + 150 * s, 6, 2, seed=20 + s, quantize=quantize) for s in range(3)]
     ref_items, items, hashes = [], [], []

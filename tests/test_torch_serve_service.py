@@ -618,7 +618,7 @@ def planted(monkeypatch, request):
         raise exc
 
     def plant():
-        monkeypatch.setattr(index_mod, "dominance_scan_pairs", broken)
+        monkeypatch.setattr(index_mod, "dominance_scan_pairs_indexed", broken)
 
     return exc, plant
 

@@ -26,6 +26,7 @@ from repro_torch.core import stacked as PS  # noqa: E402
 from repro_torch.dist import StackedProbe  # noqa: E402
 from repro_torch.dist import probe as probe_mod  # noqa: E402
 from repro_torch.graphs import Graph  # noqa: E402
+from repro_torch.kernels.dominance_scan.ref import gather_pair_operands  # noqa: E402
 
 SIZES = [900, 20, 1, 0, 300]  # the last partition's labels match no query
 
@@ -179,7 +180,10 @@ def test_stacked_probe_equals_loop_and_reference(n_gnn, quantize, device_stage, 
 
     def record(*a):
         out = keep_mask(*a)
-        seen.append((torch.cat([a[0], a[1]], 1), torch.cat([a[2], a[3]], 1), out))
+        segs = a[0]
+        for seg, keep in zip(segs, torch.split(out, [s.rows.numel() for s in segs])):
+            qg, q0g, eg, e0g = gather_pair_operands(seg)
+            seen.append((torch.cat([qg, q0g], 1), torch.cat([eg, e0g], 1), keep))
         return out
 
     PI._pairs_keep_mask = record

@@ -142,7 +142,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k2_variants: no CUDA device is available", file=sys.stderr)
         return 1
-    from chip_smoke import fmt_readings, k2_bound_ms, k2_profiled_ms, k2_readings, k2_table, time_ms
+    from chip_smoke import fmt_readings, k2_bound_ms, k2_readings, k2_table, profiled_ms, time_ms
     from repro_torch.kernels.merge_join.ref import injectivity_mask_ref
 
     dev = torch.device("cuda")
@@ -181,7 +181,7 @@ def main() -> int:
                 for name in order:
                     readings[name].append(k2_readings(runs[name], table, ops, 30, flush))
             for name, (r1, r2) in readings.items():
-                profiled, listed = k2_profiled_ms(runs[name], ops, flush)
+                profiled, listed = profiled_ms(runs[name], ops, "injectivity_mask", flush)
                 print(f"  {name}: {fmt_readings(r1, bound[0])} | {fmt_readings(r2, bound[0])} | "
                       f"torch.profiler {profiled:.6f} ms ({bound[0] / profiled * 100:.1f} %, "
                       f"{listed} of 20 launches listed)", flush=True)
