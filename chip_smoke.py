@@ -185,7 +185,33 @@ Phases, each printing its seconds:
      (``init_distributed``, its mode printed) while this process
      coordinates ``LocalHost(0)``: lists equal to single-process
      ``match_many``, the worker's candidates equal to this process's
-     ``probe_candidates`` for the same parts.
+     ``probe_candidates`` for the same parts;
+  11. durability (``repro_torch.durability``) on the card: 11a, phase 3's
+     engine and queries (loop probe, host join, the deltas of phases 9 and
+     10 pending) behind a ``MatchServer`` with ``DurabilityConfig(tmp,
+     snapshot_every=4)``: the genesis snapshot (bytes and seconds), 10
+     epochs of ``bench_updates.py``'s churn (4 + 4 edges) with a crash after
+     the 7th epoch's log, ``recover_server`` on the card against a control
+     restored from the genesis snapshot and given the same epochs:
+     fingerprints and lists (order included) equal at epochs 7 and 10, the
+     last epoch's sets equal to VF2's, K1 launching on the recovered batch
+     with deltas pending (the probe's verdict and the delta scan's), each
+     equal to the plain version; the recovery seconds beside the build's
+     plus a replay of the whole stream, the WAL appends' p50 / p95 (fsync)
+     and the WAL's share of bare ``apply_updates`` (printed only); 11b,
+     ``bench_durability.py --full``'s cell (NWS n = 4,000, seed 11, 4
+     partitions): the 5 kill points x {path-loop, grouped-stacked}
+     recovered fingerprint- and list-equal to a control, a torn WAL tail and
+     a bit-flipped newest snapshot recovered, ``recover_server`` with 2
+     subscriptions re-registering each once with the from-scratch set; 11c,
+     ``examples/serve_queries_torch.py --wal`` on that cell in two child
+     processes, one run through, one SIGKILLed after its 4th epoch, whose
+     directory this process recovers on the card and finishes through the
+     example's own loop: its final fingerprint and match digest equal the
+     uninterrupted run's; 11d, ``scrub(sample=8)`` of 11a's recovered engine
+     ok, a narrowed MBR planted on a clone found, and the scrub CLI
+     (``python -m repro_torch.durability.scrub``, started after 11a in a
+     child process) exiting 0 on 11a's directory.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -3845,6 +3871,465 @@ def phase10_cluster(dev, ctx: dict, smi: str) -> dict:
     return out
 
 
+# ---- phase 11 ---------------------------------------------------------------
+
+# the crash sweep's kill points at the JAX package's tests' ``at`` values
+KILL_SWEEP = (("before_log", 3), ("after_log", 5), ("after_apply", 4), ("mid_snapshot", 2),
+              ("after_snapshot", 2))
+SWEEP_CONFIGS = {"path-loop": dict(index_kind="path", probe_impl="loop"),
+                 "grouped-stacked": dict(index_kind="grouped", probe_impl="stacked")}
+
+
+def durability_cell_inputs():
+    """``benchmarks/bench_durability.py --full``'s cell with ``benchmarks/common.py``'s
+    defaults → (graph, queries, engine config, update stream): NWS n = 4,000, k = 4,
+    p = 0.1, 100 labels, seed 11; 4 partitions of 1,000 vertices; l = 2, d = 2,
+    n_multi = 2, monotone; 6 queries of 8 vertices from seed 300; 10 epochs of 4
+    random edges added and 2 removed, from ``default_rng(7)``."""
+    from repro_torch.core import GnnPeConfig, GraphUpdate, TrainConfig
+    from repro_torch.graphs import newman_watts_strogatz, random_connected_query
+
+    g = newman_watts_strogatz(4000, k=4, p=0.1, n_labels=100, seed=11)
+    queries = []
+    for s in range(6):
+        try:
+            queries.append(random_connected_query(g, 8, seed=300 + s))
+        except RuntimeError:
+            continue
+    cfg = GnnPeConfig(path_length=2, emb_dim=2, n_multi=2, n_partitions=4, encoder="monotone",
+                      train=TrainConfig(max_epochs=150))
+    rng = np.random.default_rng(7)
+    stream = []
+    for _ in range(10):
+        e = g.edge_array()
+        stream.append(GraphUpdate(add_edges=rng.integers(0, g.n_vertices, size=(4, 2)),
+                                  remove_edges=e[rng.choice(e.shape[0], size=2, replace=False)]))
+    return g, queries, cfg, stream
+
+
+def recorded_k1_verdicts(fn) -> list:
+    """Every fused leaf verdict of one ``fn()`` call, the probe's and the delta
+    buffers' scan: (where, (segments, eps), keep)."""
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import index as index_mod
+
+    seen = []
+    saved = index_mod._pairs_keep_mask, delta_mod._pairs_keep_mask
+
+    def recording(where, keep_mask):
+        def record(*a):
+            res = keep_mask(*a)
+            seen.append((where, a, res))
+            return res
+        return record
+
+    index_mod._pairs_keep_mask = recording("probe", saved[0])
+    delta_mod._pairs_keep_mask = recording("delta scan", saved[1])
+    try:
+        fn()
+    finally:
+        index_mod._pairs_keep_mask, delta_mod._pairs_keep_mask = saved
+    return seen
+
+
+def time_appends(dur, sink: list) -> None:
+    """Record the seconds of each of ``dur``'s WAL appends (framing, write,
+    flush and fsync) in ``sink``."""
+    append = dur.wal.append
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        append(*a, **kw)
+        sink.append(time.perf_counter() - t)
+
+    dur.wal.append = timed
+
+
+def durable_stream(srv, updates, crash_type) -> str | None:
+    """Apply ``updates`` one tick each through ``srv`` until a simulated crash
+    → the kill point it hit, or None."""
+    for u in updates:
+        srv.submit_update(u)
+        try:
+            srv.apply_update_tick()
+        except crash_type as e:
+            return e.point
+    return None
+
+
+def phase11a_durable_50k(dev, ctx: dict, smi: str, root: Path, out: dict) -> None:
+    """The durable 50K cell: phase 3's engine and queries (loop probe, host
+    join, the deltas of phases 9 and 10 pending) behind a ``MatchServer``
+    with ``DurabilityConfig(snapshot_every=4)``; 10 epochs of
+    ``bench_updates.py``'s churn with a crash after the 7th epoch's log;
+    recovery on the card against a control restored from the genesis
+    snapshot and given the same epochs."""
+    import torch
+
+    from repro_torch.core import apply_graph_update
+    from repro_torch.durability import (
+        CrashPoint,
+        Durability,
+        DurabilityConfig,
+        SimulatedCrash,
+        engine_fingerprint,
+        recover_server,
+    )
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
+    from repro_torch.serve import MatchServeConfig, MatchServer
+
+    eng, queries = ctx["eng"], ctx["queries"]
+    cfg = DurabilityConfig(str(root / "11a"), snapshot_every=4)
+    rng = np.random.default_rng(11)
+    shadow, stream = eng.graph, []
+    for _ in range(10):
+        stream.append(rand_update(rng, shadow))
+        shadow = apply_graph_update(shadow, stream[-1])[0]
+
+    appends: list = []
+    dur = Durability(cfg, crash=CrashPoint("after_log", at=7))
+    time_appends(dur, appends)
+    e0 = eng.epoch
+    t = time.perf_counter()
+    srv = MatchServer(eng, MatchServeConfig(max_batch=16, durability=dur))  # the genesis snapshot
+    genesis_s = time.perf_counter() - t
+    snap = dur.snapshots.last_save
+    npz = dur.snapshots.mgr._path(e0).stat().st_size
+    log(f"  11a genesis snapshot at epoch {e0}: {snap['bytes']} array bytes ({npz} on disk) in "
+        f"{genesis_s:.3f} s (engine read back {snap['state_s']:.3f} s, write and verify "
+        f"{snap['seconds'] - snap['state_s']:.3f} s); card: {smi}")
+    t = time.perf_counter()
+    control = dur.snapshots.load(step=e0, device=dev)[0]
+    sync(dev)
+    log(f"  11a the control restored from the genesis snapshot on the card: "
+        f"{time.perf_counter() - t:.3f} s; card: {smi}")
+    srv.submit_update(stream[0])
+    for q in queries:
+        srv.submit(q)
+    srv.step()  # the first update tick, then the 16-query batch
+    require(len(srv.finished) == len(queries), "11a: the server's first tick left queries queued")
+    served = [srv.finished[r] for r in sorted(srv.finished)]
+    point = durable_stream(srv, stream[1:], SimulatedCrash)
+    require(point == "after_log", f"11a: the stream crashed at {point}, not after the 7th log")
+    require(eng.epoch == e0 + 6, f"11a: the crash left epoch {eng.epoch - e0}, not 6")
+    ticks = list(srv.update_s)
+    del srv, eng
+    ctx.pop("eng")
+    torch.cuda.empty_cache()
+
+    rec_srv, info = recover_server(cfg, MatchServeConfig(max_batch=16), device=dev)
+    rec = rec_srv.engine
+    time_appends(rec_srv.durability, appends)
+    require(info["epoch"] == e0 + 7 and info["snapshot_epoch"] == e0 + 4,
+            f"11a: recovered to epoch {info['epoch'] - e0} from snapshot "
+            f"{info['snapshot_epoch'] - e0}, not 7 from 4")
+    bare = []
+    for u in stream[:7]:
+        t = time.perf_counter()
+        control.apply_updates([u])
+        sync(dev)
+        bare.append(time.perf_counter() - t)
+        if len(bare) == 1:
+            require(control.match_many(queries) == served,
+                    "11a: the server's first batch differs from the control's")
+    require(engine_fingerprint(rec) == engine_fingerprint(control),
+            "11a: the recovered engine's fingerprint differs from the control's")
+    lists = rec.match_many(queries)
+    require(lists == control.match_many(queries),
+            "11a: the recovered engine's lists differ from the control's")
+    pending = rec.delta_stats()
+    require(pending["delta_rows"] > 0, "11a: no delta rows pending after the replay")
+    k1 = counters()["K1"]
+    seen = recorded_k1_verdicts(lambda: rec.match_many(queries))
+    launched = counters()["K1"] - k1
+    t_pairs = {w: verdict_pairs(a) for w, a, _ in seen}
+    require(set(t_pairs) == {"probe", "delta scan"} and min(t_pairs.values()) > 0
+            and launched == len(seen) == 2,
+            f"11a: the recovered batch made {launched} K1 launches for verdicts {t_pairs}")
+    for where, (segs, eps), keep in seen:
+        require(torch.equal(keep, dominance_scan_pairs_indexed_ref(segs, eps)),
+                f"11a: K1 on the recovered batch's {where} differs from the plain version")
+    for u in stream[7:]:
+        rec_srv.submit_update(u)
+        rec_srv.apply_update_tick()
+        t = time.perf_counter()
+        control.apply_updates([u])
+        sync(dev)
+        bare.append(time.perf_counter() - t)
+    require(engine_fingerprint(rec) == engine_fingerprint(control),
+            "11a: the fingerprints differ after the stream's last epoch")
+    lists = rec.match_many(queries)
+    require(lists == control.match_many(queries), "11a: the last epoch's lists differ")
+    n_matches = check_against_vf2(rec.graph, queries, lists, "11a last epoch")
+    require(len(appends) == 10, f"11a: {len(appends)} WAL appends, not 10")
+    epoch_ms = [a * 1e3 for a in appends]
+    build_s = float(rec.offline_stats["total_time"])
+    log(f"  11a recovery on the card: {info['recovery_s']:.3f} s (verified load and restore "
+        f"{info['load_s']:.3f} s, replay of {info['replayed']} epochs {info['replay_s']:.3f} s) "
+        f"against the build's {build_s:.3f} s + the whole stream's 10 epochs "
+        f"{sum(bare):.3f} s = {build_s + sum(bare):.3f} s; card: {smi}")
+    log(f"  11a WAL appends (fsync) of the 10 epoch records: p50 {np.percentile(epoch_ms, 50):.3f} "
+        f"ms, p95 {np.percentile(epoch_ms, 95):.3f} ms; bare apply_updates a churn epoch "
+        f"{fmt([b * 1e3 for b in bare], 1)} ms; the WAL tax over bare apply_updates "
+        f"{sum(appends) / sum(bare):.4%} (printed only); durable ticks "
+        f"before the crash {fmt([x * 1e3 for x in ticks], 1)} ms; card: {smi}")
+    log(f"  11a recovered == control (fingerprint and lists) at epochs 7 and 10; the last "
+        f"epoch's {n_matches} matches equal VF2's; K1 on the recovered batch with "
+        f"{pending['delta_rows']} delta rows and {pending['tombstones']} tombstones pending: "
+        f"{launched} launches (T: {t_pairs}), each equal to the plain version; card: {smi}")
+    out["rec_srv"] = rec_srv
+
+
+def phase11b_sweep(dev, smi: str, root: Path, cell) -> None:
+    """``bench_durability.py --full``'s cell: each kill point x {path-loop,
+    grouped-stacked} recovered fingerprint-equal to its control; a torn tail
+    and a bit-flipped newest snapshot recovered; ``recover_server`` with two
+    subscriptions re-registering each once."""
+    from repro_torch.core import GnnPeEngine
+    from repro_torch.durability import (
+        CrashPoint,
+        Durability,
+        DurabilityConfig,
+        SimulatedCrash,
+        engine_fingerprint,
+        engine_state,
+        flip_byte,
+        recover_engine,
+        recover_server,
+        restore_engine,
+        truncate_tail,
+    )
+    from repro_torch.durability.snapshot import _META_KEY
+    from repro_torch.serve import MatchServeConfig, MatchServer
+
+    g, queries, cfg, stream = cell
+    stream = stream[:7]
+    for name, kw in SWEEP_CONFIGS.items():
+        eng = GnnPeEngine(dataclasses.replace(cfg, **kw)).build(g)
+        meta, arrays = engine_state(eng)
+        full = {**arrays, _META_KEY: np.asarray(json.dumps(meta))}
+        del eng
+
+        def fresh():
+            return restore_engine(full, device=dev)[0]
+
+        ctrl, controls = fresh(), {}
+        for k, u in enumerate(stream, start=1):  # the control's state at every epoch
+            ctrl.apply_updates([u])
+            controls[k] = (engine_fingerprint(ctrl), ctrl.match_many(queries))
+        del ctrl
+        ok = []
+        for point, at in KILL_SWEEP:
+            d = root / f"11b-{name}-{point}"
+            dur = Durability(DurabilityConfig(str(d), snapshot_every=3),
+                             crash=CrashPoint(point, at=at))
+            hit = durable_stream(MatchServer(fresh(), MatchServeConfig(durability=dur)), stream,
+                                 SimulatedCrash)
+            require(hit == point, f"11b {name}: the crash hit {hit}, not {point}")
+            rec, info = recover_engine(DurabilityConfig(str(d), snapshot_every=3), device=dev)
+            fp, lists = controls[info["epoch"]]
+            require(engine_fingerprint(rec) == fp and rec.match_many(queries) == lists,
+                    f"11b {name}/{point}@{at}: the recovered engine differs from its control")
+            ok.append(f"{point}@{at} -> epoch {info['epoch']} (snapshot {info['snapshot_epoch']}, "
+                      f"{info['replayed']} replayed, {info['recovery_s']:.3f} s)")
+        log(f"  11b {name}: 5 of 5 kill points fingerprint-equal to the control: "
+            + "; ".join(ok) + f"; card: {smi}")
+        if name != "path-loop":
+            continue
+        d = root / "11b-torn"
+        dur = Durability(DurabilityConfig(str(d), snapshot_every=0),
+                         crash=CrashPoint("after_log", at=4))
+        durable_stream(MatchServer(fresh(), MatchServeConfig(durability=dur)), stream,
+                       SimulatedCrash)
+        truncate_tail(sorted((d / "wal").glob("seg_*.wal"))[-1], 7)
+        rec, info = recover_engine(DurabilityConfig(str(d)), device=dev)
+        require(info["epoch"] == 3 and info["truncated_bytes"] > 0
+                and engine_fingerprint(rec) == controls[3][0],
+                "11b: the torn tail did not recover to epoch 3's state")
+        # the newest snapshot (epoch 4) committed, the crash before its prune: the
+        # WAL still holds epochs 3 and 4, which the fallback to snapshot 2 replays
+        d = root / "11b-flip"
+        dur = Durability(DurabilityConfig(str(d), snapshot_every=2),
+                         crash=CrashPoint("after_snapshot", at=3))  # genesis, 2, then 4
+        hit = durable_stream(MatchServer(fresh(), MatchServeConfig(durability=dur)), stream,
+                             SimulatedCrash)
+        require(hit == "after_snapshot", f"11b: the flip case crashed at {hit}")
+        flip_byte(dur.snapshots.mgr._path(4), offset=-50)
+        rec, info = recover_engine(DurabilityConfig(str(d), snapshot_every=2), device=dev)
+        require(info["snapshot_epoch"] == 2 and info["epoch"] == 4
+                and engine_fingerprint(rec) == controls[4][0],
+                "11b: the bit-flipped newest snapshot did not fall back to epoch 2")
+        log(f"  11b torn tail: recovered to epoch 3 (7 bytes cut); bit-flipped snapshot 4: "
+            f"fell back to snapshot 2 and replayed {info['replayed']} epochs; both equal the "
+            f"control; card: {smi}")
+        d = root / "11b-subs"
+        dur = Durability(DurabilityConfig(str(d), snapshot_every=3),
+                         crash=CrashPoint("after_apply", at=5))
+        srv = MatchServer(fresh(), MatchServeConfig(durability=dur))
+        subs = [q for q, m in zip(queries, controls[7][1]) if m][:2] or queries[:2]
+        sids = [srv.subscribe(q) for q in subs]
+        durable_stream(srv, stream, SimulatedCrash)
+        rec_srv, info = recover_server(DurabilityConfig(str(d), snapshot_every=3), device=dev)
+        require(sorted(info["subscriptions"]) == sorted(sids), "11b: subscriptions lost")
+        want = rec_srv.engine.match_many(subs)
+        for sid, m in zip(sids, want):
+            require(len(rec_srv.match_deltas[sid]) == 1
+                    and rec_srv.standing_matches(sid) == sorted(set(m)),
+                    f"11b: subscription {sid} was not re-registered once with the "
+                    f"from-scratch set")
+        log(f"  11b recover_server: {len(sids)} subscriptions re-registered once each at epoch "
+            f"{info['epoch']}, sets of {[len(m) for m in want]} matches equal to "
+            f"match_many's; card: {smi}")
+
+
+def child_env() -> dict:
+    """This process's environment with the repository's ``src`` first on the
+    child's module path."""
+    import os
+
+    path = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src") + (os.pathsep + path if path else "")}
+
+
+def wal_child(args: list, err: Path, kill_epoch: int | None = None):
+    """``examples/serve_queries_torch.py --wal`` in a child process, its
+    standard error to ``err``; with ``kill_epoch`` a thread SIGKILLs it once
+    that epoch's line is out → (process, thread, lines)."""
+    import signal
+    import threading
+
+    with open(err, "w") as fe:
+        p = subprocess.Popen([sys.executable, str(ROOT / "examples" / "serve_queries_torch.py"),
+                              *args], stdout=subprocess.PIPE, stderr=fe, text=True,
+                             env=child_env())
+    lines: list = []
+
+    def watch():
+        for line in p.stdout:
+            lines.append(line.rstrip())
+            if kill_epoch is not None and line.startswith(f"[wal] epoch {kill_epoch}/"):
+                p.send_signal(signal.SIGKILL)
+                break
+
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    return p, th, lines
+
+
+WAL_ARGS = ["--n", "4000", "--labels", "100", "--graph-seed", "11", "--index-kind", "path",
+            "--wal-updates", "8", "--snapshot-every", "3"]
+WAL_KILL_EPOCH = 4
+
+
+def phase11c_sigkill(dev, smi: str, root: Path, children: dict) -> None:
+    """The victim was SIGKILLed after epoch 3's line; this process recovers
+    its directory on the card and finishes the stream through the example's
+    own loop; the final line must equal the control child's."""
+    import importlib.util
+    import signal
+    import types
+
+    from repro_torch.graphs import newman_watts_strogatz
+
+    results = {}
+    for tag in ("control", "victim"):
+        p, th, lines = children[tag]
+        rc = p.wait(timeout=300)
+        th.join(timeout=30)
+        err = (root / f"11c-{tag}.err").read_text()
+        if tag == "control":
+            require(rc == 0, f"11c: the control child failed ({rc}): {err[-2000:]}")
+        else:
+            require(rc == -signal.SIGKILL,
+                    f"11c: the victim ended with {rc} before its kill: {err[-2000:]}")
+        results[tag] = lines
+    m = [ln for ln in results["control"] if ln.startswith("[wal] final")]
+    require(len(m) == 1, "11c: the control child printed no final line")
+    want = m[0]
+    spec = importlib.util.spec_from_file_location("serve_queries_torch",
+                                                  ROOT / "examples" / "serve_queries_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    g = newman_watts_strogatz(4000, k=4, p=0.1, n_labels=100, seed=11)
+    args = types.SimpleNamespace(wal=str(root / "11c-victim"), snapshot_every=3, wal_updates=8,
+                                 batch=6, device=str(dev))
+    t = time.perf_counter()
+    final = ex._run_wal(None, g, args)
+    got = f"[wal] final epoch={final[0]} fingerprint={final[1]} match_digest={final[2]}"
+    require(got == want, f"11c: after SIGKILL and recovery {got!r}, never killed {want!r}")
+    log(f"  11c SIGKILL after epoch {WAL_KILL_EPOCH} of 8 (the victim's last lines: "
+        f"{results['victim'][-2:]}); recovered here and finished in "
+        f"{time.perf_counter() - t:.3f} s: {got} == the uninterrupted child's; card: {smi}")
+
+
+def phase11d_scrub(dev, smi: str, root: Path, rec_srv, cli) -> None:
+    """``scrub(sample=8)`` on 11a's recovered engine; a narrowed MBR planted
+    on a clone; the CLI on 11a's directory."""
+    from repro_torch.durability import engine_state, restore_engine, scrub_engine
+    from repro_torch.durability.snapshot import _META_KEY
+
+    rep = rec_srv.scrub(sample=8)
+    require(rep["ok"], f"11d: scrub of the recovered engine: {rep['violations'][:4]}")
+    meta, arrays = engine_state(rec_srv.engine)
+    t = time.perf_counter()
+    clone = restore_engine({**arrays, _META_KEY: np.asarray(json.dumps(meta))}, device=dev)[0]
+    restore_s = time.perf_counter() - t
+    del arrays
+    mi = rep["partitions_checked"][0]
+    clone.models[mi].index.levels[0]["mbr"][0, 0, 1] -= 10  # a narrowed MBR
+    bad = scrub_engine(clone, sample=8)
+    require(any(v["partition"] == mi and v["check"] == "mbr" for v in bad["violations"]),
+            "11d: the planted narrowed MBR was not found")
+    out = cli.communicate(timeout=300)[0]
+    require(cli.returncode == 0, f"11d: the scrub CLI exited {cli.returncode}: "
+            f"{(root / '11d-cli.err').read_text()[-2000:]}")
+    report = json.loads(out)
+    require(report["ok"] and len(report["partitions_checked"]) == min(8, len(clone.models)),
+            "11d: the scrub CLI's report is not clean")
+    log(f"  11d scrub(sample=8) of the recovered engine ok in {rep['scrub_s']:.3f} s "
+        f"(partitions {rep['partitions_checked']}); the planted MBR found on a clone "
+        f"(restored on the card in {restore_s:.3f} s); the CLI on 11a's directory: rc 0, "
+        f"recovered epoch {report['recovered_epoch']}, scrub {report['scrub_s']:.3f} s; "
+        f"card: {smi}")
+
+
+def phase11_durability(dev, ctx: dict, smi: str) -> dict:
+    """Phase 11 (the module doc): durability on the card."""
+    import tempfile
+
+    import torch
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        reset_counters()
+        timed_step("11a the durable 50K cell", phase11a_durable_50k, dev, ctx, smi, root, out)
+        # the children run beside 11b: the scrub CLI over 11a's directory, the
+        # uninterrupted run of the example and its victim
+        with open(root / "11d-cli.err", "w") as fe:
+            cli = subprocess.Popen([sys.executable, "-m", "repro_torch.durability.scrub", "--dir",
+                                    str(root / "11a"), "--sample", "8"], env=child_env(),
+                                   stdout=subprocess.PIPE, stderr=fe, text=True)
+        children = {
+            tag: wal_child(WAL_ARGS + ["--wal", str(root / f"11c-{tag}")], root / f"11c-{tag}.err",
+                           kill_epoch=WAL_KILL_EPOCH if tag == "victim" else None)
+            for tag in ("control", "victim")
+        }
+        try:
+            timed_step("11b the crash sweep", phase11b_sweep, dev, smi, root,
+                       durability_cell_inputs())
+            timed_step("11c a real SIGKILL", phase11c_sigkill, dev, smi, root, children)
+            timed_step("11d scrub", phase11d_scrub, dev, smi, root, out.pop("rec_srv"), cli)
+        finally:
+            for p in [cli] + [c[0] for c in children.values()]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["K1"] = counters()["K1"]
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3932,6 +4417,11 @@ def main() -> int:
     log(f"phase 10 the cluster tier (50K cell through ClusterEngine, sharded cache, blue-green, "
         f"ClusterRouter, two processes): {time.perf_counter() - t:.3f} s; card: {smi}")
 
+    t = time.perf_counter()
+    p11 = phase11_durability(dev, p3["ctx"], smi)
+    log(f"phase 11 durability (the durable 50K cell, the crash sweep, a real SIGKILL, scrub): "
+        f"{time.perf_counter() - t:.3f} s; card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3958,12 +4448,14 @@ def main() -> int:
         # its hand-off, phase 3q's and phase 3g's batches, phase 8a's (main probe and
         # delta-buffer scan), phase 9's (traced batches, server ticks, subscription
         # ticks, service ticks) and phase 10's (single-process and cluster batches,
-        # host probes, router ticks; the worker process's own are not counted), each
+        # host probes, router ticks; the worker process's own are not counted) and
+        # phase 11's (the durable server's ticks, the recovered engines' batches, the
+        # crash sweep's checks; its child processes' own are not counted), each
         # counted from 0 just before it; its times on phase 3's real call as it ran,
         # the indexed pairs form (the other forms' are in the log)
         record("dominance_scan_pairs_indexed", "K1", scan_cu, f"{scan_py}:98",
                p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
-               + p9["K1"] + p10["K1"],
+               + p9["K1"] + p10["K1"] + p11["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
         # hand-off), phase 3q's, phase 3g's, phase 8a's, phase 9a's and phase

@@ -27,9 +27,17 @@ reached one terminal state.
 
 The engine runs on the card (``--device cuda``, the default) and exits
 with an error where there is none; ``--device cpu`` runs the same stream
-on the CPU with the kernels' plain versions.  The WAL flags of
-``examples/serve_queries.py`` wait for the port's durability (ROADMAP
-item 16).
+on the CPU with the kernels' plain versions.
+
+``--wal DIR`` runs the durable tick loop (``repro_torch.durability``): the
+server journals every update epoch to a checksummed, fsync'd WAL under DIR
+and snapshots every ``--snapshot-every`` epochs.  The update stream is
+computed in advance from a shadow graph, so a run over the same DIR
+resumes: recovery restores the newest valid snapshot on the device,
+replays the WAL suffix, and the driver skips the epochs already applied.
+The run ends with the engine fingerprint and a match digest over a fixed
+query set: a run killed with SIGKILL and started again prints the same
+``[wal] final ...`` line as one that never crashed.
 
     PYTHONPATH=src python examples/serve_queries_torch.py [--n 4000] [--requests 60]
     PYTHONPATH=src python examples/serve_queries_torch.py --update-every 5 --cache
@@ -37,14 +45,17 @@ item 16).
     PYTHONPATH=src python examples/serve_queries_torch.py --service --subscribe \
         --update-every 3 --fault-rate 0.15 --metrics
     PYTHONPATH=src python examples/serve_queries_torch.py --device cpu --n 1500 --requests 20
+    PYTHONPATH=src python examples/serve_queries_torch.py --wal /tmp/dur --wal-updates 10
 """
 import argparse
 import asyncio
+import hashlib
+import json
 import time
 
 import numpy as np
 
-from repro_torch.core import GnnPeConfig, GnnPeEngine, GraphUpdate, vf2_match
+from repro_torch.core import GnnPeConfig, GnnPeEngine, GraphUpdate, apply_graph_update, vf2_match
 from repro_torch.graphs import newman_watts_strogatz, random_connected_query
 from repro_torch.obs import parse_prometheus, to_prometheus, write_json_snapshot
 from repro_torch.serve import (
@@ -212,12 +223,85 @@ async def _run_service(engine, args, rng):
         _metrics_report(len(resps), service=True, json_path=args.metrics_json)
 
 
+def _run_wal(engine, g, args):
+    """The durable tick loop: journal every epoch, snapshot on the cadence,
+    and end with a state digest a restarted replica must reproduce →
+    ``(epoch, fingerprint, match digest)``.  ``engine`` serves only a fresh
+    directory; a directory with a snapshot is recovered."""
+    from repro_torch.durability import (
+        DurabilityConfig,
+        RecoveryError,
+        engine_fingerprint,
+        recover_server,
+    )
+
+    dcfg = DurabilityConfig(args.wal, snapshot_every=args.snapshot_every)
+    try:
+        server, info = recover_server(dcfg, MatchServeConfig(max_batch=args.batch),
+                                      device=args.device)
+        engine = server.engine
+        print(
+            f"[wal] recovered: snapshot epoch {info['snapshot_epoch']} + "
+            f"{info['replayed']} replayed WAL epochs → epoch {info['epoch']} "
+            f"({info['truncated_bytes']} torn-tail bytes dropped, "
+            f"{info['recovery_s']*1e3:.0f}ms)"
+        )
+    except RecoveryError:
+        # a fresh directory: the seeded build is deterministic, so a crash
+        # before the genesis snapshot just builds the identical engine again
+        server = MatchServer(engine, MatchServeConfig(max_batch=args.batch, durability=dcfg))
+        print("[wal] fresh directory: genesis snapshot at epoch 0")
+
+    # the update stream is a pure function of the args: a shadow graph makes
+    # update k well defined however many epochs the recovered engine applied
+    shadow = g
+    updates = []
+    rng_u = np.random.default_rng(12345)
+    for _ in range(args.wal_updates):
+        e = shadow.edge_array()
+        u = GraphUpdate(
+            add_edges=rng_u.integers(0, shadow.n_vertices, size=(2, 2)),
+            remove_edges=e[rng_u.choice(e.shape[0], size=2, replace=False)],
+        )
+        updates.append(u)
+        shadow, _ = apply_graph_update(shadow, u)
+
+    start = int(engine.epoch)
+    assert start <= len(updates), f"the directory is ahead of the stream ({start} epochs)"
+    for k in range(start, len(updates)):
+        try:
+            server.submit(random_connected_query(g, 5, seed=3000 + k))
+            server.step()
+        except RuntimeError:
+            pass
+        server.submit_update(updates[k])
+        server.apply_update_tick()
+        print(f"[wal] epoch {k + 1}/{len(updates)}", flush=True)
+    server.run_until_drained()
+
+    probes = []
+    for i in range(6):
+        try:
+            probes.append(random_connected_query(g, 5 + i % 2, seed=4000 + i))
+        except RuntimeError:
+            continue
+    matches = engine.match_many(probes)
+    digest = hashlib.blake2b(
+        json.dumps([sorted(m) for m in matches]).encode(), digest_size=8
+    ).hexdigest()
+    final = (int(engine.epoch), engine_fingerprint(engine), digest)
+    print(f"[wal] final epoch={final[0]} fingerprint={final[1]} match_digest={final[2]}")
+    return final
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=4000)
     ap.add_argument("--requests", type=int, default=60)
     ap.add_argument("--batch", type=int, default=6)
     ap.add_argument("--verify-every", type=int, default=10)
+    ap.add_argument("--labels", type=int, default=50, help="vertex labels of the graph")
+    ap.add_argument("--graph-seed", type=int, default=0, help="seed of the graph")
     ap.add_argument(
         "--index-kind", choices=["path", "grouped"], default="grouped",
         help="probe layer: per-path leaf scan, or the GNN-PGE two-level group probe",
@@ -279,12 +363,25 @@ def main():
         "to this path",
     )
     ap.add_argument(
+        "--wal", default=None, metavar="DIR",
+        help="durable tick loop: WAL + snapshots under DIR; a run over the same "
+        "DIR recovers and resumes the deterministic update stream",
+    )
+    ap.add_argument(
+        "--wal-updates", type=int, default=10,
+        help="with --wal: length of the deterministic update stream",
+    )
+    ap.add_argument(
+        "--snapshot-every", type=int, default=4,
+        help="with --wal: epochs between snapshots",
+    )
+    ap.add_argument(
         "--device", default="cuda",
         help="where the engine runs: the card (default) or 'cpu'",
     )
     args = ap.parse_args()
 
-    g = newman_watts_strogatz(args.n, k=4, p=0.1, n_labels=50, seed=0)
+    g = newman_watts_strogatz(args.n, k=4, p=0.1, n_labels=args.labels, seed=args.graph_seed)
     print(f"[offline] building index over |V|={g.n_vertices} |E|={g.n_edges} "
           f"on {args.device} ...")
     t0 = time.perf_counter()
@@ -312,6 +409,9 @@ def main():
           f"{engine.offline_stats['index_bytes']/1e6:.1f} MB index)")
 
     rng = np.random.default_rng(0)
+    if args.wal:
+        _run_wal(engine, g, args)
+        return
     if args.service:
         asyncio.run(_run_service(engine, args, rng))
         return

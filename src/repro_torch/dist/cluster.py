@@ -74,8 +74,6 @@ __all__ = [
     "init_distributed",
 ]
 
-_DURABILITY = "is not ported yet: ROADMAP queue 1 item 16 (durability)"
-
 
 class HostLostError(RuntimeError):
     """A host failed (or timed out) mid-gather; the coordinator re-probes
@@ -327,8 +325,11 @@ class ClusterEngine:
     coordinator keeps the full engine: it plans, embeds the queries,
     assembles the gathered candidates and joins; the hosts do the
     parts-scoped probes.  ``cache_capacity > 0`` adds the
-    partition-owner-sharded result cache.  ``durability`` is not ported
-    yet (ROADMAP queue 1 item 16) and raises.
+    partition-owner-sharded result cache.  ``durability`` (a
+    ``DurabilityConfig`` or a live ``Durability``) makes the coordinator,
+    which owns the engine, journal the update stream as a ``MatchServer``
+    does: a genesis snapshot on a fresh directory, each epoch logged before
+    ``apply_updates`` applies it, snapshots on the cadence.
     """
 
     def __init__(
@@ -340,8 +341,6 @@ class ClusterEngine:
         weights: tuple = DEFAULT_WEIGHTS,
         durability=None,
     ):
-        if durability is not None:
-            raise NotImplementedError(f"ClusterEngine(durability=...) {_DURABILITY}")
         if hosts is None:
             hosts = [LocalHost(h, engine) for h in range(max(int(n_hosts or 1), 1))]
         if not hosts:
@@ -350,6 +349,11 @@ class ClusterEngine:
         self.hosts = list(hosts)
         self.weights = weights
         self.placement = None
+        self.durability = None
+        if durability is not None:
+            from ..durability.manager import arm
+
+            self.durability = arm(durability, engine)
         self.cache = ShardedResultCache(len(self.hosts), cache_capacity) if cache_capacity else None
         self.stats = {"host_losses": 0, "scatter_rounds": 0, "requests_scattered": 0}
         self.rebalance()
@@ -596,8 +600,20 @@ class ClusterEngine:
         """Updates land on the engine; invalidation goes through the sharded
         cache, so evictions stay on the mutated partitions' owner shards.
         (In process mode every process applies the same update stream, so
-        deterministic replicas stay identical.)"""
+        deterministic replicas stay identical.)  With ``durability`` the
+        epoch is logged before it is applied."""
+        if self.durability is not None:
+            if not isinstance(updates, (list, tuple)):
+                updates = [updates]
+            self.durability.log_epoch(
+                self.engine.epoch + 1,
+                list(updates),
+                kw.get("strategy", "delta"),
+                kw.get("compaction", "inline"),
+            )
         summary = self.engine.apply_updates(updates, **kw)
+        if self.durability is not None:
+            self.durability.after_apply(self.engine)
         if self.cache is not None:
             last = self.engine.epoch_fresh() or {}
             if last.get("strategy") == "rebuild":

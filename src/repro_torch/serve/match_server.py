@@ -35,9 +35,14 @@ followed by a subscription tick (``registry.on_epoch()``) on the same
 thread, so a subscriber's accumulated deltas always equal a from-scratch
 match at the epoch the tick installed.
 
-Not ported yet (ROADMAP queue 1, item 16): the write-ahead log and
-snapshots (``MatchServeConfig.durability``) and ``scrub``; both raise
-``NotImplementedError``.
+Durability (``durability/``): ``MatchServeConfig.durability`` (a
+``DurabilityConfig``, or a live ``Durability`` handed over by recovery)
+writes a genesis snapshot on a fresh directory, journals every update
+tick's epoch to the write-ahead log before applying it, snapshots on its
+cadence, and journals ``subscribe`` / ``unsubscribe`` (``resubscribe``,
+recovery's re-registration, is not journaled again);
+``durability.recover_server`` rebuilds an identical server after a crash.
+``scrub`` audits the live engine's index and delta invariants.
 """
 from __future__ import annotations
 
@@ -51,8 +56,6 @@ from ..obs.metrics import REGISTRY as _OBS
 from .errors import QueueFull
 
 __all__ = ["MatchServeConfig", "MatchServer"]
-
-_DURABILITY = "is not ported yet: ROADMAP queue 1 item 16 (durability)"
 
 # server-tier registry metrics: the cumulative complement to the bounded
 # tick_stats ring (the ring keeps recent detail; these keep full history)
@@ -117,8 +120,9 @@ class MatchServeConfig:
     # bound on the in-memory per-tick stat rings (tick_stats, update_s,
     # update_summaries); the registry histograms keep the full history
     stats_maxlen: int = 1024
-    # the JAX package's crash-safe WAL + snapshots: not ported yet, and
-    # anything but None raises
+    # crash-safe durability (durability/): a ``DurabilityConfig`` (or a live
+    # ``Durability``, e.g. from recovery) arms the update-stream WAL and
+    # periodic snapshots; None = in memory only
     durability: object | None = None
 
 
@@ -138,8 +142,6 @@ class MatchServer:
             raise ValueError(
                 f"unknown compaction mode {cfg.compaction!r}; use 'inline' or 'defer'"
             )
-        if cfg.durability is not None:
-            raise NotImplementedError(f"MatchServeConfig.durability {_DURABILITY}")
         self.engine = engine
         self.cfg = cfg
         self.queue: list[_Request] = []
@@ -160,6 +162,11 @@ class MatchServer:
         # wake-on-submit: a driving loop parks on wait_for_work() instead of
         # spinning step() against two empty queues
         self._wake = threading.Event()
+        self.durability = None
+        if cfg.durability is not None:
+            from ..durability.manager import arm
+
+            self.durability = arm(cfg.durability, engine)
 
     # ------------------------------------------------------------- API ----
     def submit(self, query) -> int:
@@ -215,22 +222,33 @@ class MatchServer:
         each non-empty one."""
         sub_id, initial = self._registry().register(query, callback=callback, tenant=tenant)
         self.match_deltas[sub_id] = [initial]
+        if self.durability is not None:
+            self.durability.log_subscribe(sub_id, query, tenant)
         return sub_id
 
     def resubscribe(self, sub_id: int, query, callback=None, tenant: str = "") -> None:
-        """Re-register a subscription under its original id (full refresh:
-        the initial delta is the complete current match set)."""
+        """Re-register a subscription under its original id (recovery's
+        ``durability.recover_server``): one full refresh, the initial delta
+        the complete current match set, and not journaled again, as the
+        subscription is already durable."""
         sid, initial = self._registry().register(
             query, callback=callback, tenant=tenant, sub_id=sub_id
         )
         self.match_deltas[sid] = [initial]
 
     def unsubscribe(self, sub_id: int) -> bool:
-        return self.registry is not None and self.registry.unregister(sub_id)
+        ok = self.registry is not None and self.registry.unregister(sub_id)
+        if ok and self.durability is not None:
+            self.durability.log_unsubscribe(sub_id)
+        return ok
 
     def scrub(self, sample: int | None = None, seed: int = 0) -> dict:
-        """The JAX package's index and delta audit (its ``durability/scrub.py``)."""
-        raise NotImplementedError(f"MatchServer.scrub {_DURABILITY}")
+        """Admin call: audit the live engine's index and delta invariants
+        (``durability/scrub.py``).  Run it between ticks: it reads the state
+        the tick loop mutates."""
+        from ..durability.scrub import scrub_engine
+
+        return scrub_engine(self.engine, sample=sample, seed=seed)
 
     def standing_matches(self, sub_id: int) -> list:
         """The subscription's accumulated current match set (canonical order)."""
@@ -266,8 +284,16 @@ class MatchServer:
         if self.cfg.coalesce_hot and self.update_queue:
             self._pull_hot_updates(batch_u)
         t_u = time.perf_counter()
+        if self.durability is not None:
+            # log-before-apply: the epoch is durable before any state
+            # mutates, so a crash in the gap replays it on restart
+            self.durability.log_epoch(
+                self.engine.epoch + 1, batch_u, "delta", self.cfg.compaction
+            )
         summary = self.engine.apply_updates(batch_u, compaction=self.cfg.compaction)
         self.update_summaries.append(summary)
+        if self.durability is not None:
+            self.durability.after_apply(self.engine)
         self._standing_tick()
         wall_u = time.perf_counter() - t_u
         self.update_s.append(wall_u)

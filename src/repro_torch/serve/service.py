@@ -168,9 +168,9 @@ class ServiceConfig:
     # per-request trace sampling rate applied to the process tracer
     # (repro_torch.obs.trace.TRACER) at construction; None leaves it untouched
     trace_rate: float | None = None
-    # the JAX package's crash-safe WAL + snapshots, forwarded to the inner
-    # MatchServer: not ported yet (ROADMAP item 16), and anything but None
-    # raises NotImplementedError there
+    # crash-safe durability (durability/): a ``DurabilityConfig`` or a live
+    # ``Durability``, forwarded to the inner MatchServer, which journals
+    # every update tick before applying it
     durability: object | None = None
 
 

@@ -508,16 +508,26 @@ def test_cluster_router_serves_through_cluster(graph):
     rt.close()
 
 
-def test_init_distributed_local_mode_and_durability_raises(graph):
-    """One process is local mode, with no group; ``durability=`` names
-    ROADMAP item 16."""
+def test_init_distributed_local_mode_and_durability_raises(graph, tmp_path):
+    """One process is local mode, with no group; ``durability=`` makes the
+    coordinator snapshot its engine and log each epoch before it applies
+    it (a crash after the log leaves the epoch logged, not applied)."""
+    from repro_torch.durability import CrashPoint, Durability, DurabilityConfig, SimulatedCrash
+
     assert init_distributed(num_processes=1) == {"mode": "local", "num_processes": 1,
                                                  "process_id": 0}
     assert init_distributed(num_processes=2, process_id=1)["mode"] == "local"  # no address
     assert not torch.distributed.is_initialized()
     eng = port_engine(graph)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ClusterEngine(eng, n_hosts=2, durability="somewhere")
+    dur = Durability(DurabilityConfig(str(tmp_path), snapshot_every=0),
+                     crash=CrashPoint("after_log", at=2))
+    cl = ClusterEngine(eng, n_hosts=2, durability=dur)
+    assert cl.durability is dur and dur.snapshots.latest_epoch() == 0
+    rng = np.random.default_rng(4)
+    cl.apply_updates(rand_update(rng, graph)[1])
+    with pytest.raises(SimulatedCrash):
+        cl.apply_updates([rand_update(rng, graph)[1]])
+    assert [r.epoch for r in dur.wal.records()] == [1, 2] and eng.epoch == 1
 
 
 # ------------------------------------------------------ two processes ----

@@ -3,7 +3,8 @@ imports ``repro_torch``, builds and matches on the CPU through both joins,
 also with the int8 sidecar, dr plans and the stacked probe, with a grouped
 index (auto group sizes) and the stacked probe's hand-off to the device
 join, under live updates with compaction and the result cache, through a
-2-host ``ClusterEngine`` and through the scalar match, runs the dense scan, the DCN-v2 serve and retrieval steps and the
+2-host ``ClusterEngine`` and through the scalar match, takes a snapshot,
+replays a WAL and scrubs the recovered engine, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -59,6 +60,18 @@ assert eng_u.match_many(qs) and eng_u.delta_stats()["cache"]["hits"] > 0
 from repro_torch.dist import ClusterEngine
 cl = ClusterEngine(eng_u, n_hosts=2, cache_capacity=8)
 assert cl.match_many(qs) == eng_u.match_many(qs) and all(h.owned for h in cl.hosts)
+import tempfile
+from repro_torch.durability import DurabilityConfig, engine_fingerprint, recover_engine, scrub_engine
+from repro_torch.serve import MatchServeConfig, MatchServer
+with tempfile.TemporaryDirectory() as d:
+    eng_d = GnnPeEngine(GnnPeConfig(encoder="monotone", n_partitions=2), device="cpu").build(g)
+    srv = MatchServer(eng_d, MatchServeConfig(durability=DurabilityConfig(d, snapshot_every=0)))
+    srv.submit_update(GraphUpdate(remove_edges=e[5:7], add_edges=np.array([[1, 90]])))
+    srv.apply_update_tick()
+    rec, info = recover_engine(DurabilityConfig(d), device="cpu")
+    assert info["snapshot_epoch"] == 0 and info["replayed"] == 1
+    assert engine_fingerprint(rec) == engine_fingerprint(eng_d)
+    assert rec.match_many(qs) == eng_d.match_many(qs) and scrub_engine(rec)["ok"]
 import torch
 from repro_torch.kernels.dominance_scan import ops
 idx = eng.models[0].index

@@ -4,8 +4,8 @@ package's where the answer is deterministic.
 
 - admission: the token bucket and backlog decisions equal the reference's;
 - ``MatchServer``: bounded queues raise ``QueueFull``, ``wait_for_work``
-  parks instead of spinning, cost-ranked ticks, durability and ``scrub``
-  refuse with the ROADMAP item;
+  parks instead of spinning, cost-ranked ticks, durability reaches a WAL
+  and ``scrub`` returns a report;
 - the engine's serving methods: ``match_many_isolated`` quarantines the
   reference's indices with the reference's lists, and fails a transient
   batch whole; ``plan_cost`` equals the reference's, relabeled-isomorphic
@@ -198,14 +198,28 @@ def test_match_server_cost_ticks_and_reference_lists(graph, pair):
     assert srv.tick_stats[0]["max_cost"] == max(costs[i] for i in first)
 
 
-def test_durability_and_scrub_name_their_roadmap_item(pair):
+def test_durability_and_scrub_name_their_roadmap_item(graph, pair, tmp_path):
+    """The server's and the service's ``durability=`` reach a write-ahead
+    log (a genesis snapshot, then one epoch record an update tick, logged
+    before it is applied), and ``scrub()`` returns the audit's report."""
+    from repro_torch.durability import Durability, DurabilityConfig
+
     _, eng = pair
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MatchServer(eng, MatchServeConfig(durability=object()))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MatchServer(eng).scrub()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MatchService(eng, svc_cfg(durability=object()))
+    report = MatchServer(eng).scrub()
+    assert report["ok"] and report["partitions_checked"] == [0, 1, 2]
+    assert report["epoch"] == eng.epoch and not report["violations"]
+    _, (mine,) = engines(graph)
+    cfg = DurabilityConfig(str(tmp_path / "server"), snapshot_every=0)
+    srv = MatchServer(mine, MatchServeConfig(durability=cfg))
+    assert srv.durability.snapshots.latest_epoch() == 0
+    _, upd = rand_update(np.random.default_rng(3), graph)
+    srv.submit_update(upd)
+    srv.apply_update_tick()
+    recs = srv.durability.wal.records()
+    assert [(r.type, r.epoch) for r in recs] == [("epoch", 1)] and mine.epoch == 1
+    dur = Durability(DurabilityConfig(str(tmp_path / "service"), snapshot_every=0))
+    svc = MatchService(mine, svc_cfg(durability=dur))
+    assert svc.server.durability is dur and dur.snapshots.latest_epoch() == 1
 
 
 # ----------------------------------------------------- isolation (bisect) ----
