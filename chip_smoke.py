@@ -118,7 +118,16 @@ Phases, each printing its seconds:
      ``match_many`` beside epoch 0's; then the two most pressured partitions
      compacted through prepare / build / install (``update_slot`` must run,
      re-stacking only their slots) and every list equal to
-     ``rebuild_indexes()``'s under ``sort_matches``; 8b,
+     ``rebuild_indexes()``'s under ``sort_matches``; 8d (inside 8a, before
+     the rebuild), the port's two repairs: queries with no path of l edges
+     (single edges on 8a's engine with its deltas and tombstones pending;
+     at l = 3 on the 50K graph also a 2-edge path and a star of up to 7
+     edges) beside two of the cell's queries, through the scalar match,
+     both probes x both joins and ``ClusterEngine``, every set equal to
+     VF2's; and a port snapshot of 8a's engine, whose compactions moved its
+     sizes off the stacked slots, restored on the card with its donor's
+     slots, fingerprint and hand-off lists in order (without the port's
+     meta key: stacked afresh, the same sets); 8b,
      ``bench_updates.py --full``'s cell (10K vertices, 40 partitions, grouped
      index): delta (a stacked probe kept) against ``strategy="rebuild"`` over
      6 batches with equal match sets, each strategy's stages timed, at least
@@ -211,7 +220,39 @@ Phases, each printing its seconds:
      uninterrupted run's; 11d, ``scrub(sample=8)`` of 11a's recovered engine
      ok, a narrowed MBR planted on a clone found, and the scrub CLI
      (``python -m repro_torch.durability.scrub``, started after 11a in a
-     child process) exiting 0 on 11a's directory.
+     child process) exiting 0 on 11a's directory;
+  12. training on the card: 12a, DCN-v2 ``train_batch`` at the published
+     width, B = 65,536, nothing cut (``build_step``'s train step over
+     ``RecsysSyntheticData``): K4 must launch once and K5 three times a step
+     (counted on the first), the gradients through their ``autograd.Function``s
+     equal to autograd through the plain forward on the card (each leaf's
+     difference within relative L2 5e-3 and, the tables excepted, each
+     element within 1e-3 of the leaf's largest |g|; none missing), a K5
+     wrapper with a detached output failing that check, the loss within 1e-4
+     and the gradients within the same limits of the port's CPU run of the
+     same params and batch, and the card's AdamW on its gradients equal to
+     the CPU's (relative L2 1e-6, each element 1e-5); warm step ms,
+     rows/s, peak memory, the step split into forward, backward and optimizer
+     (K4 and K5 forward, K4's ``index_add_`` and K5's matmul backwards inside
+     them) by CUDA events and the top kernels under ``torch.profiler``; 12b,
+     gemma3-1b ``train_4k`` at the published width and depth (26 layers,
+     float32 master params, remat), the batch cut to 8 sequences of 4,096 in
+     ``grad_accum`` 8: K6 must launch 52 times a microbatch (26 forward, 26 in
+     remat's recompute), the loss at B = 1, S = 640 within phase 7's tolerance
+     of the CPU's, K6's Function gradients of q, k and v on a local and a
+     global layer's real operands within relative L2 1e-3 of autograd through
+     the plain attention, the loss falling over 6 steps on the fixed batch;
+     step ms, tokens/s, peak memory, the step split into K6 forward, attention
+     backward, CE forward and the optimizer by CUDA events, the top kernels;
+     12c, the ``Trainer`` at the smoke width (bf16): a resume bit-equal to an
+     uninterrupted run (deterministic algorithms on), a SIGTERM to a training
+     child (``chip_smoke.py --train-worker DIR``) leaving its checkpoint, the
+     watchdog on an injected delay, int8 and top-k compression steps, and
+     ``python -m repro_torch.launch.train`` (both archs, smoke) and
+     ``examples/train_lm_torch.py`` run through in child processes.
+
+``python3 chip_smoke.py --only 12`` (or ``--only 8``) builds the kernels and
+runs phase 12 (or 8a with 8d) alone, printing no result line.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -3006,6 +3047,10 @@ def phase8a_updates(dev) -> dict:
             "no compaction or no update_slot in phase 8a")
     after = run_paths("after the installs")
     delta_order_check(eng, queries, after)
+    t = time.perf_counter()
+    phase8d_short_paths(dev, eng, queries, g, cfg)
+    log(f"phase 8d short-path queries and the restored hand-off order: "
+        f"{time.perf_counter() - t:.3f} s")
     log(f"8a: delta-scan K1 launches {out['delta_K1']} over the 8 epochs (ops.LAUNCHES); "
         f"inline compactions {n_inline}, installed {len(pressured)} ({pressured}); "
         f"update_slot {slots.calls} calls, {slots.refused} refused; delta stats "
@@ -3019,6 +3064,158 @@ def phase8a_updates(dev) -> dict:
         "under sort_matches")
     out.update(warm0=warm0, n_inline=n_inline)
     return out
+
+
+def short_path_queries(g, length: int, n_edges: int = 4, seed: int = 0) -> list:
+    """Queries with no simple path of ``length`` edges, each with a match on
+    ``g``: single edges drawn from its live edges, and at l = 3 a 2-edge path
+    and a star of up to 7 edges around its highest-degree vertex, labelled
+    as the graph is there."""
+    from repro_torch.graphs import from_edge_list
+
+    rng = np.random.default_rng(seed)
+    e = g.edge_array()
+    lab = np.asarray(g.labels)
+    qs = [from_edge_list(2, [(0, 1)], lab[e[i]].astype(np.int32))
+          for i in rng.choice(e.shape[0], size=n_edges, replace=False)]
+    if length >= 3:
+        for i in rng.permutation(e.shape[0]):
+            u, v = (int(x) for x in e[i])
+            w = [int(x) for x in g.neighbors(v) if int(x) != u]
+            if w:
+                qs.append(from_edge_list(3, [(0, 1), (1, 2)], lab[[u, v, w[0]]].astype(np.int32)))
+                break
+        c = int(np.argmax(g.degrees))
+        nb = [int(x) for x in g.neighbors(c)][:7]
+        qs.append(from_edge_list(len(nb) + 1, [(0, i + 1) for i in range(len(nb))],
+                                 lab[[c] + nb].astype(np.int32)))
+    return qs
+
+
+def short_path_check(eng, queries: list, n_short: int, dev, what: str) -> str:
+    """The repair of short-path queries on the card: ``queries`` (the first
+    ``n_short`` of them with no path of l edges) through the scalar match,
+    both probes x both joins and ``ClusterEngine`` (its parts-scoped probes),
+    the result cache set aside; every set equal to VF2's on the live graph
+    → a summary for the log."""
+    from repro_torch.core import vf2_match
+    from repro_torch.dist import ClusterEngine
+
+    cache, eng._result_cache = eng._result_cache, None
+    t = time.perf_counter()
+    try:
+        lists = {"scalar": [eng.match(q, impl="scalar") for q in queries]}
+        for probe, join in PATHS4:
+            lists[f"{probe}/{join}"] = eng.match_many(queries, probe_impl=probe, join_impl=join)
+        lists["ClusterEngine 2 hosts"] = ClusterEngine(eng, n_hosts=2).match_many(queries)
+        sync(dev)
+    finally:
+        eng._result_cache = cache
+    run_s = time.perf_counter() - t
+    want = [set(vf2_match(eng.graph, q)) for q in queries]
+    for route, got in lists.items():
+        for qi, (m, w) in enumerate(zip(got, want)):
+            require(set(m) == w and len(m) == len(w),
+                    f"{what} {route} query {qi}: {len(m)} matches, VF2 finds {len(w)}")
+    n_short_matches = [len(w) for w in want[:n_short]]
+    require(all(n > 0 for n in n_short_matches),
+            f"{what}: a short-path query has no match to hold ({n_short_matches})")
+    return (f"{what}: {len(queries)} queries ({n_short} with no path of "
+            f"{eng.cfg.path_length} edges: {n_short_matches} matches) through "
+            f"{', '.join(lists)}, every set equal to VF2's ({run_s:.3f} s on the routes)")
+
+
+def restored_order_check(eng, queries: list, dev, root) -> str:
+    """The restored hand-off's order on the card: a port snapshot of ``eng``
+    after compactions moved its partitions' sizes off its slots restores the donor's
+    stacked slots, fingerprint and lists in order; without the port's meta
+    key (the JAX package's layout) it stacks afresh and gives the same sets
+    → a summary for the log."""
+    from repro_torch.core import GraphUpdate, sort_matches
+    from repro_torch.core.stacked import default_slot_of
+    from repro_torch.durability import SnapshotStore, engine_fingerprint
+    from repro_torch.durability.snapshot import _META_KEY, _SLOT_KEY, restore_engine
+
+    live = np.asarray(eng.stacked_probe().stacked.slot_of).copy()
+    fresh = default_slot_of([m.index.n_paths for m in eng.models])
+    # 8a's churn leaves the sizes in their build order: shrink the partition
+    # in slot 0 (deleting edges inside it, then compacting it) until another
+    # partition is larger, so the slots the probe kept are off the fresh layout
+    rounds = 0
+    while np.array_equal(live, fresh) and rounds < 8:
+        top = int(np.argmin(live))
+        rem = interior_edges(eng.graph, eng.models[top].members, 24, set())
+        eng.apply_updates(GraphUpdate(remove_edges=rem))
+        snap = eng.prepare_compaction(top)
+        require(eng.install_compaction(snap, eng.build_compaction(snap)),
+                f"8d: the compaction of partition {top} was refused")
+        require(eng._stacked_probe is not None, "8d: a shrinking partition re-stacked everything")
+        rounds += 1
+        fresh = default_slot_of([m.index.n_paths for m in eng.models])
+    moved = int((live != fresh).sum())
+    require(moved > 0, f"8d: {rounds} rounds of deletions left the partitions' sizes in their "
+            f"slot order; the check would hold nothing")
+    store = SnapshotStore(root, keep=1)
+    t = time.perf_counter()
+    store.save(eng)
+    restored, meta, arrays, _ = store.load()
+    sync(dev)
+    load_s = time.perf_counter() - t
+    require(meta[_SLOT_KEY] == live.tolist(), "8d: the snapshot carries another slot layout")
+    require(np.array_equal(restored.stacked_probe().stacked.slot_of, live),
+            "8d: the restored engine stacked other slots than its donor's")
+    require(engine_fingerprint(restored) == engine_fingerprint(eng),
+            "8d: the restored engine's fingerprint differs from its donor's")
+    meta = dict(meta)
+    del meta[_SLOT_KEY]  # the JAX package's layout
+    plain, _ = restore_engine({**arrays, _META_KEY: np.asarray(json.dumps(meta))})
+    require(np.array_equal(plain.stacked_probe().stacked.slot_of, fresh),
+            "8d: a snapshot without the layout did not stack afresh")
+    got = {}
+    for name, e in (("donor", eng), ("restored", restored), ("afresh", plain)):
+        cache, e._result_cache = e._result_cache, None
+        try:
+            got[name] = e.match_many(queries, probe_impl="stacked", join_impl="device")
+        finally:
+            e._result_cache = cache
+    require(got["restored"] == got["donor"], "8d: the restored hand-off's lists differ from "
+            "its donor's in order")
+    require([sort_matches(m) for m in got["afresh"]] == [sort_matches(m) for m in got["donor"]],
+            "8d: the engine stacked afresh gives other sets than its donor")
+    del restored, plain
+    return (f"8d restored hand-off: {moved} of {len(live)} slots off the fresh largest-first "
+            f"layout after the compactions ({rounds} round(s) of 24 deletions in slot 0's "
+            f"partition, each compacted); a port snapshot saved and restored on the card in "
+            f"{load_s:.3f} s took the donor's slots, fingerprint and stacked/device lists in "
+            f"order; without the port's key it stacked afresh, sets equal, lists "
+            f"{'in the same' if got['afresh'] == got['donor'] else 'in another'} order")
+
+
+def phase8d_short_paths(dev, eng, queries: list, g, cfg) -> None:
+    """The two repairs on the card: short-path queries on 8a's engine (l = 2,
+    its deltas and tombstones pending) and on the 50K cell at l = 3, and the
+    restored hand-off's order after 8a's compactions."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import GnnPeEngine
+
+    short = short_path_queries(eng.graph, 2)
+    st = eng.delta_stats()
+    log(short_path_check(eng, short + queries[:2], len(short), dev,
+                         f"8d l = 2, 8a's engine (delta rows {st['delta_rows']}, tombstones "
+                         f"{st['tombstones']})"))
+    t = time.perf_counter()
+    eng3 = GnnPeEngine(dataclasses.replace(cfg, path_length=3)).build(g)
+    sync(dev)
+    build_s = time.perf_counter() - t
+    short = short_path_queries(g, 3)
+    log(short_path_check(eng3, short + queries[:2], len(short), dev,
+                         f"8d l = 3, the 50K cell ({eng3.offline_stats['n_paths']} paths, "
+                         f"built in {build_s:.3f} s)"))
+    del eng3
+    with tempfile.TemporaryDirectory() as tmp:
+        log(restored_order_check(eng, queries, dev, Path(tmp)))
 
 
 def phase8b_bench_updates(dev) -> dict:
@@ -4330,7 +4527,629 @@ def phase11_durability(dev, ctx: dict, smi: str) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------- phase 12 --
+
+TRAIN_GRAD_L2 = 5e-3  # a gradient leaf, card against plain / CPU: relative L2 of the difference
+TRAIN_GRAD_MAX = 1e-3  # and each element within this · the leaf's max |want| (not the tables)
+TRAIN_LOSS_REL = 1e-4  # the DCN-v2 loss, card against CPU (K5's 3xTF32 forward holds 1e-4)
+K6_GRAD_REL_L2 = 1e-3  # K6's q, k, v gradients against autograd of the plain attention
+
+
+def grads_close(got, want, what: str, l2: float = TRAIN_GRAD_L2, max_rel: float = TRAIN_GRAD_MAX,
+                rows: tuple = ()) -> float:
+    """Every leaf of ``got`` against its ``want`` leaf (trees of one
+    structure, compared on ``want``'s device): the relative L2 norm of the
+    difference within ``l2`` and each element within ``max_rel`` of the
+    leaf's largest |entry|, except for the leaves at the indices ``rows``,
+    held to ``l2`` alone (an embedding table's rows are single samples'
+    gradients, which a ReLU that flips under the forward's rounding changes
+    by percents) → the worst ratio to a limit.  A leaf that is zero where
+    ``want``'s is not (a gradient that never arrived) fails at once."""
+    from repro_torch.train import tree_leaves
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want), strict=True)):
+        a = a.to(b.device).double()
+        b = b.double()
+        require(bool(torch_isfinite(a)), f"{what}: leaf {i} is not finite")
+        top, norm = float(b.abs().max()), float(b.norm())
+        if top == 0:
+            require(float(a.abs().max()) == 0, f"{what}: leaf {i} should have no gradient")
+            continue
+        require(float(a.abs().max()) > 0,
+                f"{what}: leaf {i} got no gradient (all zero, want max |g| {top:.3g})")
+        rel = float((a - b).norm()) / norm
+        require(rel <= l2, f"{what}: leaf {i} differs, relative L2 {rel:.3g} > {l2}")
+        worst = max(worst, rel / l2)
+        if i not in rows:
+            err = float((a - b).abs().max())
+            require(err <= max_rel * top,
+                    f"{what}: leaf {i} differs, |err| {err:.3g} > {max_rel} x {top:.3g}")
+            worst = max(worst, err / (max_rel * top))
+    return worst
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+class PlainKernels:
+    """Within this context the models reach the plain versions of K4, K5 and
+    K6 under ordinary autograd instead of the kernels' Functions."""
+
+    def __enter__(self):
+        from repro_torch.kernels.cross_interact import ops as ci
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+        from repro_torch.kernels.star_agg import ops as sa
+
+        self.saved = [(sa, "star_agg", sa.star_agg), (ci, "cross_interact", ci.cross_interact),
+                      (fa, "flash_attention", fa.flash_attention)]
+        sa.star_agg = sa.star_agg_ref
+        ci.cross_interact = ci.cross_interact_ref
+        fa.flash_attention = (lambda q, k, v, causal=True, window=None, chunk=1024:
+                              flash_attention_plain(q, k, v, causal, window, chunk))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def timed_calls(spans: list):
+    """Wrap each (label, module, function name) so every call is timed by CUDA
+    events into ``marks`` → (marks, restore)."""
+    import torch
+
+    marks: list = []
+    originals = [getattr(mod, name) for _, mod, name in spans]
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            res = fn(*a, **kw)
+            e_.record()
+            marks.append((label, s_, e_))
+            return res
+        return run
+
+    for (label, mod, name), fn in zip(spans, originals):
+        setattr(mod, name, timed(label, fn))
+
+    def restore():
+        for (_, mod, name), fn in zip(spans, originals):
+            setattr(mod, name, fn)
+
+    return marks, restore
+
+
+def split_ms(marks: list, labels: list) -> dict:
+    """Summed event ms of each label's calls."""
+    out = {label: 0.0 for label in labels}
+    for label, s_, e_ in marks:
+        out[label] += s_.elapsed_time(e_)
+    return out
+
+
+def warm_train_steps(step, state: list, batch, dev, n: int, warmup: int = 1) -> tuple:
+    """``warmup`` then ``n`` steps of ``step`` carrying ``state`` = [params,
+    opt], each ending in ``synchronize`` → (ms of each timed step, the losses
+    of all steps)."""
+    ms, losses = [], []
+    for i in range(warmup + n):
+        t = time.perf_counter()
+        state[0], state[1], met = step(state[0], state[1], batch)
+        sync(dev)
+        dt = (time.perf_counter() - t) * 1e3
+        losses.append(float(met["loss"]))
+        if i >= warmup:
+            ms.append(dt)
+    return ms, losses
+
+
+def phase12a_dcn_train(dev, smi: str, out: dict) -> None:
+    """DCN-v2 ``train_batch`` at the published width, B = 65,536 (nothing cut)."""
+    import torch
+
+    from repro_torch.configs import build_step, get_arch, init_params, opt_init, resolve_config
+    from repro_torch.data import RecsysSyntheticData
+    from repro_torch.kernels.cross_interact import ops as ci
+    from repro_torch.kernels.star_agg import ops as sa
+    from repro_torch.models import dcn_loss
+    from repro_torch.train import (
+        OptConfig,
+        adamw_update,
+        tree_leaves,
+        tree_map,
+        tree_to_device,
+        tree_unflatten,
+        value_and_grad,
+    )
+
+    arch = get_arch("dcn-v2")
+    cell = arch.cell("train_batch")
+    cfg = resolve_config(arch, cell, smoke=False)
+    B = cell.meta["batch"]
+    t = time.perf_counter()
+    params = init_params(arch, cfg, seed=0, device=dev, train=True)
+    batch = tree_to_device(RecsysSyntheticData(cfg, batch=B, seed=0).batch_at(0), dev)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    step, takes_opt = build_step(arch, cell, cfg, opt_cfg=opt_cfg)
+    require(takes_opt, "train_batch: build_step gave no train step")
+    opt = opt_init(params)
+    sync(dev)
+    log(f"12a dcn-v2 train_batch: B = {B}, params and batch on the card in "
+        f"{time.perf_counter() - t:.3f} s; card: {smi}")
+
+    # ---- the main path: one train step, its launches counted ----------------
+    reset_counters()
+    new_params, new_opt, met = step(params, opt, batch)
+    sync(dev)
+    c = counters()
+    out["K4"] += c["K4"]
+    out["K5"] += c["K5"]
+    require(c["K4"] == 1 and c["K5"] == cfg.n_cross_layers,
+            f"12a: a train step launched K4 {c['K4']} and K5 {c['K5']} times, want 1 and "
+            f"{cfg.n_cross_layers}")
+    loss_card = float(met["loss"])
+
+    def lf(p, b):
+        return dcn_loss(p, b, cfg)
+
+    # ---- the Functions' gradients against autograd of the plain forward -----
+    (l_k, _), g_k = value_and_grad(lf, params, batch)
+    with PlainKernels():
+        (l_p, _), g_p = value_and_grad(lf, params, batch)
+    rows = tuple(i for i, x in enumerate(tree_leaves(params)) if x is params["tables"])
+    w = grads_close(g_k, g_p, "12a gradients, Functions against plain autograd", rows=rows)
+    log(f"12a gradients through K4's and K5's Functions equal autograd through the plain "
+        f"forward on the card: worst ratio to a limit {w:.3g} (relative L2 {TRAIN_GRAD_L2} a "
+        f"leaf; each element {TRAIN_GRAD_MAX} of the leaf's max |g|, the tables excepted); loss "
+        f"{float(l_k):.7f} against {float(l_p):.7f}")
+    # the planted fault: a K5 wrapper whose output is detached
+    saved = ci.cross_interact
+    ci.cross_interact = lambda *a: ci._forward(*a).detach()
+    try:
+        (_, _), g_bad = value_and_grad(lf, params, batch)
+    finally:
+        ci.cross_interact = saved
+    try:
+        grads_close(g_bad, g_p, "planted detached K5", rows=rows)
+        caught = False
+    except AssertionError as e:
+        caught = True
+        log(f"12a control, a K5 wrapper with a detached output: the gradient check fails ({e})")
+    require(caught, "12a: a detached K5 output passed the gradient check")
+    del g_bad, g_p
+
+    # ---- one step against the port's CPU run of the same params and batch ---
+    t = time.perf_counter()
+    cpu = torch.device("cpu")
+    p_cpu = tree_map(lambda x: x.to(cpu), params)
+    b_cpu = tree_map(lambda x: x.to(cpu), batch)
+    (l_cpu, _), g_cpu = value_and_grad(lf, p_cpu, b_cpu)
+    cpu_s = time.perf_counter() - t
+    require(abs(loss_card - float(l_cpu)) <= TRAIN_LOSS_REL * abs(float(l_cpu)),
+            f"12a: the card's loss {loss_card} differs from the CPU's {float(l_cpu)}")
+    wg = grads_close(g_k, g_cpu, "12a gradients, card against CPU", rows=rows)
+    # the card's AdamW against the CPU's on the card's gradients
+    g_card_cpu = tree_map(lambda x: x.to(cpu), g_k)
+    want_p, want_opt, _ = adamw_update(g_card_cpu, tree_map(lambda x: x.to(cpu), opt), p_cpu,
+                                       opt_cfg)
+    wp = grads_close(new_params, want_p, "12a new params, card AdamW against CPU AdamW", 1e-6,
+                     1e-5)
+    wm = grads_close(new_opt["m"], want_opt["m"], "12a AdamW m", 1e-6, 1e-5)
+    log(f"12a one train step against the CPU (CPU forward and backward {cpu_s:.3f} s): loss "
+        f"{loss_card:.7f} against {float(l_cpu):.7f} (limit {TRAIN_LOSS_REL} relative), "
+        f"gradients worst ratio to a limit {wg:.3g}, the card's AdamW on its gradients against "
+        f"the CPU's: params {wp:.3g}, m {wm:.3g} (limits relative L2 1e-6, each element 1e-5 "
+        f"of the leaf's max |entry|)")
+    del p_cpu, b_cpu, g_cpu, g_card_cpu, want_p, want_opt, g_k, new_params, new_opt
+
+    # ---- warm steps ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = [params, opt]
+    ms, losses = warm_train_steps(step, state, batch, dev, n=6)
+    med = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["dcn_step_ms"] = med
+    log(f"12a train_batch warm step ms {fmt(ms)} (median {med:.3f}), {B / med * 1e3:.0f} rows/s, "
+        f"peak memory {peak:.2f} GiB, losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"card: {smi}")
+
+    # ---- the step's split: forward, backward, optimizer ----------------------
+    spans = [("K4 forward", sa, "_forward"), ("K5 forward", ci, "_forward"),
+             ("K4 backward (index_add_)", sa, "star_agg_backward"),
+             ("K5 backward (matmuls)", ci, "cross_interact_backward")]
+    marks, restore = timed_calls(spans)
+    phases = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    reps = 3
+    try:
+        for _ in range(reps):
+            torch.cuda._sleep(SPIN_CYCLES * 40)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            with torch.enable_grad():
+                live = tree_map(lambda x: x.detach().requires_grad_(True), state[0])
+                loss, _ = lf(live, batch)
+                ev[1].record()
+                gl = [torch.zeros_like(x) if g_ is None else g_ for x, g_ in zip(
+                    tree_leaves(live), torch.autograd.grad(loss, tree_leaves(live),
+                                                           allow_unused=True))]
+            ev[2].record()
+            new = adamw_update(tree_unflatten(live, gl), state[1], state[0], opt_cfg)
+            ev[3].record()
+            ev[3].synchronize()
+            for k, (a, b_) in zip(phases, ((0, 1), (1, 2), (2, 3))):
+                phases[k] += ev[a].elapsed_time(ev[b_]) / reps
+            del live, loss, gl, new
+    finally:
+        restore()
+    spent = split_ms(marks, [label for label, _, _ in spans])
+    spent = {k: v / reps for k, v in spent.items()}
+    log("12a train step split by CUDA events (host enqueue hidden behind a spin): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in phases.items())
+        + "; inside them " + ", ".join(f"{k} {v:.3f} ms" for k, v in spent.items())
+        + f"; the rest of the forward (dense features, the MLP's SGEMMs, the loss) "
+        f"{phases['forward'] - spent['K4 forward'] - spent['K5 forward']:.3f} ms, of the "
+        f"backward {phases['backward'] - spent['K4 backward (index_add_)'] - spent['K5 backward (matmuls)']:.3f}"
+        f" ms; card: {smi}")
+    out["dcn_split"] = {**phases, **spent}
+    top_kernels(lambda: step(state[0], state[1], batch), dev, "12a one train step", med, n=10)
+    del state, params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase12b_lm_train(dev, smi: str, out: dict) -> None:
+    """gemma3-1b ``train_4k`` at the published width and depth (26 layers),
+    the global batch cut to 8 sequences of 4,096 in ``grad_accum`` 8."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import build_step, get_arch, init_params, opt_init, resolve_config
+    from repro_torch.train import step as tstep
+    from repro_torch.data import LMSyntheticData
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_scale,
+        flash_attention_plain,
+        k6_agreement,
+    )
+    from repro_torch.models import lm_loss
+    from repro_torch.models import transformer as tmod
+    from repro_torch.train import OptConfig, tree_map, tree_to_device
+
+    arch = get_arch("gemma3-1b")
+    cell = arch.cell("train_4k")
+    B, accum = 8, 8
+    cfg = dataclasses.replace(resolve_config(arch, cell, smoke=False), grad_accum=accum)
+    S = cell.meta["seq_len"]
+    t = time.perf_counter()
+    params = init_params(arch, cfg, seed=0, device=dev, train=True)
+    batch = tree_to_device(LMSyntheticData(cfg.vocab, batch=B, seq_len=S, seed=0).batch_at(0), dev)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    step, takes_opt = build_step(arch, cell, cfg, opt_cfg=opt_cfg)
+    require(takes_opt, "train_4k: build_step gave no train step")
+    opt = opt_init(params)
+    sync(dev)
+    n_params = sum(x.numel() for x in [params["embed"], params["final_norm"]]
+                   + [x for layer in params["layers"] for x in layer.values()])
+    log(f"12b gemma3-1b train_4k: {n_params} float32 master params, batch {B} x {S} "
+        f"(cut from 256) in grad_accum {accum}, remat {cfg.remat}, loss_chunk {cfg.loss_chunk}; "
+        f"set up in {time.perf_counter() - t:.3f} s; card: {smi}")
+
+    # ---- the main path: one train step, K6 counted ----------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    t = time.perf_counter()
+    state = [params, opt]
+    state[0], state[1], met = step(state[0], state[1], batch)
+    sync(dev)
+    first_ms = (time.perf_counter() - t) * 1e3
+    first_loss = float(met["loss"])
+    k6 = counters()["K6"]
+    out["K6"] += k6
+    per_mb = cfg.n_layers * (2 if cfg.remat else 1)
+    require(k6 == per_mb * accum,
+            f"12b: a train step launched K6 {k6} times, want {per_mb} a microbatch x {accum}")
+    log(f"12b first step {first_ms:.1f} ms, loss {float(met['loss']):.5f}; K6 launched {k6} "
+        f"times ({cfg.n_layers} a microbatch forward, as many again in remat's recompute)")
+
+    # ---- the first loss against the CPU's on a short slice --------------------
+    sl = {k: v[:1, :640].contiguous() for k, v in batch.items()}
+    with torch.no_grad():
+        card = float(lm_loss(params, sl, cfg)[0])
+        t = time.perf_counter()
+        p_cpu = tree_map(lambda x: x.cpu(), params)
+        want = float(lm_loss(p_cpu, tree_map(lambda x: x.cpu(), sl), cfg)[0])
+        cpu_s = time.perf_counter() - t
+        del p_cpu
+    lim = LM_TOL["atol"] + LM_TOL["rtol"] * abs(want)
+    require(abs(card - want) <= lim, f"12b: the card's loss {card} differs from the CPU's {want}")
+    log(f"12b loss at B = 1, S = 640 on the card {card:.6f}, on the CPU {want:.6f} (CPU "
+        f"{cpu_s:.3f} s): |diff| {abs(card - want):.3g} within phase 7's atol "
+        f"{LM_TOL['atol']} + rtol {LM_TOL['rtol']} ({lim:.3g})")
+
+    # ---- K6's Function gradients against autograd of the plain attention ------
+    seen: list = []
+    orig = fa._forward
+
+    def rec(*a):
+        seen.append(a)
+        return orig(*a)
+
+    fa._forward = rec
+    try:
+        with torch.no_grad():
+            tmod._hidden(params, batch["tokens"][:1], cfg, remat=False)
+    finally:
+        fa._forward = orig
+    g = torch.Generator(device=dev).manual_seed(7)
+    for layer in (0, 5):  # a local layer, then a global one
+        q, k, v, causal, window, chunk = seen[layer]
+        ins = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = fa.flash_attention(*ins, causal=causal, window=window, chunk=chunk)
+        up = torch.randn(o.shape, generator=g, device=dev).to(o.dtype)
+        got = torch.autograd.grad(o, ins, up)
+        ins2 = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o2 = flash_attention_plain(*ins2, causal, window, chunk)
+        want_g = torch.autograd.grad(o2, ins2, up)
+        # K6's own output at S = 4,096, held as phase 7 holds it: the gradient
+        # comparison below only shows the Function is wired into autograd, since
+        # its backward is autograd of this same plain attention
+        fwd = k6_agreement(o.detach(), o2.detach(),
+                           attention_scale(q, k, v, causal, window, chunk))
+        require(fwd["ok"], f"12b K6's output on layer {layer} (S = {q.shape[1]}) differs from "
+                f"its plain version: max |err| {fwd['max_abs_err']:.3g}, worst |err| / limit "
+                f"{fwd['worst']:.3g}, relative L2 {fwd['rel_l2']:.3g} (limit 5e-3)")
+        rels = [f"o worst |err| / limit {fwd['worst']:.3g} rel L2 {fwd['rel_l2']:.3g} "
+                f"max |err| {fwd['max_abs_err']:.3g}"]
+        for name, a, b_ in zip("qkv", got, want_g):
+            a, b_ = a.float(), b_.float()
+            rel = float((a - b_).norm() / b_.norm())
+            mx = float((a - b_).abs().max())
+            require(rel <= K6_GRAD_REL_L2 and mx <= 2.0**-7 * float(b_.abs().max()),
+                    f"12b K6 d{name} on layer {layer}: relative L2 {rel:.3g}, max |err| {mx:.3g}")
+            rels.append(f"d{name} rel L2 {rel:.3g} max |err| {mx:.3g}")
+        log(f"12b K6 on layer {layer} ({'global' if window is None else 'local'}, "
+            f"S = {q.shape[1]}) against the plain attention, its output and its Function's "
+            f"gradients: {', '.join(rels)} (output: phase 7's per-element limit and relative "
+            f"L2 5e-3; gradients: relative L2 {K6_GRAD_REL_L2}, max |err| 2^-7 of max |want|)")
+        del ins, ins2, o, o2, got, want_g, up
+    del seen
+
+    # ---- warm steps on the fixed batch: the loss must fall ---------------------
+    ms, losses = warm_train_steps(step, state, batch, dev, n=4, warmup=0)
+    # the fifth, split by CUDA events around the calls
+    spans = [("K6 forward (with remat's recompute)", fa, "_forward"),
+             ("attention backward (plain, recomputed)", fa, "flash_attention_backward"),
+             ("CE forward", tmod, "cross_entropy_loss"),
+             ("optimizer", tstep, "adamw_update")]
+    marks, restore = timed_calls(spans)
+    try:
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        s_.record()
+        state[0], state[1], met = step(state[0], state[1], batch)
+        e_.record()
+        e_.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+    finally:
+        restore()
+    losses = [float(first_loss)] + losses
+    require(losses[-1] < losses[0] and all(np.isfinite(losses)),
+            f"12b: the loss did not fall over 6 steps on a fixed batch: {losses}")
+    med = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["lm_step_ms"] = med
+    log(f"12b train_4k warm step ms {fmt(ms, 1)} (median {med:.1f}), {B * S / med * 1e3:.0f} "
+        f"tokens/s, peak memory {peak:.2f} GiB, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"card: {smi}")
+    total = s_.elapsed_time(e_)
+    spent = split_ms(marks, [label for label, _, _ in spans])
+    log(f"12b the last step by CUDA events around the calls (host enqueue not hidden): "
+        f"{total:.1f} ms = " + " + ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f" + the rest (GEMMs, norms, RoPE, CE backward) {total - sum(spent.values()):.1f}; "
+        f"card: {smi}")
+    out["lm_split"] = {"step": total, **spent}
+    # the profiler over one microbatch's step (a step's 134 K launches take it a minute)
+    step1, _ = build_step(arch, cell, dataclasses.replace(cfg, grad_accum=1), opt_cfg=opt_cfg)
+    one = {k: v[:1] for k, v in batch.items()}
+    step1(state[0], state[1], one)
+    top_kernels(lambda: step1(state[0], state[1], one), dev,
+                "12b one microbatch's train step (B = 1, optimizer included)", med / accum, n=12)
+    del state, params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def train_worker(directory: str) -> int:
+    """A ``Trainer`` on the card at the smoke width with the preemption
+    handler installed; writes ``started`` into ``directory`` at step 5 and
+    prints its summary as JSON when the loop ends (after a SIGTERM)."""
+    import torch  # noqa: F401
+
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+
+    loss_fn, params, batch_at = smoke_lm(None)  # the card
+
+    def batch_fn(step):
+        if step == 5:
+            (Path(directory) / "started").write_text("5")
+        return batch_at(step)
+
+    tr = Trainer(loss_fn, params, batch_fn,
+                 TrainerConfig(total_steps=5_000, ckpt_every=100_000,
+                               ckpt_dir=str(Path(directory) / "ckpt"),
+                               opt=OptConfig(lr=3e-3, warmup_steps=0, total_steps=1000)))
+    tr.install_preemption_handler()
+    out = tr.run()
+    print(json.dumps({k: out[k] for k in ("final_step", "preempted")}), flush=True)
+    return 0
+
+
+def smoke_lm(device):
+    """The smoke gemma3-1b in bf16 (K6 takes bf16 on the card) with its
+    synthetic data → (loss_fn, float32 master params, batch_at)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, init_params, resolve_config
+    from repro_torch.data import LMSyntheticData
+    from repro_torch.models import lm_loss
+
+    arch = get_arch("gemma3-1b")
+    cfg = dataclasses.replace(resolve_config(arch, arch.cell("train_4k"), smoke=True),
+                              dtype="bfloat16")
+    params = init_params(arch, cfg, seed=0, device=device, train=True)
+    data = LMSyntheticData(cfg.vocab, batch=2, seq_len=64, seed=0)
+    return (lambda p, b: lm_loss(p, b, cfg)), params, data.batch_at
+
+
+def phase12c_trainer(dev, smi: str, root: Path) -> None:
+    """The ``Trainer`` on the card at the smoke width."""
+    import os
+    import signal
+
+    import torch
+
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.train import CompressionConfig, OptConfig, Trainer, TrainerConfig, wire_bytes
+
+    opt = OptConfig(lr=3e-3, warmup_steps=0, total_steps=40)
+
+    def trainer(d, loss_fn=None, params=None, batch_at=None, **kw):
+        lf, p, ba = smoke_lm(dev)
+        return Trainer(loss_fn or lf, params or p, batch_at or ba,
+                       TrainerConfig(ckpt_dir=str(root / d), opt=opt, **kw))
+
+    # ---- checkpoint and a resume that reproduces the uninterrupted run -------
+    t = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kw = dict(total_steps=20, ckpt_every=10, async_checkpoint=False)
+        straight = trainer("straight", **kw)
+        straight.run(20)
+        first = trainer("resumed", **kw)
+        first.run(10)
+        again = trainer("resumed", **kw)
+        require(again.try_resume() and again.step == 10, "12c: no resume from step 10")
+        again.run(10)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    from repro_torch.train import tree_leaves
+
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(straight.params),
+                                                  tree_leaves(again.params)))
+    require(same, "12c: the resumed run's params differ from the uninterrupted run's")
+    log(f"12c Trainer resume: 10 steps, checkpoint, a new Trainer resumed and ran 10 more: every "
+        f"param bit-equal to 20 uninterrupted steps (deterministic algorithms on), losses "
+        f"{straight.history[0]['loss']:.4f} -> {straight.history[-1]['loss']:.4f}, "
+        f"{time.perf_counter() - t:.3f} s")
+
+    # ---- SIGTERM in a child process leaves a checkpoint -----------------------
+    t = time.perf_counter()
+    d = root / "sigterm"
+    d.mkdir()
+    p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker", str(d)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env=child_env())
+    try:
+        deadline = time.time() + 180
+        while not (d / "started").exists():
+            if p.poll() is not None:
+                raise AssertionError(f"12c: the train worker exited early: {p.stderr.read()}")
+            require(time.time() < deadline, "12c: the train worker never reached step 5")
+            time.sleep(0.1)
+        os.kill(p.pid, signal.SIGTERM)
+        so, se = p.communicate(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    require(p.returncode == 0, f"12c: the train worker exited {p.returncode}: {se[-2000:]}")
+    summary = json.loads(so.strip().splitlines()[-1])
+    latest = CheckpointManager(d / "ckpt").latest_step()
+    require(summary["preempted"] and latest == summary["final_step"] >= 5,
+            f"12c: after SIGTERM {summary}, latest checkpoint {latest}")
+    log(f"12c SIGTERM to a training child at step >= 5: it checkpointed step {latest} and "
+        f"exited 0 ({time.perf_counter() - t:.3f} s)")
+
+    # ---- the straggler watchdog on an injected delay --------------------------
+    lf, params, batch_at = smoke_lm(dev)
+    hit: dict = {}
+
+    def slow_loss(p_, b_):
+        if int(b_["step"]) == 25 and not hit:
+            hit["at"] = 25
+            time.sleep(0.5)
+        return lf(p_, b_)
+
+    wd = trainer("watchdog", loss_fn=slow_loss, params=params,
+                 batch_at=lambda s: {**batch_at(s), "step": np.asarray(s)}, total_steps=30,
+                 ckpt_every=1000)
+    res = wd.run()
+    require(any(e["step"] == 25 for e in wd.straggler_events),
+            f"12c: the watchdog missed the delayed step: {wd.straggler_events}")
+    ev25 = next(e for e in wd.straggler_events if e["step"] == 25)
+    log(f"12c watchdog: {res['stragglers']} straggler event(s), step 25 at "
+        f"{ev25['dt'] * 1e3:.1f} ms against a median of {ev25['median'] * 1e3:.2f} ms")
+
+    # ---- int8 and top-k compression -------------------------------------------
+    for kind in ("int8", "topk"):
+        comp = CompressionConfig(kind=kind, topk_frac=0.1)
+        tr = trainer(f"comp_{kind}", total_steps=20, ckpt_every=1000, compression=comp)
+        res = tr.run()
+        first_l, last_l = tr.history[0]["loss"], res["final_loss"]
+        require(np.isfinite(last_l) and last_l < first_l and tr.residual is not None,
+                f"12c {kind}: loss {first_l} -> {last_l}")
+        log(f"12c {kind} compression with error feedback: 20 steps, loss {first_l:.4f} -> "
+            f"{last_l:.4f}, {wire_bytes(tr.params, comp)} wire bytes a step against "
+            f"{wire_bytes(tr.params, CompressionConfig())} uncompressed")
+
+    # ---- the launcher and the example in child processes -----------------------
+    for arch in ("dcn-v2", "gemma3-1b"):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                            "--smoke", "--steps", "30"], capture_output=True, text=True,
+                           env=child_env(), timeout=600)
+        require(r.returncode == 0 and "[train] done" in r.stdout,
+                f"12c: repro_torch.launch.train --arch {arch} exited {r.returncode}: "
+                f"{r.stderr[-2000:]}")
+        log(f"12c python -m repro_torch.launch.train --arch {arch} --smoke --steps 30 in a child "
+            f"process: {r.stdout.strip().splitlines()[-1]} ({time.perf_counter() - t:.3f} s)")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), "--steps",
+                        "200", "--ckpt-dir", str(root / "example")], capture_output=True,
+                       text=True, env=child_env(), timeout=600)
+    require(r.returncode == 0, f"12c: examples/train_lm_torch.py exited {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    log(f"12c examples/train_lm_torch.py in a child process: {r.stdout.strip().splitlines()[-1]} "
+        f"({time.perf_counter() - t:.3f} s)")
+
+
+def phase12_training(dev, smi: str) -> dict:
+    import tempfile
+
+    out: dict = {"K4": 0, "K5": 0, "K6": 0}
+    for name, fn in (("12a dcn-v2 train_batch", lambda: phase12a_dcn_train(dev, smi, out)),
+                     ("12b gemma3-1b train_4k", lambda: phase12b_lm_train(dev, smi, out))):
+        t = time.perf_counter()
+        fn()
+        log(f"phase {name}: {time.perf_counter() - t:.3f} s; card: {smi}")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        phase12c_trainer(dev, smi, Path(d))
+    log(f"phase 12c the Trainer at the smoke width: {time.perf_counter() - t:.3f} s; card: {smi}")
+    return out
+
+
+def main(only: str | None = None) -> int:
+    """Every phase, or with ``only="8"`` or ``only="12"`` the build and that
+    phase alone (a partial run: it prints no result line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4356,6 +5175,18 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     log(f"phase 1 build kernels: {time.perf_counter() - t:.3f} s")
+    if only == "8":
+        t = time.perf_counter()
+        phase8a_updates(dev)
+        log(f"phase 8a and 8d: {time.perf_counter() - t:.3f} s; partial run (--only 8): "
+            f"no result line")
+        return 0
+    if only == "12":
+        t = time.perf_counter()
+        p12 = phase12_training(dev, smi)
+        log(f"phase 12 training: {time.perf_counter() - t:.3f} s; train launches K4 {p12['K4']}, "
+            f"K5 {p12['K5']}, K6 {p12['K6']}; partial run (--only 12): no result line")
+        return 0
 
     t = time.perf_counter()
     errs = phase2_kernels(dev)
@@ -4422,6 +5253,12 @@ def main() -> int:
     log(f"phase 11 durability (the durable 50K cell, the crash sweep, a real SIGKILL, scrub): "
         f"{time.perf_counter() - t:.3f} s; card: {smi}")
 
+    t = time.perf_counter()
+    p12 = phase12_training(dev, smi)
+    log(f"phase 12 training (dcn-v2 train_batch, gemma3-1b train_4k, the Trainer): "
+        f"{time.perf_counter() - t:.3f} s; train launches K4 {p12['K4']}, K5 {p12['K5']}, "
+        f"K6 {p12['K6']}; card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4470,17 +5307,20 @@ def main() -> int:
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),
         record("dominance_scan_batch", "K3-batch", scan_cu, f"{scan_py}:58", p3["K3-batch"],
                p3["K3b_ms"], p3["K3b_plain_ms"], p3["K3b_bound"]),
+        # K4, K5 and K6's launches: phase 6's / 7's serving paths, then phase 12's
+        # train steps (12a's first DCN-v2 step, 12b's first gemma3-1b step), each
+        # counted from 0 just before it
         record("star_agg", "K4", f"{SRC}/star_agg/csrc/star_agg.cu",
-               "src/repro/kernels/star_agg/kernel.py:39", p6["K4"], p6["K4_ms"],
+               "src/repro/kernels/star_agg/kernel.py:39", p6["K4"] + p12["K4"], p6["K4_ms"],
                p6["K4_plain_ms"], p6["K4_bound"], p6["K4_library_ms"]),
         # library_ms of K5 is torch.addmm: the GEMM and bias only, not the fused layer
         record("cross_interact", "K5", f"{SRC}/cross_interact/csrc/cross_interact.cu",
-               "src/repro/kernels/cross_interact/kernel.py:28", p6["K5"], p6["K5_ms"],
+               "src/repro/kernels/cross_interact/kernel.py:28", p6["K5"] + p12["K5"], p6["K5_ms"],
                p6["K5_plain_ms"], p6["K5_bound"], p6["K5_library_ms"]),
         # K6 at a global layer of prefill_32k; its local-layer times are in the log
         record("flash_attention", "K6", f"{SRC}/flash_attention/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"], p7["K6_ms"],
-               p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
+               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"] + p12["K6"],
+               p7["K6_ms"], p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -4498,4 +5338,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--cluster-worker":
         sys.exit(cluster_worker(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-worker":
+        sys.exit(train_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""Architecture and shape-cell entry points of the port (DCN-v2 and gemma3-1b serving so far)."""
+"""Architecture and shape-cell entry points of the port (DCN-v2 and gemma3-1b, serving and training)."""
 from .base import (
     ArchDef,
     ShapeCell,
@@ -6,6 +6,7 @@ from .base import (
     init_params,
     input_specs,
     make_batch,
+    opt_init,
 )
 from .registry import get_arch, resolve_config
 
@@ -16,6 +17,7 @@ __all__ = [
     "init_params",
     "input_specs",
     "make_batch",
+    "opt_init",
     "get_arch",
     "resolve_config",
 ]

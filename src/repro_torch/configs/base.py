@@ -8,12 +8,12 @@ shape cells.  Per (arch × cell) this module builds
   * ``make_batch``  — the batch itself, the same NumPy draws in the same
     order as the JAX package's, as tensors on the device;
   * ``init_params`` — random params from a seeded ``torch.Generator`` on the device;
-  * ``build_step``  — the step function of the cell's kind.
+  * ``build_step``  — the step function of the cell's kind;
+  * ``opt_init``    — the AdamW state a train step takes.
 
-So far the recsys family's serving kinds (``serve``, ``retrieval``) and
-the LM family's (``prefill``, ``decode``) are ported; other kinds and
-families raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+The recsys family's kinds (``train``, ``serve``, ``retrieval``) and the LM
+family's (``train``, ``prefill``, ``decode``) are ported; other families
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,12 +27,16 @@ from ..device import default_device
 from ..models import (
     cast_params,
     dcn_forward,
+    dcn_loss,
     decode_step,
     init_dcn_params,
     init_lm_params,
     lm_forward,
+    lm_loss,
     retrieval_scores,
 )
+from ..train.optimizer import OptConfig, adamw_init
+from ..train.step import train_wrap
 
 __all__ = [
     "ShapeCell",
@@ -45,6 +49,7 @@ __all__ = [
     "make_batch",
     "init_params",
     "build_step",
+    "opt_init",
 ]
 
 
@@ -84,11 +89,8 @@ RECSYS_SHAPES = {
 }
 
 # (family, kind) not ported yet → the ROADMAP item that brings it
-_LATER_KINDS = {
-    ("recsys", "train"): "ROADMAP queue 1 item 17 (recsys training: train/optimizer.py)",
-    ("lm", "train"): "ROADMAP queue 1 item 17 (LM training: lm_loss, train/optimizer.py)",
-}
-_STEP_KINDS = {"recsys": ("serve", "retrieval"), "lm": ("prefill", "decode")}
+_LATER_KINDS: dict = {}
+_STEP_KINDS = {"recsys": ("train", "serve", "retrieval"), "lm": ("train", "prefill", "decode")}
 
 
 def _cells(shapes: dict) -> tuple:
@@ -140,6 +142,8 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
     m = _scale_meta(cell, smoke)
     if arch.family == "lm":
         B, S = m["global_batch"], m["seq_len"]
+        if cell.kind == "train":
+            return {"tokens": ((B, S), np.int32), "labels": ((B, S), np.int32)}
         if cell.kind == "prefill":
             return {"tokens": ((B, S), np.int32)}
         kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
@@ -150,6 +154,8 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
         "dense": ((B, cfg.n_dense), np.float32),
         "sparse": ((B, cfg.n_sparse), np.int32),
     }
+    if cell.kind == "train":
+        spec["label"] = ((B,), np.float32)
     if cell.kind == "retrieval":
         spec["cand_emb"] = ((m["n_candidates"], cfg.retrieval_dim), np.float32)
     return spec
@@ -189,11 +195,12 @@ def make_batch(arch: ArchDef, cell: ShapeCell, cfg, seed: int = 0, smoke: bool =
     return batch
 
 
-def init_params(arch: ArchDef, cfg, seed: int = 0, device=None) -> dict:
+def init_params(arch: ArchDef, cfg, seed: int = 0, device=None, train: bool = False) -> dict:
     """Random params on ``device`` (the card unless told otherwise), drawn
     from a ``torch.Generator`` on that device seeded with ``seed``; the LM's
     are drawn in float32 and cast once to ``cfg.compute_dtype``, the dtype
-    its steps take."""
+    its serving steps take, or with ``train`` kept in ``cfg.param_dtype``,
+    the master params its train step updates."""
     if arch.family not in _STEP_KINDS:
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: ROADMAP queue 1 item 17"
@@ -201,23 +208,36 @@ def init_params(arch: ArchDef, cfg, seed: int = 0, device=None) -> dict:
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if arch.family == "lm":
-        return cast_params(init_lm_params(gen, cfg), cfg.compute_dtype)
+        dtype = getattr(torch, cfg.param_dtype) if train else cfg.compute_dtype
+        return cast_params(init_lm_params(gen, cfg), dtype)
     return init_dcn_params(gen, cfg)
 
 
-def build_step(arch: ArchDef, cell: ShapeCell, cfg):
+def opt_init(params) -> dict:
+    """The AdamW state of ``params`` (``train.optimizer.adamw_init``)."""
+    return adamw_init(params)
+
+
+def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConfig()):
     """Returns (step_fn, takes_opt_state: bool), as the JAX package does.
 
+    train:      step(params, opt_state, batch) → (params, opt_state, metrics),
+                ``opt_cfg``'s AdamW; the LM's in ``cfg.grad_accum`` microbatches
     serve:      step(params, batch) → logits (B,)
     retrieval:  step(params, batch) → (top values, top indices), each (B, 100)
     prefill:    step(params, batch) → logits (B, S, V)
     decode:     step(params, batch) → (logits (B, V), cache), the cache updated in place
 
-    The LM steps take params in ``cfg.compute_dtype``, as ``init_params``
-    returns them (carried float32 params go through ``models.cast_params``
-    once), and raise on another dtype.
+    The LM's serving steps take params in ``cfg.compute_dtype``, as
+    ``init_params`` returns them (carried float32 params go through
+    ``models.cast_params`` once), and raise on another dtype; its train step
+    takes the master params (``init_params(..., train=True)``).
     """
     _ported(arch, cell)
+    if cell.kind == "train":
+        if arch.family == "lm":
+            return train_wrap(lambda p, b: lm_loss(p, b, cfg), opt_cfg, cfg.grad_accum), True
+        return train_wrap(lambda p, b: dcn_loss(p, b, cfg), opt_cfg), True
     if cell.kind == "prefill":
         return (lambda params, batch: lm_forward(params, batch["tokens"], cfg)[0]), False
     if cell.kind == "decode":

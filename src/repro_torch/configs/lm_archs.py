@@ -9,7 +9,7 @@ def _gemma3(smoke: bool) -> TransformerConfig:
     if smoke:
         return TransformerConfig(
             n_layers=6, d_model=64, n_heads=4, n_kv_heads=1, head_dim=16, d_ff=192,
-            vocab=512, window=16, dtype="float32", kv_chunk=32,
+            vocab=512, window=16, dtype="float32", kv_chunk=32, remat=False,
         )
     return TransformerConfig(
         n_layers=26,
@@ -22,6 +22,7 @@ def _gemma3(smoke: bool) -> TransformerConfig:
         window=512,  # gemma-3-1b sliding window; every sixth layer global (5:1)
         dtype="bfloat16",
         kv_chunk=1024,
+        grad_accum=2,
     )
 
 

@@ -3,20 +3,27 @@
 ``jax.random`` initialisation cannot be reproduced in torch, so a parity
 check builds the port from the reference's state: an engine's trained
 per-partition state (``GnnPeEngine.build(g, params=...)``), a DCN-v2
-params tree or a dense LM's.  This module only reads the reference objects' attributes
-and turns arrays into NumPy; it imports neither JAX nor the JAX package.
+params tree or a dense LM's, an AdamW state over either, or a whole
+``Trainer`` checkpoint directory.  This module only reads the reference
+objects' attributes and turns arrays into NumPy; it imports neither JAX
+nor the JAX package.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
 from .device import default_device
+from .dist.checkpoint import CheckpointManager
 
 __all__ = [
     "partition_state_from_reference",
     "dcn_params_from_reference",
     "lm_params_from_reference",
+    "opt_state_from_reference",
+    "trainer_state_from_reference",
 ]
 
 
@@ -89,3 +96,76 @@ def lm_params_from_reference(params: dict, device=None) -> dict:
         "final_norm": t(params["final_norm"]),
         "layers": [{k: t(v[i]) for k, v in stacked.items()} for i in range(n_layers)],
     }
+
+
+def _tensors(tree, device):
+    """A tree of arrays (dicts, lists) → the same tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def opt_state_from_reference(opt_state: dict, params_fn=None, device=None) -> dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` → the port's:
+    ``m`` and ``v`` through ``params_fn`` (``dcn_params_from_reference`` or
+    ``lm_params_from_reference``, which lay out the trees as the port's
+    params are; None keeps the tree as it is), ``step`` a 0-d int32 tensor,
+    all on ``device`` (the card unless told otherwise)."""
+    dev = default_device(device)
+
+    def conv(tree):
+        return params_fn(tree, device=dev) if params_fn is not None else _tensors(tree, dev)
+
+    return {"m": conv(opt_state["m"]), "v": conv(opt_state["v"]),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32,
+                                 device=dev)}
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def _nest(flat: dict):
+    """{checkpoint key string (``['a'][0]['b']``): array} → the nested tree,
+    a dict whose keys are all ints becoming a list."""
+    root: dict = {}
+    for key, arr in flat.items():
+        parts = [name if name else int(i) for name, i in _KEY_PART.findall(key)]
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return lists(root)
+
+
+def trainer_state_from_reference(directory, family: str | None = None, step: int | None = None,
+                                 device=None) -> dict:
+    """A JAX-package ``Trainer`` checkpoint (``{"params", "opt", "step"}``,
+    verified as ``dist/checkpoint.py`` reads it; the newest valid step by
+    default) → the port's ``{"params", "opt", "step"}`` on ``device``, for
+    ``Trainer.load_state``.  ``family`` lays the params out as the port's
+    model does: "lm" (layers stacked in the reference, a list here),
+    "recsys", or None to keep the tree as stored."""
+    dev = default_device(device)
+    flat, _ = CheckpointManager(directory).restore_arrays(step)
+    tree = _nest({k if k.startswith("[") else f"['{k}']": v for k, v in flat.items()})
+    params_fn = {"lm": lm_params_from_reference, "recsys": dcn_params_from_reference}.get(family)
+    if family is not None and params_fn is None:
+        raise ValueError(f"unknown family {family!r}; use 'lm', 'recsys' or None")
+
+    def conv(t):
+        return params_fn(t, device=dev) if params_fn is not None else _tensors(t, dev)
+
+    return {"params": conv(tree["params"]),
+            "opt": opt_state_from_reference(tree["opt"], params_fn, device=dev),
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)}

@@ -66,6 +66,15 @@ request faults; kernel and device faults are re-raised),
 stack of just those) and ``prepare / build / install_generation``
 (blue-green index generations).
 
+Short-path queries (a deviation from the JAX package, which answers them
+with nothing): a query with no simple path of ``path_length`` edges plans
+over shorter paths (``candidate_plan_paths``), which no index holds.  Such
+a path's candidates come from the live graph instead
+(``_short_path_candidates``): every simple path of its length rooted at a
+partition member whose vertex labels equal the query path's, partitions
+ascending.  They go into the same join in the place of the buffer rows, so
+every entry point answers them exactly; their results are never cached.
+
 The engine runs on the card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -470,16 +479,18 @@ class GnnPeEngine:
         else:
             attach_groups(index, self.cfg.group_size)
 
-    def stacked_probe(self):
+    def stacked_probe(self, slot_of=None):
         """The stacked probe over every partition's index, built at the
         first call after a ``build`` and kept; its padding lands in
-        ``offline_stats`` (``stacked_*``)."""
+        ``offline_stats`` (``stacked_*``).  ``slot_of``, where it builds,
+        keeps a given slot layout (a restored engine's donor's)."""
         if self._stacked_probe is None:
             assert self.models, "call build() first"
             from ..dist.probe import StackedProbe  # the dist package imports core
 
             self._stacked_probe = StackedProbe(
-                [m.index for m in self.models], leaf_pair_cap=self.cfg.stacked_leaf_pair_cap
+                [m.index for m in self.models], leaf_pair_cap=self.cfg.stacked_leaf_pair_cap,
+                slot_of=slot_of,
             )
             self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
         return self._stacked_probe
@@ -1222,16 +1233,20 @@ class GnnPeEngine:
         plan = self._plan_cached(q, weight_fn=weight_fn)
         stats.plan = plan
         candidates = [[] for _ in plan.paths]
+        short = self._short_paths(q, plan, {})
         total_paths = 0
         for mi, model in enumerate(self.models):
+            for pi, got in short.items():
+                if mi in got:
+                    candidates[pi].append(got[mi])
             dp = delta.parts[mi] if delta is not None else None
             n_live = model.index.n_paths + (dp.n_rows - dp.n_tombstones if dp is not None else 0)
             if n_live <= 0:
                 continue
             total_paths += n_live
             for pi, p in enumerate(plan.paths):
-                if len(p) != model.index.paths.shape[1]:
-                    continue  # a length-mismatched fallback path
+                if pi in short:
+                    continue
                 rows, drows = _retrieve(mi, p)
                 if rows.numel():
                     candidates[pi].append(model.index.paths[rows])
@@ -1321,6 +1336,46 @@ class GnnPeEngine:
         om_all = torch.stack(om) if om else o_all.new_zeros((0,) + tuple(o_all.shape))
         cat = [(o_all[mi], o0_all[mi], om_all[:, mi]) for mi in range(len(self.models))]
         return cat, spans, (o_all, o0_all, om_all)
+
+    def _short_path_candidates(self, labels: tuple, memo: dict, parts=None) -> dict:
+        """Candidates of a plan path shorter than the index's paths, from the
+        live graph: every simple path with ``len(labels)`` vertices rooted at
+        a member of partition ``mi`` whose vertex labels equal ``labels`` →
+        ``{mi: (n, len(labels)) int64 tensor}`` over the partitions that have
+        any (``parts``, default all).  A partition's rows follow its members
+        in ascending order, then ``enumerate_paths``' expansion order.  The
+        label test is exact and the join refines every match, so no match is
+        lost.  ``memo`` keeps each (partition, labels) result for one call."""
+        dg = self.dgraph
+        want = torch.as_tensor(labels, dtype=torch.int64, device=dg.device)
+        out = {}
+        for mi in range(len(self.models)) if parts is None else sorted(int(m) for m in parts):
+            key = (mi, labels)
+            if key not in memo:
+                members = self.models[mi].members.astype(np.int64)
+                roots = members[self.graph.labels[members] == labels[0]]
+                paths = enumerate_paths(dg, roots, len(labels) - 1)
+                memo[key] = paths[(dg.labels[paths] == want).all(dim=1)]
+            if memo[key].shape[0]:
+                out[mi] = memo[key]
+        return out
+
+    def is_short(self, path: tuple) -> bool:
+        """Whether a plan path is shorter than the index's paths."""
+        return len(path) != self.cfg.path_length + 1
+
+    def has_short_paths(self, plan: QueryPlan) -> bool:
+        return any(self.is_short(p) for p in plan.paths)
+
+    def _short_paths(self, q: Graph, plan: QueryPlan, memo: dict) -> dict:
+        """``{plan position: _short_path_candidates}`` for the plan's paths
+        shorter than the index's (none for a query with a path of
+        ``path_length`` edges)."""
+        return {
+            pi: self._short_path_candidates(tuple(int(q.labels[v]) for v in p), memo)
+            for pi, p in enumerate(plan.paths)
+            if self.is_short(p)
+        }
 
     def _stacked_live_mask(self, probe, parts: tuple | None = None) -> torch.Tensor | None:
         """(S, P_max) device bool mask over the stacked leaf rows of
@@ -1517,7 +1572,10 @@ class GnnPeEngine:
         partition: the live main rows in index order, then the buffer rows
         in buffer order, the arrays ``_match_many_core`` concatenates, so a
         coordinator that assembles them by ascending ``mi`` (main, then
-        buffer rows) has the single-process candidates.  Every row gathers
+        buffer rows) has the single-process candidates.  A path shorter
+        than the index's gets its live-graph candidates
+        (``_short_path_candidates``) as buffer rows, for each partition that
+        has any.  Every row gathers
         on the device and comes back in ONE copy, split on the host.  With
         ``return_stats`` also ``{(mi, qi, path): stats}`` (the grouped dr
         weights read ``surviving_groups`` there).
@@ -1550,6 +1608,16 @@ class GnnPeEngine:
         for key in list(memo) + [k for k in delta_memo if k not in memo]:
             ev = empty.setdefault(len(key[2]), np.zeros((0, len(key[2])), np.int32))
             out[key] = (got.get((key, False), ev), got.get((key, True), ev))
+        # a path shorter than the index's: its live-graph candidates in the
+        # buffer rows' place, where both assemblies put them
+        short_memo: dict = {}
+        for qi, p in dict.fromkeys(requests):
+            if not self.is_short(p):
+                continue
+            labels = tuple(int(queries[qi].labels[v]) for v in p)
+            ev = np.zeros((0, len(p)), np.int32)
+            for mi, rows in self._short_path_candidates(labels, short_memo, parts).items():
+                out[(mi, qi, p)] = (ev, rows.to(torch.int32).cpu().numpy())
         return (out, stats_memo) if return_stats else out
 
     def match_many(
@@ -1634,6 +1702,8 @@ class GnnPeEngine:
                     q = queries[qi]
                     perm, key = canon[qi]
                     plan = sub_stats[k].plan
+                    if self.has_short_paths(plan):
+                        continue  # the invalidation rules scope index rows only
                     labels = torch.as_tensor(q.labels.astype(np.int64))
                     plan_hashes = {
                         int(hash_labels(labels[list(p)][None, :])[0]) for p in plan.paths
@@ -1665,7 +1735,8 @@ class GnnPeEngine:
         Candidates are ``main ∪ delta − tombstones``: per partition in
         engine order its live main rows, then its buffer rows; with the
         hand-off, the probe's device rows (slot order), then the buffer rows
-        in engine order.
+        in engine order.  A plan path shorter than the index's has only its
+        live-graph candidates, partitions in engine order.
 
         Each stage opens its span (``embed``, ``plan``, ``probe`` with one
         ``partition`` child per model, ``assemble``, ``join``) under the
@@ -1805,13 +1876,19 @@ class GnnPeEngine:
         t_asm = time.perf_counter()
         contributing: list[set] = [set() for _ in range(nq)]
         per_query_cands = []
+        short_memo: dict = {}
         with obs_trace.span("assemble") as asm_span:
             for qi, plan in enumerate(plans):
                 st = stats[qi]
                 st.plan = plan
                 candidates = [[] for _ in plan.paths]
+                short = self._short_paths(queries[qi], plan, short_memo)
                 total_paths = 0
                 for mi, model in enumerate(self.models):
+                    for pi, got in short.items():
+                        if mi in got:  # in the buffer rows' place
+                            candidates[pi].append(got[mi])
+                            contributing[qi].add(mi)
                     dp = delta.parts[mi] if delta is not None else None
                     n_live = model.index.n_paths
                     if dp is not None:

@@ -93,6 +93,15 @@ def plan_shards(sizes, n_shards: int) -> list[list[int]]:
     return shards
 
 
+def default_slot_of(sizes) -> np.ndarray:
+    """The slot layout ``build_stacked`` picks for partitions of ``sizes``
+    paths when given none: one shard, largest partition first."""
+    sizes = np.asarray(sizes, np.int64)
+    slot_of = np.zeros(len(sizes), np.int64)
+    slot_of[plan_shards(sizes, 1)[0]] = np.arange(len(sizes))
+    return slot_of
+
+
 @dataclasses.dataclass
 class StackedGroups:
     """Group sidecars re-tiled onto ``gpb`` fixed slots per leaf block."""
@@ -224,9 +233,13 @@ def _stack_groups(
     return StackedGroups(hi, lo0, hi0, start, count, gpb=gpb, group_size=group_size)
 
 
-def build_stacked(indexes: list) -> StackedIndex:
+def build_stacked(indexes: list, slot_of=None) -> StackedIndex:
     """Pad-and-stack per-partition ``PackedIndex``es into a ``StackedIndex``
     on their device, for one card (the JAX package's ``n_shards=1``).
+
+    ``slot_of`` (engine partition → slot, a permutation) keeps a given slot
+    layout, as a restored engine keeps its donor's; by default the slots
+    go largest partition first (``plan_shards``).
 
     Every index must come from one engine build (same ``block_size``,
     ``fanout``, feature widths and sidecars).  Zero-path indexes become
@@ -256,8 +269,12 @@ def build_stacked(indexes: list) -> StackedIndex:
     # ---- slot layout: one shard, largest partition first -----------------
     sizes = np.asarray([ix.n_paths for ix in indexes], np.int64)
     n_slots = n_parts
-    slot_of = np.zeros(n_parts, np.int64)
-    slot_of[plan_shards(sizes, 1)[0]] = np.arange(n_parts)
+    if slot_of is None:
+        slot_of = default_slot_of(sizes)
+    else:
+        slot_of = np.asarray(slot_of, np.int64).copy()
+        if sorted(slot_of.tolist()) != list(range(n_parts)):
+            raise ValueError(f"slot_of {slot_of.tolist()} is no permutation of {n_parts} slots")
     n_paths = np.zeros(n_slots, np.int64)
     n_paths[slot_of] = sizes
     p_max = int(max(n_paths.max(), 1))

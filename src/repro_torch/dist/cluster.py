@@ -441,7 +441,7 @@ class ClusterEngine:
             for k, qi in enumerate(miss):
                 results[qi] = sub_results[k]
                 info[qi] = {"cache_hit": False, "n_matches": len(sub_results[k])}
-                if self.cache is not None:
+                if self.cache is not None and not eng.has_short_paths(plans[k]):
                     q = queries[qi]
                     perm, key = canon[qi]
                     labels = torch.as_tensor(q.labels.astype(np.int64))
@@ -490,6 +490,8 @@ class ClusterEngine:
             # the single-process dr weights: the gathered arrays are its memo
             # and buffer rows (a grouped probe: surviving groups, buffer rows
             # as ceil(rows / group_size) groups)
+            if eng.is_short(p):
+                return 0.0  # no index probes a shorter path (single-process weight)
             keys = [(mi, qi, p) for mi in range(n_models)]
             if use_groups:
                 return float(

@@ -60,11 +60,11 @@ class StackedProbe:
     ``cap``.  The rows are the same for any cap.
     """
 
-    def __init__(self, indexes: list, leaf_pair_cap: int = 1 << 21):
+    def __init__(self, indexes: list, leaf_pair_cap: int = 1 << 21, slot_of=None):
         if leaf_pair_cap < 1:
             raise ValueError(f"leaf_pair_cap must be >= 1, got {leaf_pair_cap}")
         self.leaf_pair_cap = int(leaf_pair_cap)
-        self.stacked = build_stacked(indexes)
+        self.stacked = build_stacked(indexes, slot_of)
         st = self.stacked
         self._indexes = list(indexes)  # the hand-off's paths tensor is built from them
         self._paths: torch.Tensor | None = None

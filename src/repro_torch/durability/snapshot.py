@@ -21,6 +21,16 @@ stored as it is).  It then rebuilds the state the port's engine derives
 ``probe_impl="stacked"``) and starts with empty caches.  Steps are keyed
 by delta epoch; the manifest and digest checks and the fallback to the
 newest valid step come from ``dist/checkpoint.py``.
+
+One meta key is the port's own (a deviation from the JAX package's
+layout): ``port_slot_of``, the stacked probe's slot layout (engine
+partition → slot) where the engine holds one, else null.  A live engine
+keeps its build-time slots through compactions (``update_slot``), and the
+hand-off to the device join lists candidates in slot order, so a port
+restore rebuilds the donor's slots and answers in its order.  The JAX
+package's ``restore_engine`` reads only the meta keys it names and so still
+reads a port-written snapshot; a snapshot without the key (the JAX
+package's) restores as before, stacked afresh, largest partition first.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import torch
 from ..core.delta import DeltaIndex
 from ..core.engine import GnnPeConfig, GnnPeEngine, PartitionModel
 from ..core.index import PackedGroupIndex, build_index
+from ..core.stacked import default_slot_of
 from ..core.training import TrainConfig
 from ..dist.checkpoint import CheckpointManager, CorruptCheckpointError
 from ..graphs.graph import Graph, device_graph
@@ -51,6 +62,7 @@ __all__ = [
 ]
 
 _META_KEY = "__snap_meta__"
+_SLOT_KEY = "port_slot_of"  # the port's own meta key (the module doc)
 _FORMAT = 1
 
 _M_SNAP_S = REGISTRY.histogram("gnnpe_snapshot_seconds", "engine snapshot wall time")
@@ -184,6 +196,10 @@ def engine_state(engine: GnnPeEngine, subscriptions: dict | None = None):
         "pending_compaction": sorted(int(i) for i in engine._pending_compaction),
         "offline_stats": _jsonable(engine.offline_stats),
         "subscriptions": subs_meta,
+        _SLOT_KEY: (
+            [int(s) for s in engine._stacked_probe.stacked.slot_of]
+            if engine._stacked_probe is not None else None
+        ),
     }
     return meta, arrays
 
@@ -314,12 +330,16 @@ def restore_engine(arrays: dict, device=None) -> tuple[GnnPeEngine, dict]:
     eng._part_leaf_pairs = np.array(arrays["plp"], np.int64, copy=True)
     eng._part_probe_rows = np.array(arrays["ppr"], np.int64, copy=True)
     # the derived state a fresh engine holds: no plan, mask, subset probe,
-    # cached result or last-epoch record; the stacked probe stacks afresh
-    # (its slot layout may differ from an engine that re-stacked slots
-    # elastically; the candidate order does not)
+    # cached result or last-epoch record.  The stacked probe takes the
+    # donor's slot layout where the snapshot carries one; a donor without a
+    # stacked probe gets none (it stacks lazily, at the sizes of its first
+    # probe, as the donor would); a JAX-package snapshot stacks afresh.
     eng._last_epoch_update = None
-    if cfg.probe_impl == "stacked" and eng.models:
-        eng.stacked_probe()
+    if eng.models:
+        if meta.get(_SLOT_KEY) is not None:
+            eng.stacked_probe(slot_of=np.asarray(meta[_SLOT_KEY], np.int64))
+        elif _SLOT_KEY not in meta and cfg.probe_impl == "stacked":
+            eng.stacked_probe()
     return eng, meta
 
 
@@ -339,9 +359,23 @@ def restore_subscriptions(meta: dict, arrays: dict) -> dict:
     return out
 
 
+def _next_slot_of(engine: GnnPeEngine, meta: dict) -> list | None:
+    """The slot layout the engine's next stacked probe runs on: the built
+    probe's, else ``build_stacked``'s default for the current index sizes."""
+    if meta[_SLOT_KEY] is not None:
+        return meta[_SLOT_KEY]
+    if not engine.models:
+        return None
+    return [int(s) for s in default_slot_of([m.index.n_paths for m in engine.models])]
+
+
 def engine_fingerprint(engine: GnnPeEngine) -> str:
     """Content digest of everything match-relevant: two engines with equal
-    fingerprints return identical matches, in identical order.
+    fingerprints return identical matches, in identical order.  It covers
+    the slot layout the stacked probe orders the hand-off's lists by: the
+    built probe's (``port_slot_of``), else the one it would be built with
+    from the current index sizes, so building it on a first stacked read
+    leaves the digest as it was.
 
     Telemetry (probe counters, offline timings) is excluded: a replica
     that served reads diverges there without any bearing on state.
@@ -362,6 +396,7 @@ def engine_fingerprint(engine: GnnPeEngine) -> str:
         "delta_epoch": meta["delta_epoch"],
         "n_compactions": meta["n_compactions"],
         "pending": meta["pending_compaction"],
+        "slot_of": _next_slot_of(engine, meta),
         "models": [
             {k: mm[k] for k in ("n_tomb", "version", "group_size", "quantize")}
             for mm in meta["models"]

@@ -4,6 +4,12 @@ A CUDA tensor goes through the hand-written kernel (``kernel.py``), a
 CPU tensor through the plain version (``ref.py``); any other device
 raises.  ``LAUNCHES`` counts the kernel's launches, so a run can show
 that its path went through the kernel.
+
+``cross_interact`` is differentiable through ``_CrossInteract``, on the CPU
+and on the card alike.  Its backward is plain PyTorch by design (the JAX
+package has no backward kernel either): with upstream gradient g and
+y = x W + b recomputed in float32 by ``torch.matmul`` (TF32 off, the port's
+rule), dx0 = g ⊙ y, dx = (g ⊙ x0) Wᵀ + g, dW = xᵀ (g ⊙ x0), db = Σ (g ⊙ x0).
 """
 from __future__ import annotations
 
@@ -12,27 +18,13 @@ import torch
 from .kernel import kpad, launch_cross_interact
 from .ref import cross_interact_ref
 
-__all__ = ["LAUNCHES", "cross_interact", "cross_interact_ref"]
+__all__ = ["LAUNCHES", "cross_interact", "cross_interact_ref", "cross_interact_backward"]
 
 LAUNCHES = 0
 
 
-def cross_interact(x0, x, w, b) -> torch.Tensor:
-    """x0, x (B, D); w (D, D) used as ``x @ w``; b (D,), all float32 →
-    ``x0 ⊙ (x @ w + b) + x`` (B, D) float32."""
+def _forward(x0, x, w, b) -> torch.Tensor:
     global LAUNCHES
-    ops = (x0, x, w, b)
-    if any(t.device != x.device for t in ops):
-        raise ValueError("cross_interact: operands lie on different devices")
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("cross_interact: operands must be float32")
-    if not (
-        x.dim() == 2 and x0.shape == x.shape and w.shape == (x.shape[1], x.shape[1])
-        and b.shape == (x.shape[1],)
-    ):
-        raise ValueError(f"cross_interact: operand shapes {[tuple(t.shape) for t in ops]}")
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("cross_interact: operands must be contiguous")
     if x.device.type == "cpu":
         return cross_interact_ref(x0, x, w, b)
     if x.device.type != "cuda":
@@ -46,3 +38,46 @@ def cross_interact(x0, x, w, b) -> torch.Tensor:
     launch_cross_interact(x0, x, w, b, wt, out)
     LAUNCHES += 1
     return out
+
+
+def cross_interact_backward(x0, x, w, b, g, needs=(True, True, True, True)) -> tuple:
+    """(dx0, dx, dW, db) of ``x0 ⊙ (x W + b) + x`` for upstream ``g``; None
+    where ``needs`` says the input wants none."""
+    gx0 = g * x0
+    dx0 = g * (torch.matmul(x, w) + b) if needs[0] else None
+    dx = torch.matmul(gx0, w.t()) + g if needs[1] else None
+    dw = torch.matmul(x.t(), gx0) if needs[2] else None
+    db = gx0.sum(0) if needs[3] else None
+    return dx0, dx, dw, db
+
+
+class _CrossInteract(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, x, w, b):
+        ctx.save_for_backward(x0, x, w, b)
+        return _forward(x0, x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, x, w, b = ctx.saved_tensors
+        return cross_interact_backward(x0, x, w, b, g.contiguous(), ctx.needs_input_grad)
+
+
+def cross_interact(x0, x, w, b) -> torch.Tensor:
+    """x0, x (B, D); w (D, D) used as ``x @ w``; b (D,), all float32 →
+    ``x0 ⊙ (x @ w + b) + x`` (B, D) float32."""
+    ops = (x0, x, w, b)
+    if any(t.device != x.device for t in ops):
+        raise ValueError("cross_interact: operands lie on different devices")
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError("cross_interact: operands must be float32")
+    if not (
+        x.dim() == 2 and x0.shape == x.shape and w.shape == (x.shape[1], x.shape[1])
+        and b.shape == (x.shape[1],)
+    ):
+        raise ValueError(f"cross_interact: operand shapes {[tuple(t.shape) for t in ops]}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("cross_interact: operands must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cross_interact: no kernel for device {x.device}")
+    return _CrossInteract.apply(x0, x, w, b)

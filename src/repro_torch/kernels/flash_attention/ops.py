@@ -4,6 +4,13 @@ A CUDA tensor goes through the hand-written kernel (``kernel.py``), a
 CPU tensor through the plain version (``ref.flash_attention_plain``);
 any other device raises.  ``LAUNCHES`` counts the kernel's launches, so a run
 can show that its path went through the kernel.
+
+``flash_attention`` is differentiable in q, k and v through ``_FlashAttention``,
+on the CPU and on the card alike.  Its backward is plain PyTorch by design
+(the JAX package has no backward kernel either): it recomputes the plain
+chunked attention on the saved operands under autograd, one KV chunk's
+scores at a time (``chunked_attention(remat=True)``, as the JAX model's
+``remat_attention``), and takes ``torch.autograd.grad`` of it.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import torch
 from .kernel import launch_flash_attention
 from .ref import flash_attention_plain
 
-__all__ = ["LAUNCHES", "flash_attention"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward"]
 
 LAUNCHES = 0
 _ALIGN = 8  # elements: the kernel moves 16-byte chunks of bf16
@@ -32,7 +39,6 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     with dh a multiple of 16 up to 256 and a unit stride on dh (other
     strides are read as they are, multiples of 8); on the CPU float32 or bf16.
     """
-    global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or q.shape[0::3] != k.shape[0::3] \
             or q.shape[1] != k.shape[1] or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
         raise ValueError(
@@ -47,9 +53,14 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     if q.device.type == "cpu":
         if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash_attention: no plain version for {q.dtype}")
-        return flash_attention_plain(q, k, v, causal, window, chunk)
-    if q.device.type != "cuda":
+    elif q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    else:
+        _check_kernel_operands(q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, window, chunk)
+
+
+def _check_kernel_operands(q, k, v) -> None:
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the kernel takes bf16, not {q.dtype}")
     B, S, Hq, dh = q.shape
@@ -63,9 +74,39 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
                              "strides multiples of 8 and 16-byte aligned data")
     if B * Hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {B * Hq} exceeds the kernel's grid")
-    out = torch.empty((B, S, Hq, dh), dtype=q.dtype, device=q.device)
+
+
+def _forward(q, k, v, causal: bool, window, chunk: int) -> torch.Tensor:
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, chunk)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    launch_flash_attention(q, k, v, out, causal, window or 0, 1.0 / math.sqrt(dh))
+    launch_flash_attention(q, k, v, out, causal, window or 0, 1.0 / math.sqrt(q.shape[-1]))
     LAUNCHES += 1
     return out
+
+
+def flash_attention_backward(q, k, v, grad_out, causal: bool = True, window=None,
+                             chunk: int = 1024) -> tuple:
+    """(dq, dk, dv) of the attention for upstream ``grad_out``: autograd of
+    the plain chunked attention recomputed on ``q``, ``k`` and ``v``."""
+    with torch.enable_grad():
+        ops = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*ops, causal, window, chunk, remat=True)
+        return torch.autograd.grad(out, ops, grad_out)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, chunk)
+        return _forward(q, k, v, causal, window, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, grad_out, *ctx.args)
+        return dq, dk, dv, None, None, None

@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 __all__ = [
     "K6_ELEM",
@@ -40,7 +41,24 @@ K6_ELEM = 2.0**-7
 K6_REL_L2 = 5e-3
 
 
-def chunked_attention(q, k, v, q_pos, kv_pos, window, chunk: int, causal: bool = True):
+def _chunk_step(m, l, acc, qf, kc, vc, pc, q_pos, window, causal: bool, scale: float):
+    """One KV chunk of the online softmax: (m, l, acc) carried in float32."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kc.float()) * scale
+    # causal: keys up to the query; else every real key (padding is never one)
+    allowed = pc[None, :] <= (q_pos[:, None] if causal else _PAD_POS - 1)
+    if window is not None:
+        allowed = allowed & ((q_pos[:, None] - pc[None, :]) < window)
+    s = s + torch.where(allowed, 0.0, _MASKED)[None, :, None, None, :]
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vc.float())
+    return m_new, l, acc
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, window, chunk: int, causal: bool = True,
+                      remat: bool = False):
     """Online-softmax attention over KV chunks, as the JAX model computes it.
 
     q (B, Sq, Hkv, G, dh) grouped query heads; k (B, Skv, Hkv, dh), v (B, Skv,
@@ -49,7 +67,10 @@ def chunked_attention(q, k, v, q_pos, kv_pos, window, chunk: int, causal: bool =
     dv) in q's dtype.  Scores, max, sum and accumulator are float32; the
     scale multiplies the product; masked scores get −1e30 added; the last
     chunk is padded with slots at position 2³⁰.  ``causal=False`` keeps every real
-    key (the window, if any, still applies).
+    key (the window, if any, still applies).  ``remat`` checkpoints each
+    chunk (the JAX model's ``remat_attention``): under autograd only the
+    carries are kept, and the backward recomputes one chunk's scores at a
+    time; the values are the same.
     """
     B, Sq, Hkv, G, dh = q.shape
     Skv, dv = k.shape[1], v.shape[-1]
@@ -67,24 +88,17 @@ def chunked_attention(q, k, v, q_pos, kv_pos, window, chunk: int, causal: bool =
             kc = F.pad(kc, (0, 0, 0, 0, 0, pad))
             vc = F.pad(vc, (0, 0, 0, 0, 0, pad))
             pc = F.pad(pc, (0, pad), value=_PAD_POS)
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kc.float()) * scale
-        # causal: keys up to the query; else every real key (padding is never one)
-        allowed = pc[None, :] <= (q_pos[:, None] if causal else _PAD_POS - 1)
-        if window is not None:
-            allowed = allowed & ((q_pos[:, None] - pc[None, :]) < window)
-        s = s + torch.where(allowed, 0.0, _MASKED)[None, :, None, None, :]
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vc.float())
-        m = m_new
+        args = (m, l, acc, qf, kc, vc, pc, q_pos, window, causal, scale)
+        if remat and torch.is_grad_enabled():
+            m, l, acc = torch.utils.checkpoint.checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.to(q.dtype).reshape(B, Sq, Hkv * G, dv)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = None,
-                          chunk: int = 1024):
+                          chunk: int = 1024, remat: bool = False):
     """K6's plain version on the wrapper's layout: q (B, S, Hq, dh), k and v
     (B, S, Hkv, dh) → (B, S, Hq, dh), ``chunked_attention`` over positions
     0 … S − 1, query head h on KV head h // (Hq / Hkv)."""
@@ -92,7 +106,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = Non
     Hkv = k.shape[2]
     pos = torch.arange(S, dtype=torch.int32, device=q.device)
     out = chunked_attention(q.reshape(B, S, Hkv, Hq // Hkv, dh), k, v, pos, pos, window, chunk,
-                            causal)
+                            causal, remat)
     return out.reshape(B, S, Hq, v.shape[-1])
 
 

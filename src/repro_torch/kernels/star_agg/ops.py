@@ -4,6 +4,13 @@ A CUDA tensor goes through the hand-written kernel (``kernel.py``), a
 CPU tensor through the plain version (``ref.py``); any other device
 raises.  ``LAUNCHES`` counts the kernel's launches, so a run can show
 that its path went through the kernel.
+
+``star_agg`` is differentiable in ``table`` through ``_StarAgg``, on the
+CPU and on the card alike.  Its backward is plain PyTorch by design (the
+JAX package has no backward kernel either): the output gradient of every
+unmasked slot is scatter-added into its table row with ``index_add_``, a
+dense (V, E) gradient as ``jax.grad`` gives it.  ``idx`` and ``mask`` get
+no gradient.
 """
 from __future__ import annotations
 
@@ -12,9 +19,51 @@ import torch
 from .kernel import launch_star_agg
 from .ref import star_agg_ref
 
-__all__ = ["LAUNCHES", "star_agg", "star_agg_ref"]
+__all__ = ["LAUNCHES", "star_agg", "star_agg_ref", "star_agg_backward"]
 
 LAUNCHES = 0
+
+
+def _forward(idx, mask, table) -> torch.Tensor:
+    global LAUNCHES
+    if table.device.type == "cpu":
+        return star_agg_ref(idx, mask, table)
+    if table.device.type != "cuda":
+        raise ValueError(f"star_agg: no kernel for device {table.device}")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    launch_star_agg(idx, mask, table, out)
+    LAUNCHES += 1
+    return out
+
+
+def star_agg_backward(idx, mask, grad_out, n_rows: int) -> torch.Tensor:
+    """The (n_rows, E) table gradient of ``star_agg``: ``grad_out[n]`` added
+    into row ``idx[n, k]`` for every unmasked slot (ids widened to int64).
+    A masked slot adds exact zeros into row 0 instead of being selected out,
+    so nothing waits on the host for the count of unmasked slots."""
+    N, K = idx.shape
+    E = grad_out.shape[1]
+    grad = torch.zeros((n_rows, E), dtype=torch.float32, device=grad_out.device)
+    rows = torch.where(mask, idx, 0).reshape(-1).long()
+    src = torch.where(mask[..., None], grad_out.float()[:, None, :], 0.0).reshape(N * K, E)
+    return grad.index_add_(0, rows, src)
+
+
+class _StarAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, idx, mask, table):
+        ctx.save_for_backward(idx, mask)
+        ctx.n_rows = table.shape[0]
+        return _forward(idx, mask, table)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[2]:
+            return None, None, None
+        idx, mask = ctx.saved_tensors
+        return None, None, star_agg_backward(idx, mask, grad_out, ctx.n_rows)
 
 
 def star_agg(idx, mask, table) -> torch.Tensor:
@@ -24,7 +73,6 @@ def star_agg(idx, mask, table) -> torch.Tensor:
     Masked slots are never read, so their ids may be anything; unmasked
     ids must lie in ``[0, V)``.
     """
-    global LAUNCHES
     if any(t.device != table.device for t in (idx, mask)):
         raise ValueError("star_agg: operands lie on different devices")
     if idx.dtype != torch.int32 or mask.dtype != torch.bool or table.dtype != torch.float32:
@@ -36,13 +84,6 @@ def star_agg(idx, mask, table) -> torch.Tensor:
         )
     if not all(t.is_contiguous() for t in (idx, mask, table)):
         raise ValueError("star_agg: operands must be contiguous")
-    if table.device.type == "cpu":
-        return star_agg_ref(idx, mask, table)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"star_agg: no kernel for device {table.device}")
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
-        return out
-    launch_star_agg(idx, mask, table, out)
-    LAUNCHES += 1
-    return out
+    return _StarAgg.apply(idx, mask, table)

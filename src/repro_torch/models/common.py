@@ -5,7 +5,7 @@ import math
 
 import torch
 
-__all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope"]
+__all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
 
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None) -> torch.Tensor:
@@ -44,3 +44,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean token cross-entropy in float32: logits (..., V), labels (...,)
+    int; with ``mask`` (...,) the mean over its weight (at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -7,8 +7,9 @@ gather-sum, ``kernels/star_agg``).  Each cross layer
 ``x₀ ⊙ (x W + b) + x`` is one launch of K5 (``kernels/cross_interact``).
 On a CPU tensor both take their plain versions.  The dense features, the
 MLP, the head, the retrieval projection and the top-k are PyTorch ops, as
-the JAX package leaves them to XLA.  The training loss waits for the
-training slice.
+the JAX package leaves them to XLA.  ``dcn_loss`` is the training loss;
+both kernels' wrappers are differentiable (their backwards are plain
+PyTorch, ``kernels/*/ops.py``), so training runs through them too.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ __all__ = [
     "embedding_bag",
     "dcn_forward",
     "retrieval_scores",
+    "dcn_loss",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -116,6 +118,17 @@ def dcn_forward(params, dense, sparse_ids, cfg: RecsysConfig, sparse_mask=None,
     if return_emb:
         return logit, h @ params["retrieval_proj"]
     return logit
+
+
+def dcn_loss(params, batch, cfg: RecsysConfig):
+    """Mean binary cross-entropy of the batch's logits against ``label``, the
+    numerically stable form with logits: max(z, 0) − z·y + log(1 + e^−|z|)
+    → ``(loss, {"loss": loss})``."""
+    logit = dcn_forward(params, batch["dense"], batch["sparse"], cfg, batch.get("sparse_mask"))
+    y = batch["label"].float()
+    z = logit.float()
+    loss = torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs())))
+    return loss, {"loss": loss}
 
 
 def retrieval_scores(params, dense, sparse_ids, cand_emb, cfg: RecsysConfig):

@@ -1,21 +1,27 @@
-"""Decoder-only transformer LM for serving: the dense-GQA half of the JAX
-package's ``models/transformer.py``, as gemma3-1b runs it.
+"""Decoder-only transformer LM: the dense-GQA half of the JAX package's
+``models/transformer.py``, as gemma3-1b runs it, for serving and training.
 
 Every sixth layer attends causally over the whole sequence, the others
 within a sliding ``window`` (gemma3's 5:1 pattern); RoPE (base 10,000) on
 q and k, RMSNorm with (1 + γ), a SiLU GLU MLP, the embedding tied to the
 head.  Compute runs in ``cfg.dtype``.  The reference keeps float32 params
-and casts each weight at each use; here the params must already be in
-``cfg.dtype`` (``cast_params`` makes that copy once, exact to the per-use
-casts, and ``configs.init_params`` returns them so), and the forward and
-the decode step raise on any other dtype.
+and casts each weight at each use.  For serving the params must already be
+in ``cfg.dtype`` (``cast_params`` makes that copy once, exact to the
+per-use casts, and ``configs.init_params`` returns them so), and the
+forward and the decode step raise on any other dtype.  Training
+(``lm_loss``) takes the float32 master params (``cfg.param_dtype``) and
+casts each weight where it is used, as the reference does, keeping no
+second copy; ``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), ``cfg.loss_chunk`` takes the vocab-chunked
+cross-entropy, and ``cfg.grad_accum`` is the train step's microbatch count.
 
-Prefill (``lm_forward``) runs its attention through K6
-(``kernels/flash_attention``): one launch per layer on the card, the
-plain ``chunked_attention`` on the CPU.  Decode (``decode_step``) scores
-one new token against the KV cache with plain PyTorch, as the JAX package
+Prefill and the training forward run their attention through K6
+(``kernels/flash_attention``, differentiable there with a plain
+backward): one launch per layer on the card, the plain
+``chunked_attention`` on the CPU.  Decode (``decode_step``) scores one
+new token against the KV cache with plain PyTorch, as the JAX package
 leaves it to XLA; it writes the new rows into the cache in place.  The
-MLA and MoE variants and the training loss wait for their slices.
+MLA and MoE variants wait for their slices.
 """
 from __future__ import annotations
 
@@ -23,16 +29,19 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import default_device
 from ..kernels.flash_attention import ops as fa
-from .common import apply_rope, dense_init, rms_norm
+from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
 
 __all__ = [
     "TransformerConfig",
     "init_lm_params",
     "cast_params",
     "lm_forward",
+    "lm_loss",
+    "chunked_lm_head_loss",
     "init_cache",
     "decode_step",
 ]
@@ -54,6 +63,11 @@ class TransformerConfig:
     window: int = 1024  # of the local layers
     kv_chunk: int = 1024  # KV chunk of the plain attention
     dtype: str = "bfloat16"
+    # --- training (the JAX package's fields) ---
+    param_dtype: str = "float32"  # the master params the train step updates
+    grad_accum: int = 1  # microbatches per train step (activation memory ÷ accum)
+    remat: bool = True  # recompute each layer in the backward
+    loss_chunk: int = 0  # vocab-chunked cross-entropy (0 = off)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -109,9 +123,9 @@ def _require_compute_dtype(params: dict, cfg: TransformerConfig) -> None:
 
 def _gqa_qkv(x, p, cfg: TransformerConfig, positions):
     B, S, _ = x.shape
-    q = (x @ p["wq"]).view(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = (x @ p["wq"].to(x.dtype)).view(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"].to(x.dtype)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"].to(x.dtype)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions[None, :], _ROPE_THETA)
     k = apply_rope(k, positions[None, :], _ROPE_THETA)
     return q, k, v
@@ -123,14 +137,15 @@ def _attn_train(x, p, cfg: TransformerConfig, positions, is_global: bool):
     q, k, v = _gqa_qkv(x, p, cfg, positions)
     out = fa.flash_attention(q, k, v, causal=True, window=None if is_global else cfg.window,
                              chunk=cfg.kv_chunk)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
 
 
 def _mlp(x, p):
-    """SiLU GLU, ``silu(x W1) ⊙ (x W3) W2``, each product rounded to x's dtype."""
-    a = x @ p["w1"]
-    h = a * torch.sigmoid(a) * (x @ p["w3"])
-    return h @ p["w2"]
+    """SiLU GLU, ``silu(x W1) ⊙ (x W3) W2``, each product rounded to x's dtype
+    (each weight cast to it where used: a no-op for serving's params)."""
+    a = x @ p["w1"].to(x.dtype)
+    h = a * torch.sigmoid(a) * (x @ p["w3"].to(x.dtype))
+    return h @ p["w2"].to(x.dtype)
 
 
 def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool):
@@ -138,18 +153,76 @@ def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool):
     return x + _mlp(rms_norm(x, p["norm2"]), p)
 
 
+def _hidden(params, tokens, cfg: TransformerConfig, remat: bool) -> torch.Tensor:
+    """The final-normed hidden states (B, S, D) in the compute dtype; with
+    ``remat`` each layer is checkpointed where autograd records."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    remat = remat and torch.is_grad_enabled()
+    for i, p in enumerate(params["layers"]):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, x, p, cfg, positions, cfg.is_global(i), use_reentrant=False)
+        else:
+            x = _layer(x, p, cfg, positions, cfg.is_global(i))
+    return rms_norm(x, params["final_norm"])
+
+
 def lm_forward(params, tokens, cfg: TransformerConfig):
     """tokens (B, S) int → (logits (B, S, V) in the compute dtype, aux 0.0):
     the aux loss is the MoE router's, zero for a dense stack."""
     _require_compute_dtype(params, cfg)
-    S = tokens.shape[1]
-    embed = params["embed"]
-    x = embed[tokens]
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    for i, p in enumerate(params["layers"]):
-        x = _layer(x, p, cfg, positions, cfg.is_global(i))
-    x = rms_norm(x, params["final_norm"])
-    return x @ embed.T, torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _hidden(params, tokens, cfg, remat=False)
+    return x @ params["embed"].T, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def chunked_lm_head_loss(x, head, labels, chunk: int) -> torch.Tensor:
+    """Vocab-chunked mean cross-entropy: an online logsumexp over ``chunk``
+    columns of ``head`` (D, V) at a time, so the (B, S, V) logits never
+    exist.  Each chunk's logits are float32 products of ``x``'s and
+    ``head``'s values (the reference's ``preferred_element_type``), and each
+    chunk is checkpointed: the backward recomputes it."""
+    B, S, _ = x.shape
+    V = head.shape[1]
+    labels = labels.long()
+
+    def body(m, l, lab, xx, h, base: int):
+        logits = torch.matmul(xx.float(), h.float())
+        w = h.shape[1]
+        m_new = torch.maximum(m, logits.amax(-1))
+        l_new = l * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+        in_chunk = (labels >= base) & (labels < base + w)
+        off = torch.clamp(labels - base, 0, w - 1)
+        lab_logit = torch.gather(logits, -1, off[..., None])[..., 0]
+        return m_new, l_new, torch.where(in_chunk, lab_logit, lab)
+
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    l = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    lab = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for base in range(0, V, chunk):
+        args = (m, l, lab, x, head[:, base:base + chunk], base)
+        if torch.is_grad_enabled():
+            m, l, lab = torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        else:
+            m, l, lab = body(*args)
+    nll = (torch.log(torch.clamp(l, min=1e-30)) + m) - lab
+    return torch.mean(nll)
+
+
+def lm_loss(params, batch, cfg: TransformerConfig):
+    """The training loss of ``batch`` {"tokens", "labels"} (B, S) →
+    ``(loss + 0.01 · aux, {"loss", "aux"})``, from the master params: each
+    weight cast to the compute dtype where it is used, layers checkpointed
+    under ``cfg.remat``, the vocab chunked under ``cfg.loss_chunk``."""
+    x = _hidden(params, batch["tokens"], cfg, remat=cfg.remat)
+    head = params["embed"].T.to(x.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE router
+    if cfg.loss_chunk > 0:
+        loss = chunked_lm_head_loss(x, head, batch["labels"], cfg.loss_chunk)
+    else:
+        loss = cross_entropy_loss(x @ head, batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None):

@@ -148,8 +148,12 @@ def _full_candidates(engine, q, plan):
         use_groups=cfg.index_kind == "grouped", delta_memo=delta_memo,
     )
     delta = engine.delta
+    short = engine._short_paths(q, plan, {})
     cands = []
-    for p in plan.paths:
+    for pi, p in enumerate(plan.paths):
+        if pi in short:  # a path shorter than the index's: live-graph candidates
+            cands.append(dict(short[pi]))
+            continue
         per: dict = {}
         for mi, model in enumerate(engine.models):
             parts = []
@@ -348,7 +352,8 @@ def advance_standing(engine, q, state: StandingState | None = None):
     reported as added).  Otherwise, in order of preference: nothing
     (already current), a free epoch bump (unaffected by this epoch's
     mutations), the incremental fresh-row step, or a full refresh (rebuild
-    epochs and multi-epoch gaps)."""
+    epochs, multi-epoch gaps, and every new epoch of a query whose plan
+    has a path shorter than the index's)."""
     if state is None:
         return _register(engine, q)
     if state.epoch == engine.epoch:
@@ -360,6 +365,7 @@ def advance_standing(engine, q, state: StandingState | None = None):
         or upd["epoch"] != engine.epoch
         or upd.get("strategy") != "delta"
         or state.epoch != engine.epoch - 1
+        or engine.has_short_paths(state.plan)  # no fresh rows hold a shorter path
     ):
         return _refresh(engine, q, state)
     mutated = upd["mutated"]

@@ -1,0 +1,56 @@
+"""The one train-step body (the JAX package's ``configs/base.py::train_wrap``),
+shared by ``configs.build_step``, the launcher and the ``Trainer``."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .functional import tree_leaves, tree_map, tree_unflatten, value_and_grad
+from .optimizer import OptConfig, adamw_update
+
+__all__ = ["train_wrap"]
+
+
+def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
+               grads_fn: Callable | None = None):
+    """A train step over ``loss_fn(params, batch) → (loss, metrics)``:
+    ``step(params, opt_state, batch) → (params, opt_state, metrics)``, one
+    AdamW update (``train/optimizer.py``) of the loss's gradients.
+
+    With ``grad_accum > 1`` the batch splits along its first dim into that
+    many microbatches, each one forward and backward; their gradients are
+    summed in float32, then divided by the count, as the loss is (the JAX
+    package's scan).  Its metrics are then the loss and the optimizer's.
+    ``grads_fn``, where given, maps the gradients before the update (the
+    ``Trainer``'s compression with its error-feedback residual)."""
+
+    def grads_of(params, batch):
+        if grad_accum <= 1:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+            return loss, metrics, grads
+        micro = tree_map(
+            lambda x: x.reshape((grad_accum, x.shape[0] // grad_accum) + tuple(x.shape[1:])),
+            batch)
+        acc = None
+        loss_sum = None
+        for i in range(grad_accum):
+            (loss, _), grads = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], micro))
+            g = [x.float() for x in tree_leaves(grads)]
+            del grads
+            if acc is None:
+                acc = g
+            else:
+                torch._foreach_add_(acc, g)
+            loss_sum = loss.float() if loss_sum is None else loss_sum + loss
+        torch._foreach_div_(acc, grad_accum)
+        return loss_sum / grad_accum, {}, tree_unflatten(params, acc)
+
+    def step(params, opt_state, batch):
+        loss, metrics, grads = grads_of(params, batch)
+        if grads_fn is not None:
+            grads = grads_fn(grads)
+        new_params, new_opt, om = adamw_update(grads, opt_state, params, opt_cfg)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+
+    return step

@@ -770,3 +770,40 @@ def test_probe_device_live_mask_on_the_card_equals_the_host_filter(cuda):
             parts.append(eng.models[mi].index.paths[kept.to(cuda)])
         assert torch.equal(dev_memo[(qi, p)], torch.cat(parts).to(torch.int32))
     assert dropped > 0
+
+
+# ----------------------------------------------------- training backwards ---
+
+
+@pytest.mark.cuda
+def test_kernel_functions_carry_gradients_on_the_card(cuda):
+    """K4, K5 and K6 launch inside their ``autograd.Function``s and hand back
+    gradients equal to autograd through their plain versions on the card."""
+    idx, mask, table = (torch.from_numpy(a).to(cuda) for a in make_bags(300, 2, 50, 16, seed=1))
+    t1, t2 = (table.clone().requires_grad_(True) for _ in range(2))
+    g = torch.randn(300, 16, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    before = sa.LAUNCHES
+    (sa.star_agg(idx, mask, t1) * g).sum().backward()
+    assert sa.LAUNCHES == before + 1
+    (star_agg_ref(idx, mask, t2) * g).sum().backward()
+    torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-6, atol=1e-6)
+
+    ops5 = [torch.from_numpy(a).to(cuda) for a in make_cross(512, 429, seed=3)]
+    a5, b5 = ([t.clone().requires_grad_(True) for t in ops5] for _ in range(2))
+    up = torch.randn(512, 429, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    before = ci.LAUNCHES
+    (ci.cross_interact(*a5) * up).sum().backward()
+    assert ci.LAUNCHES == before + 1
+    (cross_interact_ref(*b5) * up).sum().backward()
+    for x, y in zip(a5, b5):  # the forward differs by K5's 3xTF32 rounding only
+        assert float((x.grad - y.grad).norm() / y.grad.norm()) < 1e-4
+
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in make_attn(1, 384, 4, 1, 64, seed=5))
+    a6, b6 = ([t.clone().requires_grad_(True) for t in (q, k, v)] for _ in range(2))
+    o = fa.flash_attention(*a6, window=100, chunk=128)
+    up = torch.randn(o.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    got = torch.autograd.grad(o, a6, up.to(o.dtype))
+    want = torch.autograd.grad(flash_attention_plain(*b6, True, 100, 128), b6, up.to(o.dtype))
+    for x, y in zip(got, want):
+        assert float((x.float() - y.float()).norm() / y.float().norm()) < 1e-3

@@ -53,7 +53,7 @@ from repro_torch.device import is_device_fault  # noqa: E402
 from repro_torch.dist import ClusterEngine  # noqa: E402
 from repro_torch.dist.checkpoint import CorruptCheckpointError  # noqa: E402
 from repro_torch.durability import wal as port_wal  # noqa: E402
-from repro_torch.durability.snapshot import _META_KEY  # noqa: E402
+from repro_torch.durability.snapshot import _META_KEY, _SLOT_KEY  # noqa: E402
 from repro_torch.graphs import Graph  # noqa: E402
 from repro_torch.serve import MatchServeConfig, MatchServer, MatchService, ServiceConfig  # noqa: E402
 
@@ -332,7 +332,10 @@ def test_engine_state_equals_the_reference(base, name):
         else:
             np.testing.assert_array_equal(got, want, err_msg=k)
     timings = {k for k in rmeta["offline_stats"] if k.endswith("_time")}
-    assert {k: v for k, v in pmeta.items() if k != "offline_stats"} == {
+    # the port's one meta key of its own: the stacked probe's slot layout
+    assert set(pmeta) - set(rmeta) == {_SLOT_KEY}
+    assert (pmeta[_SLOT_KEY] is not None) == (CONFIGS[name]["probe_impl"] == "stacked")
+    assert {k: v for k, v in pmeta.items() if k not in ("offline_stats", _SLOT_KEY)} == {
         k: v for k, v in rmeta.items() if k != "offline_stats"
     }
     assert sorted(pmeta["offline_stats"]) == sorted(rmeta["offline_stats"])
@@ -544,6 +547,94 @@ def test_compaction_and_update_slot_before_crash(graph, tmp_path):
     assert identical(recovered, control, qs)
     assert recovered.match_many(qs, join_impl="device") == control.match_many(qs, join_impl="device")
     assert srv.engine.match_many(qs) == recovered.match_many(qs)
+
+
+def test_restored_handoff_keeps_the_donor_slot_order(tmp_path):
+    """A port snapshot carries the stacked probe's slot layout, so an engine
+    restored from it lists the hand-off's candidates, and so its matches,
+    in its donor's order even where compactions have reordered the
+    partitions' sizes since the build (here at epochs 4 and 5).  A snapshot
+    without the layout, as the JAX package writes it, stacks afresh."""
+    from repro_torch.core.stacked import plan_shards
+
+    g = erdos_renyi(160, avg_degree=3.5, n_labels=4, seed=2)
+    cfg = GnnPeConfig(**BASE, index_kind="grouped", probe_impl="stacked", join_impl="device")
+    eng = GnnPeEngine(cfg, device="cpu").build(port_graph(g))
+    qs = [random_connected_query(g, 4, seed=50 + s) for s in range(4)]
+    rng = np.random.default_rng(2)
+    reordered = []
+    store = PD.SnapshotStore(tmp_path, keep=1)
+    for _ in range(5):
+        e = eng.graph.edge_array()
+        n = eng.graph.n_vertices
+        eng.apply_updates(GraphUpdate.from_arrays({
+            "add_edges": rng.integers(0, n, size=(6, 2)),
+            "remove_edges": e[rng.choice(e.shape[0], size=6, replace=False)],
+            "add_vertex_labels": rng.integers(0, 4, size=2).astype(np.int32),
+            "remove_vertices": rng.integers(0, n, size=1),
+        }))
+        live = eng.stacked_probe().stacked.slot_of
+        fresh = np.zeros(len(live), np.int64)
+        fresh[plan_shards([m.index.n_paths for m in eng.models], 1)[0]] = np.arange(len(live))
+        store.save(eng)
+        restored, meta, _, _ = store.load(device="cpu")
+        assert meta[_SLOT_KEY] == live.tolist()
+        np.testing.assert_array_equal(restored.stacked_probe().stacked.slot_of, live)
+        assert identical(restored, eng, qs), f"epoch {eng.epoch}"
+        if not np.array_equal(live, fresh):
+            reordered.append(eng.epoch)
+            meta, arrays = PD.engine_state(eng)
+            del meta[_SLOT_KEY]  # the JAX package's layout
+            plain, _ = PD.restore_engine({**arrays, _META_KEY: np.asarray(json.dumps(meta))},
+                                         device="cpu")
+            np.testing.assert_array_equal(plain.stacked_probe().stacked.slot_of, fresh)
+            assert PD.engine_fingerprint(plain) != PD.engine_fingerprint(eng)
+            assert [sorted(m) for m in plain.match_many(qs)] == [
+                sorted(m) for m in eng.match_many(qs)]
+    assert reordered == [4, 5]
+
+
+@pytest.mark.parametrize("reader", ["stacked_match_many", "cluster_engine"])
+def test_fingerprint_unmoved_by_a_stacked_read(tmp_path, reader):
+    """The fingerprint covers the slot layout the next stacked probe runs
+    on, so the read that first builds that probe leaves it as it was: a
+    replica that served a stacked read fingerprints as one that served none,
+    and so does its restore."""
+    g = erdos_renyi(160, avg_degree=3.5, n_labels=4, seed=2)
+    probe = "loop" if reader == "stacked_match_many" else "stacked"
+    cfg = GnnPeConfig(**BASE, index_kind="grouped", probe_impl=probe, join_impl="device")
+    eng = GnnPeEngine(cfg, device="cpu").build(port_graph(g))
+    rng = np.random.default_rng(2)
+    for _ in range(4):  # past the epoch where compactions reorder the sizes
+        e = eng.graph.edge_array()
+        n = eng.graph.n_vertices
+        eng.apply_updates(GraphUpdate.from_arrays({
+            "add_edges": rng.integers(0, n, size=(6, 2)),
+            "remove_edges": e[rng.choice(e.shape[0], size=6, replace=False)],
+            "add_vertex_labels": rng.integers(0, 4, size=2).astype(np.int32),
+            "remove_vertices": rng.integers(0, n, size=1),
+        }))
+    # a stacked engine holds no probe once a compaction outgrows its slot
+    eng._stacked_probe = None
+    meta, arrays = PD.engine_state(eng)
+    twin, _ = PD.restore_engine({**arrays, _META_KEY: np.asarray(json.dumps(meta))},
+                                device="cpu")
+    assert eng._stacked_probe is None and twin._stacked_probe is None
+    before = PD.engine_fingerprint(eng)
+    assert PD.engine_fingerprint(twin) == before
+    qs = [random_connected_query(g, 4, seed=50 + s) for s in range(4)]
+    if reader == "stacked_match_many":
+        got = eng.match_many(qs, probe_impl="stacked", join_impl="device")
+        assert eng._stacked_probe is not None
+    else:
+        got = ClusterEngine(eng, n_hosts=2).match_many(qs)
+        assert eng._stacked_probe is not None
+    assert [sorted(m) for m in got] == [sorted(m) for m in twin.match_many(qs)]
+    assert PD.engine_fingerprint(eng) == before == PD.engine_fingerprint(twin)
+    store = PD.SnapshotStore(tmp_path, keep=1)
+    store.save(eng)
+    restored, _, _, _ = store.load(device="cpu")
+    assert PD.engine_fingerprint(restored) == before
 
 
 def test_reference_directory_recovers_in_the_port(base, graph, tmp_path):

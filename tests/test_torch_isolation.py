@@ -6,7 +6,9 @@ join, under live updates with compaction and the result cache, through a
 2-host ``ClusterEngine`` and through the scalar match, takes a snapshot,
 replays a WAL and scrubs the recovered engine, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
-short ``DecodeEngine`` run, and no ``jax*`` or ``repro`` module is loaded."""
+short ``DecodeEngine`` run, one train step of each arch, a compressed
+``Trainer`` run and its checkpoint read back through ``convert``, and no
+``jax*`` or ``repro`` module is loaded."""
 import os
 import subprocess
 import sys
@@ -99,6 +101,29 @@ eng = DecodeEngine(params, cfg, ServeConfig(max_batch=2, max_len=16, eos_token=-
 for p in ([1, 2], [3], [4, 5, 6]):
     eng.submit(p, max_new=3)
 assert sorted(eng.run_until_drained()) == [0, 1, 2]
+from repro_torch.configs import opt_init
+for an, cn in (("dcn-v2", "train_batch"), ("gemma3-1b", "train_4k")):
+    a = get_arch(an)
+    cell = a.cell(cn)
+    cfg = resolve_config(a, cell, smoke=True)
+    params = init_params(a, cfg, seed=0, device="cpu", train=True)
+    step, takes_opt = build_step(a, cell, cfg)
+    new, opt, met = step(params, opt_init(params), make_batch(a, cell, cfg, device="cpu"))
+    assert takes_opt and int(opt["step"]) == 1 and torch.isfinite(met["loss"])
+from repro_torch.data import LMSyntheticData
+from repro_torch.train import CompressionConfig, OptConfig, Trainer, TrainerConfig
+from repro_torch.models import TransformerConfig, init_lm_params, lm_loss
+from repro_torch.convert import trainer_state_from_reference
+tcfg = TransformerConfig(n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
+                         vocab=64, dtype="float32", kv_chunk=16, remat=False)
+data = LMSyntheticData(vocab=64, batch=2, seq_len=16, seed=0)
+with tempfile.TemporaryDirectory() as d:
+    tr = Trainer(lambda p, b: lm_loss(p, b, tcfg), init_lm_params(torch.Generator().manual_seed(0), tcfg),
+                 data.batch_at, TrainerConfig(total_steps=4, ckpt_every=2, ckpt_dir=d,
+                 opt=OptConfig(lr=1e-3, warmup_steps=0, total_steps=4),
+                 compression=CompressionConfig(kind="topk", topk_frac=0.1)))
+    out = tr.run()
+    assert out["final_step"] == 4 and int(trainer_state_from_reference(d, device="cpu")["step"]) == 4
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")

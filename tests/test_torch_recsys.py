@@ -162,10 +162,10 @@ def test_unported_kinds_and_archs_raise():
     arch = tcfg.get_arch("dcn-v2")
     cell = arch.cell("train_batch")
     cfg = tcfg.resolve_config(arch, cell, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tcfg.build_step(arch, cell, cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tcfg.make_batch(arch, cell, cfg, device="cpu")
+    # the train kind is ported now (ROADMAP item 17a): no recsys kind raises
+    _, takes_opt = tcfg.build_step(arch, cell, cfg)
+    assert takes_opt
+    assert sorted(tcfg.make_batch(arch, cell, cfg, device="cpu")) == ["dense", "label", "sparse"]
     with pytest.raises(NotImplementedError, match="item 17"):
         tcfg.get_arch("deepseek-v2-lite-16b")
     with pytest.raises(KeyError):

@@ -267,8 +267,8 @@ def test_layer_pattern_and_unported_kinds():
     assert [tc.is_global(i) for i in range(6)] == [False] * 5 + [True]
     full = tcfg.resolve_config(tarch, tcell, smoke=False)
     assert sum(full.is_global(i) for i in range(full.n_layers)) == 4
+    # the train kind is ported now (ROADMAP item 17a): no LM kind raises
     cell = tarch.cell("train_4k")
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tcfg.build_step(tarch, cell, tc)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tcfg.make_batch(tarch, cell, tc, device="cpu")
+    _, takes_opt = tcfg.build_step(tarch, cell, tc)
+    assert takes_opt and full.grad_accum == 2 and not tc.remat
+    assert sorted(tcfg.make_batch(tarch, cell, tc, device="cpu")) == ["labels", "tokens"]
