@@ -248,11 +248,39 @@ Phases, each printing its seconds:
      uninterrupted run (deterministic algorithms on), a SIGTERM to a training
      child (``chip_smoke.py --train-worker DIR``) leaving its checkpoint, the
      watchdog on an injected delay, int8 and top-k compression steps, and
-     ``python -m repro_torch.launch.train`` (both archs, smoke) and
+     ``python -m repro_torch.launch.train`` (dcn-v2, gemma3-1b and
+     deepseek-v2-lite-16b, smoke: its 24-wide q and k padded to 32 by K6's
+     wrapper) and
      ``examples/train_lm_torch.py`` run through in child processes.
 
-``python3 chip_smoke.py --only 12`` (or ``--only 8``) builds the kernels and
-runs phase 12 (or 8a with 8d) alone, printing no result line.
+  13. the rest of the LM family at full width through ``repro_torch.configs``
+     (bf16 over seeded params; each tensor cast as drawn): minitron-4b (all 32
+     layers), command-r-plus-104b (cut 64 -> 8 layers), deepseek-v2-lite-16b
+     (all 27: MLA, one dense layer, 26 MoE) and qwen3-moe-235b-a22b (cut 94 ->
+     8), each cut printed with its reason: ``prefill_32k`` at B = 1, K6 once a
+     layer (MLA's v padded to 192 by the wrapper), the first and last layers
+     (and deepseek's first MoE layer) held against the plain
+     ``chunked_attention`` at their first and last 1,024 query rows over
+     every key; for the MoE archs every layer's top-k sets against the CPU's
+     float32 router on the card's own layer inputs (at most 1 % apart) and
+     the capacity's drops; warm ms, tokens/s and the step's split; K6 timed
+     on the last layer beside SDPA and its plain version; the logits of the
+     first 2 layers on a 64-token prompt against the port's CPU run (for a
+     MoE arch also layer by layer on the card's inputs); ``decode_32k``
+     (minitron B = 8, the others B = 16) warm at cur_len 5, the profiler's
+     kernels, a check step at S − 2 on the first 2 layers against the CPU;
+     deepseek's ``long_500k`` (B = 1, 16.3 GB of latent cache), the others'
+     skipped with the reference's reason; deepseek's ``DecodeEngine`` over the
+     MLA cache (6 requests through 4 slots), and on 2 layers every tick's
+     logits against the CPU's ``decode_step`` on the card's own tokens (rows
+     whose top-k sets the two sides route apart reported, not held);
+     ``python -m repro_torch.launch.serve`` in child processes (``--mode lm``
+     over deepseek, ``--mode gnnpe``).  K6's edge checks (phase 7) also cover G = 3, 12, 16 at dh = 128 and dqk
+     192 with dv 128, with a planted fault each.
+
+``python3 chip_smoke.py --only 12`` (or ``--only 8``, ``--only 13``) builds the
+kernels and runs phase 12 (or 8a with 8d, or K6's edge checks and phase 13)
+alone, printing no result line.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -262,6 +290,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -292,7 +321,7 @@ def sync(dev) -> None:
 
 
 def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None,
-            spin: int = SPIN_CYCLES) -> float:
+            spin: int = SPIN_CYCLES, warmup: int = 3) -> float:
     """Mean device ms of ``fn(*args)``, with L2 flushed before each call
     (the main path gathers fresh operands that mostly miss L2) and the
     card held busy by a spin while the host enqueues the call, so the
@@ -302,10 +331,10 @@ def time_ms(fn, args, reps: int, flush, clean: bool = False, before=None,
     ``flush`` instead, so that L2 holds clean lines.  ``before``, where
     given, runs after the flush (``k2_readings`` rewrites the operands
     there).  ``spin``: the spin's cycles, more than the call's host work
-    takes to enqueue."""
+    takes to enqueue; ``warmup`` untimed calls first."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn(*args)
     total = 0.0
     for _ in range(reps):
@@ -473,19 +502,24 @@ def k5_simt_bound_ms(B: int, D: int) -> tuple[float, str]:
     return bound_ms(4 * (3 * B * D + D * D + D), 2 * B * D * D + 3 * B * D)
 
 
-def k6_flops(B: int, S: int, Hq: int, dh: int, window) -> int:
-    """4·dh operations (two multiply-adds) for each unmasked (query, key) pair
-    of causal attention over B sequences and Hq heads."""
+def k6_flops(B: int, S: int, Hq: int, dh: int, window, dv: int | None = None) -> int:
+    """2·(dh + dv) operations (a multiply-add for each of q·k's dh and p·v's dv
+    terms) for each unmasked (query, key) pair of causal attention over B
+    sequences and Hq heads; dv = dh unless given (MLA's 128 against 192)."""
     w = S if window is None else min(window, S)
     pairs = w * (w + 1) // 2 + (S - w) * w  # row i keeps min(i + 1, w) keys
-    return 4 * dh * pairs * B * Hq
+    return 2 * (dh + (dh if dv is None else dv)) * pairs * B * Hq
 
 
-def k6_bound_ms(B: int, S: int, Hq: int, Hkv: int, dh: int, window) -> tuple[float, str]:
-    """Causal attention of B sequences: q and the output (Hq heads), k and v
-    (Hkv heads) once in bf16, against ``k6_flops`` at the bf16 tensor-core rate."""
-    bytes_ms = 2 * dh * B * S * (2 * Hq + 2 * Hkv) / HBM_BYTES_PER_S * 1e3
-    ops_ms = k6_flops(B, S, Hq, dh, window) / BF16_OPS_PER_S * 1e3
+def k6_bound_ms(B: int, S: int, Hq: int, Hkv: int, dh: int, window,
+                dv: int | None = None) -> tuple[float, str]:
+    """Causal attention of B sequences: q (Hq heads) and k (Hkv heads) dh wide,
+    v (Hkv) and the output (Hq) dv wide, each once in bf16, against
+    ``k6_flops`` at the bf16 tensor-core rate: the function's own work, not
+    the padded product the wrapper hands the kernel."""
+    dv = dh if dv is None else dv
+    bytes_ms = 2 * B * S * (Hq + Hkv) * (dh + dv) / HBM_BYTES_PER_S * 1e3
+    ops_ms = k6_flops(B, S, Hq, dh, window, dv) / BF16_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -2414,9 +2448,43 @@ def k6_edge_checks(dev) -> float:
     res = k6_check(fa.flash_attention(q, k, v, window=300), q, k, v, window=300,
                    what="K6 on strided head slices")
     err, worst, rel = max(err, res["max_abs_err"]), max(worst, res["worst"]), max(rel, res["rel_l2"])
-    log(f"K6 edge shapes: {n + 1} calls (S in 1, 63, 64, 65, 127, 128, 129, 1000, 4096; dh in 64, "
-        f"80, 128, 256; G in 1, 4; causal with no window, window 512, window > S and window 40, "
-        f"non-causal with and without a window; strided head slices) within the K6 tolerance: "
+    # the LM family's shapes: G = 3, 12 and 16 at dh = 128 (minitron, command-r, qwen3), and
+    # MLA's q and k of 192 with a v of 128, which the wrapper pads to 192 (deepseek)
+    m = 0
+    for S in (1, 65, 129, 1000, 4096):
+        for Hq, Hkv, dh, dv in ((6, 2, 128, 128), (24, 2, 128, 128), (32, 2, 128, 128),
+                                (4, 4, 192, 128)):
+            g = torch.Generator(device=dev).manual_seed(S + Hq + dh)
+            q, k = (torch.randn((2, S, h, dh), generator=g, device=dev).to(torch.bfloat16)
+                    for h in (Hq, Hkv))
+            v = torch.randn((2, S, Hkv, dv), generator=g, device=dev).to(torch.bfloat16)
+            for causal, window in ((True, None), (True, 40), (False, None)):
+                got = fa.flash_attention(q, k, v, causal=causal, window=window)
+                require(got.shape == (2, S, Hq, dv), f"K6 returned {tuple(got.shape)}")
+                res = k6_check(got, q, k, v, causal, window, what=f"K6 at S={S}, Hq={Hq}, "
+                               f"Hkv={Hkv}, dqk={dh}, dv={dv}, causal={causal}, window={window}")
+                err, worst = max(err, res["max_abs_err"]), max(worst, res["worst"])
+                rel, m = max(rel, res["rel_l2"]), m + 1
+                if (S, causal, window) != (1000, True, None) or Hq not in (24, 4):
+                    continue
+                if dv < dh:  # the scores scaled by v's width, 1/sqrt(128), not q's 1/sqrt(192)
+                    qs = (q.float() * math.sqrt(dh / dv)).to(torch.bfloat16)
+                    k6_control(got, flash_attention_plain(qs, k, v), q, k, v, True, None,
+                               "MLA scaled by 1/sqrt(dv) (S = 1000, dqk 192, dv 128)")
+                else:  # query head h read KV head h % Hkv, not h // G
+                    G = Hq // Hkv
+                    qp = q.view(2, S, G, Hkv, dh).transpose(2, 3).reshape(2, S, Hq, dh)
+                    wrong = flash_attention_plain(qp, k, v).view(2, S, Hkv, G, dv).transpose(
+                        2, 3).reshape(2, S, Hq, dv)
+                    k6_control(got, wrong, q, k, v, True, None,
+                               "query head h on KV head h % Hkv (S = 1000, G = 12)")
+    log(f"K6 at the LM family's shapes: {m} calls (S in 1, 65, 129, 1000, 4096; dh 128 with "
+        f"G = 3, 12, 16; dqk 192 with dv 128 through the padding wrapper; causal with no window and "
+        f"with window 40, non-causal) within the K6 tolerance")
+    log(f"K6 edge shapes: {n + 1 + m} calls (S in 1, 63, 64, 65, 127, 128, 129, 1000, 4096; dh in "
+        f"64, 80, 128, 256; G in 1, 4; causal with no window, window 512, window > S and window "
+        f"40, non-causal with and without a window; strided head slices; the LM family's shapes) "
+        f"within the K6 tolerance: "
         f"max |err| {err:.3g}, worst "
         f"|err| / limit {worst:.3g}, largest relative L2 {rel:.3g}")
     return err
@@ -5111,7 +5179,7 @@ def phase12c_trainer(dev, smi: str, root: Path) -> None:
             f"{wire_bytes(tr.params, CompressionConfig())} uncompressed")
 
     # ---- the launcher and the example in child processes -----------------------
-    for arch in ("dcn-v2", "gemma3-1b"):
+    for arch in ("dcn-v2", "gemma3-1b", "deepseek-v2-lite-16b"):
         t = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
                             "--smoke", "--steps", "30"], capture_output=True, text=True,
@@ -5147,9 +5215,503 @@ def phase12_training(dev, smi: str) -> dict:
     return out
 
 
+# ---- phase 13 -----------------------------------------------------------------
+
+# (arch, the layers the card holds (None: all) and why, prefill_32k's B, decode_32k's B and why)
+LM_FAMILY = (
+    ("minitron-4b", None, 1, 8,
+     "4.3 GB of KV a sequence; prefill_32k at B = 1 returns 16.8 GB of logits, B = 32 would "
+     "return 537 GB"),
+    ("command-r-plus-104b", (8, "the 64 layers are 214 GB in bf16; 8 (25.2 GB) with the "
+                               "embedding and untied head (12.6 GB) fit the card"), 1, 16,
+     "17 GB of KV at 8 layers"),
+    ("deepseek-v2-lite-16b", None, 1, 16, "1.02 GB of latent cache a sequence"),
+    ("qwen3-moe-235b-a22b", (8, "the 94 layers are 470 GB in bf16; 8 (39.8 GB) with the "
+                               "embedding and head (2.5 GB) fit the card"), 1, 16,
+     "8.6 GB of KV at 8 layers"),
+)
+CPU_DEPTH = 2  # layers of the CPU comparisons (deepseek's: the dense layer and one MoE layer)
+CPU_TOKENS = 64  # the prefix the CPU's bf16 prefill runs
+ROUTE_LIMIT = 0.01  # share of (token, layer) top-k sets the card and the CPU may route apart
+
+
+def k6_rows_check(res, q, k, v, rows: slice, chunk: int, what: str) -> dict:
+    """K6's output ``res`` at the query rows ``rows`` against the plain
+    ``chunked_attention`` of those rows over every key (``ref.k6_agreement``,
+    unchanged): the plain version of the whole layer would hold (S, S)
+    float32 scores a chunk at a time, tens of GB at 96 heads."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import chunked_attention, k6_agreement
+
+    B, S, Hq, dh = q.shape
+    Hkv, dv = k.shape[2], v.shape[-1]
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    qs = q[:, rows].reshape(B, -1, Hkv, Hq // Hkv, dh)
+    want = chunked_attention(qs, k, v, pos[rows], pos, None, chunk).reshape(B, -1, Hq, dv)
+    scale = chunked_attention(qs, k, v.abs(), pos[rows], pos, None, chunk).reshape(B, -1, Hq, dv)
+    r = k6_agreement(res[:, rows], want, scale)
+    require(r["ok"], f"{what} differs from its plain version: max |err| {r['max_abs_err']:.3g}, "
+            f"worst |err| / limit {r['worst']:.3g}, relative L2 {r['rel_l2']:.3g}")
+    return r
+
+
+def topk_sets_differ(a, b) -> int:
+    """Rows (tokens) whose top-k expert sets differ between (T, K) id tensors."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def rows_routed_apart(card_routes: list, cpu_routes: list):
+    """(T,) bool over the tokens of two runs' recorded ``_route`` calls (the
+    same MoE layers in order): true where a token's top-k set differs in any
+    layer; None where no layer was recorded."""
+    apart = None
+    for (_, _, (a, _v, _x)), (_, _, (b, _w, _y)) in zip(card_routes, cpu_routes):
+        d = (a.cpu().sort(-1).values != b.cpu().sort(-1).values).any(-1)
+        apart = d if apart is None else apart | d
+    return apart
+
+
+def close_where_routed_alike(card, want, apart, what: str):
+    """``lm_close`` over the rows (first dim) that ``apart`` does not mark →
+    (max |diff|, relative L2), or None where every row routed apart."""
+    if apart is not None and bool(apart.any()):
+        if bool(apart.all()):
+            return None
+        card, want = card[~apart], want[~apart]
+    return lm_close(card, want, what)
+
+
+def recording(mod, name: str, sink: list, keep=lambda i: True):
+    """A context that wraps ``mod.name`` so each call appends (its index, its
+    args, its result) to ``sink`` where ``keep(index)``; restored on exit."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        fn = getattr(mod, name)
+        n = [0]
+
+        def rec(*a, **kw):
+            res = fn(*a, **kw)
+            if keep(n[0]):
+                sink.append((n[0], a, res))
+            n[0] += 1
+            return res
+
+        setattr(mod, name, rec)
+        try:
+            yield
+        finally:
+            setattr(mod, name, fn)
+
+    return ctx()
+
+
+def cut_params(params: dict, depth: int, device) -> dict:
+    """The model's first ``depth`` layers, embedding, final norm and head on ``device``."""
+    from repro_torch.train.functional import tree_to_device
+
+    return tree_to_device({**{k: v for k, v in params.items() if k != "layers"},
+                           "layers": params["layers"][:depth]}, device)
+
+
+def phase13_prefill(dev, flush, smi, arch, cfg, params, B: int, out: dict) -> None:
+    """prefill_32k at full width: K6 once a layer and equal to its plain
+    version, the MoE routing against the CPU's on the card's own layer
+    inputs, warm ms and the step's split; K6 timed on a real layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import build_step, make_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+
+    name, L = arch.name, cfg.n_layers
+    cell = arch.cell("prefill_32k")
+    batch = {"tokens": make_batch(arch, cell, cfg, seed=1, smoke=False, device=dev)["tokens"][:B]}
+    S = batch["tokens"].shape[1]
+    step, _ = build_step(arch, cell, cfg)
+    attn, routes = [], []
+    keep_layers = {0, 1, L - 1} if cfg.first_dense else {0, L - 1}
+    reset_counters()  # counts from here to the end of the forward
+    with recording(fa, "flash_attention", attn, keep=lambda i: i in keep_layers), \
+            recording(moe_mod, "_route", routes):
+        t = time.perf_counter()
+        logits = step(params, batch)
+        sync(dev)
+        cold_ms = (time.perf_counter() - t) * 1e3
+    k6 = counters()["K6"]
+    out["K6"] += k6
+    require(k6 == L, f"{name} prefill_32k: K6 launched {k6} times in one forward, not {L}")
+    require(logits.shape == (B, S, cfg.vocab) and logits.dtype == cfg.compute_dtype,
+            f"{name} prefill_32k: logits of shape {tuple(logits.shape)}, {logits.dtype}")
+    require(all(bool(torch.isfinite(logits[b, i:i + 4096]).all())
+                for b in range(B) for i in range(0, S, 4096)), f"{name}: logits not finite")
+    del logits
+    checks = []
+    for i, (q, k, v), res in ((i, a[:3], r) for i, a, r in attn):
+        for rows in (slice(0, 1024), slice(S - 1024, S)):
+            checks.append(k6_rows_check(res, q, k, v, rows, cfg.kv_chunk,
+                                        f"{name} prefill_32k layer {i}, rows {rows.start}-"
+                                        f"{rows.stop - 1}"))
+    shape = f"q {tuple(attn[-1][1][0].shape)}, v {tuple(attn[-1][1][2].shape)}"
+    log(f"13 {name} prefill_32k (B = {B}, S = {S}): K6 x{k6} in one forward (one a layer), layers "
+        f"{sorted(keep_layers)} held against the plain chunked_attention at query rows 0-1023 and "
+        f"{S - 1024}-{S - 1} over every key ({shape}): worst |err| / limit "
+        f"{max(c['worst'] for c in checks):.3g}, largest relative L2 "
+        f"{max(c['rel_l2'] for c in checks):.3g}, max |err| "
+        f"{max(c['max_abs_err'] for c in checks):.3g}; logits finite; cold {cold_ms:.3f} ms")
+    out["K6_err"] = max(out["K6_err"], *(c["max_abs_err"] for c in checks))
+
+    if routes:  # the card's routing against the CPU's on the card's own layer inputs
+        mcfg = cfg.moe
+        diff, drops, entries = 0, 0, 0
+        for _, (x, router, _m), (topi, topv, _aux) in routes:
+            want = moe_mod._route(x.cpu(), router.cpu(), mcfg)[0]
+            diff += topk_sets_differ(topi.cpu(), want)
+            plan = moe_mod.dispatch_plan(topi, topv, mcfg)
+            drops += int((~plan["keep"]).sum())
+            entries += plan["keep"].numel()
+        share = diff / (len(routes) * S * B)
+        require(share <= ROUTE_LIMIT, f"{name}: {share:.4%} of (token, layer) top-{mcfg.top_k} "
+                f"sets differ between the card and the CPU (limit {ROUTE_LIMIT:.0%})")
+        log(f"13 {name} routing: {len(routes)} MoE layers x {B * S} tokens, the CPU's float32 "
+            f"router on the card's own layer inputs: {diff} top-{mcfg.top_k} sets of "
+            f"{len(routes) * B * S} differ ({share:.4%}, limit {ROUTE_LIMIT:.0%}); capacity "
+            f"{plan['cap']} a layer: {drops} of {entries} (token, expert) entries dropped "
+            f"({drops / entries:.3%})")
+        x_moe = routes[-1][1][0]  # the last MoE layer's input, (B·S, D)
+        p_moe = params["layers"][-1]["moe"]
+        top_kernels(lambda: moe_mod.moe_block(x_moe, p_moe, mcfg), dev,
+                    f"13 {name} prefill_32k, the last layer's moe_block on its real input",
+                    time_ms(lambda: moe_mod.moe_block(x_moe, p_moe, mcfg), (), 1, flush,
+                            warmup=1), n=6)
+        del x_moe
+    routes.clear()
+
+    warm = warm_ms(lambda: step(params, batch), dev, runs=2)
+    med = float(np.median(warm))
+    out["prefill_ms"] = med
+    log(f"13 {name} prefill_32k: warm {fmt(warm)} ms, median {med:.3f} ms, {B * S / med * 1e3:.1f} "
+        f"tokens/s; card: {smi}")
+    kernels = [("K6 attention", fa, "flash_attention")]
+    if cfg.moe is not None:
+        kernels.append(("MoE FFN", tr, "moe_block"))
+    step_breakdown(step, (params, batch), f"13 {name} prefill_32k", med, kernels,
+                   "embedding, norms, QKV and RoPE, wo, dense MLPs, head and the rest", reps=1)
+
+    # ---- K6 at this arch's shape (its last layer), beside plain and SDPA -------
+    q, k, v = attn[-1][1][:3]
+    attn.clear()
+    Hq, Hkv, dh, dv = q.shape[2], k.shape[2], q.shape[3], v.shape[3]
+    vp = F.pad(v, (0, dh - dv)) if dv < dh else v
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    k6_ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), (q, k, v), 5, flush)
+    bound = k6_bound_ms(B, S, Hq, Hkv, dh, None, dv)
+    lib_ms = time_ms(sdpa, (q, k, vp), 5, flush)
+    try:  # (S, 1024) float32 scores a chunk for every head
+        plain = f"{time_ms(flash_attention_plain, (q, k, v), 1, flush, warmup=1):.3f} ms"
+    except torch.OutOfMemoryError as e:
+        plain = f"not measured: out of memory ({str(e).splitlines()[0][:80]})"
+    torch.cuda.empty_cache()
+    flops = k6_flops(B, S, Hq, dh, None, dv)
+    out.setdefault("K6_shapes", []).append((name, k6_ms, bound, lib_ms, plain))
+    log(f"13 {name} K6 (B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, G={Hq // Hkv}, dqk={dh}, dv={dv}"
+        f"{', v padded to ' + str(dh) if dv < dh else ''}; causal): {k6_ms:.6f} ms, "
+        f"{flops / k6_ms / 1e9:.1f} TFLOP/s, {k6_ms / bound[0]:.3f}x its bound {bound[0]:.6f} ms "
+        f"({bound[1]}, {flops / 1e12:.2f} TFLOP); SDPA (is_causal, enable_gqa"
+        f"{', on the padded v' if dv < dh else ''}) {lib_ms:.6f} ms, {flops / lib_ms / 1e9:.1f} "
+        f"TFLOP/s; plain version {plain}; {L} launches a forward; card: {smi}")
+
+
+def phase13_cpu_prefill(dev, arch, cfg, params, cpu_p) -> None:
+    """The first CPU_DEPTH layers on a CPU_TOKENS-token prompt: the card's
+    logits against the port's CPU run of the same params (``cpu_p``, those
+    layers on the host); for a MoE arch also layer by layer, the CPU given the
+    card's input to each layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import build_step, make_batch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import rms_norm
+
+    name = arch.name
+    cfg_c = dataclasses.replace(cfg, n_layers=CPU_DEPTH)
+    card_p = cut_params(params, CPU_DEPTH, dev)
+    cell = arch.cell("prefill_32k")
+    tok = make_batch(arch, cell, cfg, seed=2, smoke=False, device=dev)["tokens"][:1, :CPU_TOKENS]
+    step, _ = build_step(arch, cell, cfg_c)
+    layers, card_routes, cpu_routes = [], [], []
+    with recording(tr, "_layer", layers), recording(moe_mod, "_route", card_routes):
+        card = step(card_p, {"tokens": tok.contiguous()}).cpu()
+    t = time.perf_counter()
+    with recording(moe_mod, "_route", cpu_routes):
+        want = step(cpu_p, {"tokens": tok.cpu()})
+    cpu_s = time.perf_counter() - t
+    diff = sum(topk_sets_differ(a[2][0].cpu(), b[2][0]) for a, b in zip(card_routes, cpu_routes))
+    mx, rel = float((card.float() - want.float()).abs().max()), float(
+        (card.float() - want.float()).norm() / want.float().norm())
+    what = (f"13 {name} prefill logits, {CPU_DEPTH} layers, B = 1, S = {CPU_TOKENS}, against the "
+            f"CPU's (CPU run {cpu_s:.3f} s): max |diff| {mx:.4g}, relative L2 {rel:.4g}, largest "
+            f"|logit| {float(want.abs().max()):.4g}")
+    if cfg.moe is None or diff == 0:
+        lm_close(card, want, what)
+        log(what + (f"; every top-{cfg.moe.top_k} set routed alike" if cfg.moe else "")
+            + f"; within rtol {LM_TOL['rtol']} / atol {LM_TOL['atol']} / relative L2 {LM_REL_L2}")
+    else:
+        log(what + f"; {diff} of {len(card_routes) * CPU_TOKENS} (token, layer) top-"
+            f"{cfg.moe.top_k} sets routed apart on the two sides' own inputs, so held layer by "
+            f"layer below")
+    if cfg.moe is None:
+        return
+    # layer by layer: each layer's output on the card against the CPU's on the card's input
+    pos = torch.arange(CPU_TOKENS, dtype=torch.int32)
+    worst = (0.0, 0.0)
+    for i, (x, p, _c, _pos, is_g), (y, _aux) in ((i, a, r) for i, a, r in layers):
+        got = tr._layer(x.cpu(), cpu_p["layers"][i], cfg_c, pos, is_g)[0]
+        r = lm_close(y.cpu(), got, f"13 {name} layer {i} on the card's input")
+        worst = (max(worst[0], r[0]), max(worst[1], r[1]))
+    head = tr._head(cpu_p, cfg_c)
+    last = layers[-1][2][0].cpu()
+    r = lm_close(card[0], (rms_norm(last, cpu_p["final_norm"]) @ head)[0],
+                 f"13 {name} head on the card's last hidden states")
+    log(f"13 {name} layer by layer ({CPU_DEPTH} layers, the CPU given the card's input to each): "
+        f"every output within rtol {LM_TOL['rtol']} / atol {LM_TOL['atol']} / relative L2 "
+        f"{LM_REL_L2}, largest max |diff| {worst[0]:.4g}, relative L2 {worst[1]:.4g}; the head on "
+        f"the card's last hidden states {r[0]:.4g} ({r[1]:.4g})")
+
+
+def decode_batch_on(dev, arch, cfg, B: int, cell_name: str, seed: int) -> dict:
+    """The cell's decode batch at B rows: the cache filled on the card from a
+    seeded generator (standard normal, as make_batch fills it), tokens from
+    NumPy, cur_len as make_batch sets it."""
+    import torch
+
+    from repro_torch.configs import input_specs
+
+    spec = input_specs(arch, arch.cell(cell_name), cfg)["cache"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = {n: torch.randn((s[0], B) + s[2:], generator=g, device=dev, dtype=dt)
+             for n, (s, dt) in spec.items()}
+    S = next(iter(spec.values()))[0][2]
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (B,)).astype(np.int32)
+    return {"cache": cache, "tokens": torch.from_numpy(tokens).to(dev),
+            "cur_len": torch.tensor(min(5, S - 1), dtype=torch.int32)}
+
+
+def phase13_decode(dev, smi, arch, cfg, params, cpu_p, B: int, why: str, out: dict) -> None:
+    """decode_32k (and long_500k where the arch runs it) at full width: warm
+    steps at cur_len 5, the profiler's kernels; a check step at S − 2 on the
+    first CPU_DEPTH layers against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import build_step
+    from repro_torch.models import moe as moe_mod
+
+    name = arch.name
+    for cell_name, b, seed in (("decode_32k", B, 2), ("long_500k", 1, 3)):
+        cell = arch.cell(cell_name)
+        if cell.skip:
+            log(f"13 {name} {cell_name}: skipped, as the reference skips it ({cell.skip})")
+            continue
+        step, _ = build_step(arch, cell, cfg)
+        t = time.perf_counter()
+        batch = decode_batch_on(dev, arch, cfg, b, cell_name, seed)
+        sync(dev)
+        S = next(iter(batch["cache"].values())).shape[2]
+        gb = sum(c.numel() for c in batch["cache"].values()) * 2 / 1e9
+        log(f"13 {name} {cell_name}: B = {b}{' (' + why + ')' if cell_name == 'decode_32k' else ''}"
+            f", cache {', '.join(f'{n} {tuple(c.shape)}' for n, c in batch['cache'].items())} bf16 "
+            f"({gb:.2f} GB) filled in {time.perf_counter() - t:.3f} s")
+        logits, _ = step(params, batch)
+        sync(dev)
+        require(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                f"{name} {cell_name}: logits of shape {tuple(logits.shape)} are not finite")
+        warm = warm_ms(lambda: step(params, batch), dev, runs=3)
+        med = float(np.median(warm))
+        out.setdefault("decode_ms", {})[cell_name] = med
+        log(f"13 {name} {cell_name} (B = {b}, cur_len {int(batch['cur_len'])}): warm {fmt(warm)} "
+            f"ms, median {med:.3f} ms, {b / med * 1e3:.1f} tokens/s; logits finite; card: {smi}")
+        if cell_name == "decode_32k":
+            top_kernels(lambda: step(params, batch), dev, f"13 {name} decode_32k, one warm step",
+                        med, n=5)
+            # the check step near the cache end, on the first CPU_DEPTH layers, rows 0-1
+            cfg_c = dataclasses.replace(cfg, n_layers=CPU_DEPTH)
+            cstep = build_step(arch, cell, cfg_c)[0]
+            cut = {"cache": {n: c[:CPU_DEPTH, :2].clone() for n, c in batch["cache"].items()},
+                   "tokens": batch["tokens"][:2], "cur_len": torch.tensor(S - 2, dtype=torch.int32)}
+            cpu = {"cache": {n: c.cpu() for n, c in cut["cache"].items()},
+                   "tokens": cut["tokens"].cpu(), "cur_len": cut["cur_len"]}
+            card_routes, cpu_routes = [], []
+            with recording(moe_mod, "_route", card_routes):
+                card_logits, card_cache = cstep(cut_params(params, CPU_DEPTH, dev), cut)
+            with recording(moe_mod, "_route", cpu_routes):
+                want, want_cache = cstep(cpu_p, cpu)
+            apart = rows_routed_apart(card_routes, cpu_routes)
+            n_apart = 0 if apart is None else int(apart.sum())
+            require(n_apart < 2, f"13 {name} decode check step: both rows routed apart")
+            mx, rel = close_where_routed_alike(card_logits.cpu(), want, apart,
+                                               f"13 {name} decode check step")
+            rows = [lm_close(card_cache[n][:, :, S - 2].cpu(), want_cache[n][:, :, S - 2],
+                             f"13 {name} decode check step, cache {n} rows") for n in card_cache]
+            log(f"13 {name} decode_32k check step at cur_len {S - 2} ({CPU_DEPTH} layers, rows "
+                f"0-1, over {S - 1} cached rows{'' if cfg.moe is None else f'; {n_apart} row(s) routed apart, not held'}): "
+                f"logits equal the CPU's, max |diff| {mx:.4g} "
+                f"(relative L2 {rel:.4g}); written cache rows "
+                + ", ".join(f"{n} {r[0]:.4g} ({r[1]:.4g})" for n, r in zip(card_cache, rows)))
+            del cut, cpu, card_cache, want_cache
+        del batch, logits
+        torch.cuda.empty_cache()
+
+
+def phase13_engine(dev, smi, arch, cfg, params, cpu_p) -> None:
+    """``DecodeEngine`` over the arch's cache: 6 requests through 4 slots at
+    full depth (timed); then on the first CPU_DEPTH layers with every tick's
+    tokens and logits recorded and replayed through the CPU's decode_step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    from repro_torch.serve import engine as engine_mod
+
+    name = arch.name
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 9))).tolist() for _ in range(6)]
+    scfg = ServeConfig(max_batch=4, max_len=256, eos_token=-1)
+
+    def run(p, c, record=None):
+        eng = DecodeEngine(p, c, scfg, device=dev)
+        for pr in prompts:
+            eng.submit(pr, max_new=8)
+        t = time.perf_counter()
+        if record is None:
+            done = eng.run_until_drained()
+        else:
+            with recording(engine_mod, "decode_step", record):
+                done = eng.run_until_drained()
+        return eng, done, time.perf_counter() - t
+
+    eng, done, wall = run(params, cfg)
+    require(sorted(done) == list(range(6)) and all(len(v) == 8 for v in done.values()),
+            f"13 {name} DecodeEngine: {sorted(done)} finished")
+    log(f"13 {name} DecodeEngine (4 slots, cache {', '.join(sorted(eng.cache))}): 6 requests of "
+        f"4-8 prompt tokens, 8 new each, 2 in reused slots; {eng.cur_len} ticks in {wall:.3f} s, "
+        f"{wall / eng.cur_len * 1e3:.3f} ms a tick, {6 * 8 / wall:.1f} generated tokens/s; "
+        f"card: {smi}")
+    cfg_c = dataclasses.replace(cfg, n_layers=CPU_DEPTH)
+    ticks, card_routes = [], []
+    with recording(moe_mod, "_route", card_routes):
+        eng, done_c, _ = run(cut_params(params, CPU_DEPTH, dev), cfg_c, ticks)
+    n_moe = sum(cfg_c.is_moe(i) for i in range(CPU_DEPTH))
+    cache = init_cache(cfg_c, scfg.max_batch, scfg.max_len, device="cpu")
+    worst, gaps, n_apart = (0.0, 0.0), [], 0
+    for t, (_, (_p, _c, toks, cur, _cfg), (card_logits, _)) in enumerate(ticks):
+        cpu_routes = []
+        with recording(moe_mod, "_route", cpu_routes):
+            want, cache = decode_step(cpu_p, cache, toks.cpu(), cur, cfg_c)
+        apart = rows_routed_apart(card_routes[t * n_moe:(t + 1) * n_moe], cpu_routes)
+        n_apart += 0 if apart is None else int(apart.sum())
+        r = close_where_routed_alike(card_logits.cpu(), want, apart,
+                                     f"13 {name} DecodeEngine tick {cur}")
+        if r is None:
+            continue
+        worst = (max(worst[0], r[0]), max(worst[1], r[1]))
+        alike = slice(None) if apart is None else ~apart
+        pick = card_logits.float().argmax(-1).cpu()[alike]
+        w = want.float()[alike]
+        gaps.append(float((w.max(-1).values - w.gather(-1, pick[:, None])[:, 0]).max()))
+    rows = len(ticks) * scfg.max_batch
+    require(n_apart <= 0.1 * rows, f"13 {name} DecodeEngine: {n_apart} of {rows} (tick, slot) "
+            f"rows routed apart between the card and the CPU")
+    require(max(gaps) <= LM_TOL["atol"], f"13 {name} DecodeEngine: a token the card picked is "
+            f"{max(gaps):.4g} below the CPU's largest logit")
+    log(f"13 {name} DecodeEngine on {CPU_DEPTH} layers, every tick replayed through the CPU's "
+        f"decode_step on the card's own tokens ({len(ticks)} ticks, slots reused; {n_apart} of "
+        f"{rows} (tick, slot) rows routed apart on the two sides' own inputs, not held): logits "
+        f"within tolerance, largest max |diff| {worst[0]:.4g} (relative L2 {worst[1]:.4g}); each picked "
+        f"token's CPU logit within {max(gaps):.3g} of the CPU's largest (limit {LM_TOL['atol']}); "
+        f"{sum(1 for g in gaps if g == 0.0)} of {len(gaps)} ticks picked the CPU's argmax in "
+        f"every slot")
+    del eng, cache, done_c
+    torch.cuda.empty_cache()
+
+
+def phase13_launchers(smi: str) -> None:
+    """``python -m repro_torch.launch.serve`` in child processes on the card:
+    the LM mode over deepseek's MLA cache and the GNN-PE mode."""
+    for argv in (["--mode", "lm", "--arch", "deepseek-v2-lite-16b", "--requests", "6"],
+                 ["--mode", "gnnpe", "--n", "2000", "--requests", "20"]):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                           capture_output=True, text=True, env=child_env(), timeout=300)
+        require(r.returncode == 0 and "[serve]" in r.stdout,
+                f"13: repro_torch.launch.serve {' '.join(argv)} exited {r.returncode}: "
+                f"{r.stderr[-2000:]}")
+        log(f"13 python -m repro_torch.launch.serve {' '.join(argv)} in a child process: "
+            f"{r.stdout.strip().splitlines()[-1]} ({time.perf_counter() - t:.3f} s); card: {smi}")
+
+
+def phase13_lm_family(dev, flush, smi: str) -> dict:
+    """The rest of the LM family at full width, through ``repro_torch.configs``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch, init_params, resolve_config
+
+    out: dict = {"K6": 0, "K6_err": 0.0}
+    for name, depth, b_pre, b_dec, why in LM_FAMILY:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        arch = get_arch(name)
+        full = resolve_config(arch, arch.cell("prefill_32k"), smoke=False)
+        cfg = full if depth is None else dataclasses.replace(full, n_layers=depth[0])
+        t = time.perf_counter()
+        params = init_params(arch, cfg, seed=0, device=dev)
+        sync(dev)
+        log(f"13 {name} ({arch.source}): {full.n_params()} params ({2 * full.n_params() / 1e9:.1f} "
+            f"GB in bf16, {full.n_active_params()} active); depth "
+            + (f"all {full.n_layers} layers" if depth is None else
+               f"cut {full.n_layers} -> {depth[0]} ({depth[1]})")
+            + f": {cfg.n_params()} params drawn on the card in {time.perf_counter() - t:.3f} s "
+            f"(float32 from a seeded CUDA generator, each tensor cast to bf16 as drawn; the router "
+            f"float32)")
+        phase13_prefill(dev, flush, smi, arch, cfg, params, b_pre, out)
+        t = time.perf_counter()
+        cpu_p = cut_params(params, CPU_DEPTH, "cpu")
+        log(f"13 {name}: the first {CPU_DEPTH} layers, embedding and head copied to the host for "
+            f"the CPU's runs in {time.perf_counter() - t:.3f} s")
+        phase13_cpu_prefill(dev, arch, cfg, params, cpu_p)
+        phase13_decode(dev, smi, arch, cfg, params, cpu_p, b_dec, why, out)
+        if cfg.use_mla:
+            phase13_engine(dev, smi, arch, cfg, params, cpu_p)
+        log(f"13 {name}: peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+            f"GiB, {time.perf_counter() - t0:.3f} s; card: {smi}")
+        del params, cpu_p
+    phase13_launchers(smi)
+    return out
+
+
 def main(only: str | None = None) -> int:
-    """Every phase, or with ``only="8"`` or ``only="12"`` the build and that
-    phase alone (a partial run: it prints no result line)."""
+    """Every phase, or with ``only="8"``, ``"12"`` or ``"13"`` the build and
+    that phase alone (a partial run: it prints no result line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5186,6 +5748,13 @@ def main(only: str | None = None) -> int:
         p12 = phase12_training(dev, smi)
         log(f"phase 12 training: {time.perf_counter() - t:.3f} s; train launches K4 {p12['K4']}, "
             f"K5 {p12['K5']}, K6 {p12['K6']}; partial run (--only 12): no result line")
+        return 0
+    if only == "13":
+        t = time.perf_counter()
+        log(f"K6 edge shapes, max |err| {k6_edge_checks(dev):.3g}")
+        p13 = phase13_lm_family(dev, flush, smi)
+        log(f"phase 13 the LM family: {time.perf_counter() - t:.3f} s; prefill launches K6 "
+            f"{p13['K6']}; partial run (--only 13): no result line")
         return 0
 
     t = time.perf_counter()
@@ -5259,6 +5828,13 @@ def main(only: str | None = None) -> int:
         f"{time.perf_counter() - t:.3f} s; train launches K4 {p12['K4']}, K5 {p12['K5']}, "
         f"K6 {p12['K6']}; card: {smi}")
 
+    t = time.perf_counter()
+    p13 = phase13_lm_family(dev, flush, smi)
+    errs["K6"] = max(errs["K6"], p13["K6_err"])
+    log(f"phase 13 the LM family (minitron-4b, command-r-plus-104b, deepseek-v2-lite-16b, "
+        f"qwen3-moe-235b-a22b): {time.perf_counter() - t:.3f} s; prefill launches K6 {p13['K6']}; "
+        f"card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5308,8 +5884,8 @@ def main(only: str | None = None) -> int:
         record("dominance_scan_batch", "K3-batch", scan_cu, f"{scan_py}:58", p3["K3-batch"],
                p3["K3b_ms"], p3["K3b_plain_ms"], p3["K3b_bound"]),
         # K4, K5 and K6's launches: phase 6's / 7's serving paths, then phase 12's
-        # train steps (12a's first DCN-v2 step, 12b's first gemma3-1b step), each
-        # counted from 0 just before it
+        # train steps (12a's first DCN-v2 step, 12b's first gemma3-1b step), then
+        # (K6) phase 13's four prefill_32k forwards, each counted from 0 just before it
         record("star_agg", "K4", f"{SRC}/star_agg/csrc/star_agg.cu",
                "src/repro/kernels/star_agg/kernel.py:39", p6["K4"] + p12["K4"], p6["K4_ms"],
                p6["K4_plain_ms"], p6["K4_bound"], p6["K4_library_ms"]),
@@ -5319,7 +5895,7 @@ def main(only: str | None = None) -> int:
                p6["K5_plain_ms"], p6["K5_bound"], p6["K5_library_ms"]),
         # K6 at a global layer of prefill_32k; its local-layer times are in the log
         record("flash_attention", "K6", f"{SRC}/flash_attention/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"] + p12["K6"],
+               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"] + p12["K6"] + p13["K6"],
                p7["K6_ms"], p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))

@@ -26,11 +26,11 @@ def main():
     args = ap.parse_args()
 
     dev = default_device(args.device)
-    # four local layers with a window past the sequence: full causal attention
+    # four local layers with a window past the sequence (full causal attention), a tied head
     cfg = TransformerConfig(
         n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=512, vocab=512,
-        window=1024, dtype="float32" if dev.type == "cpu" else "bfloat16", kv_chunk=64,
-        remat=False,
+        attention="local_global", window=1024, global_period=6, tie_embeddings=True,
+        dtype="float32" if dev.type == "cpu" else "bfloat16", kv_chunk=64, remat=False,
     )
     params = init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
     n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]

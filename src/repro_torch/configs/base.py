@@ -25,7 +25,6 @@ import torch
 
 from ..device import default_device
 from ..models import (
-    cast_params,
     dcn_forward,
     dcn_loss,
     decode_step,
@@ -58,6 +57,7 @@ class ShapeCell:
     name: str
     kind: str  # train | prefill | decode | serve | retrieval | train_blocks | train_mol
     meta: dict
+    skip: str | None = None  # why this (arch, cell) is not run, as the reference skips it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,17 +93,18 @@ _LATER_KINDS: dict = {}
 _STEP_KINDS = {"recsys": ("train", "serve", "retrieval"), "lm": ("train", "prefill", "decode")}
 
 
-def _cells(shapes: dict) -> tuple:
+def _cells(shapes: dict, skip: dict | None = None) -> tuple:
     out = []
     for name, m in shapes.items():
         meta = dict(m)
         kind = meta.pop("kind")
-        out.append(ShapeCell(name, kind, meta))
+        out.append(ShapeCell(name, kind, meta, (skip or {}).get(name)))
     return tuple(out)
 
 
-def lm_cells() -> tuple:
-    return _cells(LM_SHAPES)
+def lm_cells(skip_long: str | None = None) -> tuple:
+    """The LM cells; ``long_500k`` skipped with the reason ``skip_long``, if given."""
+    return _cells(LM_SHAPES, {"long_500k": skip_long})
 
 
 def recsys_cells() -> tuple:
@@ -137,7 +138,8 @@ def _ported(arch: ArchDef, cell: ShapeCell) -> None:
 def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dict:
     """{name: (shape, dtype)} of the cell's batch, in draw order: NumPy
     dtypes for what is drawn as such, the compute dtype (a torch dtype)
-    for the LM's KV cache {"k", "v"}."""
+    for the LM's decode cache: {"k", "v"}, or MLA's {"ckv", "krope"} (in
+    sorted order, as the reference's tree is)."""
     _ported(arch, cell)
     m = _scale_meta(cell, smoke)
     if arch.family == "lm":
@@ -146,9 +148,14 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
             return {"tokens": ((B, S), np.int32), "labels": ((B, S), np.int32)}
         if cell.kind == "prefill":
             return {"tokens": ((B, S), np.int32)}
-        kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim), cfg.compute_dtype)
-        return {"cache": {"k": kv, "v": kv}, "tokens": ((B,), np.int32),
-                "cur_len": ((), np.int32)}
+        L, dt = cfg.n_layers, cfg.compute_dtype
+        if cfg.use_mla:
+            cache = {"ckv": ((L, B, S, cfg.kv_lora_rank), dt),
+                     "krope": ((L, B, S, cfg.rope_head_dim), dt)}
+        else:
+            kv = ((L, B, S, cfg.n_kv_heads, cfg.head_dim), dt)
+            cache = {"k": kv, "v": kv}
+        return {"cache": cache, "tokens": ((B,), np.int32), "cur_len": ((), np.int32)}
     B = m["batch"]
     spec = {
         "dense": ((B, cfg.n_dense), np.float32),
@@ -198,9 +205,10 @@ def make_batch(arch: ArchDef, cell: ShapeCell, cfg, seed: int = 0, smoke: bool =
 def init_params(arch: ArchDef, cfg, seed: int = 0, device=None, train: bool = False) -> dict:
     """Random params on ``device`` (the card unless told otherwise), drawn
     from a ``torch.Generator`` on that device seeded with ``seed``; the LM's
-    are drawn in float32 and cast once to ``cfg.compute_dtype``, the dtype
-    its serving steps take, or with ``train`` kept in ``cfg.param_dtype``,
-    the master params its train step updates."""
+    are drawn in float32, each cast as soon as it is drawn (so no float32
+    copy of the model exists) to ``cfg.compute_dtype``, the dtype its
+    serving steps take, or with ``train`` to ``cfg.param_dtype``, the
+    master params its train step updates; the MoE router stays float32."""
     if arch.family not in _STEP_KINDS:
         raise NotImplementedError(
             f"{arch.name} ({arch.family}) is not ported yet: ROADMAP queue 1 item 17"
@@ -209,7 +217,7 @@ def init_params(arch: ArchDef, cfg, seed: int = 0, device=None, train: bool = Fa
     gen = torch.Generator(device=dev).manual_seed(seed)
     if arch.family == "lm":
         dtype = getattr(torch, cfg.param_dtype) if train else cfg.compute_dtype
-        return cast_params(init_lm_params(gen, cfg), dtype)
+        return init_lm_params(gen, cfg, dtype)
     return init_dcn_params(gen, cfg)
 
 

@@ -2,26 +2,22 @@
 from __future__ import annotations
 
 from .base import ArchDef, ShapeCell
-from .lm_archs import GEMMA3
+from .lm_archs import COMMAND_R, DEEPSEEK, GEMMA3, MINITRON, QWEN3
 from .recsys_archs import DCN_V2
 
 __all__ = ["get_arch", "resolve_config"]
 
-_ARCHS = {a.name: a for a in [DCN_V2, GEMMA3]}
+_ARCHS = {a.name: a for a in [MINITRON, GEMMA3, COMMAND_R, DEEPSEEK, QWEN3, DCN_V2]}
 # the JAX package's other architectures → the ROADMAP item that ports them
-_LM = "ROADMAP queue 1 item 17 (LM: MLA and MoE in models/transformer.py, moe.py)"
-_GNN = "ROADMAP queue 1 item 17 (GNN zoo: models/gnn.py)"
+_GNN = "ROADMAP queue 1 item 17d (the GNN zoo: models/gnn.py, configs/gnn_archs.py)"
+_GNNPE = "ROADMAP queue 1 item 17e (configs: the paper's phases as dry-run cells)"
 _LATER = {
-    "minitron-4b": _LM,
-    "command-r-plus-104b": _LM,
-    "deepseek-v2-lite-16b": _LM,
-    "qwen3-moe-235b-a22b": _LM,
     "schnet": _GNN,
     "graphsage-reddit": _GNN,
     "mace": _GNN,
     "gin-tu": _GNN,
-    "gnn-pe-offline": "ROADMAP queue 1 item 17 (configs: the paper's phases as dry-run cells)",
-    "gnn-pe-online": "ROADMAP queue 1 item 17 (configs: the paper's phases as dry-run cells)",
+    "gnn-pe-offline": _GNNPE,
+    "gnn-pe-online": _GNNPE,
 }
 
 

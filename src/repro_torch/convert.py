@@ -3,7 +3,7 @@
 ``jax.random`` initialisation cannot be reproduced in torch, so a parity
 check builds the port from the reference's state: an engine's trained
 per-partition state (``GnnPeEngine.build(g, params=...)``), a DCN-v2
-params tree or a dense LM's, an AdamW state over either, or a whole
+params tree or an LM's, an AdamW state over either, or a whole
 ``Trainer`` checkpoint directory.  This module only reads the reference
 objects' attributes and turns arrays into NumPy; it imports neither JAX
 nor the JAX package.
@@ -80,22 +80,37 @@ def dcn_params_from_reference(params: dict, device=None) -> dict:
 
 
 def lm_params_from_reference(params: dict, device=None) -> dict:
-    """The JAX package's dense LM params tree (``embed``, ``final_norm`` and
-    ``layers``, a dict of arrays stacked over layers) → the port's dict of
-    tensors on ``device`` (the card unless told otherwise), one dict per
-    layer, float32 as the reference stores them."""
+    """The JAX package's LM params tree → the port's dict of float32 tensors
+    on ``device`` (the card unless told otherwise): ``embed``,
+    ``final_norm``, ``lm_head`` where the head is untied, and ``layers``, one
+    dict a layer: the unstacked ``prefix_layers`` first, then the stacked
+    ``layers`` split along their first dim (a MoE layer's nested ``moe``
+    dict with them).  bf16 arrays are widened to float32, which is exact."""
     dev = default_device(device)
 
     def t(a):
         return torch.from_numpy(np.array(a, np.float32)).to(dev)
 
-    stacked = {k: np.asarray(v, np.float32) for k, v in params["layers"].items()}
-    n_layers = next(iter(stacked.values())).shape[0]
-    return {
-        "embed": t(params["embed"]),
-        "final_norm": t(params["final_norm"]),
-        "layers": [{k: t(v[i]) for k, v in stacked.items()} for i in range(n_layers)],
-    }
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        return np.asarray(tree, np.float32)
+
+    def layer(tree, i=None):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return t(tree if i is None else tree[i])
+
+    stacked = arrays(params["layers"])
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    out = {"embed": t(params["embed"]), "final_norm": t(params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head"] = t(params["lm_head"])
+    out["layers"] = [layer(arrays(p)) for p in params.get("prefix_layers", [])] + [
+        layer(stacked, i) for i in range(first.shape[0])]
+    return out
 
 
 def _tensors(tree, device):

@@ -5,6 +5,15 @@ CPU tensor through the plain version (``ref.flash_attention_plain``);
 any other device raises.  ``LAUNCHES`` counts the kernel's launches, so a run
 can show that its path went through the kernel.
 
+The kernel takes head widths that are multiples of 16.  The wrapper pads
+the operands it cannot take as they are with zero columns: q and k up to
+the next multiple of 16 (the smoke configs' 8 and 24), and a v narrower
+than them (MLA's 128 against 192) up to their width, then returns the
+output's first dv columns, with the scores scaled by q's own 1/√dh.  Zero
+columns add nothing to a score and give zero output columns, so the
+padding is exact; it costs a P·V product (and, off 16, a Q·Kᵀ) that much
+wider.
+
 ``flash_attention`` is differentiable in q, k and v through ``_FlashAttention``,
 on the CPU and on the card alike.  Its backward is plain PyTorch by design
 (the JAX package has no backward kernel either): it recomputes the plain
@@ -17,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .kernel import launch_flash_attention
 from .ref import flash_attention_plain
@@ -29,17 +39,20 @@ _ALIGN = 8  # elements: the kernel moves 16-byte chunks of bf16
 
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
                     chunk: int = 1024) -> torch.Tensor:
-    """q (B, S, Hq, dh), k and v (B, S, Hkv, dh) → (B, S, Hq, dh) in q's dtype.
+    """q (B, S, Hq, dh), k (B, S, Hkv, dh) and v (B, S, Hkv, dv), dv ≤ dh →
+    (B, S, Hq, dv) in q's dtype, the scores scaled by 1/√dh.
 
     Query head h attends to KV head h // (Hq / Hkv) (grouped-query
     attention, no repeated copy); keys at or before the query when
     ``causal``, and within ``window`` positions of it when one is given.
     ``chunk`` is the plain version's KV chunk (the model's ``kv_chunk``);
     the kernel tiles its own way.  On the card the operands must be bf16
-    with dh a multiple of 16 up to 256 and a unit stride on dh (other
-    strides are read as they are, multiples of 8); on the CPU float32 or bf16.
+    with dh up to 256 (padded as the module says) and, where not padded, a
+    unit stride on dh (other strides are read as they are, multiples of 8);
+    on the CPU float32 or bf16.
     """
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or q.shape[0::3] != k.shape[0::3] \
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3] \
+            or v.shape[3] > k.shape[3] or q.shape[0::3] != k.shape[0::3] \
             or q.shape[1] != k.shape[1] or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
@@ -60,15 +73,19 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     return _FlashAttention.apply(q, k, v, causal, window, chunk)
 
 
+def _width(dh: int) -> int:
+    """The kernel's head width for ``dh``: the next multiple of 16."""
+    return -(-dh // 16) * 16
+
+
 def _check_kernel_operands(q, k, v) -> None:
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the kernel takes bf16, not {q.dtype}")
     B, S, Hq, dh = q.shape
-    if dh % 16 or dh > 256:
-        raise ValueError(
-            f"flash_attention: the kernel takes dh a multiple of 16 up to 256, not {dh}"
-        )
-    for t in (q, k, v):
+    if dh > 256:
+        raise ValueError(f"flash_attention: the kernel takes dh up to 256, not {dh}")
+    w = _width(dh)
+    for t in [t for t in (q, k, v) if t.shape[-1] == w]:  # the others are padded anew
         if t.stride(3) != 1 or any(s % _ALIGN for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError("flash_attention: operands need a unit stride on dh, the other "
                              "strides multiples of 8 and 16-byte aligned data")
@@ -80,12 +97,15 @@ def _forward(q, k, v, causal: bool, window, chunk: int) -> torch.Tensor:
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, chunk)
+    dh, dv = q.shape[-1], v.shape[-1]
+    w = _width(dh)
+    q, k, v = (t if t.shape[-1] == w else F.pad(t, (0, w - t.shape[-1])) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
-    launch_flash_attention(q, k, v, out, causal, window or 0, 1.0 / math.sqrt(q.shape[-1]))
+        return out[..., :dv]
+    launch_flash_attention(q, k, v, out, causal, window or 0, 1.0 / math.sqrt(dh))
     LAUNCHES += 1
-    return out
+    return out[..., :dv]
 
 
 def flash_attention_backward(q, k, v, grad_out, causal: bool = True, window=None,

@@ -99,9 +99,9 @@ def chunked_attention(q, k, v, q_pos, kv_pos, window, chunk: int, causal: bool =
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = None,
                           chunk: int = 1024, remat: bool = False):
-    """K6's plain version on the wrapper's layout: q (B, S, Hq, dh), k and v
-    (B, S, Hkv, dh) → (B, S, Hq, dh), ``chunked_attention`` over positions
-    0 … S − 1, query head h on KV head h // (Hq / Hkv)."""
+    """K6's plain version on the wrapper's layout: q (B, S, Hq, dh), k (B, S,
+    Hkv, dh) and v (B, S, Hkv, dv) → (B, S, Hq, dv), ``chunked_attention``
+    over positions 0 … S − 1, query head h on KV head h // (Hq / Hkv)."""
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     pos = torch.arange(S, dtype=torch.int32, device=q.device)

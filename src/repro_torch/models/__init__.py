@@ -1,7 +1,8 @@
 """The seed substrate's models, ported as plain functions over dicts of
-tensors: the recsys family (DCN-v2) and the dense LM (gemma3-1b), for
-serving and training."""
+tensors: the recsys family (DCN-v2) and the LM family (dense GQA, the
+local:global mix, MLA and MoE), for serving and training."""
 from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm, rope_freqs
+from .moe import MoEConfig, init_moe_params, moe_block
 from .recsys import (
     RecsysConfig,
     dcn_forward,
@@ -29,6 +30,9 @@ __all__ = [
     "dcn_loss",
     "retrieval_scores",
     "TransformerConfig",
+    "MoEConfig",
+    "init_moe_params",
+    "moe_block",
     "init_lm_params",
     "cast_params",
     "lm_forward",

@@ -635,6 +635,27 @@ def test_flash_attention_against_plain_version(cuda, S, dh, G, causal, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,Hq,Hkv,dh,dv", [(1000, 6, 2, 128, 128), (777, 12, 1, 128, 128),
+                                          (300, 16, 1, 128, 128), (1000, 4, 4, 192, 128),
+                                          (129, 2, 2, 24, 16), (65, 4, 1, 8, 8)])
+def test_flash_attention_at_the_lm_family_shapes(cuda, S, Hq, Hkv, dh, dv):
+    """G = 3, 12 and 16 (minitron, command-r, qwen3); MLA's q and k of 192
+    with a v of 128, padded to 192 by the wrapper; the smoke MLA's 24 / 16
+    and command-r's 8, padded to 32 and 16: one launch each, within
+    ``ref.k6_agreement``'s tolerance, the output dv wide."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq + dh)
+    q, k = (torch.randn((2, S, h, dh), generator=g, device=cuda).to(torch.bfloat16)
+            for h in (Hq, Hkv))
+    v = torch.randn((2, S, Hkv, dv), generator=g, device=cuda).to(torch.bfloat16)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1 and got.shape == (2, S, Hq, dv)
+    res = k6_agreement(got, flash_attention_plain(q, k, v), attention_scale(q, k, v))
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
 def test_flash_attention_strided_operands_and_limits(cuda):
     qkv = torch.randn((2, 333, 8, 64), device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]  # head slices, no copy
@@ -644,8 +665,13 @@ def test_flash_attention_strided_operands_and_limits(cuda):
     assert res["ok"], res
     with pytest.raises(TypeError, match="bf16"):
         fa.flash_attention(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    # dh 24, off the kernel's multiples of 16: padded with zero columns, exact
+    n24 = [t[..., :24] for t in (q, k, v)]
+    res = k6_agreement(fa.flash_attention(*n24), flash_attention_plain(*n24),
+                       attention_scale(*n24))
+    assert res["ok"] and fa.flash_attention(*n24).shape == (2, 333, 4, 24), res
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention(*(torch.cat([t] * 5, -1) for t in (q, k, v)))
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention(torch.cat([q, q], -1)[..., ::2], k, v)  # a stride of 2 on dh
     before = fa.LAUNCHES

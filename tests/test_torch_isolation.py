@@ -6,7 +6,9 @@ join, under live updates with compaction and the result cache, through a
 2-host ``ClusterEngine`` and through the scalar match, takes a snapshot,
 replays a WAL and scrubs the recovered engine, runs the dense scan, the DCN-v2 serve and retrieval steps and the
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
-short ``DecodeEngine`` run, one train step of each arch, a compressed
+short ``DecodeEngine`` run, the prefill and decode steps of the other four
+LMs, the MoE block, both modes of the serving launcher, one train step of
+DCN-v2, gemma3-1b and deepseek-v2-lite, a compressed
 ``Trainer`` run and its checkpoint read back through ``convert``, and no
 ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -101,8 +103,28 @@ eng = DecodeEngine(params, cfg, ServeConfig(max_batch=2, max_len=16, eos_token=-
 for p in ([1, 2], [3], [4, 5, 6]):
     eng.submit(p, max_new=3)
 assert sorted(eng.run_until_drained()) == [0, 1, 2]
+for an in ("minitron-4b", "command-r-plus-104b", "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
+    a = get_arch(an)
+    cfg = resolve_config(a, a.cell("decode_32k"), smoke=True)
+    params = init_params(a, cfg, seed=0, device="cpu")
+    for cn in ("prefill_32k", "decode_32k"):
+        cell = a.cell(cn)
+        out = build_step(a, cell, cfg)[0](params, make_batch(a, cell, cfg, device="cpu"))
+        logits = out if cn == "prefill_32k" else out[0]
+        assert logits.shape[-1] == cfg.vocab and torch.isfinite(logits).all()
+from repro_torch.models import MoEConfig, moe_block, init_moe_params
+mp = init_moe_params(torch.Generator().manual_seed(0), 16, MoEConfig(n_experts=4, top_k=2,
+                                                                     d_ff_expert=8, n_shared=1))
+assert moe_block(torch.randn(6, 16), mp, MoEConfig(n_experts=4, top_k=2, d_ff_expert=8,
+                                                     n_shared=1))[0].shape == (6, 16)
+from repro_torch.launch.serve import main as serve_main
+assert len(serve_main(["--mode", "lm", "--arch", "deepseek-v2-lite-16b", "--requests", "3",
+                       "--device", "cpu"])["finished"]) == 3
+assert serve_main(["--mode", "gnnpe", "--n", "1000", "--requests", "3", "--device", "cpu"])[
+    "queries"] == 3
 from repro_torch.configs import opt_init
-for an, cn in (("dcn-v2", "train_batch"), ("gemma3-1b", "train_4k")):
+for an, cn in (("dcn-v2", "train_batch"), ("gemma3-1b", "train_4k"),
+               ("deepseek-v2-lite-16b", "train_4k")):
     a = get_arch(an)
     cell = a.cell(cn)
     cfg = resolve_config(a, cell, smoke=True)
@@ -115,7 +137,8 @@ from repro_torch.train import CompressionConfig, OptConfig, Trainer, TrainerConf
 from repro_torch.models import TransformerConfig, init_lm_params, lm_loss
 from repro_torch.convert import trainer_state_from_reference
 tcfg = TransformerConfig(n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
-                         vocab=64, dtype="float32", kv_chunk=16, remat=False)
+                         vocab=64, attention="local_global", global_period=6,
+                         tie_embeddings=True, dtype="float32", kv_chunk=16, remat=False)
 data = LMSyntheticData(vocab=64, batch=2, seq_len=16, seed=0)
 with tempfile.TemporaryDirectory() as d:
     tr = Trainer(lambda p, b: lm_loss(p, b, tcfg), init_lm_params(torch.Generator().manual_seed(0), tcfg),
