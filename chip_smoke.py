@@ -278,9 +278,28 @@ Phases, each printing its seconds:
      over deepseek, ``--mode gnnpe``).  K6's edge checks (phase 7) also cover G = 3, 12, 16 at dh = 128 and dqk
      192 with dv 128, with a planted fault each.
 
-``python3 chip_smoke.py --only 12`` (or ``--only 8``, ``--only 13``) builds the
-kernels and runs phase 12 (or 8a with 8d, or K6's edge checks and phase 13)
-alone, printing no result line.
+ 14. the GNN zoo and GNN-PE's own cells through ``repro_torch.configs`` (no
+     kernel lies on this path): 14a gin-tu, graphsage-reddit, schnet and mace
+     at their published widths on ``full_graph_sm``, ``molecule`` and
+     ``minibatch_lg`` at full size, one ``build_step`` train step each from
+     seeded params against the port's CPU run of the same params and batch
+     (loss within 1e-4, each gradient leaf within phase 12a's relative L2
+     of 5e-3), warm step ms
+     and peak memory; 14b ``ogb_products`` at full size (2,449,056 nodes,
+     123,718,304 directed edges) for each arch: the first layer against its
+     float64 recomputation on the card, ``segment_sum``'s gradient against
+     autograd of the plain sum on the first 4 M edges, a train step, its ms
+     and peak; 14c the partition-parallel train step in 2 processes sharing
+     the card over gloo (a 20,000-vertex ER graph in 2 shards) against the
+     dense path; 14d ``gnn-pe-offline`` at m = 64 × 8,192 pairs against the
+     CPU, and ``gnn-pe-online`` over 10⁸ paths in its four variants with 3
+     rows planted a query (every rise accounted for) and the first 2²⁰ rows'
+     counts equal to the CPU's; 14e ``python -m repro_torch.launch.train
+     --smoke --steps 20`` for the four archs and gnn-pe-offline side by side.
+
+``python3 chip_smoke.py --only 12`` (or ``--only 8``, ``--only 13``, ``--only
+14``) builds the kernels and runs phase 12 (or 8a with 8d, K6's edge checks
+and phase 13, or phase 14) alone, printing no result line.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1955,15 +1974,17 @@ def step_breakdown(step, args, what: str, wall_ms: float, kernels: list, rest: s
     return spent
 
 
-def top_kernels(fn, dev, what: str, wall_ms: float, n: int = 8) -> None:
+def top_kernels(fn, dev, what: str, wall_ms: float, n: int = 8, cpu_ops: bool = True) -> None:
     """The kernels of one call of ``fn`` under ``torch.profiler``, by device
     time: their count and sum against the warm wall ms (the idle share),
-    and the ``n`` largest."""
+    and the ``n`` largest.  ``cpu_ops=False`` records the device alone (a
+    call of tens of thousands of launches then costs seconds, not tens)."""
     import torch
 
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu_ops:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
         fn()
         sync(dev)
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -5179,19 +5200,30 @@ def phase12c_trainer(dev, smi: str, root: Path) -> None:
             f"{wire_bytes(tr.params, CompressionConfig())} uncompressed")
 
     # ---- the launcher and the example in child processes -----------------------
-    for arch in ("dcn-v2", "gemma3-1b", "deepseek-v2-lite-16b"):
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-                            "--smoke", "--steps", "30"], capture_output=True, text=True,
-                           env=child_env(), timeout=600)
-        require(r.returncode == 0 and "[train] done" in r.stdout,
-                f"12c: repro_torch.launch.train --arch {arch} exited {r.returncode}: "
-                f"{r.stderr[-2000:]}")
-        log(f"12c python -m repro_torch.launch.train --arch {arch} --smoke --steps 30 in a child "
-            f"process: {r.stdout.strip().splitlines()[-1]} ({time.perf_counter() - t:.3f} s)")
+    # the three launchers side by side (one after another until phase 14 needed the time)
     t = time.perf_counter()
+    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                                     arch, "--smoke", "--steps", "30"], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=child_env())
+             for arch in ("dcn-v2", "gemma3-1b", "deepseek-v2-lite-16b")}
+    try:
+        outs = {arch: p.communicate(timeout=600) for arch, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for arch, (so, se) in outs.items():
+        rc = procs[arch].returncode
+        require(rc == 0 and "[train] done" in so,
+                f"12c: repro_torch.launch.train --arch {arch} exited {rc}: {se[-2000:]}")
+        log(f"12c python -m repro_torch.launch.train --arch {arch} --smoke --steps 30 in a child "
+            f"process: {so.strip().splitlines()[-1]}")
+    log(f"12c the three launchers side by side: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    # 80 steps (cut from 200 to make room for phase 14; the example asserts its loss drops 20 %)
     r = subprocess.run([sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), "--steps",
-                        "200", "--ckpt-dir", str(root / "example")], capture_output=True,
+                        "80", "--ckpt-dir", str(root / "example")], capture_output=True,
                        text=True, env=child_env(), timeout=600)
     require(r.returncode == 0, f"12c: examples/train_lm_torch.py exited {r.returncode}: "
             f"{r.stderr[-2000:]}")
@@ -5709,9 +5741,469 @@ def phase13_lm_family(dev, flush, smi: str) -> dict:
     return out
 
 
+# ---- phase 14 -----------------------------------------------------------------
+
+GNN_ARCHS = ("gin-tu", "graphsage-reddit", "schnet", "mace")
+GNN_LOSS_REL = 1e-4  # a GNN step's loss, card against CPU: within this · max(1, |CPU loss|)
+LAYER_REL = 1e-4  # the first layer on the card against its float64 recomputation, · (1 + max|ref|)
+FN_GRAD_REL = 1e-5  # segment_sum's gradient against autograd of the plain sum, relative L2
+FN_EDGES = 4 << 20  # the edges of that gradient check
+# the partition loss against the dense path's within PART_LOSS · max(1, |dense loss|), each
+# gradient element within PART_GRAD · max(1, the leaf's max |g|): the reference test's limits,
+# set there for a loss of about 1.4, scaled to the magnitude (gin's loss here is about 1.8e3)
+PART_LOSS = 2e-4
+PART_GRAD = 5e-4
+PLANTED = 3  # index rows planted a query in the online cell
+HEAD_ROWS = 1 << 20  # the online counts held exactly against the CPU's on these first rows
+
+
+def peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def reset_peak(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def on_cpu(tree):
+    from repro_torch.train import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+class GnnBatches:
+    """``make_batch`` of a GNN cell once for each layout of its specs: the
+    four archs draw a cell's batch alike unless one draws positions."""
+
+    def __init__(self, smoke: bool, smi: str):
+        self.smoke, self.smi, self.cache = smoke, smi, {}
+
+    def get(self, arch, cell, cfg, dev) -> dict:
+        from repro_torch.configs import input_specs, make_batch
+
+        key = (cell.name, tuple(input_specs(arch, cell, cfg, smoke=self.smoke)))
+        if key not in self.cache:
+            t = time.perf_counter()
+            self.cache[key] = make_batch(arch, cell, cfg, seed=0, smoke=self.smoke, device=dev)
+            sync(dev)
+            log(f"14 {cell.name} batch of {', '.join(key[1])}: drawn (make_batch, NumPy) and on "
+                f"the card in {time.perf_counter() - t:.3f} s")
+        return self.cache[key]
+
+
+def gnn_step_vs_cpu(step, params, opt, batch, what: str) -> tuple:
+    """One train step on the card and the same step on the CPU from copies of
+    the same params, state and batch: the losses within ``GNN_LOSS_REL``, each
+    gradient leaf (AdamW's first moment after the step, 0.1 · the clipped
+    gradient) within phase 12a's relative L2 of the CPU's → (new params, new
+    state, loss, CPU loss, worst ratio to the limit).  Not per element: a leaf
+    whose entries are small differences of large terms (mace's second mix
+    bias, 7.9e-6 beside terms of ~1e-2) differs by 1e-3 of its max between
+    any two summation orders."""
+    from repro_torch.train import tree_leaves
+
+    new_p, new_o, met = step(params, opt, batch)
+    loss = float(met["loss"])
+    _, cpu_o, cpu_m = step(on_cpu(params), on_cpu(opt), on_cpu(batch))
+    want = float(cpu_m["loss"])
+    require(math.isfinite(loss) and abs(loss - want) <= GNN_LOSS_REL * max(1.0, abs(want)),
+            f"{what}: loss {loss!r} on the card, {want!r} on the CPU")
+    n = len(tree_leaves(cpu_o["m"]))
+    worst = grads_close(new_o["m"], cpu_o["m"], f"{what} gradients", rows=tuple(range(n)))
+    return new_p, new_o, loss, want, worst
+
+
+def phase14a_zoo(dev, smi: str, smoke: bool, out: dict) -> None:
+    """Each GNN arch at its published width on full_graph_sm, molecule and
+    minibatch_lg at the cells' full sizes (nothing cut)."""
+    from repro_torch.configs import build_step, get_arch, init_params, opt_init, resolve_config
+    from repro_torch.train import OptConfig, tree_leaves
+
+    batches = GnnBatches(smoke, smi)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    for cell_name in ("full_graph_sm", "molecule", "minibatch_lg"):
+        for name in GNN_ARCHS:
+            arch = get_arch(name)
+            cell = arch.cell(cell_name)
+            cfg = resolve_config(arch, cell, smoke=smoke)
+            reset_peak(dev)
+            params = init_params(arch, cfg, seed=0, device=dev)
+            batch = batches.get(arch, cell, cfg, dev)
+            step, takes_opt = build_step(arch, cell, cfg, opt_cfg=opt_cfg)
+            require(takes_opt, f"14a {name}/{cell_name}: build_step gave no train step")
+            what = f"14a {name}/{cell_name}"
+            new_p, new_o, loss, want, worst = gnn_step_vs_cpu(step, params, opt_init(params),
+                                                              batch, what)
+            ms, _ = warm_train_steps(step, [new_p, new_o], batch, dev, n=5)
+            peak = peak_gib(dev)
+            out[(name, cell_name)] = (float(np.median(ms)), peak)
+            log(f"{what} ({cfg.kind}, H = {cfg.d_hidden}, {cfg.n_layers} layers, "
+                f"{sum(p.numel() for p in tree_leaves(params))} params; the batch's "
+                + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items() if k != "blocks")
+                + f"): loss {loss:.6f} on the card, {want:.6f} on the CPU; gradients at "
+                f"{worst:.3f} of the relative L2 limit; warm step median {np.median(ms):.3f} ms "
+                f"({fmt(ms)}); peak {peak:.3f} GiB; card: {smi}")
+    batches.cache.clear()
+
+
+def phase14b_ogb(dev, smi: str, smoke: bool, out: dict) -> None:
+    """ogb_products at the cell's full size (2,449,056 padded nodes,
+    123,718,304 directed edges) for each arch: the first layer against its
+    float64 recomputation on the card, ``segment_sum``'s gradient against
+    autograd of the plain sum on the first 4 M edges, a train step."""
+    import torch
+
+    from repro_torch.configs import build_step, get_arch, init_params, opt_init, resolve_config
+    from repro_torch.models import gnn as gm
+    from repro_torch.train import OptConfig, tree_map
+
+    batches = GnnBatches(smoke, smi)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name in GNN_ARCHS:
+        arch = get_arch(name)
+        cell = arch.cell("ogb_products")
+        cfg = resolve_config(arch, cell, smoke=smoke)
+        what = f"14b {name}/ogb_products"
+        reset_peak(dev)
+        params = init_params(arch, cfg, seed=0, device=dev)
+        batch = batches.get(arch, cell, cfg, dev)
+        N, E = batch["node_feat"].shape[0], batch["edge_index"].shape[0]
+        geometric = cfg.kind in ("schnet", "mace")
+        chunk = gm._edge_chunk(cfg, None)
+
+        # ---- the first layer against its float64 recomputation, chunk by chunk ----
+        t = time.perf_counter()
+        with torch.no_grad():
+            h0 = gm._mlp_apply(params["encode"], batch["node_feat"])
+            edges = gm._sorted_edges(batch["edge_index"], N)
+            if geometric:
+                fn = gm._schnet_rows if cfg.kind == "schnet" else gm._mace_rows
+
+                def first(p, h, pos, c):
+                    return gm._by_rows(fn, p, h, pos, edges, c, chunk)
+
+                part = "layer 1"
+            else:
+                how = "sum" if cfg.kind == "gin" else cfg.aggregator
+
+                def first(p, h, pos, c):
+                    return gm._aggregate(h, edges, how, chunk)
+
+                part = f"layer 1's {how} aggregation"
+            args = (params["layers"][0], h0, batch.get("positions"), cfg)
+            t1 = time.perf_counter()
+            got = first(*args)
+            sync(dev)
+            wall = (time.perf_counter() - t1) * 1e3
+            if dev.type == "cuda":
+                top_kernels(lambda: first(*args), dev, f"{what} {part} forward ({wall:.3f} ms)",
+                            wall, n=5, cpu_ops=False)
+            ref = first(tree_map(lambda x: x.double(), params["layers"][0]), h0.double(),
+                        None if args[2] is None else args[2].double(),
+                        dataclasses.replace(cfg, dtype="float64"))
+            top = float(ref.abs().max())
+            err = float((got.double() - ref).abs().max())
+            del got, ref
+        require(err <= LAYER_REL * (1 + top),
+                f"{what}: {part} |err| {err:.3g} against float64 > {LAYER_REL} x (1 + {top:.3g})")
+        checks = (f"{part} within {err:.3g} of its float64 recomputation (max |ref| {top:.4g}, "
+                  f"{chunk} edges a chunk)")
+
+        # ---- segment_sum's gradient against autograd of the plain sum ----
+        k = min(FN_EDGES, E)
+        src, dst = edges.src[:k], edges.dst[:k]
+        h = h0.detach().requires_grad_(True)
+        g_out = torch.randn(h0.shape, generator=gen, device=dev)
+        small = k // 3 + 1  # three chunks, the last short
+        (g_fn,) = torch.autograd.grad(gm.segment_sum(h, src, dst, N, small), h, g_out)
+        (g_plain,) = torch.autograd.grad(h.new_zeros(h0.shape).index_add(0, dst, h[src]), h, g_out)
+        rel = float((g_fn - g_plain).norm() / g_plain.norm())
+        require(rel <= FN_GRAD_REL, f"{what}: segment_sum's gradient on {k} edges, relative L2 "
+                f"{rel:.3g} against the plain sum's autograd > {FN_GRAD_REL}")
+        checks += (f"; segment_sum's gradient on the first {k} edges in chunks of {small} at "
+                   f"relative L2 {rel:.3g} of the plain sum's autograd")
+        del h0, edges, src, dst, h, g_out, g_fn, g_plain
+        check_s = time.perf_counter() - t
+
+        # ---- one train step (nothing compiles: the first step is a warm one) ----
+        step, _ = build_step(arch, cell, cfg, opt_cfg=opt_cfg)
+        t = time.perf_counter()
+        _, _, met = step(params, opt_init(params), batch)
+        sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        loss = float(met["loss"])
+        require(math.isfinite(loss), f"{what}: loss {loss!r}")
+        peak = peak_gib(dev)
+        out[(name, "ogb_products")] = (ms, peak)
+        log(f"{what} ({cfg.kind}, H = {cfg.d_hidden}, {cfg.n_layers} layers; N = {N}, E = {E}, "
+            f"nothing cut): {checks} ({check_s:.3f} s); train step loss {loss:.6f} in "
+            f"{ms:.3f} ms; peak {peak:.3f} GiB; card: {smi}")
+        del params, batch
+    batches.cache.clear()
+
+
+def partition_configs(smoke: bool) -> dict:
+    """gin-tu's and graphsage-reddit's ogb_products configs, partition-parallel on 2 shards."""
+    from repro_torch.configs import get_arch, resolve_config
+
+    out = {}
+    for name in ("gin-tu", "graphsage-reddit"):
+        arch = get_arch(name)
+        cfg = resolve_config(arch, arch.cell("ogb_products"), smoke=smoke)
+        out[name] = (arch, dataclasses.replace(cfg, partition_parallel=True, n_shards=2))
+    return out
+
+
+def partition_worker(rank: int, port: str, directory: str, device: str, smoke: bool) -> int:
+    """One rank of phase 14c: this shard's partition-parallel train step
+    (``build_step`` with ``partition_parallel``) over gloo; rank 0 writes the
+    loss and the first moments of each arch."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import build_step, init_params, opt_init
+    from repro_torch.train import OptConfig, tree_leaves, tree_unflatten
+
+    dev = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    try:
+        arrays = np.load(Path(directory) / "batch.npz")
+        shard = {k: torch.from_numpy(arrays[k][rank:rank + 1]).to(dev) for k in arrays.files}
+        for name, (arch, cfg) in partition_configs(smoke).items():
+            saved = np.load(Path(directory) / f"params_{name}.npz")
+            template = init_params(arch, cfg, seed=0, device="cpu")
+            params = tree_unflatten(template, [torch.from_numpy(saved[f"arr_{i}"]).to(dev) for i
+                                               in range(len(tree_leaves(template)))])
+            step, _ = build_step(arch, arch.cell("ogb_products"), cfg,
+                                 OptConfig(lr=1e-3, warmup_steps=0, total_steps=100))
+            _, opt, met = step(params, opt_init(params), shard)
+            if rank == 0:
+                np.savez(Path(directory) / f"got_{name}.npz", float(met["loss"]),
+                         float(met["grad_norm"]), *[x.cpu().numpy() for x in tree_leaves(opt["m"])])
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("partition worker ok", flush=True)
+    return 0
+
+
+def phase14c_partition(dev, smi: str, smoke: bool, root: Path) -> None:
+    """The partition-parallel loss in 2 processes sharing the card over gloo,
+    on a 20,000-vertex ER graph in 2 shards, against the dense path here."""
+    import torch
+
+    from repro_torch.configs import build_step, init_params, opt_init
+    from repro_torch.graphs import erdos_renyi, partition_graph
+    from repro_torch.models import build_partition_batch
+    from repro_torch.train import OptConfig, tree_leaves
+
+    t = time.perf_counter()
+    n = 200 if smoke else 20_000
+    g = erdos_renyi(n, avg_degree=8, n_labels=4, seed=14)
+    cfgs = partition_configs(smoke)
+    d_in = next(iter(cfgs.values()))[1].d_in
+    n_cls = next(iter(cfgs.values()))[1].n_classes
+    rng = np.random.default_rng(14)
+    feat = rng.normal(size=(n, d_in)).astype(np.float32)
+    labels = rng.integers(0, n_cls, n).astype(np.int32)
+    part = partition_graph(g, 2, seed=0)
+    pb = build_partition_batch(g, feat, labels, part, 2)
+    np.savez(root / "batch.npz", **pb)
+    params = {}
+    for name, (arch, cfg) in cfgs.items():
+        params[name] = init_params(arch, cfg, seed=0, device=dev)
+        np.savez(root / f"params_{name}.npz", *[x.cpu().numpy() for x in tree_leaves(params[name])])
+    log(f"14c ER graph n = {n}, {g.n_edges} edges, 2 shards (edge cut {part.edge_cut(g)}; "
+        f"shards of {pb['node_feat'].shape[1]} rows, {pb['boundary_index'].shape[1]} boundary "
+        f"rows, {pb['halo_flat'].shape[1]} halo slots, {pb['edge_index'].shape[1]} edges) in "
+        f"{time.perf_counter() - t:.3f} s")
+    port = free_port()
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--partition-worker",
+                               str(r), str(port), str(root), dev.type, "smoke" if smoke else "full"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=child_env()) for r in range(2)]
+    e = g.edge_array()
+    dense = {"node_feat": torch.from_numpy(feat).to(dev),
+             "edge_index": torch.from_numpy(np.concatenate([e, e[:, ::-1]]).astype(np.int32)).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    want = {}
+    for name, (arch, cfg) in cfgs.items():
+        dcfg = dataclasses.replace(cfg, partition_parallel=False)
+        step, _ = build_step(arch, arch.cell("ogb_products"), dcfg,
+                             OptConfig(lr=1e-3, warmup_steps=0, total_steps=100))
+        _, opt, met = step(params[name], opt_init(params[name]), dense)
+        want[name] = (float(met["loss"]), float(met["grad_norm"]), tree_leaves(opt["m"]))
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (so, se) in zip(procs, outs):
+        require(p.returncode == 0 and "partition worker ok" in so,
+                f"14c: a partition worker exited {p.returncode}: {se[-2000:]}")
+    for name, (loss, gn, m) in want.items():
+        got = np.load(root / f"got_{name}.npz")
+        p_loss, p_gn = float(got["arr_0"]), float(got["arr_1"])
+        require(abs(p_loss - loss) <= PART_LOSS * max(1.0, abs(loss)),
+                f"14c {name}: partition loss {p_loss!r} against the dense {loss!r}")
+
+        def grad(x, norm):
+            return np.asarray(x, np.float64) / (0.1 * min(1.0, 1.0 / max(norm, 1e-9)))
+
+        worst = 0.0
+        for i, w in enumerate(m):
+            want_g = grad(w.cpu().numpy(), gn)
+            lim = PART_GRAD * max(1.0, float(np.abs(want_g).max()))
+            diff = float(np.abs(grad(got[f"arr_{i + 2}"], p_gn) - want_g).max())
+            require(diff <= lim, f"14c {name}: gradient leaf {i} differs by {diff:.3g} > {lim:.3g}")
+            worst = max(worst, diff / lim)
+        log(f"14c {name}: partition-parallel train step in 2 processes over gloo (halo rows "
+            f"through the host): loss {p_loss:.6f} against the dense path's {loss:.6f} on the card "
+            f"(|diff| {abs(p_loss - loss):.3g}, limit {PART_LOSS} x max(1, |loss|)), gradients at "
+            f"{worst:.3g} of their limit ({PART_GRAD} x max(1, max |g|)); card: {smi}")
+    log(f"14c: the two processes and the dense path in {time.perf_counter() - t:.3f} s")
+
+
+def phase14d_gnnpe(dev, smi: str, smoke: bool, out: dict) -> None:
+    """GNN-PE's own cells at their full configs: one offline train step of
+    64 stacked partition encoders × 8,192 pairs against the CPU, and the
+    online scan over 10⁸ indexed paths in its four variants, with planted
+    rows, the first 2²⁰ rows' counts held exactly against the CPU's."""
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import build_step, get_arch, init_params, make_batch, opt_init
+    from repro_torch.configs import resolve_config
+    from repro_torch.train import OptConfig
+
+    arch = get_arch("gnn-pe-offline")
+    cell = arch.shapes[0]
+    cfg = resolve_config(arch, cell, smoke=smoke)
+    reset_peak(dev)
+    params = init_params(arch, cfg, seed=0, device=dev)
+    batch = make_batch(arch, cell, cfg, seed=0, smoke=smoke, device=dev)
+    step, takes_opt = build_step(arch, cell, cfg, OptConfig(lr=1e-3, warmup_steps=0, total_steps=100))
+    require(takes_opt, "14d gnn-pe-offline: no train step")
+    what = "14d gnn-pe-offline/offline_pairs"
+    new_p, new_o, loss, want, worst = gnn_step_vs_cpu(step, params, opt_init(params), batch, what)
+    ms, _ = warm_train_steps(step, [new_p, new_o], batch, dev, n=3)
+    out["offline"] = (float(np.median(ms)), peak_gib(dev))
+    log(f"{what} (m = {cfg.m} encoders x {cfg.pairs_per_step} pairs, theta = {cfg.theta}): loss "
+        f"{loss:.6f} on the card, {want:.6f} on the CPU; gradients at {worst:.3f} of the relative "
+        f"L2 limit; warm step median {np.median(ms):.3f} ms ({fmt(ms)}); peak "
+        f"{out['offline'][1]:.3f} GiB; card: {smi}")
+    del params, new_p, new_o, batch
+
+    arch = get_arch("gnn-pe-online")
+    cell = arch.shapes[0]
+    base = resolve_config(arch, cell, smoke=smoke)
+    for qi, lh in itertools.product((False, True), (False, True)):
+        cfg = dataclasses.replace(base, quantize_int8=qi, label_hash=lh)
+        what = f"14d gnn-pe-online/online_scan (quantize_int8={qi}, label_hash={lh})"
+        reset_peak(dev)
+        params = init_params(arch, cfg, seed=0, device=dev)
+        batch = make_batch(arch, cell, cfg, seed=0, smoke=smoke, device=dev)
+        step, _ = build_step(arch, cell, cfg)
+        before = step(params, batch)
+        Q = batch["q"].shape[0]
+        head = min(HEAD_ROWS, cfg.n_paths)
+        rows = torch.from_numpy(np.random.default_rng(14).choice(head, Q * PLANTED,
+                                                                  replace=False)).to(dev)
+        owner = torch.arange(Q, device=dev).repeat_interleave(PLANTED)
+
+        def at(r):
+            return {k: v[r] for k, v in params.items()}
+
+        lost = step(at(rows), batch)
+        params["emb"][rows] = batch["q"][owner]
+        params["emb0"][rows] = batch["q0"][owner]
+        gained = step(at(rows), batch)
+        after = step(params, batch)
+        rise = after - before
+        require(torch.equal(rise, gained - lost), f"{what}: counts rose by {rise.tolist()}, the "
+                f"planted rows account for {(gained - lost).tolist()}")
+        require(bool((gained >= PLANTED).all()), f"{what}: a planted row missed its query: "
+                f"{gained.tolist()}")
+        exact = int((rise == PLANTED).sum())
+        got = step({k: v[:head] for k, v in params.items()}, batch).cpu()
+        cpu = step(on_cpu({k: v[:head] for k, v in params.items()}), on_cpu(batch))
+        require(torch.equal(got, cpu), f"{what}: the first {head} rows' counts differ from the "
+                f"CPU's: {got.tolist()} against {cpu.tolist()}")
+        ms = warm_ms(lambda: step(params, batch), dev, runs=2)
+        peak = peak_gib(dev)
+        out[("online", qi, lh)] = (float(np.median(ms)), peak)
+        log(f"{what}: {cfg.n_paths} paths x {cfg.d_cat} ({params['emb'].dtype}), {Q} queries; "
+            f"counts before {before.sum().item()} in all, {PLANTED} rows planted a query: "
+            f"{exact} of {Q} rose by exactly {PLANTED}, every rise = the planted rows' matches "
+            f"minus the overwritten rows'; the first {head} rows' counts equal the CPU's; warm "
+            f"scan median {np.median(ms):.3f} ms ({fmt(ms)}); peak {peak:.3f} GiB; card: {smi}")
+        del params, batch
+
+
+def phase14e_launchers(smi: str, extra: tuple = ()) -> None:
+    """``python -m repro_torch.launch.train --smoke --steps 20`` for each GNN
+    arch and gnn-pe-offline, in child processes side by side on the card."""
+    t = time.perf_counter()
+    names = GNN_ARCHS + ("gnn-pe-offline",)
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", name, "--smoke",
+         "--steps", "20", *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=child_env()) for name in names}
+    try:
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (so, se) in outs.items():
+        rc = procs[name].returncode
+        require(rc == 0 and "[train] done" in so,
+                f"14e: repro_torch.launch.train --arch {name} exited {rc}: {se[-2000:]}")
+        log(f"14e python -m repro_torch.launch.train --arch {name} --smoke --steps 20: "
+            f"{so.strip().splitlines()[-1]}")
+    log(f"14e the five launchers side by side: {time.perf_counter() - t:.3f} s; card: {smi}")
+
+
+def phase14_gnn(dev, smi: str, smoke: bool = False, extra: tuple = ()) -> dict:
+    """The GNN zoo and GNN-PE's own cells through ``repro_torch.configs``."""
+    import tempfile
+
+    out: dict = {}
+    t = time.perf_counter()
+    phase14a_zoo(dev, smi, smoke, out)
+    log(f"phase 14a the zoo on full_graph_sm / molecule / minibatch_lg: "
+        f"{time.perf_counter() - t:.3f} s; card: {smi}")
+    t = time.perf_counter()
+    phase14b_ogb(dev, smi, smoke, out)
+    log(f"phase 14b the zoo on ogb_products: {time.perf_counter() - t:.3f} s; card: {smi}")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        phase14c_partition(dev, smi, smoke, Path(d))
+    log(f"phase 14c the partition-parallel loss in 2 processes: {time.perf_counter() - t:.3f} s; "
+        f"card: {smi}")
+    t = time.perf_counter()
+    phase14d_gnnpe(dev, smi, smoke, out)
+    log(f"phase 14d gnn-pe-offline and gnn-pe-online: {time.perf_counter() - t:.3f} s; card: {smi}")
+    phase14e_launchers(smi, extra)
+    return out
+
+
 def main(only: str | None = None) -> int:
-    """Every phase, or with ``only="8"``, ``"12"`` or ``"13"`` the build and
-    that phase alone (a partial run: it prints no result line)."""
+    """Every phase, or with ``only="8"``, ``"12"``, ``"13"`` or ``"14"`` the
+    build and that phase alone (a partial run: it prints no result line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5755,6 +6247,12 @@ def main(only: str | None = None) -> int:
         p13 = phase13_lm_family(dev, flush, smi)
         log(f"phase 13 the LM family: {time.perf_counter() - t:.3f} s; prefill launches K6 "
             f"{p13['K6']}; partial run (--only 13): no result line")
+        return 0
+    if only == "14":
+        t = time.perf_counter()
+        phase14_gnn(dev, smi)
+        log(f"phase 14 the GNN zoo and GNN-PE's cells: {time.perf_counter() - t:.3f} s; partial "
+            f"run (--only 14): no result line")
         return 0
 
     t = time.perf_counter()
@@ -5834,6 +6332,12 @@ def main(only: str | None = None) -> int:
     log(f"phase 13 the LM family (minitron-4b, command-r-plus-104b, deepseek-v2-lite-16b, "
         f"qwen3-moe-235b-a22b): {time.perf_counter() - t:.3f} s; prefill launches K6 {p13['K6']}; "
         f"card: {smi}")
+
+    t = time.perf_counter()
+    phase14_gnn(dev, smi)
+    log(f"phase 14 the GNN zoo (gin-tu, graphsage-reddit, schnet, mace on every cell, the "
+        f"partition-parallel loss) and GNN-PE's offline and online cells: "
+        f"{time.perf_counter() - t:.3f} s; no kernel lies on this path; card: {smi}")
 
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
@@ -5916,6 +6420,9 @@ if __name__ == "__main__":
         sys.exit(cluster_worker(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-worker":
         sys.exit(train_worker(sys.argv[2]))
+    if len(sys.argv) == 7 and sys.argv[1] == "--partition-worker":
+        sys.exit(partition_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+                                  sys.argv[6] == "smoke"))
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

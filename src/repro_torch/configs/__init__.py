@@ -1,4 +1,6 @@
-"""Architecture and shape-cell entry points of the port (DCN-v2 and gemma3-1b, serving and training)."""
+"""Architecture and shape-cell entry points of the port: every architecture
+and cell of the JAX package's registry (the LM family, DCN-v2, the GNN zoo
+and GNN-PE's own offline and online cells)."""
 from .base import (
     ArchDef,
     ShapeCell,
@@ -8,7 +10,7 @@ from .base import (
     make_batch,
     opt_init,
 )
-from .registry import get_arch, resolve_config
+from .registry import all_cells, get_arch, list_archs, resolve_config
 
 __all__ = [
     "ArchDef",
@@ -20,4 +22,6 @@ __all__ = [
     "opt_init",
     "get_arch",
     "resolve_config",
+    "list_archs",
+    "all_cells",
 ]

@@ -1,4 +1,4 @@
-"""Architecture/shape plumbing of the port, for the families it serves.
+"""Architecture/shape plumbing of the port, for every family of the JAX package.
 
 As the JAX package's ``configs/base.py``: every architecture is an
 ``ArchDef`` with its published config, a reduced smoke config and its
@@ -11,9 +11,11 @@ shape cells.  Per (arch × cell) this module builds
   * ``build_step``  — the step function of the cell's kind;
   * ``opt_init``    — the AdamW state a train step takes.
 
-The recsys family's kinds (``train``, ``serve``, ``retrieval``) and the LM
-family's (``train``, ``prefill``, ``decode``) are ported; other families
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The families and their kinds: recsys (``train``, ``serve``,
+``retrieval``), lm (``train``, ``prefill``, ``decode``), gnn (``train``,
+also partition-parallel, ``train_blocks``, ``train_mol``), and the paper's
+own phases, ``gnnpe_offline`` (Alg. 2's pair loss over stacked partition
+encoders) and ``gnnpe_online`` (the leaf scan's candidate counts).
 """
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ from ..models import (
     dcn_forward,
     dcn_loss,
     decode_step,
+    gnn_blocks_loss,
+    gnn_energy_loss,
+    gnn_node_loss,
     init_dcn_params,
+    init_gnn_params,
     init_lm_params,
     lm_forward,
     lm_loss,
@@ -41,21 +47,25 @@ __all__ = [
     "ShapeCell",
     "ArchDef",
     "LM_SHAPES",
+    "GNN_SHAPES",
     "RECSYS_SHAPES",
     "lm_cells",
+    "gnn_cells",
     "recsys_cells",
+    "gnn_block_sizes",
     "input_specs",
     "make_batch",
     "init_params",
     "build_step",
     "opt_init",
+    "online_counts",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str  # train | prefill | decode | serve | retrieval | train_blocks | train_mol
+    kind: str  # train | prefill | decode | serve | retrieval | train_blocks | train_mol | gnnpe_*
     meta: dict
     skip: str | None = None  # why this (arch, cell) is not run, as the reference skips it
 
@@ -63,10 +73,11 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchDef:
     name: str
-    family: str  # lm | gnn | recsys | gnn_pe
+    family: str  # lm | gnn | recsys | gnnpe_offline | gnnpe_online
     make_config: Callable[[bool], Any]  # smoke: bool → model config
     shapes: tuple
     source: str = ""
+    notes: str = ""
 
     def cell(self, shape_name: str) -> ShapeCell:
         for c in self.shapes:
@@ -81,6 +92,22 @@ LM_SHAPES = {
     "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
     "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
 }
+GNN_SHAPES = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7, kind="train"),
+    "minibatch_lg": dict(
+        n_nodes=232_965,
+        n_edges=114_615_892,
+        batch_nodes=1024,
+        fanout=(15, 10),
+        d_feat=602,
+        n_classes=41,
+        kind="train_blocks",
+    ),
+    "ogb_products": dict(
+        n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_classes=47, kind="train"
+    ),
+    "molecule": dict(n_nodes=30, n_edges=64, batch=128, d_feat=16, kind="train_mol"),
+}
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65536, kind="train"),
     "serve_p99": dict(batch=512, kind="serve"),
@@ -88,9 +115,14 @@ RECSYS_SHAPES = {
     "retrieval_cand": dict(batch=1, n_candidates=1_000_000, kind="retrieval"),
 }
 
-# (family, kind) not ported yet → the ROADMAP item that brings it
-_LATER_KINDS: dict = {}
-_STEP_KINDS = {"recsys": ("train", "serve", "retrieval"), "lm": ("train", "prefill", "decode")}
+# the cell kinds each family's build_step takes
+_STEP_KINDS = {
+    "recsys": ("train", "serve", "retrieval"),
+    "lm": ("train", "prefill", "decode"),
+    "gnn": ("train", "train_blocks", "train_mol"),
+    "gnnpe_offline": ("gnnpe_offline",),
+    "gnnpe_online": ("gnnpe_online",),
+}
 
 
 def _cells(shapes: dict, skip: dict | None = None) -> tuple:
@@ -107,19 +139,39 @@ def lm_cells(skip_long: str | None = None) -> tuple:
     return _cells(LM_SHAPES, {"long_500k": skip_long})
 
 
+def gnn_cells() -> tuple:
+    return _cells(GNN_SHAPES)
+
+
 def recsys_cells() -> tuple:
     return _cells(RECSYS_SHAPES)
 
 
+def _pad32(n: int) -> int:
+    """``n`` rounded up to a multiple of 32, as the JAX package pads the
+    full-graph cells' node and edge counts for its 32-way data sharding."""
+    return ((int(n) + 31) // 32) * 32
+
+
 def _scale_meta(cell: ShapeCell, smoke: bool) -> dict:
-    """Smoke tests reuse the same cell kinds at toy sizes (the LM and recsys
-    keys of the JAX package's ``_scale_meta``)."""
+    """Smoke tests reuse the same cell kinds at toy sizes (the JAX package's
+    ``_scale_meta``, key for key and in its order)."""
     m = dict(cell.meta)
     if not smoke:
         return m
     if "seq_len" in m:
         m["seq_len"] = 64
         m["global_batch"] = 2
+    if "n_nodes" in m and "d_feat" in m:
+        m["n_nodes"] = min(m["n_nodes"], 64)
+        m["n_edges"] = min(m["n_edges"], 256)
+        m["d_feat"] = min(m["d_feat"], 16)
+        m["n_classes"] = min(m.get("n_classes", 4), 4)
+    if "batch_nodes" in m:
+        m["batch_nodes"] = 8
+        m["fanout"] = (3, 2)
+        m["d_feat"] = 16
+        m["n_classes"] = 4
     if "batch" in m:
         m["batch"] = min(m["batch"], 8)
     if "n_candidates" in m:
@@ -127,22 +179,79 @@ def _scale_meta(cell: ShapeCell, smoke: bool) -> dict:
     return m
 
 
-def _ported(arch: ArchDef, cell: ShapeCell) -> None:
-    later = _LATER_KINDS.get((arch.family, cell.kind))
-    if later is not None:
-        raise NotImplementedError(f"{arch.name}/{cell.name} ({cell.kind}) is not ported yet: {later}")
+def gnn_block_sizes(batch_nodes: int, fanout: tuple) -> list:
+    """Vertex-set sizes per layer: L0 = the seeds, L(k+1) = Lk·(fanout_k + 1)."""
+    sizes = [batch_nodes]
+    for f in fanout:
+        sizes.append(sizes[-1] * (f + 1))
+    return sizes
+
+
+def _check_kind(arch: ArchDef, cell: ShapeCell) -> None:
     if cell.kind not in _STEP_KINDS.get(arch.family, ()):
         raise ValueError(f"no step for {arch.name}/{cell.name}")
 
 
+def _gnn_specs(cell: ShapeCell, cfg, m: dict, smoke: bool) -> dict:
+    if cell.kind == "train":
+        N, E2 = (m["n_nodes"], 2 * m["n_edges"]) if smoke else (
+            _pad32(m["n_nodes"]), _pad32(2 * m["n_edges"]))
+        if cfg.partition_parallel:
+            # the halo-exchange layout (shapes as the partitioner gives them)
+            ms = cfg.n_shards
+            n_loc = (N + ms - 1) // ms + 1
+            e_loc = (E2 + ms - 1) // ms
+            b = max(int(cfg.boundary_frac * n_loc), 1)
+            return {
+                "node_feat": ((ms, n_loc, m["d_feat"]), np.float32),
+                "labels": ((ms, n_loc), np.int32),
+                "label_mask": ((ms, n_loc), np.bool_),
+                "edge_index": ((ms, e_loc, 2), np.int32),
+                "boundary_index": ((ms, b), np.int32),
+                "halo_flat": ((ms, 2 * b), np.int32),
+            }
+        spec = {
+            "node_feat": ((N, m["d_feat"]), np.float32),
+            "edge_index": ((E2, 2), np.int32),
+            "labels": ((N,), np.int32),
+        }
+        if cfg.kind in ("schnet", "mace"):
+            spec["positions"] = ((N, 3), np.float32)
+        return spec
+    if cell.kind == "train_blocks":
+        sizes = gnn_block_sizes(m["batch_nodes"], tuple(m["fanout"]))
+        blocks = [  # outermost block first: it maps L[k+1] → L[k]
+            {"nbr_index": ((sizes[k], m["fanout"][k]), np.int32),
+             "mask": ((sizes[k], m["fanout"][k]), np.bool_),
+             "dst_index": ((sizes[k],), np.int32)}
+            for k in range(len(m["fanout"]) - 1, -1, -1)
+        ]
+        return {
+            "feats": ((sizes[-1], m["d_feat"]), np.float32),
+            "blocks": blocks,
+            "labels": ((m["batch_nodes"],), np.int32),
+        }
+    B, M, E = m["batch"], m["n_nodes"], m["n_edges"]  # train_mol
+    return {
+        "node_feat": ((B * M, m["d_feat"]), np.float32),
+        "edge_index": ((2 * E * B, 2), np.int32),
+        "positions": ((B * M, 3), np.float32),
+        "graph_id": ((B * M,), np.int32),
+        "node_mask": ((B * M,), np.float32),
+        "energy": ((B,), np.float32),
+    }
+
+
 def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dict:
-    """{name: (shape, dtype)} of the cell's batch, in draw order: NumPy
-    dtypes for what is drawn as such, the compute dtype (a torch dtype)
-    for the LM's decode cache: {"k", "v"}, or MLA's {"ckv", "krope"} (in
-    sorted order, as the reference's tree is)."""
-    _ported(arch, cell)
+    """{name: (shape, dtype)} of the cell's batch, in draw order (a list of
+    such dicts for ``train_blocks``' blocks): NumPy dtypes for what is
+    drawn as such, the compute dtype (a torch dtype) for the LM's decode
+    cache: {"k", "v"}, or MLA's {"ckv", "krope"} (in sorted order, as the
+    reference's tree is)."""
+    _check_kind(arch, cell)
     m = _scale_meta(cell, smoke)
-    if arch.family == "lm":
+    fam = arch.family
+    if fam == "lm":
         B, S = m["global_batch"], m["seq_len"]
         if cell.kind == "train":
             return {"tokens": ((B, S), np.int32), "labels": ((B, S), np.int32)}
@@ -156,7 +265,23 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
             kv = ((L, B, S, cfg.n_kv_heads, cfg.head_dim), dt)
             cache = {"k": kv, "v": kv}
         return {"cache": cache, "tokens": ((B,), np.int32), "cur_len": ((), np.int32)}
-    B = m["batch"]
+    if fam == "gnn":
+        return _gnn_specs(cell, cfg, m, smoke)
+    if fam == "gnnpe_offline":
+        B, th = cfg.pairs_per_step, cfg.theta
+        return {
+            "center_labels": ((cfg.m, B), np.int32),
+            "leaf_labels": ((cfg.m, B, th), np.int32),
+            "leaf_mask": ((cfg.m, B, th), np.bool_),
+            "subset_mask": ((cfg.m, B, th), np.bool_),
+        }
+    if fam == "gnnpe_online":
+        return {
+            "q": ((cfg.n_queries, cfg.d_cat), np.int8 if cfg.quantize_int8 else np.float32),
+            "q0": ((cfg.n_queries,), np.int32) if cfg.label_hash
+            else ((cfg.n_queries, cfg.d_label), np.float32),
+        }
+    B = m["batch"]  # recsys
     spec = {
         "dense": ((B, cfg.n_dense), np.float32),
         "sparse": ((B, cfg.n_sparse), np.int32),
@@ -168,38 +293,97 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
     return spec
 
 
+def _gnn_fixups(cell: ShapeCell, m: dict, batch: dict, rng) -> None:
+    """The reference's redraws that make a GNN batch's indices valid, in its order."""
+    if cell.kind == "train_blocks":
+        sizes = gnn_block_sizes(m["batch_nodes"], tuple(m["fanout"]))
+        for bi, k in enumerate(range(len(m["fanout"]) - 1, -1, -1)):
+            blk, n_src = batch["blocks"][bi], sizes[k + 1]
+            blk["nbr_index"] = rng.integers(0, n_src, blk["nbr_index"].shape).astype(np.int32)
+            blk["dst_index"] = rng.integers(0, n_src, blk["dst_index"].shape).astype(np.int32)
+    elif cell.kind == "train_mol":
+        B, M = m["batch"], m["n_nodes"]
+        batch["graph_id"] = np.repeat(np.arange(B, dtype=np.int32), M)
+        batch["node_mask"] = np.ones((B * M,), np.float32)
+        Eg = batch["edge_index"].shape[0] // B  # edges within each graph
+        per = rng.integers(0, M, (B, Eg, 2)).astype(np.int32)
+        per += (np.arange(B, dtype=np.int32) * M)[:, None, None]
+        batch["edge_index"] = per.reshape(-1, 2)
+    else:
+        batch["edge_index"] = rng.integers(
+            0, m["n_nodes"], batch["edge_index"].shape).astype(np.int32)
+
+
 def make_batch(arch: ArchDef, cell: ShapeCell, cfg, seed: int = 0, smoke: bool = True,
                device=None) -> dict:
     """The cell's batch as tensors on ``device`` (the card unless told
-    otherwise): ids uniform in [0, vocab) (``vocab_per_field`` for recsys),
-    floats standard normal, drawn from ``np.random.default_rng(seed)`` in
-    the JAX package's order, so both packages build identical batches.
-    A decode batch's ``cur_len`` is min(5, S − 1), as there, and stays a
-    host scalar (a 0-d int32 CPU tensor).  The LM cache is drawn in float64
-    on the host: smoke sizes only (gemma3's ``decode_32k`` cache would be
-    28 G values)."""
+    otherwise), drawn from ``np.random.default_rng(seed)`` in the JAX
+    package's order, so both packages build identical batches: the specs'
+    tree walked in order, an int32 array uniform in [0, hi) with ``hi``
+    the vocabulary (lm: ``vocab``, recsys: ``vocab_per_field``) or by name
+    (``edge_index``: nodes × batch, ``labels``: classes, ``graph_id``:
+    batch, else 4), a bool array true with probability 0.8, a float array
+    standard normal (cast, as there, to int8 for the online cell's int8
+    queries); then the GNN family's redraws of its indices.  A decode
+    batch's ``cur_len`` is min(5, S − 1), as there, and stays a host scalar
+    (a 0-d int32 CPU tensor).  The LM cache is drawn in float64 on the
+    host: smoke sizes only (gemma3's ``decode_32k`` cache would be 28 G
+    values)."""
     dev = default_device(device)
     rng = np.random.default_rng(seed)
-    hi = max(cfg.vocab if arch.family == "lm" else cfg.vocab_per_field, 1)
+    m = _scale_meta(cell, smoke)
+    fam = arch.family
 
-    def draw(spec):
-        if isinstance(spec, dict):
-            return {k: draw(s) for k, s in spec.items()}
+    def draw(name, spec):
         shape, dtype = spec
         if dtype == np.int32:
-            return torch.from_numpy(np.asarray(rng.integers(0, hi, shape), np.int32))
+            hi = 4
+            if fam == "lm":
+                hi = cfg.vocab
+            elif fam == "recsys":
+                hi = cfg.vocab_per_field
+            elif name == "edge_index":
+                hi = m.get("n_nodes", 4) * m.get("batch", 1)
+            elif name == "labels":
+                hi = m.get("n_classes", 4)
+            elif name == "graph_id":
+                hi = m.get("batch", 1)
+            return rng.integers(0, max(hi, 1), shape).astype(np.int32)
+        if dtype == np.bool_:
+            return rng.random(shape) < 0.8
         if isinstance(dtype, torch.dtype):
             return torch.from_numpy(rng.normal(size=shape)).to(dtype)
-        return torch.from_numpy(rng.normal(size=shape).astype(dtype))
+        return rng.normal(size=shape).astype(dtype)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return draw(name, tree)
 
     def place(t):
-        return {k: place(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+        if isinstance(t, dict):
+            return {k: place(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [place(v) for v in t]
+        return (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))).to(dev)
 
-    batch = place(draw(input_specs(arch, cell, cfg, smoke=smoke)))
+    batch = walk(input_specs(arch, cell, cfg, smoke=smoke))
+    if fam == "gnn":
+        _gnn_fixups(cell, m, batch, rng)
+    batch = place(batch)
     if "cur_len" in batch:  # a host scalar
-        batch["cur_len"] = torch.tensor(min(5, _scale_meta(cell, smoke)["seq_len"] - 1),
-                                        dtype=torch.int32)
+        batch["cur_len"] = torch.tensor(min(5, m["seq_len"] - 1), dtype=torch.int32)
     return batch
+
+
+def _gnnpe_encoder(cfg):
+    from ..core.encoder import EncoderConfig, make_encoder
+
+    return make_encoder(EncoderConfig(
+        n_labels=cfg.n_labels, feat_dim=cfg.feat_dim, hidden_dim=cfg.hidden_dim,
+        heads=cfg.heads, out_dim=cfg.emb_dim, theta=cfg.theta))
 
 
 def init_params(arch: ArchDef, cfg, seed: int = 0, device=None, train: bool = False) -> dict:
@@ -208,16 +392,36 @@ def init_params(arch: ArchDef, cfg, seed: int = 0, device=None, train: bool = Fa
     are drawn in float32, each cast as soon as it is drawn (so no float32
     copy of the model exists) to ``cfg.compute_dtype``, the dtype its
     serving steps take, or with ``train`` to ``cfg.param_dtype``, the
-    master params its train step updates; the MoE router stays float32."""
-    if arch.family not in _STEP_KINDS:
-        raise NotImplementedError(
-            f"{arch.name} ({arch.family}) is not ported yet: ROADMAP queue 1 item 17"
-        )
+    master params its train step updates; the MoE router stays float32.
+    ``gnnpe_offline``: ``cfg.m`` GAT encoders' params stacked on a leading
+    dim; ``gnnpe_online``: the packed index, ``emb`` (n_paths, d_cat)
+    uniform in [0, 1) (int8 in [0, 127) when quantized) and ``emb0``
+    (n_paths, d_label) uniform (int32 hashes in [0, 2³¹ − 1) with
+    ``label_hash``)."""
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if arch.family == "lm":
+    fam = arch.family
+    if fam == "lm":
         dtype = getattr(torch, cfg.param_dtype) if train else cfg.compute_dtype
         return init_lm_params(gen, cfg, dtype)
+    if fam == "gnn":
+        return init_gnn_params(gen, cfg)
+    if fam == "gnnpe_offline":
+        enc = _gnnpe_encoder(cfg)
+        models = [enc.init(gen) for _ in range(cfg.m)]
+        return {k: torch.stack([p[k] for p in models]) for k in models[0]}
+    if fam == "gnnpe_online":
+        n = cfg.n_paths
+        if cfg.quantize_int8:
+            emb = torch.randint(0, 127, (n, cfg.d_cat), generator=gen, device=dev,
+                                dtype=torch.int8)
+        else:
+            emb = torch.rand((n, cfg.d_cat), generator=gen, device=dev)
+        if cfg.label_hash:
+            emb0 = torch.randint(0, 2**31 - 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+        else:
+            emb0 = torch.rand((n, cfg.d_label), generator=gen, device=dev)
+        return {"emb": emb, "emb0": emb0}
     return init_dcn_params(gen, cfg)
 
 
@@ -226,24 +430,90 @@ def opt_init(params) -> dict:
     return adamw_init(params)
 
 
-def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConfig()):
+def _pair_loss(enc, params, batch):
+    """Eq. (7)'s hinge, each partition model on its own pair batch (``vmap``
+    over the stacked params and batches), the mean over models."""
+
+    def one(p, c, ll, lm, sub):
+        o_g = enc.embed_stars(p, c, ll, lm)
+        o_s = enc.embed_stars(p, c, ll, sub & lm)
+        v = torch.clamp(o_s - o_g + 0.03, min=0.0)
+        return torch.sum(v * v)
+
+    losses = torch.func.vmap(one)(
+        params, batch["center_labels"].long(), batch["leaf_labels"].long(),
+        batch["leaf_mask"], batch["subset_mask"])
+    return torch.mean(losses), {}
+
+
+ONLINE_ROWS = 1 << 22  # index rows a step of the online scan (its (Q, rows) masks)
+
+
+def online_counts(params, batch, cfg, rows: int = ONLINE_ROWS) -> torch.Tensor:
+    """The fused Lemma 4.1 + 4.2 leaf scan of every query path over the
+    packed index → (Q,) int32 candidate counts: row r counts for query i
+    when every ``q[i] ≤ emb[r] + 1e-6`` (``≤ emb[r]`` when quantized) and
+    its labels match (``emb0[r] == q0[i]`` with ``label_hash``, else every
+    ``|emb0[r] − q0[i]| ≤ 1e-6``).  ``rows`` index rows at a time, one
+    column at a time, so no temporary is larger than (Q, rows)."""
+    emb, emb0, q, q0 = params["emb"], params["emb0"], batch["q"], batch["q0"]
+    counts = torch.zeros(q.shape[0], dtype=torch.int64, device=emb.device)
+    for r0 in range(0, emb.shape[0], rows):
+        e, e0 = emb[r0:r0 + rows], emb0[r0:r0 + rows]
+        if cfg.label_hash:
+            ok = q0[:, None] == e0[None, :]
+        else:
+            ok = torch.ones((q.shape[0], e.shape[0]), dtype=torch.bool, device=e.device)
+            for j in range(e0.shape[1]):
+                ok &= torch.abs(e0[None, :, j] - q0[:, j, None]) <= 1e-6
+        for j in range(e.shape[1]):
+            col = e[:, j] if cfg.quantize_int8 else e[:, j] + 1e-6
+            ok &= q[:, j, None] <= col[None, :]
+        counts += ok.sum(dim=1)
+    return counts.to(torch.int32)
+
+
+def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConfig(),
+               group=None):
     """Returns (step_fn, takes_opt_state: bool), as the JAX package does.
 
-    train:      step(params, opt_state, batch) → (params, opt_state, metrics),
-                ``opt_cfg``'s AdamW; the LM's in ``cfg.grad_accum`` microbatches
-    serve:      step(params, batch) → logits (B,)
-    retrieval:  step(params, batch) → (top values, top indices), each (B, 100)
-    prefill:    step(params, batch) → logits (B, S, V)
-    decode:     step(params, batch) → (logits (B, V), cache), the cache updated in place
+    train kinds: step(params, opt_state, batch) → (params, opt_state, metrics),
+                 ``opt_cfg``'s AdamW; the LM's in ``cfg.grad_accum``
+                 microbatches; a partition-parallel GNN's on this rank's
+                 shard (``models/gnn_partition.py``) in the process group
+                 ``group``, its gradients summed over the ranks first
+    serve:       step(params, batch) → logits (B,)
+    retrieval:   step(params, batch) → (top values, top indices), each (B, 100)
+    prefill:     step(params, batch) → logits (B, S, V)
+    decode:      step(params, batch) → (logits (B, V), cache), the cache updated in place
+    gnnpe_offline: a train step of the stacked partition encoders
+    gnnpe_online:  step(params, batch) → (Q,) int32 candidate counts
 
     The LM's serving steps take params in ``cfg.compute_dtype``, as
     ``init_params`` returns them (carried float32 params go through
     ``models.cast_params`` once), and raise on another dtype; its train step
     takes the master params (``init_params(..., train=True)``).
     """
-    _ported(arch, cell)
+    _check_kind(arch, cell)
+    fam = arch.family
+    if fam == "gnn":
+        if cell.kind == "train_blocks":
+            return train_wrap(lambda p, b: gnn_blocks_loss(p, cfg, b), opt_cfg), True
+        if cell.kind == "train_mol":
+            return train_wrap(lambda p, b: gnn_energy_loss(p, cfg, b), opt_cfg), True
+        if cfg.partition_parallel:
+            from ..models.gnn_partition import partition_gnn_loss, sum_over_ranks
+
+            return train_wrap(lambda p, b: partition_gnn_loss(p, cfg, b, group), opt_cfg,
+                              grads_fn=lambda g: sum_over_ranks(g, group)), True
+        return train_wrap(lambda p, b: gnn_node_loss(p, cfg, b), opt_cfg), True
+    if fam == "gnnpe_offline":
+        enc = _gnnpe_encoder(cfg)
+        return train_wrap(lambda p, b: _pair_loss(enc, p, b), opt_cfg), True
+    if fam == "gnnpe_online":
+        return (lambda params, batch: online_counts(params, batch, cfg)), False
     if cell.kind == "train":
-        if arch.family == "lm":
+        if fam == "lm":
             return train_wrap(lambda p, b: lm_loss(p, b, cfg), opt_cfg, cfg.grad_accum), True
         return train_wrap(lambda p, b: dcn_loss(p, b, cfg), opt_cfg), True
     if cell.kind == "prefill":

@@ -149,15 +149,16 @@ MINITRON = ArchDef(
 )
 GEMMA3 = ArchDef(
     "gemma3-1b", "lm", _gemma3, lm_cells(skip_long=None), source="hf:google/gemma-3-1b-pt",
+    notes="5:1 local:global sliding window",
 )
 COMMAND_R = ArchDef(
     "command-r-plus-104b", "lm", _command_r, lm_cells(skip_long=_SKIP_FULL_ATTN),
     source="hf:CohereForAI/c4ai-command-r-v01",
 )
-# MLA (kv_lora 512, absorbed decode); 64 routed experts top-6 + 2 shared, as the official
-# V2-Lite (the reference's note: its assignment lists both 64 and 160 routed experts)
 DEEPSEEK = ArchDef(
     "deepseek-v2-lite-16b", "lm", _deepseek, lm_cells(skip_long=None), source="arXiv:2405.04434",
+    notes="MLA kv_lora=512 absorbed decode; 64 routed top-6 + 2 shared (assignment lists both "
+    "'64e' and '160 routed'; official V2-Lite is 64)",
 )
 QWEN3 = ArchDef(
     "qwen3-moe-235b-a22b", "lm", _qwen3, lm_cells(skip_long=_SKIP_FULL_ATTN),

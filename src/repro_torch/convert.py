@@ -4,7 +4,9 @@
 check builds the port from the reference's state: an engine's trained
 per-partition state (``GnnPeEngine.build(g, params=...)``), a DCN-v2
 params tree or an LM's, an AdamW state over either, or a whole
-``Trainer`` checkpoint directory.  This module only reads the reference
+``Trainer`` checkpoint directory, a GNN zoo model's params, or the
+``gnn-pe-offline`` cell's stacked encoders and the ``gnn-pe-online``
+cell's packed index.  This module only reads the reference
 objects' attributes and turns arrays into NumPy; it imports neither JAX
 nor the JAX package.
 """
@@ -22,6 +24,9 @@ __all__ = [
     "partition_state_from_reference",
     "dcn_params_from_reference",
     "lm_params_from_reference",
+    "gnn_params_from_reference",
+    "gnnpe_offline_params_from_reference",
+    "gnnpe_online_params_from_reference",
     "opt_state_from_reference",
     "trainer_state_from_reference",
 ]
@@ -113,6 +118,26 @@ def lm_params_from_reference(params: dict, device=None) -> dict:
     return out
 
 
+def gnn_params_from_reference(params: dict, device=None) -> dict:
+    """The JAX package's GNN params tree (``encode``, ``layers``, ``readout``;
+    ``models/gnn.py::init_gnn_params``) → the same tree of float32 tensors
+    on ``device`` (the card unless told otherwise); gin's ``eps`` a 0-d tensor."""
+    return _tensors(params, default_device(device))
+
+
+def gnnpe_offline_params_from_reference(params: dict, device=None) -> dict:
+    """The ``gnn-pe-offline`` cell's stacked GAT encoder params (each array's
+    leading dim the partition model) → a dict of float32 tensors on ``device``."""
+    return _tensors(params, default_device(device))
+
+
+def gnnpe_online_params_from_reference(params: dict, device=None) -> dict:
+    """The ``gnn-pe-online`` cell's packed index ``{"emb", "emb0"}`` → tensors
+    on ``device`` in their own dtypes (float32, or int8 ``emb`` and int32
+    ``emb0`` when quantized and hashed)."""
+    return _tensors({k: params[k] for k in ("emb", "emb0")}, default_device(device))
+
+
 def _tensors(tree, device):
     """A tree of arrays (dicts, lists) → the same tree of tensors on ``device``."""
     if isinstance(tree, dict):
@@ -170,13 +195,14 @@ def trainer_state_from_reference(directory, family: str | None = None, step: int
     default) → the port's ``{"params", "opt", "step"}`` on ``device``, for
     ``Trainer.load_state``.  ``family`` lays the params out as the port's
     model does: "lm" (layers stacked in the reference, a list here),
-    "recsys", or None to keep the tree as stored."""
+    "recsys", "gnn", or None to keep the tree as stored."""
     dev = default_device(device)
     flat, _ = CheckpointManager(directory).restore_arrays(step)
     tree = _nest({k if k.startswith("[") else f"['{k}']": v for k, v in flat.items()})
-    params_fn = {"lm": lm_params_from_reference, "recsys": dcn_params_from_reference}.get(family)
+    params_fn = {"lm": lm_params_from_reference, "recsys": dcn_params_from_reference,
+                 "gnn": gnn_params_from_reference}.get(family)
     if family is not None and params_fn is None:
-        raise ValueError(f"unknown family {family!r}; use 'lm', 'recsys' or None")
+        raise ValueError(f"unknown family {family!r}; use 'lm', 'recsys', 'gnn' or None")
 
     def conv(t):
         return params_fn(t, device=dev) if params_fn is not None else _tensors(t, dev)

@@ -88,14 +88,16 @@ class GATEncoder:
         self.cfg = cfg
 
     def init(self, generator: torch.Generator) -> dict:
-        """Seeded CPU initialisation (the JAX package's ``jax.random`` draws
-        cannot be reproduced; parity tests inject its params instead)."""
+        """Seeded initialisation on ``generator``'s device (the JAX package's
+        ``jax.random`` draws cannot be reproduced; parity tests inject its
+        params instead)."""
         cfg = self.cfg
         s = 1.0 / np.sqrt(cfg.feat_dim)
         K, H = cfg.heads, cfg.hidden_dim
+        dev = generator.device
 
         def randn(*shape):
-            return torch.randn(*shape, generator=generator, dtype=torch.float32)
+            return torch.randn(*shape, generator=generator, dtype=torch.float32, device=dev)
 
         return {
             "embed": randn(cfg.n_labels, cfg.feat_dim) * 0.5,
@@ -103,7 +105,7 @@ class GATEncoder:
             "a_src": randn(K, H) * s,
             "a_dst": randn(K, H) * s,
             "W_fc": randn(cfg.out_dim, K * H) * (1.0 / np.sqrt(K * H)),
-            "b_fc": torch.zeros(cfg.out_dim),
+            "b_fc": torch.zeros(cfg.out_dim, device=dev),
         }
 
     def embed_stars(self, params, center_labels, leaf_labels, leaf_mask):

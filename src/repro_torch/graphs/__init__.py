@@ -10,6 +10,7 @@ from .graph import (
     random_labels,
 )
 from .partition import Partitioning, expanded_partition, partition_graph
+from .sampler import SampledBatch, SampledBlock, sample_fanout
 
 __all__ = [
     "Graph",
@@ -24,4 +25,7 @@ __all__ = [
     "Partitioning",
     "partition_graph",
     "expanded_partition",
+    "SampledBlock",
+    "SampledBatch",
+    "sample_fanout",
 ]

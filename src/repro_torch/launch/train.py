@@ -2,10 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --smoke --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --steps 100
 
 ``--smoke`` (the default) runs the reduced config (an LM's in bf16 on the
 card, where K6 takes bf16 only), ``--full`` the published one at the
-cell's batch; both go through the same path: the cell's
+cell's batch; the default cell is the arch's first, as the reference's
+launcher takes it.  Both go through the same path: the cell's
 ``build_step`` train step, the (seed, step)-addressed synthetic data,
 AdamW with warm-up and cosine decay, async checkpoints and resume.  It runs
 on the card unless ``--device cpu`` is given; without a card it raises.
@@ -46,7 +48,7 @@ def main(argv=None) -> dict:
 
     dev = default_device(args.device)
     arch = get_arch(args.arch)
-    cell = arch.cell(args.shape) if args.shape else next(c for c in arch.shapes if c.kind == "train")
+    cell = arch.cell(args.shape) if args.shape else arch.shapes[0]
     cfg = resolve_config(arch, cell, smoke=args.smoke)
     if arch.family == "lm" and dev.type == "cuda" and cfg.dtype != "bfloat16":
         cfg = dataclasses.replace(cfg, dtype="bfloat16")  # K6 takes bf16 on the card

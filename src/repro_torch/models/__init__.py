@@ -1,7 +1,20 @@
 """The seed substrate's models, ported as plain functions over dicts of
-tensors: the recsys family (DCN-v2) and the LM family (dense GQA, the
-local:global mix, MLA and MoE), for serving and training."""
+tensors: the recsys family (DCN-v2), the LM family (dense GQA, the
+local:global mix, MLA and MoE), for serving and training, and the GNN zoo
+(gin, sage, schnet, mace; full graph, ELL blocks, molecules, and the
+partition-parallel halo exchange)."""
 from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm, rope_freqs
+from .gnn import (
+    GNNConfig,
+    gnn_blocks_loss,
+    gnn_energy_loss,
+    gnn_forward_blocks,
+    gnn_forward_full,
+    gnn_node_loss,
+    init_gnn_params,
+    segment_sum,
+)
+from .gnn_partition import build_partition_batch, partition_gnn_loss, sum_over_ranks
 from .moe import MoEConfig, init_moe_params, moe_block
 from .recsys import (
     RecsysConfig,
@@ -23,6 +36,17 @@ from .transformer import (
 )
 
 __all__ = [
+    "GNNConfig",
+    "init_gnn_params",
+    "segment_sum",
+    "gnn_forward_full",
+    "gnn_forward_blocks",
+    "gnn_node_loss",
+    "gnn_blocks_loss",
+    "gnn_energy_loss",
+    "partition_gnn_loss",
+    "build_partition_batch",
+    "sum_over_ranks",
     "RecsysConfig",
     "init_dcn_params",
     "embedding_bag",

@@ -1,0 +1,428 @@
+"""GNN architecture zoo of the port: SchNet, GraphSAGE, MACE (Cartesian, l ≤ 2), GIN.
+
+The JAX package's ``models/gnn.py`` as plain functions over dicts of
+tensors, with the same params tree and the same three input regimes:
+
+  * full graph:  an (E, 2) directed edge index over all N nodes
+                 (``full_graph_sm``, ``ogb_products``);
+  * ELL blocks:  padded fanout samples from ``graphs/sampler.py`` (``minibatch_lg``);
+  * molecules:   (B, M)-padded batches flattened into one disjoint graph.
+
+MACE is the reference's adaptation: Cartesian equivariant moments up to
+l = 2 (a vector and a traceless rank-2 tensor a channel) contracted into
+correlation-order-3 invariants, so its outputs are E(3)-invariant.
+
+Memory at ``ogb_products`` (2.45 M nodes, 123.7 M directed edges): a
+gathered (E, H) message alone is 31.7 GB at H = 64, SchNet's (E, 300)
+radial basis 148 GB and MACE's (E, 3, 3, H) moment 570 GB.  So no (E, ·)
+tensor outlives one chunk of edges:
+
+  * the full-graph forward sorts the edges by destination once (this
+    changes only the order of each node's sum), so a range of destination
+    rows owns a contiguous range of edges, summed row by row in order
+    (``segment_reduce``, no atomics);
+  * gin and sage aggregate through ``segment_sum``, one
+    ``autograd.Function`` that gathers with ``index_select`` and sums a
+    row range's edges at a time, its backward an ``index_add_`` into the
+    source rows, and saves only the indices;
+  * schnet and mace run each layer one row range at a time, each range one
+    non-reentrant ``torch.utils.checkpoint`` segment that reads the layer's
+    input and writes only its own rows, so its per-edge tensors are
+    recomputed in the backward instead of kept.
+
+On the card the backward's ``index_add_`` sums with atomics, so gradients
+are held to a tolerance there, not to bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .common import dense_init
+
+__all__ = [
+    "GNNConfig",
+    "init_gnn_params",
+    "segment_sum",
+    "gnn_forward_full",
+    "gnn_forward_blocks",
+    "gnn_node_loss",
+    "gnn_blocks_loss",
+    "gnn_energy_loss",
+    "CHUNK_ELEMENTS",
+]
+
+# elements of the largest per-edge temporary of one edge chunk (2 GiB of float32)
+CHUNK_ELEMENTS = 1 << 29
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    kind: str = "gin"  # gin | sage | schnet | mace
+    n_layers: int = 2
+    d_hidden: int = 64
+    d_in: int = 16
+    n_classes: int = 8
+    # schnet
+    n_rbf: int = 300
+    cutoff: float = 10.0
+    # mace
+    l_max: int = 2
+    correlation: int = 3
+    mace_n_rbf: int = 8
+    # sage
+    aggregator: str = "mean"
+    dtype: Any = "float32"
+    # partition-parallel full-graph training with a halo exchange (models/gnn_partition.py)
+    partition_parallel: bool = False
+    n_shards: int = 16
+    boundary_frac: float = 0.05
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def _mlp_init(generator: torch.Generator, dims) -> list:
+    dev = generator.device
+    return [
+        {"w": dense_init(generator, (dims[i], dims[i + 1])),
+         "b": torch.zeros(dims[i + 1], device=dev)}
+        for i in range(len(dims) - 1)
+    ]
+
+
+def _mlp_apply(layers, x, act=torch.relu, final_act=False):
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"].to(x.dtype) + lyr["b"].to(x.dtype)
+        if i < len(layers) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def init_gnn_params(generator: torch.Generator, cfg: GNNConfig) -> dict:
+    """Random params on ``generator``'s device, the JAX package's tree:
+    ``encode`` and ``readout`` MLPs (lists of ``{"w", "b"}``) and one dict
+    a layer (gin: ``mlp``, ``eps`` a 0-d tensor; sage: ``w_self``,
+    ``w_nbr``, ``b``; schnet: ``filter``, ``dense1``, ``dense2``, ``b1``,
+    ``b2``; mace: ``radial``, ``mix``).  Fan-in truncated normals drawn in
+    tree order; the same distribution as the reference's, not its numbers."""
+    H = cfg.d_hidden
+    dev = generator.device
+    p: dict = {"encode": _mlp_init(generator, [cfg.d_in, H])}
+    layers = []
+    for _ in range(cfg.n_layers):
+        if cfg.kind == "gin":
+            layers.append({"mlp": _mlp_init(generator, [H, H, H]),
+                           "eps": torch.zeros((), device=dev)})
+        elif cfg.kind == "sage":
+            layers.append({"w_self": dense_init(generator, (H, H)),
+                           "w_nbr": dense_init(generator, (H, H)),
+                           "b": torch.zeros(H, device=dev)})
+        elif cfg.kind == "schnet":
+            layers.append({
+                "filter": _mlp_init(generator, [cfg.n_rbf, H, H]),
+                "dense1": dense_init(generator, (H, H)),
+                "dense2": dense_init(generator, (H, H)),
+                "b1": torch.zeros(H, device=dev),
+                "b2": torch.zeros(H, device=dev),
+            })
+        elif cfg.kind == "mace":
+            n_inv = 5  # A0, |A1|², A2:A2, A1·A2·A1, A0³ (the correlation-3 set)
+            layers.append({"radial": _mlp_init(generator, [cfg.mace_n_rbf, H, 3 * H]),
+                           "mix": _mlp_init(generator, [n_inv * H, H, H])})
+        else:
+            raise ValueError(cfg.kind)
+    p["layers"] = layers
+    p["readout"] = _mlp_init(generator, [H, cfg.n_classes])
+    return p
+
+
+# ----------------------------------------------------------- basis fns ----
+
+
+def _envelope(d, cutoff):
+    return 0.5 * (torch.cos(math.pi * torch.clamp(d / cutoff, 0, 1)) + 1.0)
+
+
+def _rbf(d, n_rbf, cutoff):
+    """Gaussian radial basis (SchNet) with a cosine cutoff envelope."""
+    centers = torch.linspace(0.0, cutoff, n_rbf, dtype=d.dtype, device=d.device)
+    gamma = n_rbf / cutoff
+    return torch.exp(-gamma * (d[..., None] - centers) ** 2) * _envelope(d, cutoff)[..., None]
+
+
+def _bessel(d, n_rbf, cutoff):
+    """Bessel radial basis (MACE/NequIP)."""
+    n = torch.arange(1, n_rbf + 1, dtype=d.dtype, device=d.device)
+    x = torch.clamp(d, min=1e-6)
+    return (torch.sin(n * math.pi * x[..., None] / cutoff) / x[..., None]) * _envelope(d, cutoff)[..., None]
+
+
+def _ssp(x):  # shifted softplus (SchNet's activation)
+    return F.softplus(x) - np.log(2.0)
+
+
+# --------------------------------------------------------- aggregation ----
+
+
+@dataclasses.dataclass(frozen=True)
+class _Edges:
+    """A directed edge set sorted by destination: int64 ``src`` and ``dst``,
+    ``n`` destination rows, ``counts`` (n,) each row's edges on the device,
+    and ``ptr`` (n + 1,) the host CSR offsets of each row's edges."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    n: int
+    counts: torch.Tensor
+    ptr: np.ndarray
+
+    def ranges(self, chunk: int) -> list:
+        """Consecutive row ranges [r0, r1) each holding at most ``chunk`` edges
+        (a single row with more is a range of its own) → [(r0, r1, e0, e1)]."""
+        ptr, out, r0 = self.ptr, [], 0
+        while r0 < self.n:
+            r1 = int(np.searchsorted(ptr, ptr[r0] + chunk, side="right")) - 1
+            r1 = min(max(r1, r0 + 1), self.n)
+            out.append((r0, r1, int(ptr[r0]), int(ptr[r1])))
+            r0 = r1
+        return out
+
+
+def _sorted_edges(edge_index, n: int) -> _Edges:
+    """(E, 2) (src, dst) → the edges stably sorted by destination."""
+    dst, order = torch.sort(edge_index[:, 1].long(), stable=True)
+    src = edge_index[:, 0].long().index_select(0, order)
+    counts = torch.bincount(dst, minlength=n)
+    ptr = np.zeros(n + 1, np.int64)
+    ptr[1:] = np.cumsum(counts.cpu().numpy())
+    return _Edges(src, dst, n, counts, ptr)
+
+
+def _rows_sum(msg, counts):
+    """Each row's consecutive ``counts`` entries of ``msg`` summed in order
+    (no atomics: the edges are sorted by destination)."""
+    return torch.segment_reduce(msg, "sum", lengths=counts, axis=0, unsafe=True)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``out[dst[e]] += h[src[e]]`` over every edge, one row range at a time:
+    forward a gather and an in-order row sum, backward a gather of the rows'
+    gradients and an ``index_add_`` into ``src``'s rows."""
+
+    @staticmethod
+    def forward(ctx, h, edges, chunk):
+        out = h.new_empty((edges.n,) + tuple(h.shape[1:]))
+        ranges = edges.ranges(chunk)
+        for r0, r1, e0, e1 in ranges:
+            out[r0:r1] = _rows_sum(h.index_select(0, edges.src[e0:e1]), edges.counts[r0:r1])
+        ctx.edges, ctx.ranges, ctx.n_in = edges, ranges, h.shape[0]
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        src, dst = ctx.edges.src, ctx.edges.dst
+        gh = grad.new_zeros((ctx.n_in,) + tuple(grad.shape[1:]))
+        for _, _, e0, e1 in ctx.ranges:
+            gh.index_add_(0, src[e0:e1], grad.index_select(0, dst[e0:e1]))
+        return gh, None, None
+
+
+def segment_sum(h, src, dst, n_out: int, chunk: int | None = None):
+    """(n_out, ...) sums of ``h``'s rows ``src[e]`` into rows ``dst[e]``
+    (int indices), ``chunk`` edges at a time (all at once by default): the
+    edges are sorted by destination and summed row by row; the gathered
+    (E, ...) rows never exist whole, forward or backward."""
+    edges = _sorted_edges(torch.stack([src, dst], dim=1), int(n_out))
+    return _SegmentSum.apply(h, edges, int(chunk or max(src.shape[0], 1)))
+
+
+def _aggregate(h, edges: _Edges, how: str, chunk: int):
+    s = _SegmentSum.apply(h, edges, chunk)
+    if how == "sum":
+        return s
+    if how == "mean":
+        return s / torch.clamp(edges.counts.to(s.dtype), min=1.0)[:, None]
+    raise ValueError(how)
+
+
+def _edge_chunk(cfg: GNNConfig, chunk: int | None) -> int:
+    """Edges a chunk: ``chunk``, else as many as keep the kind's per-edge
+    temporaries (``width`` floats an edge) within ``CHUNK_ELEMENTS``."""
+    if chunk is not None:
+        return max(int(chunk), 1)
+    H = cfg.d_hidden
+    width = {"gin": H, "sage": H, "schnet": cfg.n_rbf + 4 * H, "mace": 16 * H}[cfg.kind]
+    return max(CHUNK_ELEMENTS // width, 1)
+
+
+# ------------------------------------------------------------- layers -----
+
+
+def _gin_layer(p, h, edges, cfg, chunk):
+    nbr = _aggregate(h, edges, "sum", chunk)
+    return _mlp_apply(p["mlp"], (1.0 + p["eps"]) * h + nbr)
+
+
+def _sage_layer(p, h, edges, cfg, chunk):
+    nbr = _aggregate(h, edges, cfg.aggregator, chunk)
+    out = h @ p["w_self"].to(h.dtype) + nbr @ p["w_nbr"].to(h.dtype) + p["b"].to(h.dtype)
+    return torch.relu(out)
+
+
+def _geometry(pos, src, dst, dtype):
+    vec = (pos.index_select(0, src) - pos.index_select(0, dst)).to(dtype)
+    return vec, torch.linalg.vector_norm(vec, dim=-1)
+
+
+def _schnet_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
+    """SchNet's interaction block for destination rows [r0, r1) from their
+    edges (``counts`` of them a row, in order)."""
+    _, dist = _geometry(pos, src, dst, h.dtype)
+    w = _mlp_apply(p["filter"], _rbf(dist, cfg.n_rbf, cfg.cutoff).to(h.dtype), act=_ssp,
+                   final_act=True)
+    agg = _rows_sum(h.index_select(0, src) * w, counts)  # cfconv: filter × neighbor features
+    out = _ssp(agg @ p["dense1"].to(h.dtype) + p["b1"].to(h.dtype))
+    return h[r0:r1] + out @ p["dense2"].to(h.dtype) + p["b2"].to(h.dtype)
+
+
+def _mace_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
+    """The Cartesian ACE layer (l ≤ 2, correlation order 3) for rows [r0, r1)."""
+    H = h.shape[-1]
+    vec, dist = _geometry(pos, src, dst, h.dtype)
+    rhat = vec / torch.clamp(dist[:, None], min=1e-6)
+    radial = _mlp_apply(p["radial"], _bessel(dist, cfg.mace_n_rbf, cfg.cutoff).to(h.dtype))
+    R0, R1, R2 = radial[:, :H], radial[:, H:2 * H], radial[:, 2 * H:]
+    hj = h.index_select(0, src)
+    # l = 0, 1, 2 equivariant moments
+    A0 = _rows_sum(R0 * hj, counts)  # (n, H)
+    A1 = _rows_sum((R1 * hj)[:, None, :] * rhat[:, :, None], counts)  # (n, 3, H)
+    outer = rhat[:, :, None] * rhat[:, None, :] - torch.eye(3, dtype=h.dtype, device=h.device) / 3.0
+    A2 = _rows_sum((R2 * hj)[:, None, None, :] * outer[..., None], counts)  # (n, 3, 3, H)
+    # invariant contractions, correlation order up to 3, as elementwise sums over
+    # the 3 × 3 Cartesian axes (an einsum here runs as many small GEMVs)
+    B1 = torch.sum(A1 * A1, dim=1)
+    B2 = torch.sum(A2 * A2, dim=(1, 2))
+    B3 = torch.sum(A1[:, :, None, :] * A2 * A1[:, None, :, :], dim=(1, 2))  # order-3 coupling
+    B4 = A0 * A0 * A0
+    inv = torch.cat([A0, B1, B2, B3, B4], dim=-1)
+    return h[r0:r1] + _mlp_apply(p["mix"], inv)
+
+
+def _by_rows(fn, p, h, pos, edges: _Edges, cfg, chunk: int):
+    """``fn``'s layer over every destination row, one checkpointed row range
+    (at most ``chunk`` edges) at a time."""
+    outs = []
+    for r0, r1, e0, e1 in edges.ranges(chunk):
+        args = (p, h, pos, edges.src[e0:e1], edges.dst[e0:e1], edges.counts[r0:r1], r0, r1, cfg)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(fn, *args, use_reentrant=False))
+        else:
+            outs.append(fn(*args))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+# ------------------------------------------------------------- drivers ----
+
+
+def gnn_forward_full(params, cfg: GNNConfig, node_feat, edge_index, positions=None,
+                     n_nodes=None, edge_chunk: int | None = None):
+    """Full-graph forward → (N, n_classes).  node_feat (N, d_in); edge_index
+    (E, 2) directed (src, dst).  schnet and mace need ``positions`` (N, 3).
+    ``edge_chunk``: edges a chunk (default: ``_edge_chunk``'s budget)."""
+    dtype = cfg.compute_dtype
+    h = _mlp_apply(params["encode"], node_feat.to(dtype))
+    n = n_nodes or node_feat.shape[0]
+    geometric = cfg.kind in ("schnet", "mace")
+    if geometric and positions is None:
+        raise ValueError(f"{cfg.kind} needs positions")
+    edges = _sorted_edges(edge_index, n)
+    chunk = _edge_chunk(cfg, edge_chunk)
+    for p in params["layers"]:
+        if cfg.kind == "gin":
+            h = _gin_layer(p, h, edges, cfg, chunk)
+        elif cfg.kind == "sage":
+            h = _sage_layer(p, h, edges, cfg, chunk)
+        elif cfg.kind == "schnet":
+            h = _by_rows(_schnet_rows, p, h, positions, edges, cfg, chunk)
+        elif cfg.kind == "mace":
+            h = _by_rows(_mace_rows, p, h, positions, edges, cfg, chunk)
+    return _mlp_apply(params["readout"], h)
+
+
+def gnn_forward_blocks(params, cfg: GNNConfig, feats, blocks):
+    """Sampled-minibatch forward over ELL blocks (the GraphSAGE regime).
+
+    feats: (N_outer, d_in) features of the outermost layer's vertex set;
+    blocks: one dict a layer, outermost first: ``nbr_index`` (n_dst,
+    fanout) int, ``mask`` (n_dst, fanout) bool and ``dst_index`` (n_dst,),
+    the rows of the source set that are the destination vertices.  As the
+    reference's ``zip``, only the first ``min(layers, blocks)`` layers run;
+    schnet and mace fall back to ``relu(h_dst + agg)`` here, their params
+    then unused."""
+    dtype = cfg.compute_dtype
+    h = _mlp_apply(params["encode"], feats.to(dtype))
+    for p, blk in zip(params["layers"], blocks):
+        idx = blk["nbr_index"].long()
+        nbr = h.index_select(0, idx.reshape(-1)).reshape(tuple(idx.shape) + (h.shape[-1],))
+        mask = blk["mask"][..., None].to(dtype)
+        s = torch.sum(nbr * mask, dim=1)
+        if cfg.kind == "sage" and cfg.aggregator == "mean":
+            agg = s / torch.clamp(mask.sum(1), min=1.0)
+        else:
+            agg = s
+        h_dst = h.index_select(0, blk["dst_index"].long())
+        if cfg.kind == "gin":
+            h = _mlp_apply(p["mlp"], (1.0 + p["eps"]) * h_dst + agg)
+        elif "w_self" in p:
+            h = torch.relu(h_dst @ p["w_self"].to(dtype) + agg @ p["w_nbr"].to(dtype)
+                           + p["b"].to(dtype))
+        else:  # schnet / mace in the sampled regime: a dense mix
+            h = torch.relu(h_dst + agg)
+    return _mlp_apply(params["readout"], h)
+
+
+# --------------------------------------------------------------- losses ----
+
+
+def _nll(logits, labels):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+
+
+def gnn_node_loss(params, cfg: GNNConfig, batch):
+    """Node-classification cross-entropy (full-graph shapes) → (loss, {})."""
+    logits = gnn_forward_full(params, cfg, batch["node_feat"], batch["edge_index"],
+                              batch.get("positions"))
+    nll = _nll(logits, batch["labels"])
+    mask = batch.get("train_mask")
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0), {}
+    return torch.mean(nll), {}
+
+
+def gnn_blocks_loss(params, cfg: GNNConfig, batch):
+    """Mean cross-entropy of the seeds' logits over ELL blocks → (loss, {})."""
+    logits = gnn_forward_blocks(params, cfg, batch["feats"], batch["blocks"])
+    return torch.mean(_nll(logits, batch["labels"])), {}
+
+
+def gnn_energy_loss(params, cfg: GNNConfig, batch):
+    """Molecular energy regression (molecule shapes): the batch is one
+    disjoint graph; a graph's energy is the masked sum of its nodes' first
+    output → (mean squared error, {"energy_mae"})."""
+    out = gnn_forward_full(params, cfg, batch["node_feat"], batch["edge_index"],
+                           batch.get("positions"))
+    target = batch["energy"]
+    node_e = out[:, 0] * batch["node_mask"]
+    energy = node_e.new_zeros(target.shape[0]).index_add(0, batch["graph_id"].long(), node_e)
+    loss = torch.mean((energy - target) ** 2)
+    return loss, {"energy_mae": torch.mean(torch.abs(energy - target)).detach()}

@@ -8,7 +8,9 @@ replays a WAL and scrubs the recovered engine, runs the dense scan, the DCN-v2 s
 gemma3-1b prefill and decode steps through ``repro_torch.configs`` and a
 short ``DecodeEngine`` run, the prefill and decode steps of the other four
 LMs, the MoE block, both modes of the serving launcher, one train step of
-DCN-v2, gemma3-1b and deepseek-v2-lite, a compressed
+DCN-v2, gemma3-1b and deepseek-v2-lite, a step of every GNN zoo cell but
+``minibatch_lg`` and of both GNN-PE cells, the fanout sampler and the
+partition loss on one shard, a compressed
 ``Trainer`` run and its checkpoint read back through ``convert``, and no
 ``jax*`` or ``repro`` module is loaded."""
 import os
@@ -23,6 +25,7 @@ pytest.importorskip("torch")
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 SCRIPT = """
+import dataclasses
 import sys
 from repro_torch.core import GnnPeConfig, GnnPeEngine, vf2_match
 from repro_torch.graphs import newman_watts_strogatz, random_connected_query
@@ -147,6 +150,27 @@ with tempfile.TemporaryDirectory() as d:
                  compression=CompressionConfig(kind="topk", topk_frac=0.1)))
     out = tr.run()
     assert out["final_step"] == 4 and int(trainer_state_from_reference(d, device="cpu")["step"]) == 4
+from repro_torch.configs import all_cells, list_archs
+from repro_torch.graphs import erdos_renyi, partition_graph, sample_fanout
+from repro_torch.models import build_partition_batch, partition_gnn_loss
+assert len(list_archs(include_extra=True)) == 12
+for a, c in all_cells(include_extra=True):
+    if a.family in ("gnn", "gnnpe_offline", "gnnpe_online") and c.name != "minibatch_lg":
+        cfg = resolve_config(a, c, smoke=True)
+        params = init_params(a, cfg, seed=0, device="cpu")
+        step, takes_opt = build_step(a, c, cfg)
+        b = make_batch(a, c, cfg, device="cpu")
+        out = step(params, opt_init(params), b)[2]["loss"] if takes_opt else step(params, b)
+        assert torch.isfinite(out.float()).all(), (a.name, c.name)
+gg = erdos_renyi(120, avg_degree=4, seed=0)
+assert len(sample_fanout(gg, np.arange(4), (3, 2), seed=0).blocks) == 2
+pb = build_partition_batch(gg, np.ones((120, 16), np.float32), np.zeros(120, np.int32),
+                           partition_graph(gg, 1, seed=0), 1)
+gin = get_arch("gin-tu")
+gcfg = dataclasses.replace(resolve_config(gin, gin.cell("ogb_products"), smoke=True), partition_parallel=True)
+pl, _ = partition_gnn_loss(init_params(gin, gcfg, seed=0, device="cpu"), gcfg,
+                           {k: torch.from_numpy(v) for k, v in pb.items()})
+assert torch.isfinite(pl)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")

@@ -266,9 +266,15 @@ def test_registry_resolves_the_lm_family_and_names_what_is_left():
     for name in ARCHS + ["gemma3-1b", "dcn-v2"]:
         assert tcfg.get_arch(name).name == name
         assert tcfg.get_arch(name).source == jcfg.get_arch(name).source
-    for name, item in (("schnet", "17d"), ("gin-tu", "17d"), ("gnn-pe-online", "17e")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcfg.get_arch(name)
+    # nothing is left: the GNN zoo and GNN-PE's own cells resolve to the reference's fields
+    for name in ("schnet", "gin-tu", "gnn-pe-online"):
+        ta, ja = tcfg.get_arch(name), jcfg.get_arch(name)
+        assert (ta.name, ta.family, ta.source, ta.notes) == (ja.name, ja.family, ja.source, ja.notes)
+        assert [(c.name, c.kind, c.meta, c.skip) for c in ta.shapes] == [
+            (c.name, c.kind, c.meta, c.skip) for c in ja.shapes]
+        tc = tcfg.resolve_config(ta, ta.shapes[0], smoke=True)
+        jc = jcfg.resolve_config(ja, ja.shapes[0], smoke=True)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
 
 
 @pytest.mark.parametrize("name", ARCHS + ["gemma3-1b"])

@@ -5,6 +5,8 @@ built through ``repro_torch.configs`` equal to the JAX package's from the
 same params (carried across by ``convert.dcn_params_from_reference``) and
 the same batch: logits within rtol 1e-4 / atol 1e-5 (GEMM summation
 order), retrieval values within 1e-5 and the same indices."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -166,7 +168,13 @@ def test_unported_kinds_and_archs_raise():
     _, takes_opt = tcfg.build_step(arch, cell, cfg)
     assert takes_opt
     assert sorted(tcfg.make_batch(arch, cell, cfg, device="cpu")) == ["dense", "label", "sparse"]
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        tcfg.get_arch("schnet")  # the LM family is all ported (items 17b, 17c)
+    # every architecture of the reference resolves now, the GNN zoo and GNN-PE's cells too
+    for name in ("schnet", "gin-tu", "gnn-pe-online"):
+        ta, ja = tcfg.get_arch(name), jcfg.get_arch(name)
+        assert (ta.name, ta.family, ta.source) == (ja.name, ja.family, ja.source)
+        assert [c.name for c in ta.shapes] == [c.name for c in ja.shapes]
+        cfg = tcfg.resolve_config(ta, ta.shapes[0], smoke=True)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jcfg.resolve_config(ja, ja.shapes[0], smoke=True))
     with pytest.raises(KeyError):
         tcfg.get_arch("no-such-arch")
