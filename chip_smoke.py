@@ -296,10 +296,26 @@ Phases, each printing its seconds:
      rows planted a query (every rise accounted for) and the first 2²⁰ rows'
      counts equal to the CPU's; 14e ``python -m repro_torch.launch.train
      --smoke --steps 20`` for the four archs and gnn-pe-offline side by side.
+ 15. the meshes: 15a expert parallelism in 4 processes sharing the card over
+     gloo as a (data 2 × model 2) mesh, deepseek-v2-lite-16b's first 2 layers
+     at the published width (its first MoE layer on 4,096 tokens a data shard,
+     ``fsdp`` off and on, against the local ``moe_block``, the kept and
+     dropped sets identical; ``lm_forward(mesh=)`` against the local forward,
+     K6 on every rank); 15b GPipe in 2 processes, gemma3-1b's 26 layers as 2
+     stages over 4 microbatches of 4,096 tokens, bit-equal to the layers in
+     sequence, K6 on both ranks (workers ``--mesh-worker moe|pipe RANK PORT
+     DIR DEVICE full|smoke``); on the 50K cell built afresh, 15c the stacked
+     probe over the card listed 2 and 3 times (every card where there are
+     several): its lists equal one device's in order, K1 equal to plain, the
+     hand-off's sets; 15d the device join over join lists of 2 and 3 on the
+     16 queries and 3 isomorphic ones: lists equal one device's, K2 a shard
+     a step, each equal to plain.  The mesh times beside their one-device
+     counterparts show the split's cost on one card, not a speed-up.
 
 ``python3 chip_smoke.py --only 12`` (or ``--only 8``, ``--only 13``, ``--only
-14``) builds the kernels and runs phase 12 (or 8a with 8d, K6's edge checks
-and phase 13, or phase 14) alone, printing no result line.
+14``, ``--only 15``) builds the kernels and runs phase 12 (or 8a with 8d, K6's
+edge checks and phase 13, phase 14, or phase 15) alone, printing no result
+line.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1302,10 +1318,10 @@ def phase3_main_path(dev, flush, n: int = 50_000, n_parts: int = 80, n_queries: 
     scalar_cold = (time.perf_counter() - t_s) * 1e3
     for qi, (a, b) in enumerate(zip(scalar, matches)):
         require(a == b, f"the scalar match differs from match_many, query {qi}")
-    scalar_warm = warm_ms(lambda: [eng.match(q, impl="scalar") for q in queries], dev, 1)
+    # cold only (its warm rerun, 9.5 s of a plain cross-check path, cut for phase 15's time)
     log(f"scalar match (match(q, impl='scalar'), plain tensor code) of {n_queries} queries: "
-        f"lists equal match_many's; cold {scalar_cold:.3f} ms, warm {fmt(scalar_warm)} ms, "
-        f"against match_many warm {fmt(warm)} ms")
+        f"lists equal match_many's; cold {scalar_cold:.3f} ms, against match_many warm "
+        f"{fmt(warm)} ms")
 
     # ---- the stacked probe on the same engine ----------------------------
     t_st = time.perf_counter()
@@ -1822,7 +1838,9 @@ def phase4_gat(dev):
     from repro_torch.graphs import newman_watts_strogatz, random_connected_query
 
     g2 = newman_watts_strogatz(2_000, k=4, p=0.1, n_labels=100, seed=11)
-    cfg2 = GnnPeConfig(n_partitions=2, encoder="gat", train=TrainConfig(max_epochs=150))
+    # 60 epochs (cut from 150 to make room for phase 15: the GAT path's exactness and K1 hold
+    # at any depth of training, the fallback vertices cover what it leaves)
+    cfg2 = GnnPeConfig(n_partitions=2, encoder="gat", train=TrainConfig(max_epochs=60))
     reset_counters()
     eng2 = GnnPeEngine(cfg2).build(g2)
     queries2 = [random_connected_query(g2, 6, seed=7 + s) for s in range(4)]
@@ -5100,15 +5118,52 @@ def smoke_lm(device):
 
 def phase12c_trainer(dev, smi: str, root: Path) -> None:
     """The ``Trainer`` on the card at the smoke width."""
+    from repro_torch.train import OptConfig
+
+    opt = OptConfig(lr=3e-3, warmup_steps=0, total_steps=40)
+    # the three launchers and the example run in child processes beside the checks below
+    # (after each other until phase 15 needed the time); their output is read at the end
+    t_children = time.perf_counter()
+    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                                     arch, "--smoke", "--steps", "30"], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=child_env())
+             for arch in ("dcn-v2", "gemma3-1b", "deepseek-v2-lite-16b")}
+    # 80 steps (cut from 200 to make room for phase 14; the example asserts its loss drops 20 %)
+    procs["example"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), "--steps", "80",
+         "--ckpt-dir", str(root / "example")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=child_env())
+    try:
+        phase12c_checks(dev, root, opt)
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (so, se) in outs.items():
+        rc = procs[name].returncode
+        if name == "example":
+            require(rc == 0, f"12c: examples/train_lm_torch.py exited {rc}: {se[-2000:]}")
+            log(f"12c examples/train_lm_torch.py in a child process: {so.strip().splitlines()[-1]}")
+            continue
+        require(rc == 0 and "[train] done" in so,
+                f"12c: repro_torch.launch.train --arch {name} exited {rc}: {se[-2000:]}")
+        log(f"12c python -m repro_torch.launch.train --arch {name} --smoke --steps 30 in a child "
+            f"process: {so.strip().splitlines()[-1]}")
+    log(f"12c the three launchers and the example, beside the checks: "
+        f"{time.perf_counter() - t_children:.3f} s")
+
+
+def phase12c_checks(dev, root: Path, opt) -> None:
+    """12c's checks in this process: resume, SIGTERM, the watchdog, compression."""
     import os
     import signal
 
     import torch
 
     from repro_torch.dist.checkpoint import CheckpointManager
-    from repro_torch.train import CompressionConfig, OptConfig, Trainer, TrainerConfig, wire_bytes
-
-    opt = OptConfig(lr=3e-3, warmup_steps=0, total_steps=40)
+    from repro_torch.train import CompressionConfig, Trainer, TrainerConfig, wire_bytes
 
     def trainer(d, loss_fn=None, params=None, batch_at=None, **kw):
         lf, p, ba = smoke_lm(dev)
@@ -5198,37 +5253,6 @@ def phase12c_trainer(dev, smi: str, root: Path) -> None:
         log(f"12c {kind} compression with error feedback: 20 steps, loss {first_l:.4f} -> "
             f"{last_l:.4f}, {wire_bytes(tr.params, comp)} wire bytes a step against "
             f"{wire_bytes(tr.params, CompressionConfig())} uncompressed")
-
-    # ---- the launcher and the example in child processes -----------------------
-    # the three launchers side by side (one after another until phase 14 needed the time)
-    t = time.perf_counter()
-    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                                     arch, "--smoke", "--steps", "30"], stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True, env=child_env())
-             for arch in ("dcn-v2", "gemma3-1b", "deepseek-v2-lite-16b")}
-    try:
-        outs = {arch: p.communicate(timeout=600) for arch, p in procs.items()}
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for arch, (so, se) in outs.items():
-        rc = procs[arch].returncode
-        require(rc == 0 and "[train] done" in so,
-                f"12c: repro_torch.launch.train --arch {arch} exited {rc}: {se[-2000:]}")
-        log(f"12c python -m repro_torch.launch.train --arch {arch} --smoke --steps 30 in a child "
-            f"process: {so.strip().splitlines()[-1]}")
-    log(f"12c the three launchers side by side: {time.perf_counter() - t:.3f} s")
-    t = time.perf_counter()
-    # 80 steps (cut from 200 to make room for phase 14; the example asserts its loss drops 20 %)
-    r = subprocess.run([sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), "--steps",
-                        "80", "--ckpt-dir", str(root / "example")], capture_output=True,
-                       text=True, env=child_env(), timeout=600)
-    require(r.returncode == 0, f"12c: examples/train_lm_torch.py exited {r.returncode}: "
-            f"{r.stderr[-2000:]}")
-    log(f"12c examples/train_lm_torch.py in a child process: {r.stdout.strip().splitlines()[-1]} "
-        f"({time.perf_counter() - t:.3f} s)")
 
 
 def phase12_training(dev, smi: str) -> dict:
@@ -5510,7 +5534,7 @@ def phase13_cpu_prefill(dev, arch, cfg, params, cpu_p) -> None:
     # layer by layer: each layer's output on the card against the CPU's on the card's input
     pos = torch.arange(CPU_TOKENS, dtype=torch.int32)
     worst = (0.0, 0.0)
-    for i, (x, p, _c, _pos, is_g), (y, _aux) in ((i, a, r) for i, a, r in layers):
+    for i, (x, p, _c, _pos, is_g, _mesh), (y, _aux) in ((i, a, r) for i, a, r in layers):
         got = tr._layer(x.cpu(), cpu_p["layers"][i], cfg_c, pos, is_g)[0]
         r = lm_close(y.cpu(), got, f"13 {name} layer {i} on the card's input")
         worst = (max(worst[0], r[0]), max(worst[1], r[1]))
@@ -6201,8 +6225,352 @@ def phase14_gnn(dev, smi: str, smoke: bool = False, extra: tuple = ()) -> dict:
     return out
 
 
+# ---- phase 15: the meshes ------------------------------------------------------------------
+
+MESH_T = 4096  # tokens (and sequence length) a data shard of 15a, a microbatch of 15b
+PIPE_M = 4  # 15b's microbatches
+
+
+def mesh_times(fn, dev, runs: int = 3) -> list:
+    """Warm ms of ``fn()`` on the host clock to a ``synchronize``, after one
+    untimed call."""
+    fn()
+    return warm_ms(fn, dev, runs)
+
+
+def mesh_worker(kind: str, rank: int, port: str, directory: str, device: str,
+                smoke: bool) -> int:
+    """One rank of phase 15a (``moe``: 4 ranks, a (data 2 × model 2) mesh) or
+    15b (``pipe``: 2 ranks, a ``pipe`` mesh) over gloo on ``device`` (the
+    card; the CPU and the smoke configs to rehearse it); writes its readings
+    to ``DIR/{kind}_{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    world = 4 if kind == "moe" else 2
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        with torch.no_grad():
+            dev = torch.device(device)
+            out = (mesh_moe_rank if kind == "moe" else mesh_pipe_rank)(rank, dev, smoke)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (Path(directory) / f"{kind}_{rank}.json").write_text(json.dumps(out))
+    print("mesh worker ok", flush=True)
+    return 0
+
+
+def mesh_moe_rank(rank: int, dev, smoke: bool) -> dict:
+    """15a on one rank: deepseek-v2-lite-16b's first 2 layers at the published
+    width from seeded params; its first MoE layer on this data shard's 4,096
+    tokens, expert-parallel with ``fsdp`` off and on, against the local
+    ``moe_block`` on the same tokens; then ``lm_forward(mesh=)`` on this data
+    shard's sequence against the local forward."""
+    import torch
+
+    from repro_torch.configs import get_arch, init_params, resolve_config
+    from repro_torch.dist.sharding import DP, P, lm_param_specs, local_shard, shard_tree
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (expert_parallel_specs, lm_forward, moe_block,
+                                    moe_token_spec)
+    from repro_torch.models import moe as moe_mod
+
+    arch = get_arch("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(resolve_config(arch, arch.cell("prefill_32k"), smoke=smoke),
+                              n_layers=2)
+    T = 64 if smoke else MESH_T
+    params = init_params(arch, cfg, seed=0, device=dev)
+    mesh = make_local_mesh(2, 2, device=dev)
+    out = {"coord": list(mesh.get_coordinate())}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((2 * T, cfg.d_model), generator=gen, device=dev).to(cfg.compute_dtype)
+    xspec = moe_token_spec(x.shape[0], mesh)
+    xl = local_shard(x, xspec, mesh)
+    full = params["layers"][1]["moe"]
+    for fsdp in (False, True):
+        mcfg = dataclasses.replace(cfg.moe, fsdp=fsdp)
+        specs = lm_param_specs({"layers": [{"moe": full}]}, fsdp=fsdp)["layers"][0]["moe"]
+        local = shard_tree(full, specs, mesh)
+        routes = []
+        with recording(moe_mod, "_route", routes):
+            got, _ = moe_block(xl, local, mcfg, mesh)
+            want, _ = moe_block(xl, full, mcfg)
+        plans = [moe_mod.dispatch_plan(r[0], r[1], mcfg) for _, _, r in routes]
+        require(all(torch.equal(plans[0][k], plans[1][k]) for k in ("token", "expert", "keep")),
+                f"15a fsdp={fsdp}: the kept and dropped (token, expert) sets differ from the "
+                f"local moe_block's")
+        mx, rel = lm_close(got.cpu(), want.cpu(), f"15a rank {rank} MoE layer fsdp={fsdp}")
+        # fsdp's all-gathers through the host take about 1.5 s a call: one warm run
+        ms = mesh_times(lambda: moe_block(xl, local, mcfg, mesh), dev, runs=1 if fsdp else 3)
+        solo = mesh_times(lambda: moe_block(xl, full, mcfg), dev)
+        out[f"moe_fsdp{int(fsdp)}"] = {
+            "max_abs": mx, "rel_l2": rel, "ms": ms, "local_ms": solo,
+            "kept": int(plans[0]["keep"].sum()), "dropped": int((~plans[0]["keep"]).sum())}
+        del local
+    tokens = torch.randint(0, cfg.vocab, (2, T), generator=gen, device=dev)
+    mine = local_shard(tokens, P(DP, None), mesh)
+    local = shard_tree(params, expert_parallel_specs(params), mesh)
+    reset_counters()
+    got = lm_forward(local, mine, cfg, mesh)[0]
+    out["K6"] = counters()["K6"]
+    require(out["K6"] == cfg.n_layers or dev.type != "cuda", f"15a rank {rank}: K6 launched "
+            f"{out['K6']} times in a {cfg.n_layers}-layer forward")
+    want = lm_forward(params, mine, cfg)[0]
+    mx, rel = lm_close(got.cpu(), want.cpu(), f"15a rank {rank} lm_forward(mesh=) logits")
+    del got, want
+    fa_before = fa.LAUNCHES
+    ms = mesh_times(lambda: lm_forward(local, mine, cfg, mesh), dev)
+    solo = mesh_times(lambda: lm_forward(params, mine, cfg), dev)
+    require(fa.LAUNCHES > fa_before or dev.type != "cuda", "15a: the timed forwards launched no K6")
+    out["lm"] = {"max_abs": mx, "rel_l2": rel, "ms": ms, "local_ms": solo,
+                 "peak_gib": peak_gib(dev)}
+    return out
+
+
+def mesh_pipe_rank(rank: int, dev, smoke: bool) -> dict:
+    """15b on one rank: gemma3-1b's 26 layers at the published width as 2
+    stages of 13, ``pipeline_apply`` over M = 4 microbatches of (1, 4,096,
+    1,152) hidden states against the 26 layers in sequence on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch, init_params, resolve_config
+    from repro_torch.dist import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm_layers
+
+    arch = get_arch("gemma3-1b")
+    cfg = resolve_config(arch, arch.cell("prefill_32k"), smoke=smoke)
+    params = init_params(arch, cfg, seed=0, device=dev)
+    mesh = make_mesh((2,), ("pipe",), device=dev)
+    k = mesh.get_local_rank("pipe")
+    per = cfg.n_layers // 2
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_M, 1, 64 if smoke else MESH_T), generator=gen,
+                           device=dev)
+    xs = params["embed"][tokens].to(cfg.compute_dtype)  # (M, 1, S, D)
+    mine = params["layers"][k * per:(k + 1) * per]
+
+    def stage(layers, x):
+        return lm_layers(x, layers, cfg, start=k * per)[0]
+
+    reset_counters()
+    got = pipeline_apply(stage, mine, xs, mesh)
+    k6 = counters()["K6"]
+    require(k6 == per * PIPE_M or dev.type != "cuda", f"15b rank {rank}: K6 launched {k6} times, "
+            f"not {per} layers x {PIPE_M} microbatches")
+
+    def sequential():
+        return torch.stack([lm_layers(x, params["layers"], cfg)[0] for x in xs])
+
+    want = sequential()
+    equal = bool(torch.equal(got, want))
+    diff = float((got.float() - want.float()).abs().max())
+    require(equal, f"15b rank {rank}: the pipeline's outputs differ from the 26 layers in "
+            f"sequence by up to {diff:.3g}")
+    ms = mesh_times(lambda: pipeline_apply(stage, mine, xs, mesh), dev)
+    seq = mesh_times(sequential, dev)
+    return {"stage": k, "K6": k6, "equal": equal, "ms": ms, "sequential_ms": seq,
+            "peak_gib": peak_gib(dev)}
+
+
+def run_mesh_workers(kind: str, world: int, root: Path, device: str = "cuda",
+                     smoke: bool = False) -> list:
+    """Start ``world`` ranks of ``mesh_worker`` together and wait for all →
+    each rank's readings; fails if any rank exits non-zero or says nothing."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                               kind, str(r), str(port), str(root), device,
+                               "smoke" if smoke else "full"], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=child_env())
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0 and "mesh worker ok" in so,
+                f"15 {kind} rank {r} exited {p.returncode}: {se[-3000:]}")
+    return [json.loads((root / f"{kind}_{r}.json").read_text()) for r in range(world)]
+
+
+def phase15a_expert_parallel(smi: str, root: Path) -> dict:
+    t = time.perf_counter()
+    ranks = run_mesh_workers("moe", 4, root)
+    for r in ranks:
+        c = r["coord"]
+        for key in ("moe_fsdp0", "moe_fsdp1"):
+            m = r[key]
+            log(f"15a deepseek-v2-lite-16b's first MoE layer (64 experts, 32 a model rank), "
+                f"{key[4:]}, rank at (data {c[0]}, model {c[1]}), T = {MESH_T} tokens of its data "
+                f"shard: max |diff| {m['max_abs']:.4g}, relative L2 {m['rel_l2']:.4g} against the "
+                f"local moe_block on the same tokens; kept {m['kept']}, dropped {m['dropped']} "
+                f"(token, expert) entries, the same sets; ms expert-parallel {fmt(m['ms'])}, local "
+                f"{fmt(m['local_ms'])} (4 processes share one card: the split's cost, not a "
+                f"speed-up); card: {smi}")
+        m = r["lm"]
+        log(f"15a lm_forward(mesh=) of 2 layers, rank at (data {c[0]}, model {c[1]}), one "
+            f"sequence of {MESH_T}: K6 x{r['K6']}; logits max |diff| {m['max_abs']:.4g}, relative "
+            f"L2 {m['rel_l2']:.4g} against the local forward; ms mesh {fmt(m['ms'])}, local "
+            f"{fmt(m['local_ms'])}; peak {m['peak_gib']:.3f} GiB; card: {smi}")
+    log(f"15a expert parallelism in 4 processes: {time.perf_counter() - t:.3f} s")
+    return {"K6": sum(r["K6"] for r in ranks), "ranks": ranks}
+
+
+def phase15b_gpipe(smi: str, root: Path) -> dict:
+    t = time.perf_counter()
+    ranks = run_mesh_workers("pipe", 2, root)
+    for r in ranks:
+        log(f"15b gemma3-1b as 2 stages of 13 layers, stage {r['stage']}: K6 x{r['K6']}; the last "
+            f"stage's outputs of {PIPE_M} microbatches of (1, {MESH_T}, 1152) bit-equal to the 26 "
+            f"layers in sequence: {r['equal']}; ms pipeline {fmt(r['ms'])}, sequential "
+            f"{fmt(r['sequential_ms'])} (both stages share one card: the bubble and the host "
+            f"hand-offs, not a speed-up); peak {r['peak_gib']:.3f} GiB; card: {smi}")
+    log(f"15b GPipe in 2 processes: {time.perf_counter() - t:.3f} s")
+    return {"K6": sum(r["K6"] for r in ranks)}
+
+
+def phase15c_part(dev, eng, queries, smi: str) -> dict:
+    """The stacked probe over ``part`` lists: the card 2 and 3 times, and
+    every visible card where there are several."""
+    import torch
+
+    from repro_torch.dist import StackedProbe, probe as probe_mod, use_devices
+    from repro_torch.kernels.dominance_scan.ref import dominance_scan_pairs_indexed_ref
+
+    t = time.perf_counter()
+    calls = []
+    probe_fn = probe_mod.StackedProbe.probe
+
+    def record(self, *a, **kw):
+        res = probe_fn(self, *a, **kw)
+        calls.append((a, kw, res))
+        return res
+
+    probe_mod.StackedProbe.probe = record
+    try:
+        want = eng.match_many(queries, probe_impl="stacked")
+    finally:
+        probe_mod.StackedProbe.probe = probe_fn
+    sets = [set(m) for m in want]
+    one_ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev)
+    out = {"K1": 0}
+    lists_n = [[dev] * 2, [dev] * 3]
+    if torch.cuda.device_count() > 1:
+        lists_n.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    indexes = [m.index for m in eng.models]
+    for devices in lists_n:
+        n = len(devices)
+        # a probe laid out over n shards, on the probe calls of the batch above
+        many = StackedProbe(indexes, leaf_pair_cap=eng.cfg.stacked_leaf_pair_cap,
+                            devices=devices)
+        for a, kw, res in calls:
+            require(kw.get("live_mask") is None, "15c: a fresh engine has no tombstones")
+            got = many.probe(*a, **kw)
+            got = got[0] if kw.get("return_stats") else got
+            res = res[0] if kw.get("return_stats") else res
+            require(all(torch.equal(x, y) for pw, pg in zip(res, got) for x, y in zip(pw, pg)),
+                    f"15c: the probe over {n} devices differs from one device's")
+        # the engine's own probe over the list: lists in order, the hand-off's sets
+        reset_counters()
+        with use_devices("part", devices):
+            seen = recorded_verdicts(lambda: eng.match_many(queries, probe_impl="stacked"))
+            k1 = counters()["K1"]
+            got = eng.match_many(queries, probe_impl="stacked")
+            handoff = eng.match_many(queries, probe_impl="stacked", join_impl="device")
+            require(eng.stacked_probe().stacked.n_shards == n, "15c: the engine's probe did "
+                    f"not split over {n} devices")
+            ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev)
+        require(got == want, f"15c: the stacked probe's lists over {n} devices differ from one "
+                f"device's")
+        require([set(m) for m in handoff] == sets, f"15c: the hand-off over {n} devices gives "
+                f"other sets")
+        require(k1 > 0 and len(seen) > 0, f"15c: K1 did not launch over {n} devices")
+        for (segs, eps), keep in seen:
+            require(torch.equal(keep, dominance_scan_pairs_indexed_ref(segs, eps)),
+                    "15c: K1 on the real pairs differs from the plain version")
+        out["K1"] += k1
+        log(f"15c the stacked probe over a part list of {n} ({', '.join(map(str, devices))}): "
+            f"{len(calls)} recorded probe calls and the engine's lists equal one device's in "
+            f"order, the hand-off's sets equal; K1 x{k1}, {len(seen)} verdicts equal to plain; "
+            f"warm host join ms {fmt(ms)} against one device's {fmt(one_ms)} (one card listed "
+            f"{n} times: the split's cost, not a speed-up); card: {smi}")
+    if torch.cuda.device_count() == 1:
+        log("15c one visible card: the every-card list is the one-device probe")
+    eng.stacked_probe()  # placed back on the default list
+    log(f"15c the part lists: {time.perf_counter() - t:.3f} s")
+    return out
+
+
+def phase15d_join(dev, eng, queries, smi: str) -> dict:
+    """The device join over ``join`` lists of 2 and 3 entries."""
+    import torch
+
+    from repro_torch.dist import use_devices
+
+    t = time.perf_counter()
+    out = {"K2": 0}
+    for what, batch in (("16 queries", queries), ("3 isomorphic queries",
+                                                  iso_batch(eng.graph, 8, 3, seed=15))):
+        eng.match_many(batch, join_impl="device")  # warms the pair-bucket guesses
+        steps1 = k2_steps(eng, batch)
+        want = eng.match_many(batch, join_impl="device")
+        one_ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev)
+        for n in (2, 3):
+            with use_devices("join", [dev] * n):
+                reset_counters()
+                steps = k2_steps(eng, batch)
+                k2 = counters()["K2"]
+                got = eng.match_many(batch, join_impl="device")
+                ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev)
+            require(got == want, f"15d {what}: the device join over {n} devices differs from "
+                    f"one device's")
+            require(len(steps) == n * len(steps1) == k2,
+                    f"15d {what}: {len(steps)} K2 verdicts over {n} devices against "
+                    f"{len(steps1)} on one")
+            out["K2"] += k2
+            log(f"15d the device join over a join list of {n}, {what}: lists equal one "
+                f"device's ({sum(map(len, got))} matches); K2 x{k2} ({len(steps1)} a shard, each "
+                f"equal to plain); warm ms {fmt(ms)} against one device's {fmt(one_ms)} (the "
+                f"split's cost on one card); card: {smi}")
+    log(f"15d the join lists: {time.perf_counter() - t:.3f} s")
+    return out
+
+
+def phase15_meshes(dev, smi: str, ctx: dict | None = None) -> dict:
+    """The meshes: expert parallelism and GPipe over processes sharing the
+    card (gloo), the stacked probe and the device join over in-process
+    device lists on the 50K cell (phase 3's inputs, from ``ctx`` where given)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import GnnPeEngine
+
+    log(f"phase 15: {torch.cuda.device_count()} visible card(s); card: {smi}")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        out["a"] = phase15a_expert_parallel(smi, Path(d))
+        out["b"] = phase15b_gpipe(smi, Path(d))
+    # phase 3's engine is gone by now (phase 11 recovers another): the cell built afresh
+    t = time.perf_counter()
+    g, queries, cfg = cell_50k_inputs() if ctx is None else (ctx["g"], ctx["queries"], ctx["cfg"])
+    eng = GnnPeEngine(cfg).build(g)
+    log(f"15 the 50K cell's engine built in {time.perf_counter() - t:.3f} s")
+    out["c"] = phase15c_part(dev, eng, queries, smi)
+    out["d"] = phase15d_join(dev, eng, queries, smi)
+    out["K1"], out["K2"] = out["c"]["K1"], out["d"]["K2"]
+    out["K6"] = out["a"]["K6"] + out["b"]["K6"]
+    return out
+
+
 def main(only: str | None = None) -> int:
-    """Every phase, or with ``only="8"``, ``"12"``, ``"13"`` or ``"14"`` the
+    """Every phase, or with ``only="8"``, ``"12"``, ``"13"``, ``"14"`` or ``"15"`` the
     build and that phase alone (a partial run: it prints no result line)."""
     import torch
 
@@ -6253,6 +6621,12 @@ def main(only: str | None = None) -> int:
         phase14_gnn(dev, smi)
         log(f"phase 14 the GNN zoo and GNN-PE's cells: {time.perf_counter() - t:.3f} s; partial "
             f"run (--only 14): no result line")
+        return 0
+    if only == "15":
+        t = time.perf_counter()
+        p15 = phase15_meshes(dev, smi)
+        log(f"phase 15 the meshes: {time.perf_counter() - t:.3f} s; launches K1 {p15['K1']}, K2 "
+            f"{p15['K2']}, K6 {p15['K6']}; partial run (--only 15): no result line")
         return 0
 
     t = time.perf_counter()
@@ -6339,6 +6713,12 @@ def main(only: str | None = None) -> int:
         f"partition-parallel loss) and GNN-PE's offline and online cells: "
         f"{time.perf_counter() - t:.3f} s; no kernel lies on this path; card: {smi}")
 
+    t = time.perf_counter()
+    p15 = phase15_meshes(dev, smi, p3["ctx"])
+    log(f"phase 15 the meshes (expert parallelism and GPipe over processes, the part and join "
+        f"device lists): {time.perf_counter() - t:.3f} s; launches K1 {p15['K1']}, K2 "
+        f"{p15['K2']}, K6 {p15['K6']} (15a and 15b's in their processes); card: {smi}")
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6367,21 +6747,23 @@ def main(only: str | None = None) -> int:
         # ticks, service ticks) and phase 10's (single-process and cluster batches,
         # host probes, router ticks; the worker process's own are not counted) and
         # phase 11's (the durable server's ticks, the recovered engines' batches, the
-        # crash sweep's checks; its child processes' own are not counted), each
+        # crash sweep's checks; its child processes' own are not counted) and phase
+        # 15c's (the engine's stacked probe over part lists of 2 and 3), each
         # counted from 0 just before it; its times on phase 3's real call as it ran,
         # the indexed pairs form (the other forms' are in the log)
         record("dominance_scan_pairs_indexed", "K1", scan_cu, f"{scan_py}:98",
                p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
-               + p9["K1"] + p10["K1"] + p11["K1"],
+               + p9["K1"] + p10["K1"] + p11["K1"] + p15["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
         # hand-off), phase 3q's, phase 3g's, phase 8a's, phase 9a's and phase
-        # 10a's device joins and phase 5's batches (loop, then the hand-off),
-        # each counted from 0 just before it
+        # 10a's device joins, phase 5's batches (loop, then the hand-off) and
+        # phase 15d's device joins over join lists of 2 and 3, each counted from 0
+        # just before it
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
                p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"]
-               + p8["K2"] + p9["K2"] + p10["K2"],
+               + p8["K2"] + p9["K2"] + p10["K2"] + p15["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),
@@ -6389,7 +6771,9 @@ def main(only: str | None = None) -> int:
                p3["K3b_ms"], p3["K3b_plain_ms"], p3["K3b_bound"]),
         # K4, K5 and K6's launches: phase 6's / 7's serving paths, then phase 12's
         # train steps (12a's first DCN-v2 step, 12b's first gemma3-1b step), then
-        # (K6) phase 13's four prefill_32k forwards, each counted from 0 just before it
+        # (K6) phase 13's four prefill_32k forwards and phase 15's mesh paths (15a's
+        # lm_forward(mesh=) and 15b's pipeline, counted from 0 in each worker process
+        # just before it and summed here), each counted from 0 just before it
         record("star_agg", "K4", f"{SRC}/star_agg/csrc/star_agg.cu",
                "src/repro/kernels/star_agg/kernel.py:39", p6["K4"] + p12["K4"], p6["K4_ms"],
                p6["K4_plain_ms"], p6["K4_bound"], p6["K4_library_ms"]),
@@ -6399,7 +6783,8 @@ def main(only: str | None = None) -> int:
                p6["K5_plain_ms"], p6["K5_bound"], p6["K5_library_ms"]),
         # K6 at a global layer of prefill_32k; its local-layer times are in the log
         record("flash_attention", "K6", f"{SRC}/flash_attention/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:69", p7["K6"] + p12["K6"] + p13["K6"],
+               "src/repro/kernels/flash_attention/kernel.py:69",
+               p7["K6"] + p12["K6"] + p13["K6"] + p15["K6"],
                p7["K6_ms"], p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))
@@ -6423,6 +6808,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 7 and sys.argv[1] == "--partition-worker":
         sys.exit(partition_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
                                   sys.argv[6] == "smoke"))
+    if len(sys.argv) == 8 and sys.argv[1] == "--mesh-worker":
+        sys.exit(mesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                             sys.argv[6], sys.argv[7] == "smoke"))
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -6,8 +6,10 @@ from .base import (
     ShapeCell,
     build_step,
     init_params,
+    input_pspecs,
     input_specs,
     make_batch,
+    param_pspecs,
     opt_init,
 )
 from .registry import all_cells, get_arch, list_archs, resolve_config
@@ -18,6 +20,8 @@ __all__ = [
     "build_step",
     "init_params",
     "input_specs",
+    "input_pspecs",
+    "param_pspecs",
     "make_batch",
     "opt_init",
     "get_arch",

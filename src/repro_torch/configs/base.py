@@ -9,7 +9,9 @@ shape cells.  Per (arch × cell) this module builds
     order as the JAX package's, as tensors on the device;
   * ``init_params`` — random params from a seeded ``torch.Generator`` on the device;
   * ``build_step``  — the step function of the cell's kind;
-  * ``opt_init``    — the AdamW state a train step takes.
+  * ``opt_init``    — the AdamW state a train step takes;
+  * ``input_pspecs`` / ``param_pspecs`` — the batch's and the params'
+    placement specs (``dist/sharding.py``), the JAX package's rules.
 
 The families and their kinds: recsys (``train``, ``serve``,
 ``retrieval``), lm (``train``, ``prefill``, ``decode``), gnn (``train``,
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from ..dist.sharding import DP, P, lm_param_specs, recsys_param_specs, replicated_specs
 from ..models import (
     dcn_forward,
     dcn_loss,
@@ -37,6 +40,7 @@ from ..models import (
     init_gnn_params,
     init_lm_params,
     lm_forward,
+    lm_grad_sync,
     lm_loss,
     retrieval_scores,
 )
@@ -54,6 +58,8 @@ __all__ = [
     "recsys_cells",
     "gnn_block_sizes",
     "input_specs",
+    "input_pspecs",
+    "param_pspecs",
     "make_batch",
     "init_params",
     "build_step",
@@ -293,6 +299,88 @@ def input_specs(arch: ArchDef, cell: ShapeCell, cfg, smoke: bool = False) -> dic
     return spec
 
 
+def input_pspecs(arch: ArchDef, cell: ShapeCell, cfg) -> dict:
+    """The placement specs of the cell's batch (production sharding), key
+    for key as ``input_specs``: batch dims over ``DP``; decode's cache over
+    ``model`` on its sequence dim, or for a single sequence (``long_500k``)
+    over ``data`` (context-parallel KV); retrieval's candidates over
+    ``model``; the GNN-PE offline cell's partition dim over ``DP``, the
+    online cell's queries replicated."""
+    fam = arch.family
+    if fam == "lm":
+        if cell.kind in ("train", "prefill"):
+            return {k: P(DP, None) for k in ("tokens", "labels")
+                    if cell.kind == "train" or k == "tokens"}
+        if cell.kind == "decode":
+            B = cell.meta["global_batch"]
+            batch_ax = DP if B > 1 else None
+            seq_ax = "model" if B > 1 else "data"  # long_500k: context-parallel KV
+            if cfg.use_mla:
+                cache = {"ckv": P(None, batch_ax, seq_ax, None),
+                         "krope": P(None, batch_ax, seq_ax, None)}
+            else:
+                cache = {"k": P(None, batch_ax, seq_ax, None, None),
+                         "v": P(None, batch_ax, seq_ax, None, None)}
+            return {"cache": cache, "tokens": P(batch_ax), "cur_len": P()}
+    if fam == "gnn":
+        if cell.kind == "train" and getattr(cfg, "partition_parallel", False):
+            return {
+                "node_feat": P(DP, None, None),
+                "labels": P(DP, None),
+                "label_mask": P(DP, None),
+                "edge_index": P(DP, None, None),
+                "boundary_index": P(DP, None),
+                "halo_flat": P(DP, None),
+            }
+        if cell.kind in ("train", "train_mol"):
+            spec = {"node_feat": P(DP, None), "edge_index": P(DP, None)}
+            if cell.kind == "train_mol":
+                spec.update(positions=P(DP, None), graph_id=P(DP), node_mask=P(DP),
+                            energy=P(DP))
+            else:
+                spec["labels"] = P(DP)
+                if cfg.kind in ("schnet", "mace"):
+                    spec["positions"] = P(DP, None)
+            return spec
+        if cell.kind == "train_blocks":
+            blocks = [{"nbr_index": P(DP, None), "mask": P(DP, None), "dst_index": P(DP)}
+                      for _ in cell.meta["fanout"]]
+            return {"feats": P(DP, None), "blocks": blocks, "labels": P(DP)}
+    if fam == "recsys":
+        spec = {"dense": P(DP, None), "sparse": P(DP, None)}
+        if cell.kind == "train":
+            spec["label"] = P(DP)
+        if cell.kind == "retrieval":
+            spec["cand_emb"] = P("model", None)
+            spec["dense"] = P(None, None)
+            spec["sparse"] = P(None, None)
+        return spec
+    if fam == "gnnpe_offline":
+        # the partition models and their pair batches over the data axes
+        return {k: P(DP, *([None] * n)) for k, n in
+                [("center_labels", 1), ("leaf_labels", 2), ("leaf_mask", 2), ("subset_mask", 2)]}
+    if fam == "gnnpe_online":
+        q0 = P(None) if getattr(cfg, "label_hash", False) else P(None, None)
+        return {"q": P(None, None), "q0": q0}  # queries replicated
+    raise ValueError(f"no input_pspecs for {arch.name}/{cell.name}")
+
+
+def param_pspecs(arch: ArchDef, cfg, params) -> dict:
+    """The params' placement specs: the LM's tensor-parallel rules
+    (``lm_param_specs``), with FSDP over ``data`` where ``cfg._fsdp`` is set
+    or the model has more than 30 B params; DCN-v2's tables over ``model``;
+    the GNN-PE cells' leading dim (stacked partition models, index paths)
+    over ``DP``; the GNN zoo replicated."""
+    if arch.family == "lm":
+        fsdp = getattr(cfg, "_fsdp", False) or (cfg.n_params() > 30e9)
+        return lm_param_specs(params, fsdp=fsdp)
+    if arch.family == "recsys":
+        return recsys_param_specs(params)
+    if arch.family in ("gnnpe_offline", "gnnpe_online"):
+        return {k: P(DP, *([None] * (v.ndim - 1))) for k, v in params.items()}
+    return replicated_specs(params)
+
+
 def _gnn_fixups(cell: ShapeCell, m: dict, batch: dict, rng) -> None:
     """The reference's redraws that make a GNN batch's indices valid, in its order."""
     if cell.kind == "train_blocks":
@@ -474,7 +562,7 @@ def online_counts(params, batch, cfg, rows: int = ONLINE_ROWS) -> torch.Tensor:
 
 
 def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConfig(),
-               group=None):
+               group=None, mesh=None):
     """Returns (step_fn, takes_opt_state: bool), as the JAX package does.
 
     train kinds: step(params, opt_state, batch) → (params, opt_state, metrics),
@@ -488,6 +576,12 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
     decode:      step(params, batch) → (logits (B, V), cache), the cache updated in place
     gnnpe_offline: a train step of the stacked partition encoders
     gnnpe_online:  step(params, batch) → (Q,) int32 candidate counts
+
+    ``mesh`` (a mesh of processes): the LM's steps run this rank's
+    sequences with their MoE layers expert-parallel, params its blocks
+    (``param_pspecs``), and the train step makes its gradients the whole
+    batch's (``models.lm_grad_sync``); a partition-parallel GNN's step takes
+    the mesh's ``data`` group where no ``group`` is given.
 
     The LM's serving steps take params in ``cfg.compute_dtype``, as
     ``init_params`` returns them (carried float32 params go through
@@ -504,6 +598,8 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
         if cfg.partition_parallel:
             from ..models.gnn_partition import partition_gnn_loss, sum_over_ranks
 
+            if group is None and mesh is not None:
+                group = mesh.get_group("data")
             return train_wrap(lambda p, b: partition_gnn_loss(p, cfg, b, group), opt_cfg,
                               grads_fn=lambda g: sum_over_ranks(g, group)), True
         return train_wrap(lambda p, b: gnn_node_loss(p, cfg, b), opt_cfg), True
@@ -514,14 +610,16 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
         return (lambda params, batch: online_counts(params, batch, cfg)), False
     if cell.kind == "train":
         if fam == "lm":
-            return train_wrap(lambda p, b: lm_loss(p, b, cfg), opt_cfg, cfg.grad_accum), True
+            sync = None if mesh is None else (lambda g: lm_grad_sync(g, cfg, mesh))
+            return train_wrap(lambda p, b: lm_loss(p, b, cfg, mesh), opt_cfg, cfg.grad_accum,
+                              grads_fn=sync), True
         return train_wrap(lambda p, b: dcn_loss(p, b, cfg), opt_cfg), True
     if cell.kind == "prefill":
-        return (lambda params, batch: lm_forward(params, batch["tokens"], cfg)[0]), False
+        return (lambda params, batch: lm_forward(params, batch["tokens"], cfg, mesh)[0]), False
     if cell.kind == "decode":
         return (
             lambda params, batch: decode_step(
-                params, batch["cache"], batch["tokens"], batch["cur_len"], cfg
+                params, batch["cache"], batch["tokens"], batch["cur_len"], cfg, mesh
             ),
             False,
         )

@@ -479,18 +479,34 @@ class GnnPeEngine:
         else:
             attach_groups(index, self.cfg.group_size)
 
+    def part_devices(self) -> list:
+        """The ``part`` device list the stacked probe's descent splits over:
+        the one ``dist.context.use_devices("part", ...)`` scopes, else every
+        visible card (this engine's first) on a card, else this device."""
+        from ..dist.context import mesh_devices  # the dist package imports core
+
+        return mesh_devices("part", self.device)
+
     def stacked_probe(self, slot_of=None):
         """The stacked probe over every partition's index, built at the
         first call after a ``build`` and kept; its padding lands in
-        ``offline_stats`` (``stacked_*``).  ``slot_of``, where it builds,
-        keeps a given slot layout (a restored engine's donor's)."""
-        if self._stacked_probe is None:
+        ``offline_stats`` (``stacked_*``).  Its descent splits over
+        ``part_devices()``, its slots laid out over their count.  ``slot_of``,
+        where it builds, keeps a given slot layout (a restored engine's
+        donor's); a probe kept from another device list is placed anew on
+        this one with its slot layout, so the answers keep their order."""
+        devices = self.part_devices()
+        built = self._stacked_probe
+        if built is not None and built.devices != devices:
+            slot_of = built.stacked.slot_of if slot_of is None else slot_of
+            self._stacked_probe = built = None
+        if built is None:
             assert self.models, "call build() first"
             from ..dist.probe import StackedProbe  # the dist package imports core
 
             self._stacked_probe = StackedProbe(
                 [m.index for m in self.models], leaf_pair_cap=self.cfg.stacked_leaf_pair_cap,
-                slot_of=slot_of,
+                slot_of=slot_of, devices=devices,
             )
             self.offline_stats.update(self._stacked_probe.stacked.padding_stats())
         return self._stacked_probe
@@ -498,15 +514,17 @@ class GnnPeEngine:
     def _subset_probe(self, parts: tuple):
         """The stacked probe over just ``parts`` (ascending model indices):
         a cluster host stacks and scans only the partitions placement gave
-        it.  Kept per parts tuple; dropped whenever an index object changes
-        (a compaction's install, ``rebuild_indexes``, a generation swap)."""
+        it.  Kept per parts tuple, stacked anew over another ``part`` list;
+        dropped whenever an index object changes (a compaction's install,
+        ``rebuild_indexes``, a generation swap)."""
+        devices = self.part_devices()
         probe = self._subset_probes.get(parts)
-        if probe is None:
+        if probe is None or probe.devices != devices:
             from ..dist.probe import StackedProbe  # the dist package imports core
 
             probe = StackedProbe(
                 [self.models[mi].index for mi in parts],
-                leaf_pair_cap=self.cfg.stacked_leaf_pair_cap,
+                leaf_pair_cap=self.cfg.stacked_leaf_pair_cap, devices=devices,
             )
             self._subset_probes[parts] = probe
         return probe

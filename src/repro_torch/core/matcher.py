@@ -17,7 +17,10 @@ behind ``join_impl``, as in the JAX package:
     sentinel padding, for a whole group of same-plan queries at once (a
     leading batch axis where the reference ``vmap``s).  The table stays
     on the device through a batched edge-membership refine; only the
-    verified rows come back to the host.
+    verified rows come back to the host.  Over a ``join`` device list
+    (``dist.context.use_devices("join", ...)``; by default every visible
+    card) each step and the refine split the batch over the devices, the
+    JAX package's ``("join",)`` mesh, and the results gather in batch order.
 
 Every sort is stable, so both joins give the JAX package's tables and
 match lists in its order.  Match SETS agree between the two joins; list
@@ -472,6 +475,29 @@ def _compact_body(table, valid, *, n_values: int):
 _CAP_GUESS: dict = {}
 
 
+def _join_shards(b: int, device) -> list:
+    """The blocks of a join batch of ``b`` members over the ``join`` device
+    list (``dist.context.mesh_devices``): (first member, end, device) each,
+    ``b`` padded to a multiple of the list's length; members at or past
+    ``b`` are phantoms that join nothing (the JAX package's ``_mesh_batch``)."""
+    from ..dist.context import mesh_devices  # the dist package imports core
+
+    devices = mesh_devices("join", device)
+    per = -(-b // len(devices))
+    return [(k * per, (k + 1) * per, d) for k, d in enumerate(devices)]
+
+
+def _unzip(outs: list) -> tuple:
+    """Per-shard result tuples → one list per result."""
+    return tuple(map(list, zip(*outs)))
+
+
+def _host_rows(ts: list) -> np.ndarray:
+    """Per-shard (…, b_k) device tensors → one host array, shards in order
+    along the last dim."""
+    return np.concatenate([t.cpu().numpy() for t in ts], axis=-1)
+
+
 def _join_candidates_device_batch(
     plan_paths: list, cand_groups: list, n_values: int, device, assume_unique: bool = False
 ):
@@ -480,8 +506,13 @@ def _join_candidates_device_batch(
 
     ``cand_groups[b]`` is the list of candidate arrays (tensors or NumPy)
     of query b, aligned with ``plan_paths``.  Join order is shared across the group
-    (mean candidate count, shared-column preference).  Returns ``(tables
-    (B, cap, C) int32 on device, counts (B,) host, cols)``.
+    (mean candidate count, shared-column preference).  Over a ``join``
+    device list of n devices the batch splits into n equal blocks (padded
+    with phantom members), each step runs on every block on its device in
+    lockstep (one pair bucket for all), and the compacted tables are
+    gathered back onto ``device`` in batch order; a member's table does not
+    depend on the split.  Returns ``(tables (B, cap, C) int32 on device,
+    counts (B,) host, cols)``.
     """
     bits = _device_key_bits(n_values)
     dedup = not assume_unique
@@ -489,14 +520,23 @@ def _join_candidates_device_batch(
     cnt = np.asarray([[c.shape[0] for c in grp] for grp in cand_groups], np.int64)  # (B, P)
     order = np.argsort(cnt.mean(axis=0), kind="stable")
     first = int(order[0])
+    shards = _join_shards(B, device)
 
-    def stack(i: int):
-        cap = _pow2(int(cnt[:, i].max()))
-        rows = _stack_candidates([grp[i] for grp in cand_groups], cap, len(plan_paths[i]), device)
-        return rows, torch.as_tensor(cnt[:, i], device=device)
+    def stack(i: int) -> tuple:
+        cap, width = _pow2(int(cnt[:, i].max())), len(plan_paths[i])
+        phantom = np.zeros((0, width), np.int32)
+        out = []
+        for lo, hi, dev in shards:
+            members = range(lo, hi)
+            rows = [cand_groups[b][i] if b < B else phantom for b in members]
+            counts = [int(cnt[b, i]) if b < B else 0 for b in members]
+            out.append((_stack_candidates(rows, cap, width, dev),
+                        torch.as_tensor(counts, dtype=torch.int64, device=dev)))
+        return _unzip(out)
 
-    tables, valids, counts_dev = _init_body(*stack(first), bits=bits, n_values=n_values, dedup=dedup)
-    counts = counts_dev.cpu().numpy()
+    tables, valids, counts_dev = _unzip([
+        _init_body(c, n, bits=bits, n_values=n_values, dedup=dedup) for c, n in zip(*stack(first))])
+    counts = _host_rows(counts_dev)
     cols = list(plan_paths[first])
     remaining = [int(i) for i in order[1:]]
     while remaining and counts.max() > 0:
@@ -517,15 +557,16 @@ def _join_candidates_device_batch(
         cstack, ccounts = stack(nxt)
         if shared:
             guess_key = (
-                n_values, t_idx, c_idx, n_idx, tuple(tables.shape[1:]), tuple(cstack.shape[1:])
+                n_values, t_idx, c_idx, n_idx, tuple(tables[0].shape[1:]),
+                tuple(cstack[0].shape[1:]),
             )
-            cap = _pow2(_CAP_GUESS.get(guess_key, cstack.shape[1]))
+            cap = _pow2(_CAP_GUESS.get(guess_key, cstack[0].shape[1]))
             for _ in range(2):  # second pass only on a cold/overflowed guess
-                tables2, valids2, counts_dev, totals = _joinstep_body(
-                    tables, cstack, ccounts, cap=cap, t_idx=t_idx, c_idx=c_idx, n_idx=n_idx,
-                    bits=bits, n_values=n_values, dedup=dedup,
-                )
-                synced = torch.stack([totals, counts_dev]).cpu().numpy()
+                tables2, valids2, counts_dev, totals = _unzip([
+                    _joinstep_body(t, c, n, cap=cap, t_idx=t_idx, c_idx=c_idx, n_idx=n_idx,
+                                   bits=bits, n_values=n_values, dedup=dedup)
+                    for t, c, n in zip(tables, cstack, ccounts)])
+                synced = _host_rows([torch.stack([t, n]) for t, n in zip(totals, counts_dev)])
                 tmax = int(synced[0].max())
                 if tmax <= cap:
                     break
@@ -541,17 +582,21 @@ def _join_candidates_device_batch(
             tables, valids = tables2, valids2
             counts = synced[1]
         else:
-            tables, valids, counts_dev = _cartesian_body(
-                tables, valids, cstack, ccounts, n_idx=n_idx, bits=bits, n_values=n_values,
-                dedup=dedup,
-            )
-            counts = counts_dev.cpu().numpy()
+            tables, valids, counts_dev = _unzip([
+                _cartesian_body(t, v, c, n, n_idx=n_idx, bits=bits, n_values=n_values,
+                                dedup=dedup)
+                for t, v, c, n in zip(tables, valids, cstack, ccounts)])
+            counts = _host_rows(counts_dev)
         cols = cols + new_cols
     # one end-of-join compaction: refine/fetch work scales with the real
     # row counts from here on, not the last pair bucket
-    tables, counts_dev = _compact_body(tables, valids, n_values=n_values)
-    counts = counts_dev.cpu().numpy().astype(np.int64)
-    return tables[:, : _pow2(int(max(counts.max(), 1)))], counts, cols
+    tables, counts_dev = _unzip([_compact_body(t, v, n_values=n_values)
+                                 for t, v in zip(tables, valids)])
+    counts = _host_rows(counts_dev).astype(np.int64)[:B]
+    cut = _pow2(int(max(counts.max(), 1)))
+    if len(tables) == 1:
+        return tables[0][:, :cut], counts, cols
+    return torch.cat([t[:, :cut].to(device) for t in tables])[:B], counts, cols
 
 
 def _join_candidates_device(
@@ -566,7 +611,7 @@ def _join_candidates_device(
 
 # ---- device refine: batched edge membership ------------------------------
 
-_DEV_EDGE_CACHE: dict = {}  # id(graph) -> (device, variant, ops, steps, labels)
+_DEV_EDGE_CACHE: dict = {}  # id(graph) -> {device: (variant, ops, steps, labels)}
 
 # adjacency rows at or below this width use the dense padded-neighbor
 # table (one gather + compare-reduce); hub-heavy graphs above it take the
@@ -575,7 +620,7 @@ _DENSE_ADJ_MAX_DEG = 64
 
 
 def _edge_tensors_device(g: Graph, device):
-    """Adjacency + vertex labels on ``device``, cached per graph.
+    """Adjacency + vertex labels on ``device``, cached per (graph, device).
 
     Two membership layouts, picked by max degree at build:
 
@@ -585,8 +630,9 @@ def _edge_tensors_device(g: Graph, device):
         ``log2(max_degree)`` steps, for graphs whose hubs would make the
         dense table too wide.
     """
-    cached = _DEV_EDGE_CACHE.get(id(g))
-    if cached is None or cached[0] != device:
+    per_dev = _DEV_EDGE_CACHE.get(id(g))
+    cached = None if per_dev is None else per_dev.get(str(device))
+    if cached is None:
         max_deg = int(g.degrees.max()) if g.n_vertices else 0
         if max_deg <= _DENSE_ADJ_MAX_DEG:
             adj = np.full((g.n_vertices, max(max_deg, 1)), -1, np.int32)
@@ -604,11 +650,11 @@ def _edge_tensors_device(g: Graph, device):
                 "nbrs": torch.from_numpy(g.nbrs.astype(np.int32)).to(device),
             }
         labels = torch.from_numpy(g.labels.astype(np.int32)).to(device)
-        if id(g) not in _DEV_EDGE_CACHE:
+        if per_dev is None:
+            per_dev = _DEV_EDGE_CACHE[id(g)] = {}
             weakref.finalize(g, _DEV_EDGE_CACHE.pop, id(g), None)
-        cached = (device, variant, ops, max(max_deg, 1).bit_length(), labels)
-        _DEV_EDGE_CACHE[id(g)] = cached
-    return cached[1:]
+        cached = per_dev[str(device)] = (variant, ops, max(max_deg, 1).bit_length(), labels)
+    return cached
 
 
 def _edges_member(variant: str, ops: dict, deg_steps: int, du, dv):
@@ -683,34 +729,49 @@ def _refine_device_batch(
 
     ``colperms[b, v]`` names the table column holding query b's vertex v
     (grouped joins run in canonical space, so isomorphic members need
-    different maps); default = undo the join column order only."""
+    different maps); default = undo the join column order only.  Over a
+    ``join`` device list the batch splits as the join's does, each block
+    verified on its device, the rows gathered in batch order."""
     B, nq = qlab.shape
     if not counts.max():
         return [np.zeros((0, nq), np.int32) for _ in range(B)]
     assert sorted(cols) == list(range(nq)), f"join must cover all query vertices, got {cols}"
     if colperms is None:
         colperms = np.broadcast_to(np.argsort(np.asarray(cols)), (B, nq))
-    dev = tables.device
-    variant, ops, deg_steps, labels = _edge_tensors_device(g, dev)
+    shards = _join_shards(B, tables.device)
+    b_pad = shards[-1][1]
 
     def padded(arrs: list, floor: int):
         n_max = max(a.shape[0] for a in arrs)
-        out = np.zeros((B, _pow2(n_max, floor=floor) if n_max else 0, 2), np.int32)
+        out = np.zeros((b_pad, _pow2(n_max, floor=floor) if n_max else 0, 2), np.int32)
         for b, a in enumerate(arrs):
             out[b, : a.shape[0]] = a
-        n = np.asarray([a.shape[0] for a in arrs], np.int64)
-        return torch.from_numpy(out).to(dev), torch.from_numpy(n).to(dev)
+        n = np.zeros(b_pad, np.int64)
+        n[:B] = [a.shape[0] for a in arrs]
+        return torch.from_numpy(out), torch.from_numpy(n)
 
-    qe, n_qe = padded(edges, 4)
-    qnon, n_qn = padded(non_edges, 4)
-    rows, ok = _refine_body(
-        tables, torch.from_numpy(counts).to(dev), torch.from_numpy(np.ascontiguousarray(qlab)).to(dev),
-        qe, n_qe, qnon, n_qn,
-        torch.from_numpy(np.ascontiguousarray(colperms).astype(np.int64)).to(dev),
-        ops, labels, variant=variant, deg_steps=deg_steps,
-    )
-    per = ok.sum(dim=1).cpu().tolist()
-    return list(torch.split(rows[ok].cpu(), per))
+    def pad(a: np.ndarray):  # phantom members: zero labels, maps and counts
+        return np.concatenate([a, np.zeros((b_pad - B,) + a.shape[1:], a.dtype)])
+
+    host = dict(zip(("qe", "n_qe"), padded(edges, 4)))
+    host.update(zip(("qnon", "n_qn"), padded(non_edges, 4)))
+    host["counts"] = torch.from_numpy(pad(np.asarray(counts, np.int64)))
+    host["qlab"] = torch.from_numpy(pad(np.ascontiguousarray(qlab)))
+    host["inv"] = torch.from_numpy(pad(np.ascontiguousarray(colperms).astype(np.int64)))
+    phantom = torch.zeros((b_pad - B,) + tuple(tables.shape[1:]), dtype=tables.dtype,
+                          device=tables.device)
+    out = []
+    for lo, hi, dev in shards:
+        t = torch.cat([tables, phantom])[lo:hi] if hi > B else tables[lo:hi]
+        a = {k: v[lo:hi].to(dev) for k, v in host.items()}
+        variant, ops, deg_steps, labels = _edge_tensors_device(g, dev)
+        rows, ok = _refine_body(
+            t.to(dev), a["counts"], a["qlab"], a["qe"], a["n_qe"], a["qnon"], a["n_qn"],
+            a["inv"], ops, labels, variant=variant, deg_steps=deg_steps,
+        )
+        per = ok.sum(dim=1).cpu().tolist()
+        out += list(torch.split(rows[ok].cpu(), per))
+    return out[:B]
 
 
 def _refine_device(

@@ -20,9 +20,12 @@ blocks per level and level count, so they stack by padding:
   * the group sidecar of a grouped index re-tiles onto ``gpb`` fixed slots
     per leaf block, so a block's groups are one ``repeat_interleave`` of
     its survival; unused slots carry reject bounds and zero members;
-  * slots follow ``plan_shards``' largest-first order (one shard: one card),
-    so slot ``s`` is not partition ``s``: ``slot_of[i]`` maps engine
-    partition ``i`` to its slot.
+  * slots follow ``plan_shards``: over ``n_shards`` shards (the devices of
+    the probe's ``part`` list) the partitions go largest first onto the
+    least-loaded shard, shard ``k`` owning slots ``[k·per, (k+1)·per)``
+    with filler slots where a shard holds fewer, as the JAX package lays
+    them out; so slot ``s`` is not partition ``s``: ``slot_of[i]`` maps
+    engine partition ``i`` to its slot.
 
 Padding is the price of density; ``padding_stats()`` reports it and the
 engine records it in ``offline_stats`` (``stacked_*`` keys).  After a
@@ -40,7 +43,7 @@ from .index import NO_SIDECAR, PackedIndex, _eps, _nbytes
 
 __all__ = [
     "StackedIndex", "StackedGroups", "build_stacked", "plan_shards", "restack_slot",
-    "stacked_masks_ref",
+    "stacked_masks_ref", "default_slot_of",
 ]
 
 
@@ -93,13 +96,26 @@ def plan_shards(sizes, n_shards: int) -> list[list[int]]:
     return shards
 
 
-def default_slot_of(sizes) -> np.ndarray:
+def default_slot_of(sizes, n_shards: int = 1) -> np.ndarray:
     """The slot layout ``build_stacked`` picks for partitions of ``sizes``
-    paths when given none: one shard, largest partition first."""
+    paths over ``n_shards`` shards when given none: ``plan_shards``' members
+    in order, shard ``k`` from slot ``k · per_shard`` (one shard: largest
+    partition first)."""
     sizes = np.asarray(sizes, np.int64)
+    shards = plan_shards(sizes, max(n_shards, 1))
+    per_shard = max(max((len(m) for m in shards), default=0), 1)
     slot_of = np.zeros(len(sizes), np.int64)
-    slot_of[plan_shards(sizes, 1)[0]] = np.arange(len(sizes))
+    for si, members in enumerate(shards):
+        slot_of[members] = si * per_shard + np.arange(len(members))
     return slot_of
+
+
+def _slot_count(slot_of, n_shards: int = 1) -> int:
+    """The slots a layout needs over ``n_shards`` shards: its highest slot
+    plus one, rounded up to a multiple of the shard count."""
+    n = max(n_shards, 1)
+    top = int(np.max(slot_of)) + 1 if len(slot_of) else 1
+    return -(-top // n) * n
 
 
 @dataclasses.dataclass
@@ -122,12 +138,14 @@ class StackedGroups:
 class StackedIndex:
     """All partitions' packed forests as dense (S, …) tensors on one device.
 
-    ``S = n_slots``: partitions sit in size-ordered slots, a partition
-    without paths in a filler slot (all-reject bounds); ``slot_of[i]``
-    (host) maps engine partition ``i`` to its slot.
+    ``S = n_slots``: partitions sit in size-ordered slots, ``n_shards``
+    equal runs of them, a partition without paths and a slot without a
+    partition a filler (all-reject bounds); ``slot_of[i]`` (host) maps
+    engine partition ``i`` to its slot.
     """
 
     n_parts: int
+    n_shards: int
     n_slots: int
     slot_of: np.ndarray  # (n_parts,) int64, host
     n_paths: torch.Tensor  # (S,) int64, 0 on filler slots
@@ -233,13 +251,15 @@ def _stack_groups(
     return StackedGroups(hi, lo0, hi0, start, count, gpb=gpb, group_size=group_size)
 
 
-def build_stacked(indexes: list, slot_of=None) -> StackedIndex:
+def build_stacked(indexes: list, n_shards: int = 1, slot_of=None) -> StackedIndex:
     """Pad-and-stack per-partition ``PackedIndex``es into a ``StackedIndex``
-    on their device, for one card (the JAX package's ``n_shards=1``).
+    on their device, laid out over ``n_shards`` shards (the JAX package's
+    ``build_stacked``).
 
-    ``slot_of`` (engine partition → slot, a permutation) keeps a given slot
-    layout, as a restored engine keeps its donor's; by default the slots
-    go largest partition first (``plan_shards``).
+    ``slot_of`` (engine partition → slot, distinct slots) keeps a given
+    slot layout, as a restored engine keeps its donor's whatever its shard
+    count, the slots then padded to a multiple of ``n_shards``; by default
+    the layout is ``plan_shards``' over ``n_shards``.
 
     Every index must come from one engine build (same ``block_size``,
     ``fanout``, feature widths and sidecars).  Zero-path indexes become
@@ -266,15 +286,18 @@ def build_stacked(indexes: list, slot_of=None) -> StackedIndex:
         if (ix.emb_q is not None) != quantized or (ix.label_hash is not None) != hashed:
             raise ValueError("stacked partitions must share the quantized sidecar")
 
-    # ---- slot layout: one shard, largest partition first -----------------
+    # ---- slot layout: shard-balanced, largest partition first --------------
+    n_shards = max(int(n_shards), 1)
     sizes = np.asarray([ix.n_paths for ix in indexes], np.int64)
-    n_slots = n_parts
     if slot_of is None:
-        slot_of = default_slot_of(sizes)
+        slot_of = default_slot_of(sizes, n_shards)
     else:
         slot_of = np.asarray(slot_of, np.int64).copy()
-        if sorted(slot_of.tolist()) != list(range(n_parts)):
-            raise ValueError(f"slot_of {slot_of.tolist()} is no permutation of {n_parts} slots")
+        if (slot_of.shape != (n_parts,) or len(set(slot_of.tolist())) != n_parts
+                or (slot_of < 0).any()):
+            raise ValueError(f"slot_of {slot_of.tolist()} does not give {n_parts} partitions "
+                             "distinct slots")
+    n_slots = _slot_count(slot_of, n_shards)
     n_paths = np.zeros(n_slots, np.int64)
     n_paths[slot_of] = sizes
     p_max = int(max(n_paths.max(), 1))
@@ -325,6 +348,7 @@ def build_stacked(indexes: list, slot_of=None) -> StackedIndex:
     groups = _stack_groups(indexes, slot_of, n_slots, level_hi[-1].shape[1], d_cat, d0)
     return StackedIndex(
         n_parts=n_parts,
+        n_shards=n_shards,
         n_slots=n_slots,
         slot_of=slot_of,
         n_paths=torch.as_tensor(n_paths, device=dev),

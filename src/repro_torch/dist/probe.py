@@ -1,5 +1,6 @@
-"""The stacked index probe on one device: one batched descent over every
-partition's stacked tensors, then one leaf stage across all of them.
+"""The stacked index probe: one batched descent over every partition's
+stacked tensors, split over the devices of a ``part`` list, then one leaf
+stage across all of them.
 
 ``core/stacked.py`` lays every partition's packed forest into dense
 (S, …) tensors; this module runs the online filter over them:
@@ -7,7 +8,13 @@ partition's stacked tensors, then one leaf stage across all of them.
   1. **device stage**: the level-synchronous MBR descent (Lemmas 4.3 and
      4.4) and, for a grouped index, the GNN-PGE group scan, as batched
      tensor ops over the leading slot dimension, with no Python loop over
-     partitions.  Queries go in chunks so that no intermediate exceeds
+     partitions.  Over a ``part`` list of n devices (the JAX package's
+     ``("part",)`` mesh: in-process, no collective in the math) the slots
+     split into the n equal runs ``build_stacked(n_shards=n)`` laid out,
+     each run's level and group bounds live on its device and descend
+     there, and the masks are concatenated in slot order on the first
+     device, where the indexes live.  Queries go in chunks so that no
+     intermediate exceeds
      ``_MASK_BUDGET`` bytes.  ``device_stage="numpy"`` runs the plain
      ``stacked_masks_ref`` instead (the JAX package's name for the switch);
   2. **leaf stage**: the surviving (slot, query, block or group) cells
@@ -30,8 +37,7 @@ package does.  Under live updates both take ``live_mask``, the engine's
 (S, P_max) tombstone mask, applied to the pairs after the prefilter, and
 ``update_slot`` re-stacks one compacted partition's slot.  A cluster host
 (``dist/cluster.py``) runs the same probe over a stack of just the
-partitions it owns.  The multi-card ``("part",)`` mesh is ROADMAP queue 1
-item 15b.
+partitions it owns.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from ..core import index as index_mod
 from ..core.index import NO_SIDECAR, _eps, _expand_segments, quantize_query
 from ..core.stacked import build_stacked, restack_slot, stacked_masks_ref
 from ..kernels.dominance_scan.ops import Segment
+from .context import mesh_devices
 
 __all__ = ["StackedProbe"]
 
@@ -49,9 +56,23 @@ _MASK_BUDGET = 256 << 20  # bytes of the largest descent intermediate
 _STAT_KEYS = tuple(index_mod._NO_GROUP_STATS)  # the loop probe's stats, grouped
 
 
+def _canon(d) -> torch.device:
+    """``d`` with the current card's index where it names none."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class StackedProbe:
     """Runs the probe over a ``StackedIndex`` built from ``indexes`` on
     their device (see the module doc).
+
+    ``devices``: the ``part`` list the descent splits over, its first entry
+    the indexes' device; None takes ``dist.context.mesh_devices("part",
+    ...)`` (the scoped list, else every visible card).  The slots are laid
+    out over its length (``build_stacked(n_shards=...)``), or as
+    ``slot_of`` gives them (a restored donor's layout).
 
     ``leaf_pair_cap`` bounds the cross-partition leaf expansion: the
     surviving cells expand in chunks of about ``cap`` (query, row) pairs,
@@ -60,11 +81,20 @@ class StackedProbe:
     ``cap``.  The rows are the same for any cap.
     """
 
-    def __init__(self, indexes: list, leaf_pair_cap: int = 1 << 21, slot_of=None):
+    def __init__(self, indexes: list, leaf_pair_cap: int = 1 << 21, slot_of=None,
+                 devices=None):
         if leaf_pair_cap < 1:
             raise ValueError(f"leaf_pair_cap must be >= 1, got {leaf_pair_cap}")
+        if not indexes:
+            raise ValueError("StackedProbe needs at least one PackedIndex")
+        home = indexes[0].emb.device
+        devices = mesh_devices("part", home) if devices is None else devices
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices or _canon(self.devices[0]) != _canon(home):
+            raise ValueError(f"the part list {self.devices} must start with the indexes' "
+                             f"device {home}")
         self.leaf_pair_cap = int(leaf_pair_cap)
-        self.stacked = build_stacked(indexes, slot_of)
+        self.stacked = build_stacked(indexes, len(self.devices), slot_of)
         st = self.stacked
         self._indexes = list(indexes)  # the hand-off's paths tensor is built from them
         self._paths: torch.Tensor | None = None
@@ -80,12 +110,22 @@ class StackedProbe:
     def _refresh(self) -> None:
         """The tensors derived from the stacked layout: the groups present in
         each leaf block, (S, B_leaf) (the group pairs a surviving block
-        costs), and the path total."""
+        costs), the path total, and each shard's slot run with its level and
+        group bounds on its device."""
         st = self.stacked
         self._gib = None
         if st.groups is not None:
             self._gib = (st.groups.count.reshape(st.n_slots, -1, st.groups.gpb) > 0).sum(dim=2)
         self._total_paths = int(st.n_paths.sum())
+        per = st.n_slots // len(self.devices)
+        self._shards = []
+        for k, dev in enumerate(self.devices):
+            run = slice(k * per, (k + 1) * per)
+            levels = [tuple(t[run].to(dev) for t in b)
+                      for b in zip(st.level_hi, st.level_lo0, st.level_hi0)]
+            g = st.groups
+            groups = None if g is None else tuple(t[run].to(dev) for t in (g.hi, g.lo0, g.hi0))
+            self._shards.append((run, dev, levels, groups))
 
     def update_slot(self, part_i: int, index) -> bool:
         """Elastic re-stacking after partition ``part_i`` compacted: only its
@@ -136,21 +176,35 @@ class StackedProbe:
     # ------------------------------------------------------------------
     def _device_masks(self, q_cat, q0, eps: float, device_stage: str, use_groups: bool = False):
         """(S, Q, Dcat/D0) query tensors → (alive (S, Q, B_leaf), gkeep (S,
-        Q, G) or None)."""
+        Q, G) or None), on the indexes' device: each shard's run of slots
+        descends on its own device, the masks concatenated in slot order."""
         if device_stage == "numpy":
             return stacked_masks_ref(self.stacked, q_cat, q0, eps, use_groups)
         if device_stage != "batched":
             raise ValueError(f"unknown device_stage {device_stage!r}; use 'batched' or 'numpy'")
+        home = self.stacked.device
+        alive, gkeep = [], []
+        for run, dev, levels, groups in self._shards:
+            a, g = self._descend(levels, groups if use_groups else None,
+                                 q_cat[run].to(dev), q0[run].to(dev), eps)
+            alive.append(a.to(home))
+            gkeep.append(None if g is None else g.to(home))
+        if len(alive) == 1:
+            return alive[0], gkeep[0]
+        return torch.cat(alive), (torch.cat(gkeep) if use_groups else None)
+
+    def _descend(self, levels: list, groups, q_cat, q0, eps: float):
+        """The dense descent of one run of slots on its device: (alive (s, Q,
+        B_leaf), gkeep (s, Q, G) or None)."""
         st = self.stacked
-        e = _eps(eps, st.device)
+        e = _eps(eps, q_cat.device)
 
         def widened(hi, lo0, hi0):
             # the float32 ``bound ± eps`` the compares need, once a call
             return (hi + e)[:, None], (hi0 + e)[:, None], (lo0 - e)[:, None]
 
-        levels = [widened(*b) for b in zip(st.level_hi, st.level_lo0, st.level_hi0)]
-        g = st.groups if use_groups else None
-        bounds = levels + ([widened(g.hi, g.lo0, g.hi0)] if g is not None else [])
+        levels = [widened(*b) for b in levels]
+        bounds = levels + ([widened(*groups)] if groups is not None else [])
         S, Q = q_cat.shape[:2]
         widest = max(hi.shape[2] for hi, _, _ in bounds) * max(q_cat.shape[2], q0.shape[2])
         qc = max(1, _MASK_BUDGET // max(S * widest, 1))
@@ -172,10 +226,11 @@ class StackedProbe:
                     m &= alive.repeat_interleave(st.fanout, dim=2)[:, :, : m.shape[2]]
                 alive = m
             alive_out.append(alive)
-            if g is not None:
-                gkeep_out.append(alive.repeat_interleave(g.gpb, dim=2) & passes(*bounds[-1]))
+            if groups is not None:
+                gkeep_out.append(alive.repeat_interleave(st.groups.gpb, dim=2)
+                                 & passes(*bounds[-1]))
         alive = torch.cat(alive_out, dim=1)
-        return alive, (torch.cat(gkeep_out, dim=1) if g is not None else None)
+        return alive, (torch.cat(gkeep_out, dim=1) if groups is not None else None)
 
     # ------------------------------------------------------------------
     # leaf stage: cells → (query, row) pairs → prefilter → K1

@@ -361,12 +361,14 @@ def restore_subscriptions(meta: dict, arrays: dict) -> dict:
 
 def _next_slot_of(engine: GnnPeEngine, meta: dict) -> list | None:
     """The slot layout the engine's next stacked probe runs on: the built
-    probe's, else ``build_stacked``'s default for the current index sizes."""
+    probe's, else ``build_stacked``'s default for the current index sizes
+    over the engine's ``part`` list."""
     if meta[_SLOT_KEY] is not None:
         return meta[_SLOT_KEY]
     if not engine.models:
         return None
-    return [int(s) for s in default_slot_of([m.index.n_paths for m in engine.models])]
+    return [int(s) for s in default_slot_of([m.index.n_paths for m in engine.models],
+                                             len(engine.part_devices()))]
 
 
 def engine_fingerprint(engine: GnnPeEngine) -> str:

@@ -1,0 +1,42 @@
+"""Meshes of processes over the current process group.
+
+``make_mesh(shape, names)`` lays the group's ranks row-major over a
+``torch.distributed.device_mesh.DeviceMesh`` with named dims;
+``make_local_mesh(data, model)`` is the JAX package's ``("data",
+"model")`` test mesh.  Each runs on the card unless asked for the CPU
+(``device="cpu"``, the gloo tests); the process group must exist and
+hold exactly the mesh's ranks.  The production mesh waits for the
+dry-run, its only caller.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from ..device import default_device
+
+__all__ = ["make_mesh", "make_local_mesh"]
+
+
+def make_mesh(shape, names, device=None):
+    """A ``DeviceMesh`` of ``shape`` with dims ``names`` over every rank of the
+    default process group, rank r at the row-major coordinate of r."""
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group")
+    n = dist.get_world_size()
+    if math.prod(shape) != n:
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, the group has {n}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = default_device(device)
+    return DeviceMesh(dev.type, torch.arange(n).view(shape), mesh_dim_names=names)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device=None):
+    """A ``("data", "model")`` mesh of ``data × model`` ranks (the tests' mesh)."""
+    return make_mesh((data, model), ("data", "model"), device)

@@ -15,7 +15,7 @@ from .gnn import (
     segment_sum,
 )
 from .gnn_partition import build_partition_batch, partition_gnn_loss, sum_over_ranks
-from .moe import MoEConfig, init_moe_params, moe_block
+from .moe import MoEConfig, init_moe_params, moe_block, moe_grad_sync, moe_token_spec
 from .recsys import (
     RecsysConfig,
     dcn_forward,
@@ -29,9 +29,12 @@ from .transformer import (
     cast_params,
     chunked_lm_head_loss,
     decode_step,
+    expert_parallel_specs,
     init_cache,
     init_lm_params,
     lm_forward,
+    lm_grad_sync,
+    lm_layers,
     lm_loss,
 )
 
@@ -57,10 +60,15 @@ __all__ = [
     "MoEConfig",
     "init_moe_params",
     "moe_block",
+    "moe_token_spec",
+    "moe_grad_sync",
     "init_lm_params",
     "cast_params",
     "lm_forward",
     "lm_loss",
+    "lm_layers",
+    "lm_grad_sync",
+    "expert_parallel_specs",
     "chunked_lm_head_loss",
     "cross_entropy_loss",
     "init_cache",

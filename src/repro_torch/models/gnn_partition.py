@@ -8,9 +8,9 @@ boundary rows (the nodes other shards' edges read): one all-gather of
 and local edges aggregate over [local ∪ halo] rows with no other
 communication.
 
-The collectives stage through the host: gloo has no all-gather of CUDA
-tensors, so the boundary rows (and in the backward their gradients) are
-copied to the host, exchanged, and copied back.  ``build_partition_batch``
+The collectives are ``dist/collectives.py``'s: under gloo the boundary
+rows (and in the backward their gradients) are staged through the host,
+since gloo has no all-gather of CUDA tensors.  ``build_partition_batch``
 builds the metadata from a real ``Partitioning``, array for array as the
 reference does.
 """
@@ -18,50 +18,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from ..dist import collectives as coll
 from .gnn import CHUNK_ELEMENTS, GNNConfig, _aggregate, _mlp_apply, _nll, _sorted_edges
 
 __all__ = ["partition_gnn_loss", "build_partition_batch", "sum_over_ranks"]
-
-
-def _world(group) -> tuple[int, int]:
-    """(this process's rank, the group's size); (0, 1) without a process group."""
-    if not (dist.is_available() and dist.is_initialized()):
-        return 0, 1
-    return dist.get_rank(group), dist.get_world_size(group)
-
-
-def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Σ over the group's ranks of ``x``, through a host copy."""
-    if _world(group)[1] == 1:
-        return x
-    host = x.detach().to("cpu", copy=True).contiguous()
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-    return host.to(x.device)
-
-
-class _HaloExchange(torch.autograd.Function):
-    """Forward: every rank's (B, C) boundary block, concatenated in rank
-    order → (m·B, C).  Backward: this rank's block of the gradient summed
-    over ranks (every rank read it)."""
-
-    @staticmethod
-    def forward(ctx, bound, group):
-        rank, size = _world(group)
-        ctx.group, ctx.rank, ctx.rows = group, rank, bound.shape[0]
-        if size == 1:
-            return bound.clone()
-        host = bound.detach().to("cpu", copy=True).contiguous()
-        parts = [torch.empty_like(host) for _ in range(size)]
-        dist.all_gather(parts, host, group=group)
-        return torch.cat(parts).to(bound.device)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        total = _all_reduce_sum(grad, ctx.group)
-        return total[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
 
 
 def _forward_local(params, cfg: GNNConfig, x_loc, halo_flat, edge_index, boundary_index, group):
@@ -73,7 +34,7 @@ def _forward_local(params, cfg: GNNConfig, x_loc, halo_flat, edge_index, boundar
     chunk = CHUNK_ELEMENTS // h.shape[1]  # every kind only sums H-wide rows here
     for p in params["layers"]:
         # the halo exchange: publish the boundary rows, gather every rank's blocks
-        all_b = _HaloExchange.apply(h.index_select(0, boundary_index.long()), group)
+        all_b = coll.all_gather(h.index_select(0, boundary_index.long()), group)
         h_ext = torch.cat([h, all_b.index_select(0, halo_flat.long())])
         if cfg.kind == "gin":
             nbr = _aggregate(h_ext, edges, "sum", chunk)
@@ -106,7 +67,7 @@ def partition_gnn_loss(params, cfg: GNNConfig, batch, group=None):
                             batch["edge_index"][0], batch["boundary_index"][0], group)
     m = batch["label_mask"][0].float()
     loss_sum = torch.sum(_nll(logits, batch["labels"][0]) * m)
-    totals = _all_reduce_sum(torch.stack([loss_sum.detach(), m.sum()]), group)
+    totals = coll.all_reduce_sum(torch.stack([loss_sum.detach(), m.sum()]), group)
     cnt = torch.clamp(totals[1], min=1.0)
     share = loss_sum / cnt
     return share + (totals[0] / cnt - share).detach(), {}
@@ -117,11 +78,11 @@ def sum_over_ranks(tree, group=None):
     all-reduce (the partition loss's gradients before the optimizer)."""
     from ..train.functional import tree_leaves, tree_unflatten  # train imports models
 
-    if _world(group)[1] == 1:
+    if coll.world(group)[1] == 1:
         return tree
     leaves = tree_leaves(tree)
-    flat = torch.cat([x.detach().reshape(-1).float().cpu() for x in leaves])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = coll.all_reduce_sum(torch.cat([x.detach().reshape(-1).float().cpu() for x in leaves]),
+                               group)
     out, at = [], 0
     for x in leaves:
         out.append(flat[at:at + x.numel()].reshape(x.shape).to(x.device, x.dtype))

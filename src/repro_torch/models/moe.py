@@ -19,19 +19,47 @@ dropped entry gets weight 0.  The combine adds up to K weighted expert
 outputs a token in the compute dtype; on the card ``index_add_`` does that
 with atomics, so its bf16 rounding order varies from run to run.
 
-Expert parallelism over processes (the reference's ``shard_map`` branch)
-belongs to the meshes across cards, ROADMAP item 15b; ``fsdp`` is kept as
-a field and means nothing on one card.
+Expert parallelism (``mesh=``, the reference's ``shard_map`` branch) runs
+over a mesh of processes (a ``DeviceMesh`` with a ``model`` dim of more
+than one rank), each rank with its own block of every tensor:
+
+  * the tokens it sees, ``x2d``: its block of the data axes' split
+    (``moe_token_spec`` gives the reference's rule: the tokens replicated
+    where their count does not split over the data axes);
+  * the experts ``[e_start, e_start + E/n)`` of its ``model`` coordinate,
+    and with ``fsdp`` their hidden dim split over ``data`` as well
+    (``dist.sharding.lm_param_specs``), all-gathered in the compute dtype
+    just in time; the router and the shared experts whole.
+
+Each rank routes its tokens over every expert, at a capacity of the tokens
+it sees (per data shard, as the reference), dispatches those routed to its
+own experts, and one sum over ``model`` combines the partial outputs
+(``dist.collectives.sum_over``: its backward passes the gradient through,
+as ``psum``'s transpose does).  The tokens enter the split work through
+``copy_to`` (identity forward, a sum over ``model`` backward), so their
+gradient is whole on every rank; the shared experts run outside the split,
+on every token.  ``aux`` is the sum over ``model`` of each rank's aux over
+``n``: the aux of this rank's tokens, its gradient split over the ranks.
+
+The gradients a rank's backward leaves are its own shares:
+``moe_grad_sync`` sums each leaf over exactly the ranks whose shares
+differ (every leaf over the data axes but the ``fsdp`` experts, whose
+all-gather's backward already summed them; the router over ``model`` as
+well: each rank's share covers only its experts' entries).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from ..dist import collectives as coll
+from ..dist.sharding import DP, P
 from .common import dense_init
 
-__all__ = ["MoEConfig", "init_moe_params", "moe_block"]
+__all__ = ["MoEConfig", "init_moe_params", "moe_block", "dispatch_plan", "moe_token_spec",
+           "moe_grad_sync"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +70,7 @@ class MoEConfig:
     n_shared: int = 0
     capacity_factor: float = 1.25
     norm_topk: bool = True  # renormalize the top-k gate weights to sum 1
-    fsdp: bool = False  # expert weights sharded over 'data' across cards (item 15b)
+    fsdp: bool = False  # under a mesh, the expert weights' hidden dim sharded over 'data' too
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, mcfg: MoEConfig,
@@ -89,38 +117,122 @@ def dispatch_plan(topi, topv, mcfg: MoEConfig) -> dict:
             "weight": topv.reshape(-1)[order], "rank": rank, "keep": rank < cap}
 
 
-def _dispatch_compute(x, params: dict, mcfg: MoEConfig):
-    """(T, D) tokens in the compute dtype → (the routed experts' output (T, D),
-    aux): dispatch into the (E, cap, D) buffer, the expert SwiGLUs as batched
-    products, the weighted outputs added back onto their tokens."""
+def _dispatch_compute(x, router, w1, w3, w2, mcfg: MoEConfig, e_start: int = 0):
+    """(T, D) tokens in the compute dtype → (the output (T, D) of the experts
+    ``[e_start, e_start + E_loc)`` whose weights ``w1``, ``w3``, ``w2`` are
+    (E_loc leading), aux): every token routed over all E experts, the
+    capacity of T tokens; the entries routed to these experts dispatched
+    into the (E_loc, cap, D) buffer, the expert SwiGLUs as batched products,
+    the weighted outputs added back onto their tokens."""
     T, D = x.shape
-    E, dtype = mcfg.n_experts, x.dtype
-    topi, topv, aux = _route(x, params["router"], mcfg)
+    dtype, e_local = x.dtype, w1.shape[0]
+    topi, topv, aux = _route(x, router, mcfg)
     plan = dispatch_plan(topi, topv, mcfg)
-    cap, keep, st = plan["cap"], plan["keep"], plan["token"]
-    # each entry's row of the flat (E·cap, D) buffer; a dropped one reads expert 0's last
-    # slot, weighted 0, as the reference's does
-    row = torch.where(keep, plan["expert"] * cap + plan["rank"], cap - 1)
-    # every kept entry writes its own row; the dropped ones write a spare row past the
-    # buffer, where the reference adds zeros into expert 0's last slot: the same buffer
-    buf = torch.zeros((E * cap + 1, D), dtype=dtype, device=x.device)
-    buf[torch.where(keep, row, E * cap)] = x[st].to(dtype)
-    buf = buf[:-1].view(E, cap, D)
-    a = torch.bmm(buf, params["w1"].to(dtype))
-    h = a * torch.sigmoid(a) * torch.bmm(buf, params["w3"].to(dtype))
-    y = torch.bmm(h, params["w2"].to(dtype)).view(E * cap, D)
-    back = y[row] * torch.where(keep, plan["weight"], 0.0).to(dtype)[:, None]
+    cap, st, se = plan["cap"], plan["token"], plan["expert"]
+    local = plan["keep"] & (se >= e_start) & (se < e_start + e_local)
+    # each entry's row of the flat (E_loc·cap, D) buffer; an entry dropped or routed
+    # elsewhere reads local expert 0's last slot, weighted 0, as the reference's does
+    row = torch.where(local, (se - e_start) * cap + plan["rank"], cap - 1)
+    # every local entry writes its own row; the others write a spare row past the
+    # buffer, where the reference adds zeros into local expert 0's last slot: the same
+    buf = torch.zeros((e_local * cap + 1, D), dtype=dtype, device=x.device)
+    buf[torch.where(local, row, e_local * cap)] = x[st].to(dtype)
+    buf = buf[:-1].view(e_local, cap, D)
+    a = torch.bmm(buf, w1.to(dtype))
+    h = a * torch.sigmoid(a) * torch.bmm(buf, w3.to(dtype))
+    y = torch.bmm(h, w2.to(dtype)).view(e_local * cap, D)
+    back = y[row] * torch.where(local, plan["weight"], 0.0).to(dtype)[:, None]
     out = torch.zeros((T, D), dtype=dtype, device=x.device).index_add(0, st, back)
     return out, aux
 
 
-def moe_block(x2d, params: dict, mcfg: MoEConfig):
+def _model_axis(mesh) -> int:
+    """The size of ``mesh``'s ``model`` dim (1 without one)."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def _data_axes(mesh) -> tuple:
+    names = mesh.mesh_dim_names or ()
+    return tuple(a for a in DP if a in names and mesh.size(names.index(a)) > 1)
+
+
+def moe_token_spec(n_tokens: int, mesh) -> P:
+    """How ``moe_block``'s tokens split over ``mesh``: over the data axes
+    (pod × data) where ``n_tokens`` divides by their size, else replicated
+    (a batch-1 decode step), as the reference lays them out."""
+    names = mesh.mesh_dim_names or ()
+    axes = tuple(a for a in DP if a in names)
+    size = math.prod(mesh.size(names.index(a)) for a in axes)
+    return P(axes, None) if axes and n_tokens % size == 0 else P(None, None)
+
+
+def _fsdp(mcfg: MoEConfig, mesh) -> bool:
+    names = mesh.mesh_dim_names or ()
+    return mcfg.fsdp and "data" in names and mesh.size(names.index("data")) > 1
+
+
+def _expert_parallel(x2d, params: dict, mcfg: MoEConfig, mesh):
+    n = _model_axis(mesh)
+    if mcfg.n_experts % n:
+        raise ValueError(f"{mcfg.n_experts} experts do not split over {n} model ranks")
+    e_local = mcfg.n_experts // n
+    if params["w1"].shape[0] != e_local:
+        raise ValueError(f"this rank holds {params['w1'].shape[0]} experts, the mesh gives it "
+                         f"{e_local}: pass its block (dist.sharding.shard_tree)")
+    model = mesh.get_group("model")
+    dtype = x2d.dtype
+    w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if _fsdp(mcfg, mesh):
+        # ZeRO-3: the hidden dim arrives split over 'data'; gathered just in time, cast
+        # first to halve the bytes
+        data = mesh.get_group("data")
+        w1, w3, w2 = (coll.all_gather(w.to(dtype), data, dim=1) for w in (w1, w3, w2))
+    x = coll.copy_to(x2d, model)
+    e_start = mesh.get_local_rank("model") * e_local
+    out, aux = _dispatch_compute(x, params["router"], w1, w3, w2, mcfg, e_start)
+    return coll.sum_over(out, model), coll.sum_over(aux, model) / n
+
+
+def moe_block(x2d, params: dict, mcfg: MoEConfig, mesh=None):
     """x2d (T, D) → (out (T, D) in x2d's dtype, aux float32): the routed
-    experts plus the shared experts, every expert on this card."""
-    out, aux = _dispatch_compute(x2d, params, mcfg)
+    experts plus the shared experts.  ``mesh=None`` (or a mesh without a
+    ``model`` dim of more than one rank): every expert on this card; else
+    expert parallelism over ``mesh`` (the module doc), ``x2d`` and
+    ``params`` this rank's blocks."""
+    if mesh is not None and _model_axis(mesh) > 1:
+        out, aux = _expert_parallel(x2d, params, mcfg, mesh)
+    else:
+        out, aux = _dispatch_compute(x2d, params["router"], params["w1"], params["w3"],
+                                     params["w2"], mcfg)
     if mcfg.n_shared:
         dtype = x2d.dtype
         a = x2d @ params["shared_w1"].to(dtype)
         h = a * torch.sigmoid(a) * (x2d @ params["shared_w3"].to(dtype))
         out = out + h @ params["shared_w2"].to(dtype)
     return out, aux
+
+
+def moe_grad_sync(grads: dict, mcfg: MoEConfig, mesh) -> dict:
+    """A rank's gradients of its MoE block's params (its blocks, as
+    ``moe_block`` took them) → each leaf's gradient over every rank's tokens:
+    the leaf summed over the ranks whose shares differ.  Every leaf over the
+    data axes (each data shard routed other tokens) but the ``fsdp``
+    experts, which the all-gather's backward summed; the router over
+    ``model`` too (each rank's share covers its own experts' entries).  The
+    shared experts and a replicated router's aux share are the same on every
+    ``model`` rank, so they are not summed there."""
+    if mesh is None or _model_axis(mesh) == 1 and not _data_axes(mesh):
+        return grads
+    names = mesh.mesh_dim_names
+    fsdp = _fsdp(mcfg, mesh)
+    out = {}
+    for name, g in grads.items():
+        axes = [] if fsdp and name in ("w1", "w3", "w2") else list(_data_axes(mesh))
+        if name == "router" and _model_axis(mesh) > 1:
+            axes.append("model")
+        for a in axes:
+            if a in names:
+                g = coll.all_reduce_sum(g, mesh.get_group(a))
+        out[name] = g
+    return out

@@ -54,7 +54,9 @@ __all__ = [
     "init_lm_params",
     "cast_params",
     "lm_forward",
+    "lm_layers",
     "lm_loss",
+    "lm_grad_sync",
     "chunked_lm_head_loss",
     "init_cache",
     "decode_step",
@@ -262,50 +264,61 @@ def _attn_train(x, p, cfg: TransformerConfig, positions, is_global: bool):
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
-def _mlp(x, p, cfg: TransformerConfig):
+def _mlp(x, p, cfg: TransformerConfig, mesh=None):
     """The FFN of x (B, S, D) → (out, the MoE aux loss, 0 for a dense layer).
     Dense: SiLU GLU, ``silu(x W1) ⊙ (x W3) W2``, each product rounded to x's
     dtype (each weight cast to it where used: a no-op for serving's params);
-    MoE: ``moe_block`` over the B·S tokens."""
+    MoE: ``moe_block`` over the B·S tokens, expert-parallel over ``mesh``."""
     if "moe" in p:
         B, S, D = x.shape
-        out, aux = moe_block(x.reshape(B * S, D), p["moe"], cfg.moe)
+        out, aux = moe_block(x.reshape(B * S, D), p["moe"], cfg.moe, mesh)
         return out.view(B, S, D), aux
     a = x @ p["w1"].to(x.dtype)
     h = a * torch.sigmoid(a) * (x @ p["w3"].to(x.dtype))
     return h @ p["w2"].to(x.dtype), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool):
+def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool, mesh=None):
     x = x + _attn_train(rms_norm(x, p["norm1"]), p, cfg, positions, is_global)
-    y, aux = _mlp(rms_norm(x, p["norm2"]), p, cfg)
+    y, aux = _mlp(rms_norm(x, p["norm2"]), p, cfg, mesh)
     return x + y, aux
 
 
-def _hidden(params, tokens, cfg: TransformerConfig, remat: bool):
-    """(The final-normed hidden states (B, S, D) in the compute dtype, the sum
-    of the layers' aux losses); with ``remat`` each layer is checkpointed
-    where autograd records."""
-    S = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.compute_dtype)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+def lm_layers(x, layers: list, cfg: TransformerConfig, start: int = 0, mesh=None,
+              remat: bool = False):
+    """Hidden states x (B, S, D) through ``layers``, the model's layers
+    ``start, start + 1, …`` (all of them, or a pipeline stage's share) →
+    (x, the sum of their aux losses); with ``remat`` each layer is
+    checkpointed where autograd records."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
-    for i, p in enumerate(params["layers"]):
+    for i, p in enumerate(layers, start):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer, x, p, cfg, positions, cfg.is_global(i), use_reentrant=False)
+                _layer, x, p, cfg, positions, cfg.is_global(i), mesh, use_reentrant=False)
         else:
-            x, a = _layer(x, p, cfg, positions, cfg.is_global(i))
+            x, a = _layer(x, p, cfg, positions, cfg.is_global(i), mesh)
         aux = aux + a
+    return x, aux
+
+
+def _hidden(params, tokens, cfg: TransformerConfig, remat: bool, mesh=None):
+    """(The final-normed hidden states (B, S, D) in the compute dtype, the sum
+    of the layers' aux losses)."""
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    x, aux = lm_layers(x, params["layers"], cfg, mesh=mesh, remat=remat)
     return rms_norm(x, params["final_norm"]), aux
 
 
-def lm_forward(params, tokens, cfg: TransformerConfig):
+def lm_forward(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens (B, S) int → (logits (B, S, V) in the compute dtype, aux): aux
-    is the sum of the MoE layers' load-balance losses (0.0 for a dense stack)."""
+    is the sum of the MoE layers' load-balance losses (0.0 for a dense stack).
+    Under ``mesh`` (a mesh of processes) the MoE layers are expert-parallel:
+    ``tokens`` are this rank's sequences, ``params`` its blocks
+    (``configs.param_pspecs``); the rest of the model runs whole on every rank."""
     _require_compute_dtype(params, cfg)
-    x, aux = _hidden(params, tokens, cfg, remat=False)
+    x, aux = _hidden(params, tokens, cfg, remat=False, mesh=mesh)
     return x @ _head(params, cfg), aux
 
 
@@ -342,12 +355,14 @@ def chunked_lm_head_loss(x, head, labels, chunk: int) -> torch.Tensor:
     return torch.mean(nll)
 
 
-def lm_loss(params, batch, cfg: TransformerConfig):
+def lm_loss(params, batch, cfg: TransformerConfig, mesh=None):
     """The training loss of ``batch`` {"tokens", "labels"} (B, S) →
     ``(loss + 0.01 · aux, {"loss", "aux"})``, from the master params: each
     weight cast to the compute dtype where it is used, layers checkpointed
-    under ``cfg.remat``, the vocab chunked under ``cfg.loss_chunk``."""
-    x, aux = _hidden(params, batch["tokens"], cfg, remat=cfg.remat)
+    under ``cfg.remat``, the vocab chunked under ``cfg.loss_chunk``; under
+    ``mesh`` the loss of this rank's sequences, MoE layers expert-parallel
+    (``lm_grad_sync`` makes its gradients the whole batch's)."""
+    x, aux = _hidden(params, batch["tokens"], cfg, remat=cfg.remat, mesh=mesh)
     head = _head(params, cfg).to(x.dtype)
     if cfg.loss_chunk > 0:
         loss = chunked_lm_head_loss(x, head, batch["labels"], cfg.loss_chunk)
@@ -435,10 +450,11 @@ def _decode_attn_mla(x, p, cfg: TransformerConfig, cache_ckv, cache_krope, cur_l
     return out.reshape(B, 1, H * cfg.v_head_dim) @ p["wo"]
 
 
-def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig):
+def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=None):
     """One-token decode: tokens (B,) int at position ``cur_len`` (an int or
     a host scalar tensor) → (logits (B, V), cache), the cache ({"k", "v"},
-    or MLA's {"ckv", "krope"}) updated in place."""
+    or MLA's {"ckv", "krope"}) updated in place; MoE layers expert-parallel
+    under ``mesh``, as ``lm_forward``."""
     cur = int(cur_len)
     if cur < 0:
         raise ValueError(f"decode_step: cur_len {cur} is negative")
@@ -451,6 +467,56 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig):
         else:
             x = x + _decode_attn_gqa(h, p, cfg, cache["k"][i], cache["v"][i], cur,
                                      cfg.is_global(i))
-        x = x + _mlp(rms_norm(x, p["norm2"]), p, cfg)[0]
+        x = x + _mlp(rms_norm(x, p["norm2"]), p, cfg, mesh)[0]
     x = rms_norm(x, params["final_norm"])
     return (x @ _head(params, cfg))[:, 0, :], cache
+
+
+def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
+    """A rank's gradients of ``lm_loss`` under ``mesh`` (the mean loss of its
+    own sequences) → the gradients of the mean loss over every rank's: each
+    leaf summed over the data axes and divided by their size; MoE leaves by
+    ``moe_grad_sync`` (the ``fsdp`` experts summed by their all-gather's
+    backward, the router over ``model`` as well).  The model ranks of one data
+    shard ran the same sequences, so the other leaves are not summed there."""
+    from ..dist import collectives as coll
+    from .moe import _data_axes, moe_grad_sync
+
+    axes = _data_axes(mesh)
+    if not axes:
+        n_data = 1
+    else:
+        names = mesh.mesh_dim_names
+        n_data = math.prod(mesh.size(names.index(a)) for a in axes)
+
+    def dense(g):
+        for a in axes:
+            g = coll.all_reduce_sum(g, mesh.get_group(a))
+        return g / n_data
+
+    out = {k: dense(v) for k, v in grads.items() if k != "layers"}
+    layers = []
+    for p in grads["layers"]:
+        q = {k: dense(v) for k, v in p.items() if k != "moe"}
+        if "moe" in p:
+            q["moe"] = {k: v / n_data for k, v in moe_grad_sync(p["moe"], cfg.moe, mesh).items()}
+        layers.append(q)
+    out["layers"] = layers
+    return out
+
+
+def expert_parallel_specs(params: dict, fsdp: bool = False) -> dict:
+    """The blocks ``lm_forward(mesh=)`` runs on, as a spec tree for
+    ``dist.sharding.shard_tree``: the MoE experts as ``configs.param_pspecs``
+    places them (over ``model``; with ``fsdp`` their hidden dim over ``data``
+    too), every other leaf whole: the port's attention, dense FFNs,
+    embedding and head run whole on every rank (no tensor parallelism yet)."""
+    from ..dist.sharding import P, lm_param_specs, map_specs
+
+    specs = lm_param_specs(params, fsdp=fsdp)
+    out = map_specs(lambda leaf, spec: P(), params, specs)
+    for layer, spec in zip(out["layers"], specs["layers"]):
+        if "moe" in spec:
+            layer["moe"] = {k: v if k in ("w1", "w3", "w2") else P()
+                            for k, v in spec["moe"].items()}
+    return out

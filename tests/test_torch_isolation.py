@@ -11,8 +11,12 @@ LMs, the MoE block, both modes of the serving launcher, one train step of
 DCN-v2, gemma3-1b and deepseek-v2-lite, a step of every GNN zoo cell but
 ``minibatch_lg`` and of both GNN-PE cells, the fanout sampler and the
 partition loss on one shard, a compressed
-``Trainer`` run and its checkpoint read back through ``convert``, and no
-``jax*`` or ``repro`` module is loaded."""
+``Trainer`` run and its checkpoint read back through ``convert``, the
+placement specs, ``local_shard`` and ``shard_tree`` on a one-rank gloo mesh,
+``lm_forward(mesh=)``, ``pipeline_apply`` over one stage, ``moe_block(mesh=None)``,
+``StackedProbe`` over a ``part`` list of two CPUs and an engine's probe and
+device join over ``part`` and ``join`` lists, and no ``jax*`` or ``repro``
+module is loaded."""
 import os
 import subprocess
 import sys
@@ -171,6 +175,38 @@ gcfg = dataclasses.replace(resolve_config(gin, gin.cell("ogb_products"), smoke=T
 pl, _ = partition_gnn_loss(init_params(gin, gcfg, seed=0, device="cpu"), gcfg,
                            {k: torch.from_numpy(v) for k, v in pb.items()})
 assert torch.isfinite(pl)
+import socket
+import torch.distributed as tdist
+from repro_torch.configs import param_pspecs
+from repro_torch.dist import StackedProbe, pipeline_apply, use_devices
+from repro_torch.dist.sharding import P, local_shard, shard_tree
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import expert_parallel_specs, lm_forward
+a = get_arch("deepseek-v2-lite-16b")
+cfg = resolve_config(a, a.cell("prefill_32k"), smoke=True)
+params = init_params(a, cfg, seed=0, device="cpu")
+assert param_pspecs(a, cfg, params)["layers"][1]["moe"]["w1"] == P("model", None, None)
+with socket.socket() as s_:
+    s_.bind(("127.0.0.1", 0))
+    port_ = s_.getsockname()[1]
+tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port_}", world_size=1, rank=0)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+assert torch.equal(local_shard(torch.arange(8).view(2, 4), P("data", "model"), mesh),
+                   torch.arange(8).view(2, 4))
+local = shard_tree(params, expert_parallel_specs(params), mesh)
+toks = make_batch(a, a.cell("prefill_32k"), cfg, device="cpu")["tokens"]
+assert torch.equal(lm_forward(local, toks, cfg, mesh)[0], lm_forward(params, toks, cfg)[0])
+xs = torch.randn(3, 2, 4)
+pm = make_mesh((1,), ("pipe",), device="cpu")
+assert torch.equal(pipeline_apply(lambda w, x: x @ w, torch.eye(4), xs, pm), xs)
+tdist.destroy_process_group()
+assert moe_block(torch.randn(6, 16), mp, MoEConfig(n_experts=4, top_k=2, d_ff_expert=8,
+                                                     n_shared=1), mesh=None)[0].shape == (6, 16)
+sp = StackedProbe([m.index for m in eng_g.models], devices=["cpu", "cpu"])
+assert sp.stacked.n_shards == 2
+with use_devices("part", ["cpu", "cpu"]), use_devices("join", ["cpu"] * 3):
+    for q, m, d in zip(qs, eng_g.match_many(qs, join_impl="numpy"), eng_g.match_many(qs)):
+        assert set(m) == set(vf2_match(g, q)) == set(d)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")
