@@ -174,7 +174,7 @@ Phases, each printing its seconds:
      every host owning partitions, K1 on each host's subset probe and equal
      to its plain version on one host's real pairs, a host lost mid-gather
      re-probed with equal lists; warm ms single-process and at 1 / 2 / 4
-     hosts, 5 each interleaved, and one profiled 4-host call's launches and
+     hosts, 3 each interleaved, and one profiled 4-host call's launches and
      device-to-host copies; 10b, ``benchmarks/bench_cluster.py --full``'s
      cell (10K vertices, 40 partitions, stacked probe, 10 queries): a
      4-host cluster with the sharded cache (capacity 256) through 8
@@ -236,12 +236,12 @@ Phases, each printing its seconds:
      (K4 and K5 forward, K4's ``index_add_`` and K5's matmul backwards inside
      them) by CUDA events and the top kernels under ``torch.profiler``; 12b,
      gemma3-1b ``train_4k`` at the published width and depth (26 layers,
-     float32 master params, remat), the batch cut to 8 sequences of 4,096 in
-     ``grad_accum`` 8: K6 must launch 52 times a microbatch (26 forward, 26 in
+     float32 master params, remat), the batch cut to 4 sequences of 4,096 in
+     ``grad_accum`` 4: K6 must launch 52 times a microbatch (26 forward, 26 in
      remat's recompute), the loss at B = 1, S = 640 within phase 7's tolerance
      of the CPU's, K6's Function gradients of q, k and v on a local and a
      global layer's real operands within relative L2 1e-3 of autograd through
-     the plain attention, the loss falling over 6 steps on the fixed batch;
+     the plain attention, the loss falling over 4 steps on the fixed batch;
      step ms, tokens/s, peak memory, the step split into K6 forward, attention
      backward, CE forward and the optimizer by CUDA events, the top kernels;
      12c, the ``Trainer`` at the smoke width (bf16): a resume bit-equal to an
@@ -304,8 +304,9 @@ Phases, each printing its seconds:
      K6 on every rank); 15b GPipe in 2 processes, gemma3-1b's 26 layers as 2
      stages over 4 microbatches of 4,096 tokens, bit-equal to the layers in
      sequence, K6 on both ranks (workers ``--mesh-worker moe|pipe RANK PORT
-     DIR DEVICE full|smoke``); on the 50K cell built afresh, 15c the stacked
-     probe over the card listed 2 and 3 times (every card where there are
+     DIR DEVICE full|smoke``); on phase 3's engine of the 50K cell, handed
+     over after phase 3g (before phase 9 updates it), 15c the stacked probe
+     over the card listed 2 and 3 times (every card where there are
      several): its lists equal one device's in order, K1 equal to plain, the
      hand-off's sets; 15d the device join over join lists of 2 and 3 on the
      16 queries and 3 isomorphic ones: lists equal one device's, K2 a shard
@@ -1902,7 +1903,7 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
         f"(read flush) {profiled:.6f} ms over the {listed} of 20 launches it listed; plain "
         f"version {out['K2_plain_ms']:.6f} ms")
     dev_warm, host_warm = [], []
-    for _ in range(3):
+    for _ in range(2):
         dev_warm += warm_ms(lambda: eng.match_many(queries, join_impl="device"), dev, 1)
         host_warm += warm_ms(lambda: eng.match_many(queries), dev, 1)
     log(f"join-heavy warm match_many: device join {fmt(dev_warm)} ms; host join "
@@ -1922,7 +1923,7 @@ def phase5_join_heavy(dev, flush, n: int = 12_000, n_parts: int = 12) -> dict:
     check_against_vf2(g, queries, ho, "join-heavy hand-off")
     steps = k2_steps(eng, queries, probe_impl="stacked")
     ho_warm, dev_warm = [], []
-    for _ in range(3):
+    for _ in range(2):
         ho_warm += warm_ms(
             lambda: eng.match_many(queries, probe_impl="stacked", join_impl="device"), dev, 1)
         dev_warm += warm_ms(lambda: eng.match_many(queries, join_impl="device"), dev, 1)
@@ -3896,7 +3897,7 @@ def phase10a_50k(dev, ctx: dict, smi: str, out: dict) -> None:
         for c_ in cls.values():
             c_.rebalance()
         times = {k: [] for k in ("single", 1, 2, 4)}
-        for _ in range(5):
+        for _ in range(3):
             times["single"] += warm_ms(lambda: eng.match_many(queries), dev, 1)
             for h, c_ in cls.items():
                 times[h] += warm_ms(lambda: c_.match_many(queries), dev, 1)
@@ -4912,7 +4913,8 @@ def phase12a_dcn_train(dev, smi: str, out: dict) -> None:
 
 def phase12b_lm_train(dev, smi: str, out: dict) -> None:
     """gemma3-1b ``train_4k`` at the published width and depth (26 layers),
-    the global batch cut to 8 sequences of 4,096 in ``grad_accum`` 8."""
+    the global batch cut to 4 sequences of 4,096 in ``grad_accum`` 4 (8 until the
+    script's time needed the room)."""
     import dataclasses
 
     import torch
@@ -4932,7 +4934,7 @@ def phase12b_lm_train(dev, smi: str, out: dict) -> None:
 
     arch = get_arch("gemma3-1b")
     cell = arch.cell("train_4k")
-    B, accum = 8, 8
+    B, accum = 4, 4
     cfg = dataclasses.replace(resolve_config(arch, cell, smoke=False), grad_accum=accum)
     S = cell.meta["seq_len"]
     t = time.perf_counter()
@@ -5030,8 +5032,8 @@ def phase12b_lm_train(dev, smi: str, out: dict) -> None:
     del seen
 
     # ---- warm steps on the fixed batch: the loss must fall ---------------------
-    ms, losses = warm_train_steps(step, state, batch, dev, n=4, warmup=0)
-    # the fifth, split by CUDA events around the calls
+    ms, losses = warm_train_steps(step, state, batch, dev, n=2, warmup=0)
+    # the third, split by CUDA events around the calls
     spans = [("K6 forward (with remat's recompute)", fa, "_forward"),
              ("attention backward (plain, recomputed)", fa, "flash_attention_backward"),
              ("CE forward", tmod, "cross_entropy_loss"),
@@ -5050,7 +5052,7 @@ def phase12b_lm_train(dev, smi: str, out: dict) -> None:
         restore()
     losses = [float(first_loss)] + losses
     require(losses[-1] < losses[0] and all(np.isfinite(losses)),
-            f"12b: the loss did not fall over 6 steps on a fixed batch: {losses}")
+            f"12b: the loss did not fall over {len(losses)} steps on a fixed batch: {losses}")
     med = float(np.median(ms))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     out["lm_step_ms"] = med
@@ -5709,18 +5711,28 @@ def phase13_engine(dev, smi, arch, cfg, params, cpu_p) -> None:
 
 
 def phase13_launchers(smi: str) -> None:
-    """``python -m repro_torch.launch.serve`` in child processes on the card:
-    the LM mode over deepseek's MLA cache and the GNN-PE mode."""
-    for argv in (["--mode", "lm", "--arch", "deepseek-v2-lite-16b", "--requests", "6"],
-                 ["--mode", "gnnpe", "--n", "2000", "--requests", "20"]):
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
-                           capture_output=True, text=True, env=child_env(), timeout=300)
-        require(r.returncode == 0 and "[serve]" in r.stdout,
-                f"13: repro_torch.launch.serve {' '.join(argv)} exited {r.returncode}: "
-                f"{r.stderr[-2000:]}")
+    """``python -m repro_torch.launch.serve`` in child processes side by side
+    on the card: the LM mode over deepseek's MLA cache and the GNN-PE mode."""
+    t = time.perf_counter()
+    argvs = (["--mode", "lm", "--arch", "deepseek-v2-lite-16b", "--requests", "6"],
+             ["--mode", "gnnpe", "--n", "2000", "--requests", "20"])
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=child_env()) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for argv, p, (so, se) in zip(argvs, procs, outs):
+        require(p.returncode == 0 and "[serve]" in so,
+                f"13: repro_torch.launch.serve {' '.join(argv)} exited {p.returncode}: "
+                f"{se[-2000:]}")
         log(f"13 python -m repro_torch.launch.serve {' '.join(argv)} in a child process: "
-            f"{r.stdout.strip().splitlines()[-1]} ({time.perf_counter() - t:.3f} s); card: {smi}")
+            f"{so.strip().splitlines()[-1]}; card: {smi}")
+    log(f"13 the two serve launchers side by side: {time.perf_counter() - t:.3f} s")
 
 
 def phase13_lm_family(dev, flush, smi: str) -> dict:
@@ -6176,9 +6188,10 @@ def phase14d_gnnpe(dev, smi: str, smoke: bool, out: dict) -> None:
         del params, batch
 
 
-def phase14e_launchers(smi: str, extra: tuple = ()) -> None:
+def phase14e_launchers(smi: str, extra: tuple = (), beside=lambda: None) -> None:
     """``python -m repro_torch.launch.train --smoke --steps 20`` for each GNN
-    arch and gnn-pe-offline, in child processes side by side on the card."""
+    arch and gnn-pe-offline, in child processes side by side on the card,
+    while ``beside()`` runs here."""
     t = time.perf_counter()
     names = GNN_ARCHS + ("gnn-pe-offline",)
     procs = {name: subprocess.Popen(
@@ -6186,6 +6199,7 @@ def phase14e_launchers(smi: str, extra: tuple = ()) -> None:
          "--steps", "20", *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=child_env()) for name in names}
     try:
+        beside()
         outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
     finally:
         for p in procs.values():
@@ -6198,7 +6212,8 @@ def phase14e_launchers(smi: str, extra: tuple = ()) -> None:
                 f"14e: repro_torch.launch.train --arch {name} exited {rc}: {se[-2000:]}")
         log(f"14e python -m repro_torch.launch.train --arch {name} --smoke --steps 20: "
             f"{so.strip().splitlines()[-1]}")
-    log(f"14e the five launchers side by side: {time.perf_counter() - t:.3f} s; card: {smi}")
+    log(f"14e the five launchers side by side, beside 14c: {time.perf_counter() - t:.3f} s; "
+        f"card: {smi}")
 
 
 def phase14_gnn(dev, smi: str, smoke: bool = False, extra: tuple = ()) -> dict:
@@ -6214,14 +6229,17 @@ def phase14_gnn(dev, smi: str, smoke: bool = False, extra: tuple = ()) -> dict:
     phase14b_ogb(dev, smi, smoke, out)
     log(f"phase 14b the zoo on ogb_products: {time.perf_counter() - t:.3f} s; card: {smi}")
     t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        phase14c_partition(dev, smi, smoke, Path(d))
-    log(f"phase 14c the partition-parallel loss in 2 processes: {time.perf_counter() - t:.3f} s; "
-        f"card: {smi}")
+
+    def partition():  # 14c, with 14e's children beside it (no metric reads 14c's time)
+        with tempfile.TemporaryDirectory() as d:
+            phase14c_partition(dev, smi, smoke, Path(d))
+        log(f"phase 14c the partition-parallel loss in 2 processes: "
+            f"{time.perf_counter() - t:.3f} s; card: {smi}")
+
+    phase14e_launchers(smi, extra, beside=partition)
     t = time.perf_counter()
     phase14d_gnnpe(dev, smi, smoke, out)
     log(f"phase 14d gnn-pe-offline and gnn-pe-online: {time.perf_counter() - t:.3f} s; card: {smi}")
-    phase14e_launchers(smi, extra)
     return out
 
 
@@ -6458,7 +6476,7 @@ def phase15c_part(dev, eng, queries, smi: str) -> dict:
     finally:
         probe_mod.StackedProbe.probe = probe_fn
     sets = [set(m) for m in want]
-    one_ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev)
+    one_ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev, runs=1)
     out = {"K1": 0}
     lists_n = [[dev] * 2, [dev] * 3]
     if torch.cuda.device_count() > 1:
@@ -6485,7 +6503,7 @@ def phase15c_part(dev, eng, queries, smi: str) -> dict:
             handoff = eng.match_many(queries, probe_impl="stacked", join_impl="device")
             require(eng.stacked_probe().stacked.n_shards == n, "15c: the engine's probe did "
                     f"not split over {n} devices")
-            ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev)
+            ms = mesh_times(lambda: eng.match_many(queries, probe_impl="stacked"), dev, runs=1)
         require(got == want, f"15c: the stacked probe's lists over {n} devices differ from one "
                 f"device's")
         require([set(m) for m in handoff] == sets, f"15c: the hand-off over {n} devices gives "
@@ -6520,14 +6538,14 @@ def phase15d_join(dev, eng, queries, smi: str) -> dict:
         eng.match_many(batch, join_impl="device")  # warms the pair-bucket guesses
         steps1 = k2_steps(eng, batch)
         want = eng.match_many(batch, join_impl="device")
-        one_ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev)
+        one_ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev, runs=1)
         for n in (2, 3):
             with use_devices("join", [dev] * n):
                 reset_counters()
                 steps = k2_steps(eng, batch)
                 k2 = counters()["K2"]
                 got = eng.match_many(batch, join_impl="device")
-                ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev)
+                ms = mesh_times(lambda: eng.match_many(batch, join_impl="device"), dev, runs=1)
             require(got == want, f"15d {what}: the device join over {n} devices differs from "
                     f"one device's")
             require(len(steps) == n * len(steps1) == k2,
@@ -6542,29 +6560,39 @@ def phase15d_join(dev, eng, queries, smi: str) -> dict:
     return out
 
 
-def phase15_meshes(dev, smi: str, ctx: dict | None = None) -> dict:
-    """The meshes: expert parallelism and GPipe over processes sharing the
-    card (gloo), the stacked probe and the device join over in-process
-    device lists on the 50K cell (phase 3's inputs, from ``ctx`` where given)."""
-    import tempfile
-
+def phase15_lists(dev, smi: str, ctx: dict | None = None) -> dict:
+    """The stacked probe and the device join over in-process device lists
+    (15c, 15d) on the 50K cell: phase 3's engine from ``ctx``, handed over
+    before any update touches it, else (``--only 15``) the cell built afresh."""
     import torch
 
     from repro_torch.core import GnnPeEngine
 
-    log(f"phase 15: {torch.cuda.device_count()} visible card(s); card: {smi}")
+    log(f"phase 15c-d: {torch.cuda.device_count()} visible card(s); card: {smi}")
+    if ctx is None:
+        t = time.perf_counter()
+        g, queries, cfg = cell_50k_inputs()
+        eng = GnnPeEngine(cfg).build(g)
+        log(f"15 the 50K cell's engine built in {time.perf_counter() - t:.3f} s")
+    else:
+        eng, queries = ctx["eng"], ctx["queries"]
+    out = {"c": phase15c_part(dev, eng, queries, smi), "d": phase15d_join(dev, eng, queries, smi)}
+    out["K1"], out["K2"] = out["c"]["K1"], out["d"]["K2"]
+    return out
+
+
+def phase15_meshes(smi: str) -> dict:
+    """Expert parallelism and GPipe over processes sharing the card (gloo):
+    15a and 15b."""
+    import tempfile
+
+    import torch
+
+    log(f"phase 15a-b: {torch.cuda.device_count()} visible card(s); card: {smi}")
     out: dict = {}
     with tempfile.TemporaryDirectory() as d:
         out["a"] = phase15a_expert_parallel(smi, Path(d))
         out["b"] = phase15b_gpipe(smi, Path(d))
-    # phase 3's engine is gone by now (phase 11 recovers another): the cell built afresh
-    t = time.perf_counter()
-    g, queries, cfg = cell_50k_inputs() if ctx is None else (ctx["g"], ctx["queries"], ctx["cfg"])
-    eng = GnnPeEngine(cfg).build(g)
-    log(f"15 the 50K cell's engine built in {time.perf_counter() - t:.3f} s")
-    out["c"] = phase15c_part(dev, eng, queries, smi)
-    out["d"] = phase15d_join(dev, eng, queries, smi)
-    out["K1"], out["K2"] = out["c"]["K1"], out["d"]["K2"]
     out["K6"] = out["a"]["K6"] + out["b"]["K6"]
     return out
 
@@ -6624,7 +6652,7 @@ def main(only: str | None = None) -> int:
         return 0
     if only == "15":
         t = time.perf_counter()
-        p15 = phase15_meshes(dev, smi)
+        p15 = {**phase15_meshes(smi), **phase15_lists(dev, smi)}
         log(f"phase 15 the meshes: {time.perf_counter() - t:.3f} s; launches K1 {p15['K1']}, K2 "
             f"{p15['K2']}, K6 {p15['K6']}; partial run (--only 15): no result line")
         return 0
@@ -6646,6 +6674,11 @@ def main(only: str | None = None) -> int:
     t = time.perf_counter()
     p3g = phase3g_grouped(dev, flush, p3["ctx"])
     log(f"phase 3g the 50K cell with the grouped index: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    p15l = phase15_lists(dev, smi, p3["ctx"])
+    log(f"phase 15c-d the part and join device lists on phase 3's engine: "
+        f"{time.perf_counter() - t:.3f} s; launches K1 {p15l['K1']}, K2 {p15l['K2']}; card: {smi}")
 
     t = time.perf_counter()
     gat_eng, gat_queries = phase4_gat(dev)
@@ -6714,10 +6747,10 @@ def main(only: str | None = None) -> int:
         f"{time.perf_counter() - t:.3f} s; no kernel lies on this path; card: {smi}")
 
     t = time.perf_counter()
-    p15 = phase15_meshes(dev, smi, p3["ctx"])
-    log(f"phase 15 the meshes (expert parallelism and GPipe over processes, the part and join "
-        f"device lists): {time.perf_counter() - t:.3f} s; launches K1 {p15['K1']}, K2 "
-        f"{p15['K2']}, K6 {p15['K6']} (15a and 15b's in their processes); card: {smi}")
+    p15 = phase15_meshes(smi)
+    log(f"phase 15a-b the meshes (expert parallelism and GPipe over processes): "
+        f"{time.perf_counter() - t:.3f} s; launches K6 {p15['K6']} (in their processes); "
+        f"card: {smi}")
 
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
@@ -6753,7 +6786,7 @@ def main(only: str | None = None) -> int:
         # the indexed pairs form (the other forms' are in the log)
         record("dominance_scan_pairs_indexed", "K1", scan_cu, f"{scan_py}:98",
                p3["K1"] + p3["K1_stacked"] + p3["K1_handoff"] + p3q["K1"] + p3g["K1"] + p8["K1"]
-               + p9["K1"] + p10["K1"] + p11["K1"] + p15["K1"],
+               + p9["K1"] + p10["K1"] + p11["K1"] + p15l["K1"],
                p3["K1_ms"], p3["K1_plain_ms"], p3["K1_bound"]),
         # K2's launches: phase 3's device joins (loop, then the stacked probe's
         # hand-off), phase 3q's, phase 3g's, phase 8a's, phase 9a's and phase
@@ -6763,7 +6796,7 @@ def main(only: str | None = None) -> int:
         record("injectivity_mask", "K2", f"{SRC}/merge_join/csrc/injectivity_mask.cu",
                "src/repro/kernels/merge_join/kernel.py:47",
                p3["K2"] + p3["K2_stacked"] + p3q["K2"] + p3g["K2"] + p5["K2"] + p5["K2_stacked"]
-               + p8["K2"] + p9["K2"] + p10["K2"] + p15["K2"],
+               + p8["K2"] + p9["K2"] + p10["K2"] + p15l["K2"],
                p5["K2_ms"], p5["K2_plain_ms"], p5["K2_bound"]),
         record("dominance_scan", "K3-single", scan_cu, f"{scan_py}:129", p3["K3-single"],
                p3["K3s_ms"], p3["K3s_plain_ms"], p3["K3s_bound"]),

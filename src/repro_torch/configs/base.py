@@ -40,10 +40,12 @@ from ..models import (
     init_gnn_params,
     init_lm_params,
     lm_forward,
+    lm_grad_norm,
     lm_grad_sync,
     lm_loss,
     retrieval_scores,
 )
+from ..models.transformer import data_mean
 from ..train.optimizer import OptConfig, adamw_init
 from ..train.step import train_wrap
 
@@ -579,8 +581,10 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
 
     ``mesh`` (a mesh of processes): the LM's steps run this rank's
     sequences with their MoE layers expert-parallel, params its blocks
-    (``param_pspecs``), and the train step makes its gradients the whole
-    batch's (``models.lm_grad_sync``); a partition-parallel GNN's step takes
+    (``models.expert_parallel_specs``: the experts split, every other leaf
+    whole), and the train step makes its gradients, their clip norm and its
+    loss the whole batch's (``models.lm_grad_sync``, ``lm_grad_norm``, the
+    loss's mean over the data shards); a partition-parallel GNN's step takes
     the mesh's ``data`` group where no ``group`` is given.
 
     The LM's serving steps take params in ``cfg.compute_dtype``, as
@@ -610,9 +614,17 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
         return (lambda params, batch: online_counts(params, batch, cfg)), False
     if cell.kind == "train":
         if fam == "lm":
-            sync = None if mesh is None else (lambda g: lm_grad_sync(g, cfg, mesh))
-            return train_wrap(lambda p, b: lm_loss(p, b, cfg, mesh), opt_cfg, cfg.grad_accum,
-                              grads_fn=sync), True
+            if mesh is None:
+                return train_wrap(lambda p, b: lm_loss(p, b, cfg), opt_cfg, cfg.grad_accum), True
+            step = train_wrap(lambda p, b: lm_loss(p, b, cfg, mesh), opt_cfg, cfg.grad_accum,
+                              grads_fn=lambda g: lm_grad_sync(g, cfg, mesh),
+                              norm_fn=lambda g: lm_grad_norm(g, cfg, mesh))
+
+            def mesh_step(params, opt_state, batch):
+                params, opt_state, metrics = step(params, opt_state, batch)
+                return params, opt_state, {**metrics, "loss": data_mean(metrics["loss"], mesh)}
+
+            return mesh_step, True
         return train_wrap(lambda p, b: dcn_loss(p, b, cfg), opt_cfg), True
     if cell.kind == "prefill":
         return (lambda params, batch: lm_forward(params, batch["tokens"], cfg, mesh)[0]), False

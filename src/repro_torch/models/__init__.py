@@ -33,6 +33,7 @@ from .transformer import (
     init_cache,
     init_lm_params,
     lm_forward,
+    lm_grad_norm,
     lm_grad_sync,
     lm_layers,
     lm_loss,
@@ -68,6 +69,7 @@ __all__ = [
     "lm_loss",
     "lm_layers",
     "lm_grad_sync",
+    "lm_grad_norm",
     "expert_parallel_specs",
     "chunked_lm_head_loss",
     "cross_entropy_loss",

@@ -21,15 +21,16 @@ with atomics, so its bf16 rounding order varies from run to run.
 
 Expert parallelism (``mesh=``, the reference's ``shard_map`` branch) runs
 over a mesh of processes (a ``DeviceMesh`` with a ``model`` dim of more
-than one rank), each rank with its own block of every tensor:
+than one rank, or with ``fsdp`` a ``data`` dim of more than one), each
+rank with its own block of every tensor:
 
   * the tokens it sees, ``x2d``: its block of the data axes' split
     (``moe_token_spec`` gives the reference's rule: the tokens replicated
     where their count does not split over the data axes);
   * the experts ``[e_start, e_start + E/n)`` of its ``model`` coordinate,
-    and with ``fsdp`` their hidden dim split over ``data`` as well
-    (``dist.sharding.lm_param_specs``), all-gathered in the compute dtype
-    just in time; the router and the shared experts whole.
+    and with ``fsdp`` their dim 1 (D of w1 and w3, F of w2) split over
+    ``data`` as well (``dist.sharding.lm_param_specs``), all-gathered in
+    the compute dtype just in time; the router and the shared experts whole.
 
 Each rank routes its tokens over every expert, at a capacity of the tokens
 it sees (per data shard, as the reference), dispatches those routed to its
@@ -43,9 +44,10 @@ on every token.  ``aux`` is the sum over ``model`` of each rank's aux over
 
 The gradients a rank's backward leaves are its own shares:
 ``moe_grad_sync`` sums each leaf over exactly the ranks whose shares
-differ (every leaf over the data axes but the ``fsdp`` experts, whose
-all-gather's backward already summed them; the router over ``model`` as
-well: each rank's share covers only its experts' entries).
+differ (every leaf over the data axes but ``data`` for the ``fsdp``
+experts, whose all-gather's backward already summed them there; the
+router over ``model`` as well: each rank's share covers only its experts'
+entries).  ``expert_axes`` names the dims the experts' blocks split over.
 """
 from __future__ import annotations
 
@@ -59,7 +61,9 @@ from ..dist.sharding import DP, P
 from .common import dense_init
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_block", "dispatch_plan", "moe_token_spec",
-           "moe_grad_sync"]
+           "moe_grad_sync", "expert_axes"]
+
+EXPERTS = ("w1", "w3", "w2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +74,7 @@ class MoEConfig:
     n_shared: int = 0
     capacity_factor: float = 1.25
     norm_topk: bool = True  # renormalize the top-k gate weights to sum 1
-    fsdp: bool = False  # under a mesh, the expert weights' hidden dim sharded over 'data' too
+    fsdp: bool = False  # under a mesh, the expert weights' dim 1 sharded over 'data' too
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, mcfg: MoEConfig,
@@ -172,22 +176,39 @@ def _fsdp(mcfg: MoEConfig, mesh) -> bool:
     return mcfg.fsdp and "data" in names and mesh.size(names.index("data")) > 1
 
 
+def expert_axes(mcfg: MoEConfig, mesh) -> tuple:
+    """The mesh dims the experts' weights split over under ``mesh``:
+    ``model`` where it has more than one rank, ``data`` with ``fsdp``.
+    ``moe_block`` runs expert-parallel exactly where this is not empty."""
+    if mesh is None:
+        return ()
+    return (("model",) if _model_axis(mesh) > 1 else ()) + (("data",) if _fsdp(mcfg, mesh) else ())
+
+
 def _expert_parallel(x2d, params: dict, mcfg: MoEConfig, mesh):
     n = _model_axis(mesh)
     if mcfg.n_experts % n:
         raise ValueError(f"{mcfg.n_experts} experts do not split over {n} model ranks")
     e_local = mcfg.n_experts // n
-    if params["w1"].shape[0] != e_local:
-        raise ValueError(f"this rank holds {params['w1'].shape[0]} experts, the mesh gives it "
-                         f"{e_local}: pass its block (dist.sharding.shard_tree)")
-    model = mesh.get_group("model")
+    # with fsdp each weight's dim 1 (D of w1 and w3, F of w2) splits over 'data'
+    n_data = mesh.size(mesh.mesh_dim_names.index("data")) if _fsdp(mcfg, mesh) else 1
+    D, F = x2d.shape[1], mcfg.d_ff_expert
+    for name, shape in (("w1", (e_local, D // n_data, F)), ("w3", (e_local, D // n_data, F)),
+                        ("w2", (e_local, F // n_data, D))):
+        if tuple(params[name].shape) != shape:
+            raise ValueError(f"this rank's {name} is {tuple(params[name].shape)}, the mesh gives "
+                             f"it {shape}: pass its block (dist.sharding.shard_tree)")
+    # a model dim of one rank (a data-only mesh with fsdp): no sum over it
+    model = mesh.get_group("model") if n > 1 else None
     dtype = x2d.dtype
     w1, w3, w2 = params["w1"], params["w3"], params["w2"]
     if _fsdp(mcfg, mesh):
-        # ZeRO-3: the hidden dim arrives split over 'data'; gathered just in time, cast
+        # ZeRO-3: dim 1 arrives split over 'data'; gathered just in time, cast
         # first to halve the bytes
         data = mesh.get_group("data")
         w1, w3, w2 = (coll.all_gather(w.to(dtype), data, dim=1) for w in (w1, w3, w2))
+    if model is None:
+        return _dispatch_compute(x2d, params["router"], w1, w3, w2, mcfg)
     x = coll.copy_to(x2d, model)
     e_start = mesh.get_local_rank("model") * e_local
     out, aux = _dispatch_compute(x, params["router"], w1, w3, w2, mcfg, e_start)
@@ -196,11 +217,11 @@ def _expert_parallel(x2d, params: dict, mcfg: MoEConfig, mesh):
 
 def moe_block(x2d, params: dict, mcfg: MoEConfig, mesh=None):
     """x2d (T, D) → (out (T, D) in x2d's dtype, aux float32): the routed
-    experts plus the shared experts.  ``mesh=None`` (or a mesh without a
-    ``model`` dim of more than one rank): every expert on this card; else
-    expert parallelism over ``mesh`` (the module doc), ``x2d`` and
+    experts plus the shared experts.  ``mesh=None`` (or a mesh whose dims
+    split no expert weight, ``expert_axes``): every expert on this card;
+    else expert parallelism over ``mesh`` (the module doc), ``x2d`` and
     ``params`` this rank's blocks."""
-    if mesh is not None and _model_axis(mesh) > 1:
+    if expert_axes(mcfg, mesh):
         out, aux = _expert_parallel(x2d, params, mcfg, mesh)
     else:
         out, aux = _dispatch_compute(x2d, params["router"], params["w1"], params["w3"],
@@ -218,21 +239,20 @@ def moe_grad_sync(grads: dict, mcfg: MoEConfig, mesh) -> dict:
     ``moe_block`` took them) → each leaf's gradient over every rank's tokens:
     the leaf summed over the ranks whose shares differ.  Every leaf over the
     data axes (each data shard routed other tokens) but the ``fsdp``
-    experts, which the all-gather's backward summed; the router over
-    ``model`` too (each rank's share covers its own experts' entries).  The
-    shared experts and a replicated router's aux share are the same on every
-    ``model`` rank, so they are not summed there."""
+    experts over ``data``, which the all-gather's backward summed there;
+    the router over ``model`` too (each rank's share covers its own
+    experts' entries).  The shared experts and a replicated router's aux
+    share are the same on every ``model`` rank, so they are not summed
+    there."""
     if mesh is None or _model_axis(mesh) == 1 and not _data_axes(mesh):
         return grads
-    names = mesh.mesh_dim_names
-    fsdp = _fsdp(mcfg, mesh)
+    split = expert_axes(mcfg, mesh)
     out = {}
     for name, g in grads.items():
-        axes = [] if fsdp and name in ("w1", "w3", "w2") else list(_data_axes(mesh))
+        axes = [a for a in _data_axes(mesh) if name not in EXPERTS or a not in split]
         if name == "router" and _model_axis(mesh) > 1:
             axes.append("model")
         for a in axes:
-            if a in names:
-                g = coll.all_reduce_sum(g, mesh.get_group(a))
+            g = coll.all_reduce_sum(g, mesh.get_group(a))
         out[name] = g
     return out

@@ -57,6 +57,7 @@ __all__ = [
     "lm_layers",
     "lm_loss",
     "lm_grad_sync",
+    "lm_grad_norm",
     "chunked_lm_head_loss",
     "init_cache",
     "decode_step",
@@ -222,6 +223,36 @@ def _require_compute_dtype(params: dict, cfg: TransformerConfig) -> None:
                          "cast them once with cast_params(params, cfg.compute_dtype)")
 
 
+def _require_whole(params: dict, cfg: TransformerConfig) -> None:
+    """Under a mesh every leaf but the MoE experts runs whole on every rank
+    (``expert_parallel_specs``): raise on one that arrived as a block."""
+    D, mo = cfg.d_model, cfg.moe
+    want = [(("embed",), (cfg.vocab, D))]
+    if not cfg.tie_embeddings:
+        want.append((("lm_head",), (D, cfg.vocab)))
+    for i, p in enumerate(params["layers"]):
+        want += [(("layers", i, name), shape) for name, shape in _layer_shapes(cfg)]
+        if "moe" in p:
+            want.append((("layers", i, "moe", "router"), (D, mo.n_experts)))
+            if mo.n_shared:
+                Fs = mo.n_shared * mo.d_ff_expert
+                want += [(("layers", i, "moe", "shared_w1"), (D, Fs)),
+                         (("layers", i, "moe", "shared_w3"), (D, Fs)),
+                         (("layers", i, "moe", "shared_w2"), (Fs, D))]
+        else:
+            want += [(("layers", i, "w1"), (D, cfg.d_ff)), (("layers", i, "w3"), (D, cfg.d_ff)),
+                     (("layers", i, "w2"), (cfg.d_ff, D))]
+    for path, shape in want:
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        if tuple(leaf.shape) != shape:
+            raise ValueError(
+                f"params{''.join(f'[{k!r}]' for k in path)} is {tuple(leaf.shape)}, not the whole "
+                f"{shape}: under a mesh only the MoE experts split (shard the params with "
+                "models.expert_parallel_specs, not configs.param_pspecs)")
+
+
 def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -316,8 +347,11 @@ def lm_forward(params, tokens, cfg: TransformerConfig, mesh=None):
     is the sum of the MoE layers' load-balance losses (0.0 for a dense stack).
     Under ``mesh`` (a mesh of processes) the MoE layers are expert-parallel:
     ``tokens`` are this rank's sequences, ``params`` its blocks
-    (``configs.param_pspecs``); the rest of the model runs whole on every rank."""
+    (``expert_parallel_specs``: the experts split, every other leaf whole);
+    the rest of the model runs whole on every rank."""
     _require_compute_dtype(params, cfg)
+    if mesh is not None:
+        _require_whole(params, cfg)
     x, aux = _hidden(params, tokens, cfg, remat=False, mesh=mesh)
     return x @ _head(params, cfg), aux
 
@@ -362,6 +396,8 @@ def lm_loss(params, batch, cfg: TransformerConfig, mesh=None):
     under ``cfg.remat``, the vocab chunked under ``cfg.loss_chunk``; under
     ``mesh`` the loss of this rank's sequences, MoE layers expert-parallel
     (``lm_grad_sync`` makes its gradients the whole batch's)."""
+    if mesh is not None:
+        _require_whole(params, cfg)
     x, aux = _hidden(params, batch["tokens"], cfg, remat=cfg.remat, mesh=mesh)
     head = _head(params, cfg).to(x.dtype)
     if cfg.loss_chunk > 0:
@@ -459,6 +495,8 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=Non
     if cur < 0:
         raise ValueError(f"decode_step: cur_len {cur} is negative")
     _require_compute_dtype(params, cfg)
+    if mesh is not None:
+        _require_whole(params, cfg)
     x = params["embed"][tokens][:, None, :]
     for i, p in enumerate(params["layers"]):
         h = rms_norm(x, p["norm1"])
@@ -472,6 +510,24 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=Non
     return (x @ _head(params, cfg))[:, 0, :], cache
 
 
+def _data_size(mesh) -> int:
+    from .moe import _data_axes
+
+    names = mesh.mesh_dim_names
+    return math.prod(mesh.size(names.index(a)) for a in _data_axes(mesh))
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` averaged over ``mesh``'s data axes (pod × data): a rank's value
+    of its own sequences → the mean over every data shard's."""
+    from ..dist import collectives as coll
+    from .moe import _data_axes
+
+    for a in _data_axes(mesh):
+        x = coll.all_reduce_sum(x, mesh.get_group(a))
+    return x / _data_size(mesh)
+
+
 def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
     """A rank's gradients of ``lm_loss`` under ``mesh`` (the mean loss of its
     own sequences) → the gradients of the mean loss over every rank's: each
@@ -479,25 +535,13 @@ def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
     ``moe_grad_sync`` (the ``fsdp`` experts summed by their all-gather's
     backward, the router over ``model`` as well).  The model ranks of one data
     shard ran the same sequences, so the other leaves are not summed there."""
-    from ..dist import collectives as coll
-    from .moe import _data_axes, moe_grad_sync
+    from .moe import moe_grad_sync
 
-    axes = _data_axes(mesh)
-    if not axes:
-        n_data = 1
-    else:
-        names = mesh.mesh_dim_names
-        n_data = math.prod(mesh.size(names.index(a)) for a in axes)
-
-    def dense(g):
-        for a in axes:
-            g = coll.all_reduce_sum(g, mesh.get_group(a))
-        return g / n_data
-
-    out = {k: dense(v) for k, v in grads.items() if k != "layers"}
+    n_data = _data_size(mesh)
+    out = {k: data_mean(v, mesh) for k, v in grads.items() if k != "layers"}
     layers = []
     for p in grads["layers"]:
-        q = {k: dense(v) for k, v in p.items() if k != "moe"}
+        q = {k: data_mean(v, mesh) for k, v in p.items() if k != "moe"}
         if "moe" in p:
             q["moe"] = {k: v / n_data for k, v in moe_grad_sync(p["moe"], cfg.moe, mesh).items()}
         layers.append(q)
@@ -505,10 +549,37 @@ def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
     return out
 
 
+def lm_grad_norm(grads: dict, cfg: TransformerConfig, mesh) -> torch.Tensor:
+    """The global norm of the whole model's gradients (``adamw_update``'s
+    clip) from a rank's gradients after ``lm_grad_sync``: the leaves every
+    rank holds whole counted once, the squares of the experts' blocks summed
+    over the dims they split over (``moe.expert_axes``)."""
+    from ..dist import collectives as coll
+    from .moe import EXPERTS, expert_axes
+
+    whole = [v for k, v in grads.items() if k != "layers"]
+    split = []
+    for p in grads["layers"]:
+        whole += [v for k, v in p.items() if k != "moe"]
+        for k, v in p.get("moe", {}).items():
+            (split if k in EXPERTS else whole).append(v)
+
+    def squares(xs):
+        return sum(torch.sum(torch.square(x.float())) for x in xs)
+
+    total = squares(whole)
+    if split:
+        s = squares(split)
+        for a in expert_axes(cfg.moe, mesh):
+            s = coll.all_reduce_sum(s, mesh.get_group(a))
+        total = total + s
+    return torch.sqrt(total)
+
+
 def expert_parallel_specs(params: dict, fsdp: bool = False) -> dict:
     """The blocks ``lm_forward(mesh=)`` runs on, as a spec tree for
     ``dist.sharding.shard_tree``: the MoE experts as ``configs.param_pspecs``
-    places them (over ``model``; with ``fsdp`` their hidden dim over ``data``
+    places them (over ``model``; with ``fsdp`` their dim 1 over ``data``
     too), every other leaf whole: the port's attention, dense FFNs,
     embedding and head run whole on every rank (no tensor parallelism yet)."""
     from ..dist.sharding import P, lm_param_specs, map_specs

@@ -62,14 +62,16 @@ def adamw_init(params) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptConfig):
+def adamw_update(grads, opt_state, params, cfg: OptConfig, grad_norm=None):
     """One AdamW step: the gradients clipped by their global norm (scale
     ``min(1, clip / max(‖g‖, 1e-9))``), float32 moments, bias correction,
     decoupled weight decay on every param; each new param in its old dtype.
+    ``grad_norm``, where given, is that norm (a rank holding blocks of a
+    sharded model passes the whole model's), else ``global_norm(grads)``.
     → ``(params, opt_state, {"lr", "grad_norm"})``."""
     step = opt_state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     g = [x.float() * scale for x in tree_leaves(grads)]
     m = torch._foreach_add(torch._foreach_mul(tree_leaves(opt_state["m"]), cfg.b1),

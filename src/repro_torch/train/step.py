@@ -13,7 +13,7 @@ __all__ = ["train_wrap"]
 
 
 def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
-               grads_fn: Callable | None = None):
+               grads_fn: Callable | None = None, norm_fn: Callable | None = None):
     """A train step over ``loss_fn(params, batch) → (loss, metrics)``:
     ``step(params, opt_state, batch) → (params, opt_state, metrics)``, one
     AdamW update (``train/optimizer.py``) of the loss's gradients.
@@ -23,7 +23,9 @@ def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
     summed in float32, then divided by the count, as the loss is (the JAX
     package's scan).  Its metrics are then the loss and the optimizer's.
     ``grads_fn``, where given, maps the gradients before the update (the
-    ``Trainer``'s compression with its error-feedback residual)."""
+    ``Trainer``'s compression with its error-feedback residual); ``norm_fn``,
+    where given, gives the clip's global norm of those gradients (a rank
+    holding blocks of a sharded model: the whole model's)."""
 
     def grads_of(params, batch):
         if grad_accum <= 1:
@@ -50,7 +52,8 @@ def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
         loss, metrics, grads = grads_of(params, batch)
         if grads_fn is not None:
             grads = grads_fn(grads)
-        new_params, new_opt, om = adamw_update(grads, opt_state, params, opt_cfg)
+        gn = None if norm_fn is None else norm_fn(grads)
+        new_params, new_opt, om = adamw_update(grads, opt_state, params, opt_cfg, gn)
         return new_params, new_opt, {"loss": loss, **metrics, **om}
 
     return step
