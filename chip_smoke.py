@@ -313,10 +313,29 @@ Phases, each printing its seconds:
      a step, each equal to plain.  The mesh times beside their one-device
      counterparts show the split's cost on one card, not a speed-up.
 
+ 16. the tools that describe a mesh: 16a the dry-run of gemma3-1b
+     ``train_4k`` on the (16, 16) mesh, qwen3-moe-235b-a22b ``train_4k`` on
+     the (2, 16, 16) mesh and dcn-v2 ``serve_bulk`` on the (16, 16) mesh
+     (``repro_torch.launch.dryrun``: one step on DTensors over a fake process
+     group, counted per rank), in a CPU-only child started at the top of the
+     script on one host thread pinned to one core at a lower priority,
+     collected here: each ``ok``, its
+     per-device flops, bytes, collective bytes and peak beside 80 GB; 16b
+     gemma3-1b ``prefill_32k`` at B = 2, one warm step on the card counted by
+     ``launch/op_cost.py`` (K6 26 times), its flops and bytes equal to the
+     child's dry-run of the same cell on a (1, 1) mesh, and an uncounted step
+     timed by CUDA events against the roofline of those counts (over 100 %
+     fails); 16c ``examples/quickstart_torch.py`` (every query's set VF2's)
+     and ``examples/chaos_crash_torch.py --kill-epoch 3`` (the final line
+     after the SIGKILL and restart equal to the control's) in children beside
+     16b.
+
 ``python3 chip_smoke.py --only 12`` (or ``--only 8``, ``--only 13``, ``--only
-14``, ``--only 15``) builds the kernels and runs phase 12 (or 8a with 8d, K6's
-edge checks and phase 13, phase 14, or phase 15) alone, printing no result
-line.
+14``, ``--only 15``, ``--only 16``) builds the kernels and runs phase 12 (or
+8a with 8d, K6's edge checks and phase 13, phase 14, phase 15, or phase 16)
+alone, printing no result line.  ``python3 chip_smoke.py --host-ab DIR
+[ROUNDS]`` reads the serving paths' host time against the port of another
+checkout unpacked in ``DIR`` (``host_ab``); it is not part of the full run.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -343,6 +362,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12  # H100 SXM tf32 tensor cores, dense
 SRC = "src/repro_torch/kernels"
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock
+T0 = time.perf_counter()  # the script's start (main sets it again)
 
 
 def log(msg: str) -> None:
@@ -6597,17 +6617,348 @@ def phase15_meshes(smi: str) -> dict:
     return out
 
 
+# 16a's production cells (arch, shape, mesh kind) and 16b's (the same cell on a (1, 1) mesh)
+DRYRUN_CELLS = [("gemma3-1b", "train_4k", "single"), ("qwen3-moe-235b-a22b", "train_4k", "multi"),
+                ("dcn-v2", "serve_bulk", "single")]
+PREFILL_B = 2  # phase 7's prefill_32k batch, 16b's
+HBM_BYTES = 80e9  # an H100's memory
+
+
+def dryrun_worker(out: str) -> int:
+    """16a's child (``chip_smoke.py --dryrun-worker OUT``): the dry-run of
+    ``DRYRUN_CELLS`` and of gemma3-1b ``prefill_32k`` at B = 2 on a (1, 1)
+    mesh, CPU-only (no card visible, so no second CUDA context shares the
+    card; its meshes are still of the card's type, as the dry-run's are on
+    any host), on one host thread pinned to one core at a
+    lower priority: it runs beside phases 2 to 15, whose host-bound phases it
+    must not slow → OUT, the records."""
+    import os
+
+    import torch
+
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    os.nice(10)
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import run_cell
+
+    recs = [run_cell(a, s, m, None) for a, s, m in DRYRUN_CELLS]
+    recs.append(run_cell("gemma3-1b", "prefill_32k", "single", None,
+                         mesh_shape=((1, 1), ("data", "model")), batch=PREFILL_B))
+    Path(out).write_text(json.dumps(recs))
+    return 0
+
+
+def start_dryrun(root: Path) -> dict:
+    """16a's child, started at the top of the script → {"proc", "out", "err", "t"}."""
+    import os
+
+    import atexit
+
+    out, err = root / "dryrun.json", root / "dryrun.err"
+    env = {**child_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    with open(err, "w") as fe:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker",
+                                 str(out)], stdout=subprocess.DEVNULL, stderr=fe, env=env,
+                                cwd=os.getcwd())
+
+    def stop():  # a failed phase leaves no child behind
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return {"proc": proc, "out": out, "err": err}
+
+
+def phase16a_dryrun(child: dict, smi: str, timeout: float) -> list:
+    """Collect 16a's child: every cell ``ok``; per-device flops, bytes,
+    collective bytes by kind and peak beside the card's 80 GB."""
+    p = child["proc"]
+    try:
+        rc = p.wait(timeout=max(timeout, 1.0))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        raise AssertionError(f"16a: the dry-run child did not end within {timeout:.0f} s more")
+    require(rc == 0 and child["out"].exists(),
+            f"16a: the dry-run child exited {rc}: {child['err'].read_text()[-3000:]}")
+    recs = json.loads(child["out"].read_text())
+    for rec in recs:
+        what = f"{rec['arch']} {rec['shape']} on the {rec['mesh']} mesh"
+        require(rec["status"] == "ok", f"16a {what}: {rec['status']}: {rec.get('error')}\n"
+                f"{rec.get('traceback', '')}")
+        require(rec["mesh_device"] == "cuda",
+                f"16a {what}: a {rec['mesh_device']} mesh plans gloo's collectives, not NCCL's")
+        peak = rec["memory"]["peak_memory_in_bytes"]
+        coll = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sorted(rec["collective_bytes"].items()))
+        log(f"16a dry-run {what} ({rec['n_devices']} ranks, {rec['mesh_device']} mesh): per device "
+            f"{rec['flops']:.6e} flops, {rec['bytes']:.6e} bytes ({rec['bytes_fused']:.6e} fused), "
+            f"collectives {coll or 'none'} ({rec['collective_count']}), peak "
+            f"{peak / 1e9:.3f} GB of {HBM_BYTES / 1e9:.0f} GB"
+            f"{'' if peak <= HBM_BYTES else ' (does not fit)'}, args "
+            f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB; {rec['n_ops']} ops; "
+            f"traced in {rec['trace_s']} s; card: {smi}")
+    log(f"16a the dry-run child's cells traced in {sum(r['trace_s'] for r in recs):.2f} s in all, "
+        f"beside phases 2 to 15")
+    return recs
+
+
+def example_child(args: list, root: Path, name: str) -> dict:
+    """One of 16c's examples in a child process → {"proc", "out", "err"}."""
+    out, err = root / f"{name}.out", root / f"{name}.err"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / args[0]), *args[1:]],
+                                stdout=fo, stderr=fe, env=child_env())
+    return {"proc": proc, "out": out, "err": err, "name": name}
+
+
+def phase16b_counted_step(dev) -> dict:
+    """gemma3-1b ``prefill_32k`` at B = 2 on the card: one warm step under
+    ``op_cost`` (K6 26 times), a separate uncounted step timed by CUDA
+    events → {"flops", "bytes", "K6", "ms"}."""
+    import torch
+
+    from repro_torch.configs import build_step, get_arch, init_params, make_batch, resolve_config
+    from repro_torch.launch.op_cost import analyze_step
+
+    arch = get_arch("gemma3-1b")
+    cell = arch.cell("prefill_32k")
+    cfg = resolve_config(arch, cell, smoke=False)
+    params = init_params(arch, cfg, seed=0, device=dev)
+    batch = {"tokens": make_batch(arch, cell, cfg, seed=1, smoke=False,
+                                  device=dev)["tokens"][:PREFILL_B]}
+    step, _ = build_step(arch, cell, cfg)
+    with torch.no_grad():
+        step(params, batch)  # warm
+        sync(dev)
+        reset_counters()  # the counted step's launches, from here
+        cost = analyze_step(step, params, batch, real=True)
+        sync(dev)
+        k6 = counters()["K6"]
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, batch)
+        end.record()
+        end.synchronize()
+    del params
+    torch.cuda.empty_cache()
+    return {"flops": cost["flops"], "bytes": cost["bytes"], "K6": k6,
+            "ms": start.elapsed_time(end), "n_ops": cost["n_ops"]}
+
+
+def phase16_mesh_tools(dev, smi: str, child: dict, root: Path) -> dict:
+    """Phase 16: 16b the counted step beside 16c's examples in children, then
+    16c's results, then 16a's dry-run child."""
+    t = time.perf_counter()
+    kids = [example_child(["quickstart_torch.py"], root, "quickstart"),
+            example_child(["chaos_crash_torch.py", "--kill-epoch", "3"], root, "chaos")]
+    try:
+        b = phase16b_counted_step(dev)
+        log(f"16b gemma3-1b prefill_32k at B = {PREFILL_B}, one warm step counted on the card: "
+            f"{b['flops']:.6e} flops, {b['bytes']:.6e} bytes, {b['n_ops']} ops, K6 x{b['K6']}; "
+            f"an uncounted step {b['ms']:.3f} ms by CUDA events; {time.perf_counter() - t:.3f} s; "
+            f"card: {smi}")
+        require(b["K6"] == 26, f"16b: K6 launched {b['K6']} times in the counted step, not 26")
+        outs = {}
+        for k in kids:
+            rc = k["proc"].wait(timeout=600)
+            outs[k["name"]] = k["out"].read_text()
+            require(rc == 0, f"16c {k['name']}: exit {rc}: {k['err'].read_text()[-3000:]}")
+    finally:
+        for k in kids:
+            if k["proc"].poll() is None:
+                k["proc"].kill()
+                k["proc"].wait()
+    agree = outs["quickstart"].count("(oracle agrees)")
+    require(agree == 3, f"16c quickstart_torch.py: {agree} of 3 queries equal VF2's")
+    finals = [ln for ln in outs["chaos"].splitlines() if ln.startswith("[wal] final ")]
+    require("[chaos] ok: recovered replica identical to control" in outs["chaos"]
+            and len(finals) == 2 and finals[0] == finals[1],
+            f"16c chaos_crash_torch.py: final lines {finals}")
+    log(f"16c quickstart_torch.py on the card: 3 queries' sets equal VF2's; chaos_crash_torch.py "
+        f"--kill-epoch 3: {finals[1]} after the SIGKILL and restart, equal to the control's; "
+        f"{time.perf_counter() - t:.3f} s; card: {smi}")
+
+    recs = phase16a_dryrun(child, smi, timeout=max(60.0, 1100.0 - (time.perf_counter() - T0)))
+    one = recs[-1]
+    require(one["flops"] == b["flops"] and one["bytes"] == b["bytes"],
+            f"16b: the counted step's flops {b['flops']!r} and bytes {b['bytes']!r} differ from "
+            f"the dry-run's on a (1, 1) mesh, {one['flops']!r} and {one['bytes']!r}")
+    c_ms = b["flops"] / BF16_OPS_PER_S * 1e3
+    m_ms = b["bytes"] / HBM_BYTES_PER_S * 1e3
+    share = max(c_ms, m_ms) / b["ms"]
+    log(f"16b the roofline of that step: {c_ms:.3f} ms of flops at 989 TFLOP/s, {m_ms:.3f} ms of "
+        f"bytes at 3.35 TB/s, against {b['ms']:.3f} ms: {share:.1%} of the roofline "
+        f"({'compute' if c_ms >= m_ms else 'memory'} bound); flops and bytes equal the dry-run's "
+        f"on a (1, 1) mesh; card: {smi}")
+    require(share <= 1.0, f"16b: the step ran at {share:.1%} of its roofline: the count is wrong")
+    log(f"phase 16 the mesh tools: {time.perf_counter() - t:.3f} s; card: {smi}")
+    return {"K6": b["K6"], "share": share}
+
+
+def load_port(src: Path, name: str):
+    """The port's package at ``src/repro_torch`` imported under ``name`` (its
+    imports are all relative, so a second checkout's, a parent commit's,
+    loads beside this one's, with its own kernels built from its own
+    sources).  Two checkouts that register the same custom ops cannot load
+    together."""
+    import importlib
+    import importlib.util
+
+    pkg = src / "repro_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return {m: importlib.import_module(f"{name}.{m}") for m in (
+        "configs", "kernels.build", "kernels.star_agg.ops", "kernels.cross_interact.ops",
+        "kernels.flash_attention.ops")}
+
+
+def host_ab(parent: Path, rounds: int = 12) -> int:
+    """``chip_smoke.py --host-ab DIR [ROUNDS]``: the serving paths' host time,
+    this tree's port against the one in ``DIR/src`` (a parent commit unpacked
+    by ``git archive``), both loaded in this one process and read in turns
+    on one card (parent, this, this, parent, ...; ``ROUNDS`` of each, then as
+    many beside phase 16a's dry-run child).  Each turn reads, on the host
+    clock to a ``synchronize``: dcn-v2 ``serve_p99``'s warm step (B = 512: K4
+    once, K5 three times; median of 21), gemma3-1b ``decode_32k``'s at
+    B = 64 (phase 7's; median of 5), and the mean host ms to enqueue K4 and
+    K5 at ``serve_p99``'s shapes and K6 at B = 1, S = 4,096, Hq = 8,
+    dh = 256.  Both trees step on the same params and batches.  This tree's
+    K4 is also read through its custom op, which the wrapper skips on a
+    plain card tensor.  Prints one JSON line of each reading's median,
+    quartiles, min and max over the turns, and the pairs (turn i of each
+    side) in which this tree read below the parent, with the card's name and
+    power limit; not part of the full run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import tempfile
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    ports = {"parent": load_port(parent.resolve() / "src", "repro_torch_parent"),
+             "this": load_port(ROOT / "src", "repro_torch")}
+    for port in ports.values():
+        port["kernels.build"].build_all()
+    dev = torch.device("cuda")
+    cfgs = ports["this"]["configs"]
+
+    def setup(arch_name: str, cell_name: str):
+        arch = cfgs.get_arch(arch_name)
+        cell = arch.cell(cell_name)
+        cfg = cfgs.resolve_config(arch, cell, smoke=False)
+        return arch, cell, cfg, cfgs.init_params(arch, cfg, seed=0, device=dev)
+
+    with torch.no_grad():
+        d_arch, d_cell, d_cfg, d_params = setup("dcn-v2", "serve_p99")
+        d_batch = cfgs.make_batch(d_arch, d_cell, d_cfg, seed=1, smoke=False, device=dev)
+        g_arch, g_cell, g_cfg, g_params = setup("gemma3-1b", "decode_32k")
+        g_batch = decode_batch_on(dev, g_arch, g_cfg, 64, "decode_32k", 2)
+        seen: dict = {}
+        sa, ci = ports["this"]["kernels.star_agg.ops"], ports["this"]["kernels.cross_interact.ops"]
+        sa_fn, ci_fn = sa.star_agg, ci.cross_interact
+        sa.star_agg = lambda *a: seen.setdefault("K4", a) and sa_fn(*a)
+        ci.cross_interact = lambda *a: seen.setdefault("K5", a) and ci_fn(*a)
+        try:
+            ports["this"]["configs"].build_step(d_arch, d_cell, d_cfg)[0](d_params, d_batch)
+        finally:
+            sa.star_agg, ci.cross_interact = sa_fn, ci_fn
+        q = torch.randn(1, 4096, 8, 256, dtype=torch.bfloat16, device=dev)
+        k = torch.randn(1, 4096, 1, 256, dtype=torch.bfloat16, device=dev)
+        steps = {}
+        for name, port in ports.items():
+            c = port["configs"]
+            serve = c.build_step(c.get_arch("dcn-v2"), d_cell, d_cfg)[0]
+            decode = c.build_step(c.get_arch("gemma3-1b"), g_cell, g_cfg)[0]
+            steps[name] = {
+                "serve_p99_ms": (lambda f=serve: f(d_params, d_batch), 21),
+                "decode_32k_ms": (lambda f=decode: f(g_params, g_batch), 5),
+                "K4_host_ms": (lambda m=port["kernels.star_agg.ops"]: host_ms(
+                    m.star_agg, seen["K4"], reps=20), 1),
+                "K5_host_ms": (lambda m=port["kernels.cross_interact.ops"]: host_ms(
+                    m.cross_interact, seen["K5"], reps=20), 1),
+                "K6_host_ms": (lambda m=port["kernels.flash_attention.ops"]: host_ms(
+                    m.flash_attention, (q, k, k), reps=20), 1),
+            }
+            for fn, _ in steps[name].values():
+                fn()  # warm
+        steps["this"]["K4_op_host_ms"] = (lambda: host_ms(
+            torch.ops.repro_torch.star_agg, seen["K4"], reps=20), 1)
+
+        def turn(name: str, sink: dict) -> None:
+            for key, (fn, reps) in steps[name].items():
+                if reps == 1:
+                    val = fn()
+                else:
+                    walls = []
+                    for _ in range(reps):
+                        sync(dev)
+                        t = time.perf_counter()
+                        fn()
+                        sync(dev)
+                        walls.append((time.perf_counter() - t) * 1e3)
+                    val = float(np.median(walls))
+                sink.setdefault(f"{name} {key}", []).append(val)
+
+        order = ["parent", "this", "this", "parent"]
+        alone: dict = {}
+        for i in range(2 * rounds):
+            turn(order[i % 4], alone)
+        beside: dict = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            child = start_dryrun(Path(tmp))
+            try:
+                time.sleep(10.0)  # the child past its imports, into its cells
+                for i in range(2 * rounds):
+                    turn(order[i % 4], beside)
+                ran = child["proc"].poll() is None
+            finally:
+                if child["proc"].poll() is None:
+                    child["proc"].kill()
+                child["proc"].wait()
+        require(ran, "--host-ab: the dry-run child ended before the turns beside it did")
+
+    def summary(res: dict) -> dict:
+        out = {}
+        for k, v in sorted(res.items()):
+            q1, med, q3 = (float(x) for x in np.percentile(v, [25, 50, 75]))
+            out[k] = {"median": med, "q1": q1, "q3": q3, "min": min(v), "max": max(v), "n": len(v)}
+            side, key = k.split(" ", 1)
+            if side == "this" and f"parent {key}" in res:  # turn i of each side: one pair
+                out[k]["below_parent"] = sum(a < b for a, b in zip(v, res[f"parent {key}"]))
+        return out
+
+    print(json.dumps({"card": smi, "parent": str(parent), "alone": summary(alone),
+                      "beside_16a_child": summary(beside)}), flush=True)
+    return 0
+
+
 def main(only: str | None = None) -> int:
-    """Every phase, or with ``only="8"``, ``"12"``, ``"13"``, ``"14"`` or ``"15"`` the
-    build and that phase alone (a partial run: it prints no result line)."""
+    """Every phase, or with ``only="8"``, ``"12"``, ``"13"``, ``"14"``, ``"15"`` or
+    ``"16"`` the build and that phase alone (a partial run: it prints no result line)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    import tempfile
+
     from repro_torch.kernels import build as kbuild
 
+    global T0
+    T0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root16 = Path(tmp.name)
+    if only in (None, "16"):
+        dry = start_dryrun(root16)  # 16a, beside every phase until phase 16 collects it
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
 
@@ -6649,6 +7000,16 @@ def main(only: str | None = None) -> int:
         phase14_gnn(dev, smi)
         log(f"phase 14 the GNN zoo and GNN-PE's cells: {time.perf_counter() - t:.3f} s; partial "
             f"run (--only 14): no result line")
+        return 0
+    if only == "16":
+        try:
+            phase16_mesh_tools(dev, smi, dry, root16)
+        finally:
+            if dry["proc"].poll() is None:
+                dry["proc"].kill()
+                dry["proc"].wait()
+            tmp.cleanup()
+        log("partial run (--only 16): no result line")
         return 0
     if only == "15":
         t = time.perf_counter()
@@ -6752,6 +7113,14 @@ def main(only: str | None = None) -> int:
         f"{time.perf_counter() - t:.3f} s; launches K6 {p15['K6']} (in their processes); "
         f"card: {smi}")
 
+    try:
+        p16 = phase16_mesh_tools(dev, smi, dry, root16)
+    finally:
+        if dry["proc"].poll() is None:
+            dry["proc"].kill()
+            dry["proc"].wait()
+        tmp.cleanup()
+
     def record(name, kid, source, replaces, launches, ms, plain_ms, bound, library_ms=None):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6804,9 +7173,10 @@ def main(only: str | None = None) -> int:
                p3["K3b_ms"], p3["K3b_plain_ms"], p3["K3b_bound"]),
         # K4, K5 and K6's launches: phase 6's / 7's serving paths, then phase 12's
         # train steps (12a's first DCN-v2 step, 12b's first gemma3-1b step), then
-        # (K6) phase 13's four prefill_32k forwards and phase 15's mesh paths (15a's
+        # (K6) phase 13's four prefill_32k forwards, phase 15's mesh paths (15a's
         # lm_forward(mesh=) and 15b's pipeline, counted from 0 in each worker process
-        # just before it and summed here), each counted from 0 just before it
+        # just before it and summed here) and phase 16b's counted prefill step, each
+        # counted from 0 just before it
         record("star_agg", "K4", f"{SRC}/star_agg/csrc/star_agg.cu",
                "src/repro/kernels/star_agg/kernel.py:39", p6["K4"] + p12["K4"], p6["K4_ms"],
                p6["K4_plain_ms"], p6["K4_bound"], p6["K4_library_ms"]),
@@ -6817,7 +7187,7 @@ def main(only: str | None = None) -> int:
         # K6 at a global layer of prefill_32k; its local-layer times are in the log
         record("flash_attention", "K6", f"{SRC}/flash_attention/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:69",
-               p7["K6"] + p12["K6"] + p13["K6"] + p15["K6"],
+               p7["K6"] + p12["K6"] + p13["K6"] + p15["K6"] + p16["K6"],
                p7["K6_ms"], p7["K6_plain_ms"], p7["K6_bound"], p7["K6_library_ms"]),
     ]
     print(json.dumps({"kernels": records}))
@@ -6844,6 +7214,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 8 and sys.argv[1] == "--mesh-worker":
         sys.exit(mesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5],
                              sys.argv[6], sys.argv[7] == "smoke"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-worker":
+        sys.exit(dryrun_worker(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--host-ab":
+        sys.exit(host_ab(Path(sys.argv[2]), *map(int, sys.argv[3:])))
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -547,13 +547,14 @@ def online_counts(params, batch, cfg, rows: int = ONLINE_ROWS) -> torch.Tensor:
     ``|emb0[r] − q0[i]| ≤ 1e-6``).  ``rows`` index rows at a time, one
     column at a time, so no temporary is larger than (Q, rows)."""
     emb, emb0, q, q0 = params["emb"], params["emb0"], batch["q"], batch["q0"]
-    counts = torch.zeros(q.shape[0], dtype=torch.int64, device=emb.device)
+    # accumulators made from the inputs (q.new_*), so that on DTensors they are DTensors too
+    counts = q.new_zeros((q.shape[0],), dtype=torch.int64)
     for r0 in range(0, emb.shape[0], rows):
         e, e0 = emb[r0:r0 + rows], emb0[r0:r0 + rows]
         if cfg.label_hash:
             ok = q0[:, None] == e0[None, :]
         else:
-            ok = torch.ones((q.shape[0], e.shape[0]), dtype=torch.bool, device=e.device)
+            ok = q.new_ones((q.shape[0], e.shape[0]), dtype=torch.bool)
             for j in range(e0.shape[1]):
                 ok &= torch.abs(e0[None, :, j] - q0[:, j, None]) <= 1e-6
         for j in range(e.shape[1]):

@@ -17,6 +17,7 @@ _EXPORTS = {
     "init_distributed": "cluster",
     "pipeline_apply": "pipeline",
     "use_mesh": "context", "current_mesh": "context", "maybe_shard": "context",
+    "is_dtensor": "context", "per_shard": "context",
     "use_devices": "context", "current_devices": "context", "mesh_devices": "context",
 }
 

@@ -8,6 +8,9 @@ CUDA tensors (no all-gather, no reduce-scatter, no point-to-point), so the
 tensor is copied to the host, exchanged there and copied back; a host
 tensor goes to gloo as it is.  Gloo has no reduce-scatter at all, so the
 all-gather's backward is an all-reduce of which each rank keeps its block.
+Any backend but gloo takes NCCL's calls: the dry-run's fake process group
+(``launch/dryrun.py``) stands for NCCL on the production mesh, so its
+counts (``launch/op_cost.py``) are what NCCL runs.
 
 A collective over ``group=None`` without a default process group is the
 one-rank case and returns its input; a collective over a group that
@@ -35,9 +38,13 @@ def world(group=None) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
 def _staged(x: torch.Tensor, group) -> bool:
     """Whether ``x`` goes through a host copy: a card's tensor under gloo."""
-    return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    return x.device.type != "cpu" and _gloo(group)
 
 
 def _host(x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +78,7 @@ def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
 
 def _gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along dim 0 in rank order."""
-    if _staged(x, group) or x.device.type == "cpu":
+    if _gloo(group):
         host = _host(x)
         parts = [torch.empty_like(host) for _ in range(size)]
         dist.all_gather(parts, host, group=group)
@@ -84,7 +91,7 @@ def _gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
 def _reduce_scatter(g: torch.Tensor, group, rank: int, size: int) -> torch.Tensor:
     """This rank's dim-0 block of Σ over ranks of ``g``."""
     rows = g.shape[0] // size
-    if _staged(g, group) or g.device.type == "cpu":
+    if _gloo(group):
         return all_reduce_sum(g, group)[rank * rows:(rank + 1) * rows]
     out = g.new_empty((rows,) + tuple(g.shape[1:]))
     dist.reduce_scatter_tensor(out, g.contiguous(), op=dist.ReduceOp.SUM, group=group)

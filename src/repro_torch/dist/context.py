@@ -3,9 +3,21 @@ lists of the in-process meshes.
 
 ``use_mesh(mesh)`` scopes a ``DeviceMesh`` for this thread;
 ``maybe_shard(x, *entries)`` redistributes a DTensor to ``P(*entries)``
-(axis-filtered) on that mesh.  It is an exact no-op with no mesh active,
-and for a plain tensor: the port's models run per rank on local tensors,
-where a sharding hint means nothing, so they do not call it yet.
+(axis-filtered) on that mesh; ``split_heads`` views a projection's flat
+head dim as (heads, width), on a DTensor gathering it first where the
+heads do not divide its split.  The models call it where the JAX package
+constrains a sharding (the attention's projections and output, the MLP's
+hidden states, the hidden states and logits of the forward and the decode
+step, DCN-v2's activations and retrieval's candidates and scores).  It is
+an exact no-op with no mesh active and for a plain tensor, so every path
+on local tensors (one card, or a rank of a mesh of processes) runs as it
+did; on DTensors (the dry-run, ``launch/dryrun.py``) it places the
+activations as the JAX package's program does.
+
+``per_shard(fn, ...)`` runs a kernel's wrapper on each rank's block of
+its DTensor operands: the kernels of the port have no rule of their own
+in DTensor's dispatch, so K5's and K6's wrappers and the model's
+``embedding_bag`` (K4) call it.
 
 ``use_devices(axis, devices)`` scopes the device list of an in-process
 mesh: ``"part"``, the stacked probe's partition slots
@@ -26,8 +38,8 @@ import torch
 
 from .sharding import P, filter_spec, to_placements
 
-__all__ = ["use_mesh", "current_mesh", "maybe_shard", "use_devices", "current_devices",
-           "mesh_devices"]
+__all__ = ["use_mesh", "current_mesh", "maybe_shard", "split_heads", "is_dtensor", "per_shard",
+           "use_devices", "current_devices", "mesh_devices"]
 
 _state = threading.local()
 
@@ -59,6 +71,75 @@ def maybe_shard(x, *entries):
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(mesh, to_placements(mesh, filter_spec(P(*entries), mesh)))
+
+
+def split_heads(x, heads: int, width: int, dim: int = -1):
+    """``x``'s dim ``dim`` (heads · width) viewed as (heads, width).  A DTensor
+    whose ``dim`` is split over mesh dims that ``heads`` does not divide is
+    first gathered over them (an all-gather, counted as one): DTensor cannot
+    split a sharded dim between heads and head width, as GSPMD tiles it."""
+    d = dim % x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        over = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
+        n = 1
+        for i in over:
+            n *= x.device_mesh.size(i)
+        if heads % n:
+            x = x.redistribute(x.device_mesh, [Replicate() if i in over else p
+                                               for i, p in enumerate(x.placements)])
+    return x.view(*x.shape[:d], heads, width, *x.shape[d + 1:])
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def per_shard(fn, sharded: tuple, whole: tuple, dims: tuple, out_shape, even: tuple = ()):
+    """``fn(*sharded, *whole)`` on this rank's blocks → a DTensor of global
+    shape ``out_shape`` (dim d of the output is dim d of every ``sharded``
+    operand).  ``sharded`` are DTensors on one mesh (a plain tensor among
+    them is taken as replicated); on each mesh dim they
+    keep the ``Shard(d)`` the first of them has where ``d`` is in ``dims``,
+    every one of them has it and, for a ``d`` in ``even``, dim d of each
+    splits evenly over the mesh dims so far; elsewhere they are gathered
+    (``Replicate``), as ``whole`` (DTensors or plain tensors) are on every
+    dim.  The output keeps the kept splits.  Backward: the gradient of a
+    ``whole`` operand is a partial sum over the mesh dims that split the
+    rows (each rank's rows add their share)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = next(t.device_mesh for t in sharded if is_dtensor(t))
+    whole_mesh = [Replicate()] * mesh.ndim
+
+    def dtensor(t):
+        return t if is_dtensor(t) else DTensor.from_local(t, mesh, whole_mesh, run_check=False)
+
+    sharded = tuple(map(dtensor, sharded))
+    kept, split = [], {}
+    for i, p in enumerate(sharded[0].placements):
+        d = p.dim if isinstance(p, Shard) else None
+        ok = d in dims and all(t.placements[i] == p for t in sharded)
+        if ok and d in even:
+            n = split.get(d, 1) * mesh.size(i)
+            ok = all(t.shape[d] % n == 0 for t in sharded)
+        if ok:
+            split[d] = split.get(d, 1) * mesh.size(i)
+        kept.append(p if ok else Replicate())
+    grads = [Partial() if isinstance(p, Shard) else Replicate() for p in kept]
+    local = [t.redistribute(mesh, kept).to_local() for t in sharded]
+    local += [dtensor(t).redistribute(mesh, whole_mesh).to_local(grad_placements=grads)
+              for t in whole]
+    out = fn(*local)
+    shape = torch.Size(out_shape)
+    return DTensor.from_local(out, mesh, kept, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def current_devices(axis: str):

@@ -5,6 +5,15 @@ CPU tensor through the plain version (``ref.py``); any other device
 raises.  ``LAUNCHES`` counts the kernel's launches, so a run can show
 that its path went through the kernel.
 
+The forward is the custom op ``torch.ops.repro_torch.cross_interact`` (its
+body the launch or the plain version), so that the dispatcher sees it:
+``register_fake`` gives its output without running anything, and its flop
+formula (2·B·D², the product K5's bound counts) lets a dispatch mode count
+it; a plain card tensor with no dispatch mode active skips the op and
+launches directly (``device.dispatcher_watches``).  On a DTensor the wrapper runs per shard
+(``dist.context.per_shard``): the batch rows keep their split, W and b are
+gathered whole.
+
 ``cross_interact`` is differentiable through ``_CrossInteract``, on the CPU
 and on the card alike.  Its backward is plain PyTorch by design (the JAX
 package has no backward kernel either): with upstream gradient g and
@@ -14,7 +23,10 @@ rule), dx0 = g ⊙ y, dx = (g ⊙ x0) Wᵀ + g, dW = xᵀ (g ⊙ x0), db = Σ (g
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import dispatcher_watches, takes_card_path
+from ...dist.context import is_dtensor, per_shard
 from .kernel import kpad, launch_cross_interact
 from .ref import cross_interact_ref
 
@@ -23,7 +35,8 @@ __all__ = ["LAUNCHES", "cross_interact", "cross_interact_ref", "cross_interact_b
 LAUNCHES = 0
 
 
-def _forward(x0, x, w, b) -> torch.Tensor:
+def _run(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K5 on a card's operands, the plain version on the CPU's."""
     global LAUNCHES
     if x.device.type == "cpu":
         return cross_interact_ref(x0, x, w, b)
@@ -38,6 +51,25 @@ def _forward(x0, x, w, b) -> torch.Tensor:
     launch_cross_interact(x0, x, w, b, wt, out)
     LAUNCHES += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::cross_interact", mutates_args=())(_run)
+
+
+def _forward(x0, x, w, b) -> torch.Tensor:
+    """The forward: the custom op where the dispatcher watches, else its body."""
+    return (_op if dispatcher_watches(x) else _run)(x0, x, w, b)
+
+
+@_op.register_fake
+def _(x0, x, w, b):
+    return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.cross_interact)
+def _flops(x0_shape, x_shape, w_shape, b_shape, out_shape=None, **kwargs) -> int:
+    B, D = x_shape
+    return 2 * B * D * D
 
 
 def cross_interact_backward(x0, x, w, b, g, needs=(True, True, True, True)) -> tuple:
@@ -76,8 +108,10 @@ def cross_interact(x0, x, w, b) -> torch.Tensor:
         and b.shape == (x.shape[1],)
     ):
         raise ValueError(f"cross_interact: operand shapes {[tuple(t.shape) for t in ops]}")
+    if is_dtensor(x):
+        return per_shard(cross_interact, (x0, x), (w, b), dims=(0,), out_shape=x.shape)
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("cross_interact: operands must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type != "cpu" and not takes_card_path(x.device):
         raise ValueError(f"cross_interact: no kernel for device {x.device}")
     return _CrossInteract.apply(x0, x, w, b)

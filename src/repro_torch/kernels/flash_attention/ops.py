@@ -14,6 +14,16 @@ columns add nothing to a score and give zero output columns, so the
 padding is exact; it costs a P·V product (and, off 16, a Q·Kᵀ) that much
 wider.
 
+The forward is the custom op ``torch.ops.repro_torch.flash_attention``
+(its body the launch or the plain version), so that the dispatcher sees
+it: ``register_fake`` gives its output's shape and dtype without running
+anything, and its flop formula (``attention_flops``, the work K6's bound
+counts) lets a dispatch mode count it (``launch/op_cost.py``); a plain
+card tensor with no dispatch mode active skips the op and launches
+directly (``device.dispatcher_watches``).  On a
+DTensor the wrapper runs per shard (``dist.context.per_shard``): batch and
+heads keep their split, every other dim is gathered first.
+
 ``flash_attention`` is differentiable in q, k and v through ``_FlashAttention``,
 on the CPU and on the card alike.  Its backward is plain PyTorch by design
 (the JAX package has no backward kernel either): it recomputes the plain
@@ -27,11 +37,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import dispatcher_watches, takes_card_path
+from ...dist.context import is_dtensor, per_shard
 from .kernel import launch_flash_attention
 from .ref import flash_attention_plain
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward", "attention_flops"]
 
 LAUNCHES = 0
 _ALIGN = 8  # elements: the kernel moves 16-byte chunks of bf16
@@ -63,10 +76,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
         raise TypeError("flash_attention: q, k and v must share one dtype")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be positive")
+    if is_dtensor(q):
+        return per_shard(lambda *t: flash_attention(*t, causal, window, chunk), (q, k, v), (),
+                         dims=(0, 2), out_shape=q.shape[:3] + v.shape[3:], even=(2,))
     if q.device.type == "cpu":
         if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash_attention: no plain version for {q.dtype}")
-    elif q.device.type != "cuda":
+    elif not takes_card_path(q.device):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     else:
         _check_kernel_operands(q, k, v)
@@ -86,26 +102,65 @@ def _check_kernel_operands(q, k, v) -> None:
         raise ValueError(f"flash_attention: the kernel takes dh up to 256, not {dh}")
     w = _width(dh)
     for t in [t for t in (q, k, v) if t.shape[-1] == w]:  # the others are padded anew
-        if t.stride(3) != 1 or any(s % _ALIGN for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError("flash_attention: operands need a unit stride on dh, the other "
-                             "strides multiples of 8 and 16-byte aligned data")
+        if t.stride(3) != 1 or any(s % _ALIGN for s in t.stride()[:3]):
+            raise ValueError("flash_attention: operands need a unit stride on dh and the other "
+                             "strides multiples of 8")
     if B * Hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {B * Hq} exceeds the kernel's grid")
 
 
 def _forward(q, k, v, causal: bool, window, chunk: int) -> torch.Tensor:
+    """The forward: the custom op where the dispatcher watches, else its body
+    (``window`` None for none, which the op takes as 0)."""
+    return (_kernel_op if dispatcher_watches(q) else _run)(q, k, v, causal, window or 0, chunk)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+         chunk: int) -> torch.Tensor:
+    """K6 on a card's operands, the plain version on the CPU's (``window`` 0:
+    none)."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, chunk)
+        return flash_attention_plain(q, k, v, causal, window or None, chunk)
     dh, dv = q.shape[-1], v.shape[-1]
     w = _width(dh)
     q, k, v = (t if t.shape[-1] == w else F.pad(t, (0, w - t.shape[-1])) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel needs 16-byte aligned operands")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out[..., :dv]
-    launch_flash_attention(q, k, v, out, causal, window or 0, 1.0 / math.sqrt(dh))
+    launch_flash_attention(q, k, v, out, causal, window, 1.0 / math.sqrt(dh))
     LAUNCHES += 1
     return out[..., :dv]
+
+
+_kernel_op = torch.library.custom_op("repro_torch::flash_attention", mutates_args=())(_run)
+
+
+@_kernel_op.register_fake
+def _(q, k, v, causal, window, chunk):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+def attention_flops(B: int, S: int, Hq: int, dh: int, dv: int, causal: bool = True,
+                    window: int | None = None) -> int:
+    """2·(dh + dv) operations (a multiply-add for each of q·k's dh and p·v's dv
+    terms) for each (query, key) pair the mask keeps, over B sequences and
+    Hq heads: row i keeps the keys j ≤ i when ``causal``, and with a window
+    only those with i − j < window, as the plain version masks them."""
+    w = S if not window else min(window, S)
+    if causal:
+        pairs = w * (w + 1) // 2 + (S - w) * w
+    else:
+        pairs = S * S - (S - w) * (S - w + 1) // 2
+    return 2 * (dh + dv) * pairs * B * Hq
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, window, chunk, out_shape=None, **kwargs) -> int:
+    B, S, Hq, dh = q_shape
+    return attention_flops(B, S, Hq, dh, v_shape[3], causal, window)
 
 
 def flash_attention_backward(q, k, v, grad_out, causal: bool = True, window=None,

@@ -5,6 +5,15 @@ CPU tensor through the plain version (``ref.py``); any other device
 raises.  ``LAUNCHES`` counts the kernel's launches, so a run can show
 that its path went through the kernel.
 
+The forward is the custom op ``torch.ops.repro_torch.star_agg`` (its body
+the launch or the plain version), so that the dispatcher sees it:
+``register_fake`` gives its output without running anything, and its flop
+formula (N·(K − 1)·E adds, every slot taken as set: shapes do not show the
+mask) lets a dispatch mode count it.  A plain card tensor with no dispatch
+mode active skips the op and launches directly
+(``device.dispatcher_watches``).  On DTensors the model's
+``embedding_bag`` runs it per shard.
+
 ``star_agg`` is differentiable in ``table`` through ``_StarAgg``, on the
 CPU and on the card alike.  Its backward is plain PyTorch by design (the
 JAX package has no backward kernel either): the output gradient of every
@@ -15,7 +24,9 @@ no gradient.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import dispatcher_watches, takes_card_path
 from .kernel import launch_star_agg
 from .ref import star_agg_ref
 
@@ -24,7 +35,8 @@ __all__ = ["LAUNCHES", "star_agg", "star_agg_ref", "star_agg_backward"]
 LAUNCHES = 0
 
 
-def _forward(idx, mask, table) -> torch.Tensor:
+def _run(idx: torch.Tensor, mask: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K4 on a card's operands, the plain version on the CPU's."""
     global LAUNCHES
     if table.device.type == "cpu":
         return star_agg_ref(idx, mask, table)
@@ -36,6 +48,25 @@ def _forward(idx, mask, table) -> torch.Tensor:
     launch_star_agg(idx, mask, table, out)
     LAUNCHES += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::star_agg", mutates_args=())(_run)
+
+
+def _forward(idx, mask, table) -> torch.Tensor:
+    """The forward: the custom op where the dispatcher watches, else its body."""
+    return (_op if dispatcher_watches(table) else _run)(idx, mask, table)
+
+
+@_op.register_fake
+def _(idx, mask, table):
+    return table.new_empty((idx.shape[0], table.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.star_agg)
+def _flops(idx_shape, mask_shape, table_shape, out_shape=None, **kwargs) -> int:
+    N, K = idx_shape
+    return N * max(K - 1, 0) * table_shape[1]
 
 
 def star_agg_backward(idx, mask, grad_out, n_rows: int) -> torch.Tensor:
@@ -84,6 +115,6 @@ def star_agg(idx, mask, table) -> torch.Tensor:
         )
     if not all(t.is_contiguous() for t in (idx, mask, table)):
         raise ValueError("star_agg: operands must be contiguous")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type != "cpu" and not takes_card_path(table.device):
         raise ValueError(f"star_agg: no kernel for device {table.device}")
     return _StarAgg.apply(idx, mask, table)

@@ -2,11 +2,14 @@
 
 ``make_mesh(shape, names)`` lays the group's ranks row-major over a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dims;
-``make_local_mesh(data, model)`` is the JAX package's ``("data",
-"model")`` test mesh.  Each runs on the card unless asked for the CPU
-(``device="cpu"``, the gloo tests); the process group must exist and
-hold exactly the mesh's ranks.  The production mesh waits for the
-dry-run, its only caller.
+``make_production_mesh(multi_pod)`` is the JAX package's production mesh,
+(16, 16) over ``("data", "model")`` or (2, 16, 16) over ``("pod", "data",
+"model")``, whose process group must hold 256 or 512 ranks (the dry-run's
+fake group, ``launch/dryrun.py``); ``make_local_mesh(data, model)`` is the
+JAX package's ``("data", "model")`` test mesh.  Each runs on the card
+unless asked for the CPU (``device="cpu"``, the gloo tests); over a fake
+group (the dry-run's) a mesh of the card's type needs no card.  The process
+group must exist and hold exactly the mesh's ranks.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch.distributed as dist
 
 from ..device import default_device
 
-__all__ = ["make_mesh", "make_local_mesh"]
+__all__ = ["make_mesh", "make_production_mesh", "make_local_mesh"]
 
 
 def make_mesh(shape, names, device=None):
@@ -33,8 +36,19 @@ def make_mesh(shape, names, device=None):
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, the group has {n}")
     from torch.distributed.device_mesh import DeviceMesh
 
-    dev = default_device(device)
+    if dist.get_backend() == "fake":  # moves nothing: a mesh of any device type, no card needed
+        dev = torch.device("cuda" if device is None else device)
+    else:
+        dev = default_device(device)
     return DeviceMesh(dev.type, torch.arange(n).view(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(multi_pod: bool = False, device=None):
+    """The production mesh: (16, 16) ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return make_mesh((16, 16), ("data", "model"), device)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, device=None):

@@ -5,6 +5,9 @@ import math
 
 import torch
 
+from ..dist.context import maybe_shard
+from ..dist.sharding import DP
+
 __all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
 
 
@@ -51,7 +54,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) ->
     int; with ``mask`` (...,) the mean over its weight (at least 1)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # on logits split over the vocab (DTensors) the gather is a masked partial
+    # sum whose mask only its own shape takes: summed over the ranks right here
+    ll = maybe_shard(torch.gather(logits, -1, labels.long()[..., None]),
+                     DP, None, None)[..., 0]
     nll = lse - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

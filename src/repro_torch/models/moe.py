@@ -48,6 +48,15 @@ differ (every leaf over the data axes but ``data`` for the ``fsdp``
 experts, whose all-gather's backward already summed them there; the
 router over ``model`` as well: each rank's share covers only its experts'
 entries).  ``expert_axes`` names the dims the experts' blocks split over.
+
+On DTensors (the dry-run, ``launch/dryrun.py``) ``moe_block`` runs that
+rank-local path on each rank's blocks under ``local_map``: the dispatch's
+sort, top-k and ``index_add`` have no DTensor rule that keeps the experts
+split, and replicating the experts to get one would describe another
+program.  The tokens enter split as ``moe_token_spec`` says, the experts
+as ``lm_param_specs`` places them, the router and the shared experts
+whole; the gradients leave as ``moe_grad_sync`` sums them (partial over
+the ranks whose shares differ).
 """
 from __future__ import annotations
 
@@ -57,7 +66,8 @@ import math
 import torch
 
 from ..dist import collectives as coll
-from ..dist.sharding import DP, P
+from ..dist.context import is_dtensor
+from ..dist.sharding import DP, P, to_placements
 from .common import dense_init
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_block", "dispatch_plan", "moe_token_spec",
@@ -217,10 +227,13 @@ def _expert_parallel(x2d, params: dict, mcfg: MoEConfig, mesh):
 
 def moe_block(x2d, params: dict, mcfg: MoEConfig, mesh=None):
     """x2d (T, D) → (out (T, D) in x2d's dtype, aux float32): the routed
-    experts plus the shared experts.  ``mesh=None`` (or a mesh whose dims
+    experts plus the shared experts (a DTensor (..., D) on each rank's
+    tokens, the module doc).  ``mesh=None`` (or a mesh whose dims
     split no expert weight, ``expert_axes``): every expert on this card;
     else expert parallelism over ``mesh`` (the module doc), ``x2d`` and
     ``params`` this rank's blocks."""
+    if is_dtensor(x2d):
+        return _on_dtensors(x2d, params, mcfg)
     if expert_axes(mcfg, mesh):
         out, aux = _expert_parallel(x2d, params, mcfg, mesh)
     else:
@@ -232,6 +245,51 @@ def moe_block(x2d, params: dict, mcfg: MoEConfig, mesh=None):
         h = a * torch.sigmoid(a) * (x2d @ params["shared_w3"].to(dtype))
         out = out + h @ params["shared_w2"].to(dtype)
     return out, aux
+
+
+def _on_dtensors(x, params: dict, mcfg: MoEConfig):
+    """``moe_block`` of a DTensor ``x`` (..., D): the rank-local path on each
+    rank's blocks (the module doc), its leading dims flattened on the rank →
+    (out DTensor (..., D) split as ``x``'s leading dim, aux DTensor, the mean
+    over the data shards).  The tokens split by that leading dim
+    (``moe_token_spec`` of its size): a flattened DTensor's strided split
+    would cost DTensor's redistribution planner minutes a step."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    split = expert_axes(mcfg, mesh)
+    data = _data_axes(mesh)
+    keys = sorted(params)
+    spec = moe_token_spec(x.shape[0], mesh)
+    tok = to_placements(mesh, P(spec[0], *([None] * (x.dim() - 1))))
+
+    def place(name):
+        if name in EXPERTS:
+            return to_placements(mesh, P("model", "data" if "data" in split else None))
+        return [Replicate()] * mesh.ndim
+
+    def grad(name):
+        # a leaf's gradient is partial over the dims whose ranks' shares differ
+        out = []
+        for i, (a, p) in enumerate(zip(names, place(name))):
+            differ = (a in data and not (name in EXPERTS and a in split)) or (
+                name == "router" and a == "model" and "model" in split)
+            out.append(Partial() if differ else p)
+        return out
+
+    def body(x, *leaves):
+        out, aux = moe_block(x.reshape(-1, x.shape[-1]), dict(zip(keys, leaves)), mcfg,
+                             mesh if split else None)
+        return out.view(x.shape), aux
+
+    aux_place = [Partial("avg") if a in data else Replicate() for a in names]
+    fn = local_map(body, out_placements=(tok, aux_place),
+                   in_placements=(tok, *[place(k) for k in keys]),
+                   in_grad_placements=(tok, *[grad(k) for k in keys]),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, *[params[k] for k in keys])
 
 
 def moe_grad_sync(grads: dict, mcfg: MoEConfig, mesh) -> dict:

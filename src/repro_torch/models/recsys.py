@@ -7,7 +7,10 @@ gather-sum, ``kernels/star_agg``).  Each cross layer
 ``x₀ ⊙ (x W + b) + x`` is one launch of K5 (``kernels/cross_interact``).
 On a CPU tensor both take their plain versions.  The dense features, the
 MLP, the head, the retrieval projection and the top-k are PyTorch ops, as
-the JAX package leaves them to XLA.  ``dcn_loss`` is the training loss;
+the JAX package leaves them to XLA; its sharding hints stand where it has
+them (``maybe_shard``: the dense features, the embeddings, the MLP's hidden
+states, retrieval's candidates and scores), exact no-ops on plain tensors.
+``dcn_loss`` is the training loss;
 both kernels' wrappers are differentiable (their backwards are plain
 PyTorch, ``kernels/*/ops.py``), so training runs through them too.
 """
@@ -17,6 +20,8 @@ import dataclasses
 
 import torch
 
+from ..dist.context import is_dtensor, maybe_shard, per_shard
+from ..dist.sharding import DP
 from ..kernels.cross_interact import ops as ci
 from ..kernels.star_agg import ops as sa
 from .common import dense_init
@@ -80,12 +85,18 @@ def embedding_bag(tables, ids, mask=None) -> torch.Tensor:
 
     One K4 launch for every field: the tables are read as one (F·V, E)
     table (a view), field f's ids are offset by f·V, and each (row, field)
-    is one bag of 1 slot (single-hot) or nnz slots under ``mask``.
+    is one bag of 1 slot (single-hot) or nnz slots under ``mask``.  On
+    DTensors each rank gathers its rows' bags from the whole tables
+    (``dist.context.per_shard``).
     """
     F, V, E = tables.shape
     if F * V > _INT32_MAX:
         raise ValueError(f"embedding_bag: {F} x {V} rows overflow the int32 ids")
     B = ids.shape[0]
+    if is_dtensor(ids):  # each rank's rows on its own: DTensor cannot flatten unevenly split rows
+        return per_shard(lambda i, *rest: embedding_bag(rest[-1], i, *rest[:-1]),
+                         (ids,) if mask is None else (ids, mask), (tables,), dims=(0,),
+                         out_shape=(B, F, E))
     slots = 1 if ids.dim() == 2 else ids.shape[2]
     offsets = torch.arange(F, dtype=torch.int32, device=ids.device) * V
     flat = (ids.to(torch.int32) + offsets.view((F,) + (1,) * (ids.dim() - 2)))
@@ -106,14 +117,16 @@ def dcn_forward(params, dense, sparse_ids, cfg: RecsysConfig, sparse_mask=None,
                 return_emb: bool = False):
     """Logits (B,) of a batch; with ``return_emb`` also the retrieval
     embedding (B, retrieval_dim) of the last MLP layer.  Float32 throughout."""
-    emb = embedding_bag(params["tables"], sparse_ids, sparse_mask)  # (B, F, E)
+    dense = maybe_shard(dense, DP, None)
+    emb = maybe_shard(embedding_bag(params["tables"], sparse_ids, sparse_mask),
+                      DP, None, None)  # (B, F, E)
     x0 = torch.cat([torch.log1p(dense.abs()), emb.reshape(emb.shape[0], -1)], dim=-1)
     x = x0
     for c in params["cross"]:
         x = _cross_layer(x0, x, c["w"], c["b"])
     h = x
     for layer in params["mlp"]:
-        h = torch.relu(h @ layer["w"] + layer["b"])
+        h = maybe_shard(torch.relu(h @ layer["w"] + layer["b"]), DP, "model")
     logit = (h @ params["head"])[:, 0]
     if return_emb:
         return logit, h @ params["retrieval_proj"]
@@ -135,5 +148,6 @@ def retrieval_scores(params, dense, sparse_ids, cand_emb, cfg: RecsysConfig):
     """Score the query rows against every candidate (N_cand, retrieval_dim)
     → (top values, top indices), each (B, 100), best first."""
     _, user = dcn_forward(params, dense, sparse_ids, cfg, return_emb=True)
-    scores = user @ cand_emb.T  # (B, N_cand)
+    cand = maybe_shard(cand_emb, "model", None)
+    scores = maybe_shard(user @ cand.T, DP, "model")  # (B, N_cand)
     return torch.topk(scores, _TOP_K, dim=-1)

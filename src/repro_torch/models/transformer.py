@@ -28,6 +28,11 @@ cross-entropy, and ``cfg.grad_accum`` is the train step's microbatch count.
 ``remat_attention`` is recorded and changes nothing: K6's backward always
 recomputes the attention one KV chunk at a time.
 
+The JAX package's sharding hints stand where it has them (``maybe_shard``:
+q, k, v and the attention's output on ``model``, the MLP's hidden states,
+the embedded and the final hidden states, the logits, decode's too): exact
+no-ops on plain tensors, placements on DTensors (the dry-run).
+
 Prefill and the training forward run their attention through K6
 (``kernels/flash_attention``, differentiable there with a plain
 backward): one launch per layer on the card (MLA's 128-wide v padded to
@@ -45,6 +50,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import default_device
+from ..dist.context import is_dtensor, maybe_shard, per_shard, split_heads
+from ..dist.sharding import DP
 from ..kernels.flash_attention import ops as fa
 from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
 from .moe import MoEConfig, init_moe_params, moe_block
@@ -253,15 +260,33 @@ def _require_whole(params: dict, cfg: TransformerConfig) -> None:
                 "models.expert_parallel_specs, not configs.param_pspecs)")
 
 
+def _embed(params: dict, tokens) -> torch.Tensor:
+    """The token embeddings, a row gather.  On DTensors each rank gathers its
+    tokens' rows from the table gathered whole (``per_shard``): DTensor's
+    own rules for a gather from a vocab-split table do not hold on every
+    mesh and version (the multi-pod mesh's ``index``; a tied table's
+    gradients, partial two ways, under ``embedding``)."""
+    table = params["embed"]
+    if is_dtensor(tokens):
+        return per_shard(lambda t, e: e[t], (tokens,), (table,), dims=(0,),
+                         out_shape=tuple(tokens.shape) + (table.shape[1],))
+    return table[tokens]
+
+
 def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def _gqa_qkv(x, p, cfg: TransformerConfig, positions):
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).view(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"].to(x.dtype)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].to(x.dtype)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    # the projections split over 'model' on the flat head dim (head counts need
+    # not divide the model axis; the flattened projection always does)
+    q = maybe_shard(x @ p["wq"].to(x.dtype), DP, None, "model")
+    k = maybe_shard(x @ p["wk"].to(x.dtype), DP, None, "model")
+    v = maybe_shard(x @ p["wv"].to(x.dtype), DP, None, "model")
+    q = split_heads(q, cfg.n_heads, cfg.head_dim)
+    k = split_heads(k, cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(v, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions[None, :], cfg.rope_theta)
     k = apply_rope(k, positions[None, :], cfg.rope_theta)
     return q, k, v
@@ -272,7 +297,7 @@ def _mla_qkv(x, p, cfg: TransformerConfig, positions):
     rope part of k one head's, broadcast to every head."""
     B, S, _ = x.shape
     nd, rd, H = cfg.nope_head_dim, cfg.rope_head_dim, cfg.n_heads
-    q = (x @ p["wq"].to(x.dtype)).view(B, S, H, nd + rd)
+    q = split_heads(x @ p["wq"].to(x.dtype), H, nd + rd)
     q_rope = apply_rope(q[..., nd:], positions[None, :], cfg.rope_theta)
     c_kv = x @ p["w_dkv"].to(x.dtype)  # (B, S, r)
     k_rope = apply_rope((x @ p["w_krope"].to(x.dtype))[:, :, None, :], positions[None, :],
@@ -292,7 +317,7 @@ def _attn_train(x, p, cfg: TransformerConfig, positions, is_global: bool):
         q, k, v = _gqa_qkv(x, p, cfg, positions)
     out = fa.flash_attention(q, k, v, causal=True, window=None if is_global else cfg.window,
                              chunk=cfg.kv_chunk)
-    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return maybe_shard(out.reshape(B, S, -1), DP, None, "model") @ p["wo"].to(x.dtype)
 
 
 def _mlp(x, p, cfg: TransformerConfig, mesh=None):
@@ -302,10 +327,12 @@ def _mlp(x, p, cfg: TransformerConfig, mesh=None):
     MoE: ``moe_block`` over the B·S tokens, expert-parallel over ``mesh``."""
     if "moe" in p:
         B, S, D = x.shape
+        if is_dtensor(x):  # split by sequences, flattened on each rank (moe.py)
+            return moe_block(x, p["moe"], cfg.moe)
         out, aux = moe_block(x.reshape(B * S, D), p["moe"], cfg.moe, mesh)
         return out.view(B, S, D), aux
     a = x @ p["w1"].to(x.dtype)
-    h = a * torch.sigmoid(a) * (x @ p["w3"].to(x.dtype))
+    h = maybe_shard(a * torch.sigmoid(a) * (x @ p["w3"].to(x.dtype)), DP, None, "model")
     return h @ p["w2"].to(x.dtype), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -337,7 +364,7 @@ def lm_layers(x, layers: list, cfg: TransformerConfig, start: int = 0, mesh=None
 def _hidden(params, tokens, cfg: TransformerConfig, remat: bool, mesh=None):
     """(The final-normed hidden states (B, S, D) in the compute dtype, the sum
     of the layers' aux losses)."""
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    x = maybe_shard(_embed(params, tokens).to(cfg.compute_dtype), DP, None, None)
     x, aux = lm_layers(x, params["layers"], cfg, mesh=mesh, remat=remat)
     return rms_norm(x, params["final_norm"]), aux
 
@@ -353,7 +380,7 @@ def lm_forward(params, tokens, cfg: TransformerConfig, mesh=None):
     if mesh is not None:
         _require_whole(params, cfg)
     x, aux = _hidden(params, tokens, cfg, remat=False, mesh=mesh)
-    return x @ _head(params, cfg), aux
+    return maybe_shard(x @ _head(params, cfg), DP, None, "model"), aux
 
 
 def chunked_lm_head_loss(x, head, labels, chunk: int) -> torch.Tensor:
@@ -432,9 +459,9 @@ def _decode_attn_gqa(x, p, cfg: TransformerConfig, cache_k, cache_v, cur_len: in
     copied to float32 for the products, a transient of that layer only."""
     B, Smax = x.shape[0], cache_k.shape[1]
     pos = torch.full((1,), cur_len, dtype=torch.int32, device=x.device)
-    q = (x @ p["wq"]).view(B, 1, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, pos[None, :], cfg.rope_theta)
     k = apply_rope(k, pos[None, :], cfg.rope_theta)
     at = min(cur_len, Smax - 1)  # as dynamic_update_slice clamps its start
@@ -450,7 +477,7 @@ def _decode_attn_gqa(x, p, cfg: TransformerConfig, cache_k, cache_v, cur_len: in
         out = cache_v.float().mean(dim=1)[:, :, None, :].expand(B, cfg.n_kv_heads, G,
                                                                  cfg.head_dim)
         return out.to(x.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
-    qg = q.view(B, cfg.n_kv_heads, G, cfg.head_dim).float()
+    qg = split_heads(q[:, 0], cfg.n_kv_heads, G, dim=1).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qg, cache_k[:, lo:hi].float())
     a = torch.softmax(s * (1.0 / math.sqrt(cfg.head_dim)), dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", a, cache_v[:, lo:hi].float())
@@ -469,7 +496,7 @@ def _decode_attn_mla(x, p, cfg: TransformerConfig, cache_ckv, cache_krope, cur_l
     B, Smax = x.shape[0], cache_ckv.shape[1]
     nd, rd, H = cfg.nope_head_dim, cfg.rope_head_dim, cfg.n_heads
     pos = torch.full((1,), cur_len, dtype=torch.int32, device=x.device)
-    q = (x @ p["wq"]).view(B, 1, H, nd + rd)
+    q = split_heads(x @ p["wq"], H, nd + rd)
     q_rope = apply_rope(q[..., nd:], pos[None, :], cfg.rope_theta)[:, 0]  # (B, H, rd)
     at = min(cur_len, Smax - 1)
     cache_ckv[:, at] = (x @ p["w_dkv"])[:, 0]
@@ -497,7 +524,7 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=Non
     _require_compute_dtype(params, cfg)
     if mesh is not None:
         _require_whole(params, cfg)
-    x = params["embed"][tokens][:, None, :]
+    x = maybe_shard(_embed(params, tokens)[:, None, :], DP, None, None)
     for i, p in enumerate(params["layers"]):
         h = rms_norm(x, p["norm1"])
         if cfg.use_mla:
@@ -507,7 +534,7 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=Non
                                      cfg.is_global(i))
         x = x + _mlp(rms_norm(x, p["norm2"]), p, cfg, mesh)[0]
     x = rms_norm(x, params["final_norm"])
-    return (x @ _head(params, cfg))[:, 0, :], cache
+    return maybe_shard((x @ _head(params, cfg))[:, 0, :], DP, "model"), cache
 
 
 def _data_size(mesh) -> int:

@@ -6,10 +6,28 @@ from typing import Callable
 
 import torch
 
+from ..dist.context import is_dtensor
 from .functional import tree_leaves, tree_map, tree_unflatten, value_and_grad
 from .optimizer import OptConfig, adamw_update
 
 __all__ = ["train_wrap"]
+
+
+def _microbatch(x, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of ``x`` along its first dim.  On a DTensor
+    each rank splits its own rows ``n`` ways, so nothing moves: a microbatch
+    then holds rows strided over the batch, split over the data axes as the
+    batch was, and the microbatches still sum to the batch."""
+    if not is_dtensor(x):
+        return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    b = local.shape[0] // n
+    shape = torch.Size((x.shape[0] // n,) + tuple(x.shape[1:]))
+    return DTensor.from_local(local[i * b:(i + 1) * b], x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
@@ -31,13 +49,11 @@ def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,
         if grad_accum <= 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
             return loss, metrics, grads
-        micro = tree_map(
-            lambda x: x.reshape((grad_accum, x.shape[0] // grad_accum) + tuple(x.shape[1:])),
-            batch)
         acc = None
         loss_sum = None
         for i in range(grad_accum):
-            (loss, _), grads = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], micro))
+            mb = tree_map(lambda x: _microbatch(x, grad_accum, i), batch)
+            (loss, _), grads = value_and_grad(loss_fn, params, mb)
             g = [x.float() for x in tree_leaves(grads)]
             del grads
             if acc is None:

@@ -833,3 +833,33 @@ def test_kernel_functions_carry_gradients_on_the_card(cuda):
     want = torch.autograd.grad(flash_attention_plain(*b6, True, 100, 128), b6, up.to(o.dtype))
     for x, y in zip(got, want):
         assert float((x.float() - y.float()).norm() / y.float().norm()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_kernels_launch_alike_directly_and_through_their_custom_ops(cuda):
+    """A plain card tensor with no dispatch mode active launches K4, K5 and K6
+    directly; under a dispatch mode (a flop counter) each goes through its
+    custom op, which counts its formula.  Both launch once and agree bit for bit."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.device import dispatcher_watches
+
+    idx, mask, table = (torch.from_numpy(a).to(cuda) for a in make_bags(64, 3, 50, 16, seed=1))
+    x0, x, w, b = (torch.from_numpy(a).to(cuda) for a in make_cross(32, 24, seed=2))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k = (torch.randn(1, 128, h, 64, generator=g, device=cuda, dtype=torch.bfloat16)
+            for h in (4, 2))
+    calls = [(sa, lambda: sa.star_agg(idx, mask, table)),
+             (ci, lambda: ci.cross_interact(x0, x, w, b)),
+             (fa, lambda: fa.flash_attention(q, k, k))]
+    assert not dispatcher_watches(table)
+    for mod, call in calls:
+        before = mod.LAUNCHES
+        direct = call()
+        with FlopCounterMode(display=False) as fc:
+            assert dispatcher_watches(table)
+            seen = call()
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 2
+        assert fc.get_total_flops() > 0
+        assert torch.equal(direct, seen)

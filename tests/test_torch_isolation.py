@@ -15,8 +15,9 @@ partition loss on one shard, a compressed
 placement specs, ``local_shard`` and ``shard_tree`` on a one-rank gloo mesh,
 ``lm_forward(mesh=)``, ``pipeline_apply`` over one stage, ``moe_block(mesh=None)``,
 ``StackedProbe`` over a ``part`` list of two CPUs and an engine's probe and
-device join over ``part`` and ``join`` lists, and no ``jax*`` or ``repro``
-module is loaded."""
+device join over ``part`` and ``join`` lists, the dry-run of a smoke DCN-v2
+cell on a (1, 1) fake mesh and its roofline terms, and no ``jax*`` or
+``repro`` module is loaded."""
 import os
 import subprocess
 import sys
@@ -207,6 +208,10 @@ assert sp.stacked.n_shards == 2
 with use_devices("part", ["cpu", "cpu"]), use_devices("join", ["cpu"] * 3):
     for q, m, d in zip(qs, eng_g.match_many(qs, join_impl="numpy"), eng_g.match_many(qs)):
         assert set(m) == set(vf2_match(g, q)) == set(d)
+from repro_torch.launch import dryrun, roofline
+rec = dryrun.run_cell("dcn-v2", "serve_bulk", "single", None, smoke=True,
+                      mesh_shape=((1, 1), ("data", "model")))
+assert rec["status"] == "ok" and rec["flops"] > 0 and roofline.terms(rec)["fits"], rec
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax")
