@@ -315,12 +315,14 @@ Phases, each printing its seconds:
 
  16. the tools that describe a mesh: 16a the dry-run of gemma3-1b
      ``train_4k`` on the (16, 16) mesh, qwen3-moe-235b-a22b ``train_4k`` on
-     the (2, 16, 16) mesh and dcn-v2 ``serve_bulk`` on the (16, 16) mesh
-     (``repro_torch.launch.dryrun``: one step on DTensors over a fake process
-     group, counted per rank), in a CPU-only child started at the top of the
-     script on one host thread pinned to one core at a lower priority,
-     collected here: each ``ok``, its
-     per-device flops, bytes, collective bytes and peak beside 80 GB; 16b
+     the (2, 16, 16) mesh, and dcn-v2 ``serve_bulk``, gin-tu
+     ``full_graph_sm`` and graphsage-reddit ``minibatch_lg`` on the (16, 16)
+     mesh (``repro_torch.launch.dryrun``: one step on DTensors over a fake
+     process group, counted per rank), in a CPU-only child started at the
+     top of the script on one host thread pinned to one core at a lower
+     priority, collected here: each ``ok``, its per-device flops, bytes,
+     collective bytes and peak beside 80 GB, a peak within 80 GB wherever
+     the JAX package's plan of the cell fits (``REF_MEMORY_GB``); 16b
      gemma3-1b ``prefill_32k`` at B = 2, one warm step on the card counted by
      ``launch/op_cost.py`` (K6 26 times), its flops and bytes equal to the
      child's dry-run of the same cell on a (1, 1) mesh, and an uncounted step
@@ -6619,7 +6621,17 @@ def phase15_meshes(smi: str) -> dict:
 
 # 16a's production cells (arch, shape, mesh kind) and 16b's (the same cell on a (1, 1) mesh)
 DRYRUN_CELLS = [("gemma3-1b", "train_4k", "single"), ("qwen3-moe-235b-a22b", "train_4k", "multi"),
-                ("dcn-v2", "serve_bulk", "single")]
+                ("dcn-v2", "serve_bulk", "single"), ("gin-tu", "full_graph_sm", "single"),
+                ("graphsage-reddit", "minibatch_lg", "single")]
+# the JAX package's memory figure a device (argument + output - alias + temp) for each 16a
+# cell it lowers, from its dry-run on the CPU (`python -m repro.launch.dryrun`, 512 host
+# devices); dcn-v2's raises on its own `tables` spec.  A cell whose figure fits the card
+# must fit it in the port too.
+REF_MEMORY_GB = {("gemma3-1b", "train_4k", "single"): 14.224,
+                 ("qwen3-moe-235b-a22b", "train_4k", "multi"): 30.158,
+                 ("dcn-v2", "serve_bulk", "single"): None,
+                 ("gin-tu", "full_graph_sm", "single"): 0.004,
+                 ("graphsage-reddit", "minibatch_lg", "single"): 0.053}
 PREFILL_B = 2  # phase 7's prefill_32k batch, 16b's
 HBM_BYTES = 80e9  # an H100's memory
 
@@ -6691,12 +6703,20 @@ def phase16a_dryrun(child: dict, smi: str, timeout: float) -> list:
         require(rec["mesh_device"] == "cuda",
                 f"16a {what}: a {rec['mesh_device']} mesh plans gloo's collectives, not NCCL's")
         peak = rec["memory"]["peak_memory_in_bytes"]
+        key = (rec["arch"], rec["shape"], rec["mesh"])
+        ref = REF_MEMORY_GB.get(key)
+        ref_txt = ("" if key not in REF_MEMORY_GB else " (the JAX package's plan raises)"
+                   if ref is None else f" (the JAX package's plan {ref:.3f} GB)")
+        if ref is not None and ref * 1e9 <= HBM_BYTES:
+            require(peak <= HBM_BYTES, f"16a {what}: a peak of {peak / 1e9:.3f} GB a device does "
+                    f"not fit the card's {HBM_BYTES / 1e9:.0f} GB; the JAX package's plan takes "
+                    f"{ref:.3f} GB")
         coll = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sorted(rec["collective_bytes"].items()))
         log(f"16a dry-run {what} ({rec['n_devices']} ranks, {rec['mesh_device']} mesh): per device "
             f"{rec['flops']:.6e} flops, {rec['bytes']:.6e} bytes ({rec['bytes_fused']:.6e} fused), "
             f"collectives {coll or 'none'} ({rec['collective_count']}), peak "
             f"{peak / 1e9:.3f} GB of {HBM_BYTES / 1e9:.0f} GB"
-            f"{'' if peak <= HBM_BYTES else ' (does not fit)'}, args "
+            f"{'' if peak <= HBM_BYTES else ' (does not fit)'}{ref_txt}, args "
             f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB; {rec['n_ops']} ops; "
             f"traced in {rec['trace_s']} s; card: {smi}")
     log(f"16a the dry-run child's cells traced in {sum(r['trace_s'] for r in recs):.2f} s in all, "

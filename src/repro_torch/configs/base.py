@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from ..dist.context import is_dtensor
 from ..dist.sharding import DP, P, lm_param_specs, recsys_param_specs, replicated_specs
 from ..models import (
     dcn_forward,
@@ -545,8 +546,12 @@ def online_counts(params, batch, cfg, rows: int = ONLINE_ROWS) -> torch.Tensor:
     when every ``q[i] ≤ emb[r] + 1e-6`` (``≤ emb[r]`` when quantized) and
     its labels match (``emb0[r] == q0[i]`` with ``label_hash``, else every
     ``|emb0[r] − q0[i]| ≤ 1e-6``).  ``rows`` index rows at a time, one
-    column at a time, so no temporary is larger than (Q, rows)."""
+    column at a time, so no temporary is larger than (Q, rows).  On an
+    index split by rows (DTensors) each rank scans its own rows
+    (``_online_counts_split``)."""
     emb, emb0, q, q0 = params["emb"], params["emb0"], batch["q"], batch["q0"]
+    if is_dtensor(emb):
+        return _online_counts_split(params, batch, cfg, rows)
     # accumulators made from the inputs (q.new_*), so that on DTensors they are DTensors too
     counts = q.new_zeros((q.shape[0],), dtype=torch.int64)
     for r0 in range(0, emb.shape[0], rows):
@@ -562,6 +567,35 @@ def online_counts(params, batch, cfg, rows: int = ONLINE_ROWS) -> torch.Tensor:
             ok &= q[:, j, None] <= col[None, :]
         counts += ok.sum(dim=1)
     return counts.to(torch.int32)
+
+
+def _online_counts_split(params, batch, cfg, rows: int) -> torch.Tensor:
+    """``online_counts`` of an index whose rows (DTensors) split over some
+    mesh dims, the queries whole: each rank scans its own rows (its block
+    of that split, divided again over the other mesh dims, whose ranks hold
+    the same block) under ``local_map``, and the (Q,) counts are summed
+    over the mesh; nothing of the index moves."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    emb = params["emb"]
+    mesh = emb.device_mesh
+    own = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in emb.placements]
+    alike = [i for i, p in enumerate(own) if not isinstance(p, Shard)]
+    whole = [Replicate()] * mesh.ndim
+
+    def body(e, e0, q, q0):
+        k, n = 0, 1
+        for i in alike:
+            k, n = k * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+        per = -(-e.shape[0] // n)
+        mine = slice(min(k * per, e.shape[0]), min((k + 1) * per, e.shape[0]))
+        return online_counts({"emb": e[mine], "emb0": e0[mine]}, {"q": q, "q0": q0}, cfg, rows)
+
+    fn = local_map(body, out_placements=([Partial()] * mesh.ndim,),
+                   in_placements=(own, own, whole, whole), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(emb, params["emb0"], batch["q"], batch["q0"]).redistribute(mesh, whole)
 
 
 def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConfig(),

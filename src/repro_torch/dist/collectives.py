@@ -23,7 +23,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "world", "all_reduce_sum", "broadcast", "all_gather", "sum_over", "copy_to", "send", "recv",
+    "world", "all_reduce_sum", "all_reduce_max", "broadcast", "all_gather", "sum_over", "copy_to",
+    "send", "recv",
 ]
 
 
@@ -51,18 +52,28 @@ def _host(x: torch.Tensor) -> torch.Tensor:
     return x.detach().to("cpu", copy=True).contiguous()
 
 
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Σ over the group's ranks of ``x``, a new tensor on ``x``'s device
-    (``x`` itself on one rank); no autograd."""
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     if world(group)[1] == 1:
         return x
     if _staged(x, group):
         host = _host(x)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return host.to(x.device)
     out = x.detach().clone().contiguous()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Σ over the group's ranks of ``x``, a new tensor on ``x``'s device
+    (``x`` itself on one rank); no autograd."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max over the group's ranks of ``x``, as
+    ``all_reduce_sum``; no autograd."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:

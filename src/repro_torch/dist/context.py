@@ -39,6 +39,7 @@ import torch
 from .sharding import P, filter_spec, to_placements
 
 __all__ = ["use_mesh", "current_mesh", "maybe_shard", "split_heads", "is_dtensor", "per_shard",
+           "contiguous_strides",
            "use_devices", "current_devices", "mesh_devices"]
 
 _state = threading.local()
@@ -62,15 +63,32 @@ def use_mesh(mesh):
 def maybe_shard(x, *entries):
     """``x`` redistributed to ``P(*entries)`` on the active mesh where ``x`` is
     a DTensor and a mesh is active; else ``x`` itself.  Entries may name
-    axes the mesh does not have: those are dropped."""
+    axes the mesh does not have: those are dropped.  As JAX's sharding
+    constraint, whose transpose constrains the cotangent alike, the
+    backward redistributes the gradient to the same placements first (a
+    partial sum is resolved there), then to ``x``'s own (a partial one
+    taken as whole), as DTensor's own backward of a redistribution does."""
     mesh = current_mesh()
-    if mesh is None:
+    if mesh is None or not is_dtensor(x):
         return x
-    from torch.distributed.tensor import DTensor
+    return _Constrain.apply(x, tuple(to_placements(mesh, filter_spec(P(*entries), mesh))))
 
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(mesh, to_placements(mesh, filter_spec(P(*entries), mesh)))
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor and its gradient redistributed to ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = placements
+        ctx.back = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = grad.device_mesh
+        return grad.redistribute(mesh, ctx.placements).redistribute(mesh, ctx.back), None
 
 
 def split_heads(x, heads: int, width: int, dim: int = -1):
@@ -139,7 +157,17 @@ def per_shard(fn, sharded: tuple, whole: tuple, dims: tuple, out_shape, even: tu
     out = fn(*local)
     shape = torch.Size(out_shape)
     return DTensor.from_local(out, mesh, kept, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_strides(shape))
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (what a DTensor made
+    from local blocks declares), with nothing allocated."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(out))
 
 
 def current_devices(axis: str):

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from ...device import dispatcher_watches, takes_card_path
-from ...dist.context import is_dtensor, per_shard
+from ...dist.context import is_dtensor
 from .kernel import launch_flash_attention
 from .ref import flash_attention_plain
 
@@ -77,8 +77,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be positive")
     if is_dtensor(q):
-        return per_shard(lambda *t: flash_attention(*t, causal, window, chunk), (q, k, v), (),
-                         dims=(0, 2), out_shape=q.shape[:3] + v.shape[3:], even=(2,))
+        return _on_dtensors(q, k, v, causal, window, chunk)
     if q.device.type == "cpu":
         if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash_attention: no plain version for {q.dtype}")
@@ -87,6 +86,76 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     else:
         _check_kernel_operands(q, k, v)
     return _FlashAttention.apply(q, k, v, causal, window, chunk)
+
+
+def _kv_heads(t, h0: int, h1: int, group: int):
+    """The KV heads of ``t`` (B, S, Hkv, ·) that query heads [h0, h1) read
+    (head h reads KV head h // ``group``), laid out so that K6's grouping
+    maps each of those query heads to its own: the range itself where it
+    serves them in equal runs, else one KV head a query head."""
+    lo, hi = h0 // group, (h1 - 1) // group + 1
+    if hi - lo == 1 or (h0 % group == 0 and (h1 - h0) % group == 0):
+        return t[:, :, lo:hi]
+    return t.index_select(2, torch.arange(h0, h1, device=t.device) // group)
+
+
+def _on_dtensors(q, k, v, causal: bool, window, chunk: int):
+    """K6 on DTensors (q, k, v as ``flash_attention`` takes them), each rank
+    on its own query heads under ``local_map``: the batch keeps q's split
+    over the data axes; over ``model`` q keeps its head split where the
+    heads divide it, and each rank reads the KV heads its query heads
+    need.  Where q's heads do not divide ``model``, q arrives whole there
+    and each rank takes one block of (heads, sequences), the heads in as
+    many groups as divide both, the sequences in as many blocks as divide
+    the rest: the output is then each rank's block within zeros, a partial
+    sum over ``model`` (the ranks left without a block add an empty one)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names or ()
+    mi = names.index("model") if "model" in names else None
+    n = mesh.size(mi) if mi is not None else 1
+    B, S, Hq, _ = q.shape
+    Hkv, dv = k.shape[2], v.shape[3]
+    group = Hq // Hkv
+    rows = [p if isinstance(p, Shard) and p.dim == 0 and i != mi else Replicate()
+            for i, p in enumerate(q.placements)]
+    even_q, even_kv = Hq % n == 0, Hkv % n == 0
+
+    def place(split: bool, partial: bool = False):
+        """Split by heads over ``model``, else whole there (or, for an output
+        or a gradient, a partial sum there)."""
+        out = list(rows)
+        if mi is not None:
+            out[mi] = Shard(2) if split else (Partial() if partial else Replicate())
+        return out
+
+    def body(q, k, v):
+        r = mesh.get_local_rank("model") if n > 1 else 0
+        if even_q:
+            c = Hq // n
+            if not even_kv:
+                k, v = (_kv_heads(t, r * c, (r + 1) * c, group) for t in (k, v))
+            return flash_attention(q, k, v, causal, window, chunk)
+        nh = math.gcd(Hq, n)
+        nb = math.gcd(q.shape[0], n // nh)
+        c, b = Hq // nh, q.shape[0] // nb
+        hg, bb = divmod(r, nb) if r < nh * nb else (0, 0)
+        b0, b1 = (bb * b, (bb + 1) * b) if r < nh * nb else (0, 0)
+        h0, h1 = hg * c, (hg + 1) * c
+        o = flash_attention(q[b0:b1, :, h0:h1], _kv_heads(k[b0:b1], h0, h1, group),
+                            _kv_heads(v[b0:b1], h0, h1, group), causal, window, chunk)
+        out = q.new_zeros(q.shape[:3] + (dv,))
+        out[b0:b1, :, h0:h1] = o
+        return out
+
+    fn = local_map(body, out_placements=(place(even_q, partial=True),),
+                   in_placements=(place(even_q), place(even_kv), place(even_kv)),
+                   in_grad_placements=(place(even_q, True), place(even_kv, True),
+                                       place(even_kv, True)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 def _width(dh: int) -> int:

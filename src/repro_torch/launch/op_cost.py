@@ -26,7 +26,8 @@ those local ops, so every count is one rank's and never the whole mesh's.
     (DTensor turns a shard-to-shard all-to-all into an all-gather there),
     so a count of the cards' program takes a mesh of the card's type (the
     dry-run's, on any host).  A group of one rank moves nothing and is not
-    counted;
+    counted; a group that resolves to no process group raises, naming the
+    op;
   * memory: the bytes of the step's arguments and the peak of the bytes
     alive during the step, both of this rank's storages (each storage
     counted once, at the span of the first tensor seen on it, and freed
@@ -123,12 +124,16 @@ def _in_propagation() -> bool:
     return False
 
 
-def _group_size(args) -> int:
+def _group_size(func, args) -> int:
     """The ranks of a collective's group (the functional collectives name
-    their group; the c10d ops carry it)."""
+    their group; the c10d ops carry it).  A group that resolves to no
+    process group raises, naming ``func``: its bytes cannot be counted."""
+    group_type = torch._C._distributed_c10d.ProcessGroup
     for a in tree_flatten(args)[0]:
-        if isinstance(a, torch._C._distributed_c10d.ProcessGroup):
+        if isinstance(a, group_type):
             return a.size()
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
+            return group_type.unbox(a).size()  # how the dispatcher passes a c10d op's group
         if isinstance(a, str):
             try:
                 from torch.distributed.distributed_c10d import _resolve_process_group
@@ -136,7 +141,8 @@ def _group_size(args) -> int:
                 return _resolve_process_group(a).size()
             except (ImportError, KeyError, RuntimeError, ValueError):
                 continue
-    return 2  # unknown: counted
+    raise RuntimeError(f"{func}: its process group cannot be resolved, so the ranks it spans "
+                       "and the bytes it moves are unknown")
 
 
 def _functional(ns: str) -> bool:
@@ -214,7 +220,7 @@ class OpCost(TorchDispatchMode):
         self.n_ops += 1
         kind = _COLLECTIVES.get((ns, name))
         if kind is not None:
-            if _group_size(args) > 1:
+            if _group_size(func, args) > 1:
                 self.coll[kind] += _nbytes(_collective_out(ns, args, out))
                 self.coll_count += 1
                 # operands and outputs; a c10d op's arguments hold both

@@ -5,8 +5,8 @@ import math
 
 import torch
 
-from ..dist.context import maybe_shard
-from ..dist.sharding import DP
+from ..dist.context import is_dtensor
+from ..dist.sharding import DP, P, to_placements
 
 __all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
 
@@ -51,14 +51,57 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean token cross-entropy in float32: logits (..., V), labels (...,)
-    int; with ``mask`` (...,) the mean over its weight (at least 1)."""
+    int; with ``mask`` (...,) the mean over its weight (at least 1).  On
+    DTensors the vocab stays split over ``model`` (``_vocab_parallel_nll``)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    # on logits split over the vocab (DTensors) the gather is a masked partial
-    # sum whose mask only its own shape takes: summed over the ranks right here
-    ll = maybe_shard(torch.gather(logits, -1, labels.long()[..., None]),
-                     DP, None, None)[..., 0]
-    nll = lse - ll
+    if is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Each token's −log softmax of its label from logits DTensor (..., V)
+    whose vocab splits over the mesh's ``model`` dim, as the JAX package's
+    plan keeps it: on each rank's block of the vocab a partial max and a
+    partial Σ exp, reduced over ``model`` (the max without a gradient: it
+    only shifts), and the label's logit as a masked partial sum, each
+    rank's own labels' entries → (...,) split as ``logits``' leading dims,
+    whole over ``model``.  Each rank's gradient is its own block's."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..dist import collectives as coll
+
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    model = names.index("model") if "model" in names else None
+    group = mesh.get_group("model") if model is not None and mesh.size(model) > 1 else None
+    n = mesh.size(model) if group is not None else 1
+    if logits.shape[-1] % n:
+        raise ValueError(f"a vocab of {logits.shape[-1]} does not split over {n} model ranks")
+    lead = to_placements(mesh, P(DP))
+    split = list(lead)
+    if group is not None:
+        split[model] = Shard(logits.dim() - 1)
+
+    def body(x, lab):
+        w = x.shape[-1]
+        lab = lab.long() - (mesh.get_local_rank("model") * w if group is not None else 0)
+        mine = (lab >= 0) & (lab < w)
+        ll = torch.where(mine, torch.gather(x, -1, lab.clamp(0, w - 1)[..., None])[..., 0], 0.0)
+        m = x.detach().amax(-1)
+        if group is not None:
+            m = coll.all_reduce_max(m, group)
+        se = torch.exp(x - m[..., None]).sum(-1)
+        if group is not None:
+            se, ll = coll.sum_over(se, group), coll.sum_over(ll, group)
+        return torch.log(se) + m - ll
+
+    fn = local_map(body, out_placements=(lead,), in_placements=(split, lead),
+                   in_grad_placements=(split, lead), device_mesh=mesh, redistribute_inputs=True)
+    return fn(logits, labels)

@@ -32,6 +32,13 @@ tensor outlives one chunk of edges:
 
 On the card the backward's ``index_add_`` sums with atomics, so gradients
 are held to a tolerance there, not to bits.
+
+On DTensors (the dry-run's production mesh: nodes and edges split over the
+data axes) the full-graph forward adds each rank's edges into partial node
+sums reduced into the nodes' placement (``_edge_sums``), and the sampled
+blocks' row gathers and the molecule readout run per rank
+(``_gather_rows``, ``_scatter_sum``), all under ``local_map``, as the JAX
+package's plan of ``segment_sum`` runs; plain tensors take the paths above.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.context import is_dtensor
 from .common import dense_init
 
 __all__ = [
@@ -267,15 +275,21 @@ def _edge_chunk(cfg: GNNConfig, chunk: int | None) -> int:
 # ------------------------------------------------------------- layers -----
 
 
-def _gin_layer(p, h, edges, cfg, chunk):
-    nbr = _aggregate(h, edges, "sum", chunk)
+def _gin_update(p, h, nbr):
     return _mlp_apply(p["mlp"], (1.0 + p["eps"]) * h + nbr)
 
 
-def _sage_layer(p, h, edges, cfg, chunk):
-    nbr = _aggregate(h, edges, cfg.aggregator, chunk)
+def _sage_update(p, h, nbr):
     out = h @ p["w_self"].to(h.dtype) + nbr @ p["w_nbr"].to(h.dtype) + p["b"].to(h.dtype)
     return torch.relu(out)
+
+
+def _gin_layer(p, h, edges, cfg, chunk):
+    return _gin_update(p, h, _aggregate(h, edges, "sum", chunk))
+
+
+def _sage_layer(p, h, edges, cfg, chunk):
+    return _sage_update(p, h, _aggregate(h, edges, cfg.aggregator, chunk))
 
 
 def _geometry(pos, src, dst, dtype):
@@ -283,30 +297,46 @@ def _geometry(pos, src, dst, dtype):
     return vec, torch.linalg.vector_norm(vec, dim=-1)
 
 
-def _schnet_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
-    """SchNet's interaction block for destination rows [r0, r1) from their
-    edges (``counts`` of them a row, in order)."""
+def _schnet_messages(p, h, pos, src, dst, cfg):
+    """SchNet's per-edge message (cfconv: the filter × the neighbor's
+    features), one a destination sum."""
     _, dist = _geometry(pos, src, dst, h.dtype)
     w = _mlp_apply(p["filter"], _rbf(dist, cfg.n_rbf, cfg.cutoff).to(h.dtype), act=_ssp,
                    final_act=True)
-    agg = _rows_sum(h.index_select(0, src) * w, counts)  # cfconv: filter × neighbor features
-    out = _ssp(agg @ p["dense1"].to(h.dtype) + p["b1"].to(h.dtype))
-    return h[r0:r1] + out @ p["dense2"].to(h.dtype) + p["b2"].to(h.dtype)
+    yield h.index_select(0, src) * w
 
 
-def _mace_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
-    """The Cartesian ACE layer (l ≤ 2, correlation order 3) for rows [r0, r1)."""
+def _schnet_update(p, h, aggs):
+    out = _ssp(aggs[0] @ p["dense1"].to(h.dtype) + p["b1"].to(h.dtype))
+    return h + out @ p["dense2"].to(h.dtype) + p["b2"].to(h.dtype)
+
+
+def _schnet_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
+    """SchNet's interaction block for destination rows [r0, r1) from their
+    edges (``counts`` of them a row, in order)."""
+    aggs = [_rows_sum(m, counts) for m in _schnet_messages(p, h, pos, src, dst, cfg)]
+    return _schnet_update(p, h[r0:r1], aggs)
+
+
+def _mace_messages(p, h, pos, src, dst, cfg):
+    """The Cartesian ACE layer's per-edge l = 0, 1, 2 equivariant moments
+    (n, H), (n, 3, H), (n, 3, 3, H), one destination sum each, made one at
+    a time."""
     H = h.shape[-1]
     vec, dist = _geometry(pos, src, dst, h.dtype)
     rhat = vec / torch.clamp(dist[:, None], min=1e-6)
     radial = _mlp_apply(p["radial"], _bessel(dist, cfg.mace_n_rbf, cfg.cutoff).to(h.dtype))
     R0, R1, R2 = radial[:, :H], radial[:, H:2 * H], radial[:, 2 * H:]
     hj = h.index_select(0, src)
-    # l = 0, 1, 2 equivariant moments
-    A0 = _rows_sum(R0 * hj, counts)  # (n, H)
-    A1 = _rows_sum((R1 * hj)[:, None, :] * rhat[:, :, None], counts)  # (n, 3, H)
+    yield R0 * hj
+    yield (R1 * hj)[:, None, :] * rhat[:, :, None]
     outer = rhat[:, :, None] * rhat[:, None, :] - torch.eye(3, dtype=h.dtype, device=h.device) / 3.0
-    A2 = _rows_sum((R2 * hj)[:, None, None, :] * outer[..., None], counts)  # (n, 3, 3, H)
+    yield (R2 * hj)[:, None, None, :] * outer[..., None]
+
+
+def _mace_update(p, h, aggs):
+    """Correlation-order-3 invariants of the moments' sums, mixed into h."""
+    A0, A1, A2 = aggs
     # invariant contractions, correlation order up to 3, as elementwise sums over
     # the 3 × 3 Cartesian axes (an einsum here runs as many small GEMVs)
     B1 = torch.sum(A1 * A1, dim=1)
@@ -314,7 +344,13 @@ def _mace_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
     B3 = torch.sum(A1[:, :, None, :] * A2 * A1[:, None, :, :], dim=(1, 2))  # order-3 coupling
     B4 = A0 * A0 * A0
     inv = torch.cat([A0, B1, B2, B3, B4], dim=-1)
-    return h[r0:r1] + _mlp_apply(p["mix"], inv)
+    return h + _mlp_apply(p["mix"], inv)
+
+
+def _mace_rows(p, h, pos, src, dst, counts, r0: int, r1: int, cfg):
+    """The Cartesian ACE layer (l ≤ 2, correlation order 3) for rows [r0, r1)."""
+    aggs = [_rows_sum(m, counts) for m in _mace_messages(p, h, pos, src, dst, cfg)]
+    return _mace_update(p, h[r0:r1], aggs)
 
 
 def _by_rows(fn, p, h, pos, edges: _Edges, cfg, chunk: int):
@@ -328,6 +364,142 @@ def _by_rows(fn, p, h, pos, edges: _Edges, cfg, chunk: int):
         else:
             outs.append(fn(*args))
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+# ------------------------------------------------------- on DTensors ----
+
+
+def _gin_messages(p, h, pos, src, dst, cfg):
+    yield h.index_select(0, src)
+
+
+def _ones_messages(p, h, pos, src, dst, cfg):
+    yield h.new_ones((src.shape[0], 1))
+
+
+def _split_dims(t) -> list:
+    """The mesh dims over which DTensor ``t``'s dim 0 is split."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == 0]
+
+
+def _edge_sums(messages, n_sums: int, p, h, pos, edge_index, cfg, chunk: int) -> list:
+    """Σ over the edges (src, dst) of ``messages(p, h, pos, src, dst, cfg)``
+    (``n_sums`` of them) into rows ``dst`` → one (N, …) DTensor a message,
+    placed as ``h``'s rows.  ``edge_index`` (E, 2) splits over some mesh
+    dims, h's nodes (and ``pos``'s, if given) over some: under ``local_map``
+    each rank gathers its edges' source rows from h whole and adds their
+    messages into partial (N, …) sums, ``chunk`` edges at a time (each
+    chunk's sums checkpointed under autograd, as the card's row ranges are,
+    so its per-edge tensors are recomputed in the backward); the partial
+    sums are then reduced into the nodes' placement.  Nothing is read back
+    to the host.  ``p`` (the layer's params, replicated) may be None."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..train.functional import tree_leaves, tree_unflatten
+
+    mesh = h.device_mesh
+    split = _split_dims(edge_index)
+    whole = [Replicate()] * mesh.ndim
+    partial = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
+    edges = [q if i in split else Replicate() for i, q in enumerate(edge_index.placements)]
+    leaves = tree_leaves(p) if p is not None else []
+    dense = [h] + ([pos] if pos is not None else [])
+    n = h.shape[0]
+
+    def part(src, dst, *rest):
+        hh, pp = rest[0], (rest[1] if pos is not None else None)
+        lv = rest[len(dense):]
+        msgs = messages(tree_unflatten(p, iter(lv)) if p is not None else None, hh, pp, src, dst,
+                        cfg)
+        return tuple(m.new_zeros((n,) + tuple(m.shape[1:])).index_add(0, dst, m) for m in msgs)
+
+    def body(ei, *rest):
+        accs = None
+        for e0 in range(0, max(ei.shape[0], 1), chunk):
+            src, dst = ei[e0:e0 + chunk, 0].long(), ei[e0:e0 + chunk, 1].long()
+            if torch.is_grad_enabled():
+                sums = checkpoint(part, src, dst, *rest, use_reentrant=False)
+            else:
+                sums = part(src, dst, *rest)
+            accs = sums if accs is None else tuple(a + b for a, b in zip(accs, sums))
+        return accs
+
+    fn = local_map(body, out_placements=(partial,) * n_sums,
+                   in_placements=(edges,) + (whole,) * (len(dense) + len(leaves)),
+                   in_grad_placements=(edges,) + (partial,) * (len(dense) + len(leaves)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out = fn(edge_index, *dense, *leaves)
+    out = out if isinstance(out, (tuple, list)) else (out,)
+    return [a.redistribute(mesh, h.placements) for a in out]
+
+
+def _gather_rows(h, idx):
+    """``h``'s rows at ``idx`` (int, any shape) → (*idx.shape, *h.shape[1:]).
+    On DTensors under ``local_map``: each rank gathers its own indices' rows
+    from h whole, the output split as ``idx``'s dim 0 (the JAX package's
+    gather, whose rule DTensor lacks on some versions), h's gradient a
+    partial sum over the ranks that split ``idx``."""
+    if not is_dtensor(idx):
+        return h.index_select(0, idx.reshape(-1).long()).reshape(tuple(idx.shape) +
+                                                                  tuple(h.shape[1:]))
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = idx.device_mesh
+    split = _split_dims(idx)
+    own = [q if i in split else Replicate() for i, q in enumerate(idx.placements)]
+    fn = local_map(_gather_rows, out_placements=(own,),
+                   in_placements=([Replicate()] * mesh.ndim, own),
+                   in_grad_placements=([Partial() if i in split else Replicate()
+                                        for i in range(mesh.ndim)], own),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(h, idx)
+
+
+def _scatter_sum(values, idx, n_out: int, like):
+    """(n_out,) Σ of ``values`` into rows ``idx`` (both (M,)).  On DTensors
+    under ``local_map``: each rank adds its own entries into a partial sum,
+    reduced into ``like``'s placements."""
+    if not is_dtensor(idx):
+        return values.new_zeros(n_out).index_add(0, idx.long(), values)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = idx.device_mesh
+    split = _split_dims(idx)
+    own = [q if i in split else Replicate() for i, q in enumerate(idx.placements)]
+    partial = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
+    fn = local_map(lambda v, i: v.new_zeros(n_out).index_add(0, i.long(), v),
+                   out_placements=(partial,), in_placements=(own, own),
+                   in_grad_placements=(own, own), device_mesh=mesh, redistribute_inputs=True)
+    return fn(values, idx).redistribute(mesh, like.placements)
+
+
+def _forward_full_on_dtensors(params, cfg: GNNConfig, h, edge_index, positions, chunk: int):
+    """The layers of ``gnn_forward_full`` on DTensors (nodes and edges split
+    over the data axes, as ``configs.input_pspecs`` places them): each
+    layer's edge sums through ``_edge_sums``, its node update as on the
+    card."""
+    kinds = {"gin": (_gin_messages, 1, _gin_update), "sage": (_gin_messages, 1, _sage_update),
+             "schnet": (_schnet_messages, 1, _schnet_update),
+             "mace": (_mace_messages, 3, _mace_update)}
+    messages, n_sums, update = kinds[cfg.kind]
+    counts = None
+    if cfg.kind == "sage" and cfg.aggregator == "mean":
+        counts = _edge_sums(_ones_messages, 1, None, h, None, edge_index, cfg, chunk)[0]
+    geometric = cfg.kind in ("schnet", "mace")  # their messages read the layer and the positions
+    for p in params["layers"]:
+        aggs = _edge_sums(messages, n_sums, p if geometric else None, h,
+                          positions if geometric else None, edge_index, cfg, chunk)
+        if cfg.kind in ("gin", "sage"):
+            nbr = aggs[0] if counts is None else aggs[0] / torch.clamp(counts, min=1.0)
+            h = update(p, h, nbr)
+        else:
+            h = update(p, h, aggs)
+    return h
 
 
 # ------------------------------------------------------------- drivers ----
@@ -344,8 +516,11 @@ def gnn_forward_full(params, cfg: GNNConfig, node_feat, edge_index, positions=No
     geometric = cfg.kind in ("schnet", "mace")
     if geometric and positions is None:
         raise ValueError(f"{cfg.kind} needs positions")
-    edges = _sorted_edges(edge_index, n)
     chunk = _edge_chunk(cfg, edge_chunk)
+    if is_dtensor(edge_index):
+        h = _forward_full_on_dtensors(params, cfg, h, edge_index, positions, chunk)
+        return _mlp_apply(params["readout"], h)
+    edges = _sorted_edges(edge_index, n)
     for p in params["layers"]:
         if cfg.kind == "gin":
             h = _gin_layer(p, h, edges, cfg, chunk)
@@ -371,15 +546,14 @@ def gnn_forward_blocks(params, cfg: GNNConfig, feats, blocks):
     dtype = cfg.compute_dtype
     h = _mlp_apply(params["encode"], feats.to(dtype))
     for p, blk in zip(params["layers"], blocks):
-        idx = blk["nbr_index"].long()
-        nbr = h.index_select(0, idx.reshape(-1)).reshape(tuple(idx.shape) + (h.shape[-1],))
+        nbr = _gather_rows(h, blk["nbr_index"])
         mask = blk["mask"][..., None].to(dtype)
         s = torch.sum(nbr * mask, dim=1)
         if cfg.kind == "sage" and cfg.aggregator == "mean":
             agg = s / torch.clamp(mask.sum(1), min=1.0)
         else:
             agg = s
-        h_dst = h.index_select(0, blk["dst_index"].long())
+        h_dst = _gather_rows(h, blk["dst_index"])
         if cfg.kind == "gin":
             h = _mlp_apply(p["mlp"], (1.0 + p["eps"]) * h_dst + agg)
         elif "w_self" in p:
@@ -423,6 +597,6 @@ def gnn_energy_loss(params, cfg: GNNConfig, batch):
                            batch.get("positions"))
     target = batch["energy"]
     node_e = out[:, 0] * batch["node_mask"]
-    energy = node_e.new_zeros(target.shape[0]).index_add(0, batch["graph_id"].long(), node_e)
+    energy = _scatter_sum(node_e, batch["graph_id"], target.shape[0], target)
     loss = torch.mean((energy - target) ** 2)
     return loss, {"energy_mae": torch.mean(torch.abs(energy - target)).detach()}

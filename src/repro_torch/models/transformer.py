@@ -30,8 +30,12 @@ recomputes the attention one KV chunk at a time.
 
 The JAX package's sharding hints stand where it has them (``maybe_shard``:
 q, k, v and the attention's output on ``model``, the MLP's hidden states,
-the embedded and the final hidden states, the logits, decode's too): exact
-no-ops on plain tensors, placements on DTensors (the dry-run).
+the embedded and the final hidden states, the logits, decode's too), and
+the residual stream is whole over ``model`` after each layer's attention
+and FFN, as the reference's scan carry keeps it: exact no-ops on plain
+tensors, placements on DTensors (the dry-run).  On DTensors the embedding
+and the loss keep the vocab split over ``model`` and decode attends over
+each rank's block of the cache's sequence (``_split_sequence_attend``).
 
 Prefill and the training forward run their attention through K6
 (``kernels/flash_attention``, differentiable there with a plain
@@ -50,7 +54,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import default_device
-from ..dist.context import is_dtensor, maybe_shard, per_shard, split_heads
+from ..dist.context import is_dtensor, maybe_shard, split_heads
 from ..dist.sharding import DP
 from ..kernels.flash_attention import ops as fa
 from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
@@ -261,16 +265,49 @@ def _require_whole(params: dict, cfg: TransformerConfig) -> None:
 
 
 def _embed(params: dict, tokens) -> torch.Tensor:
-    """The token embeddings, a row gather.  On DTensors each rank gathers its
-    tokens' rows from the table gathered whole (``per_shard``): DTensor's
-    own rules for a gather from a vocab-split table do not hold on every
-    mesh and version (the multi-pod mesh's ``index``; a tied table's
-    gradients, partial two ways, under ``embedding``)."""
+    """The token embeddings, a row gather.  On DTensors the table keeps its
+    vocab split over ``model`` (``_embed_vocab_parallel``)."""
     table = params["embed"]
     if is_dtensor(tokens):
-        return per_shard(lambda t, e: e[t], (tokens,), (table,), dims=(0,),
-                         out_shape=tuple(tokens.shape) + (table.shape[1],))
+        return _embed_vocab_parallel(table, tokens)
     return table[tokens]
+
+
+def _embed_vocab_parallel(table, tokens):
+    """``table[tokens]`` with the table (V, D) split over ``model`` by rows,
+    as the JAX package's plan gathers from it: each rank reads the tokens
+    of its own rows (the others' give zeros), a partial sum over ``model``,
+    each rank's table gradient its own rows'.  Under ``local_map``; the
+    tokens keep their split over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tokens.device_mesh
+    names = mesh.mesh_dim_names or ()
+    mi = names.index("model") if "model" in names else None
+    n = mesh.size(mi) if mi is not None else 1
+    V = table.shape[0]
+    if V % n:
+        raise ValueError(f"a vocab of {V} does not split over {n} model ranks")
+    split = n > 1
+    tok = [Replicate() if i == mi else p for i, p in enumerate(tokens.placements)]
+    rows = [Shard(0) if i == mi and split else Replicate() for i in range(mesh.ndim)]
+    out = [Partial() if i == mi and split else p for i, p in enumerate(tok)]
+    # the table's gradient: its rows' own over 'model', partial over the dims splitting the tokens
+    grad = [Shard(0) if i == mi and split else Partial() if isinstance(p, Shard) else Replicate()
+            for i, p in enumerate(tok)]
+
+    def body(t, e):
+        if not split:  # the whole table on every rank: the plain gather
+            return e[t]
+        v0 = mesh.get_local_rank("model") * e.shape[0]
+        idx = t.long() - v0
+        mine = (idx >= 0) & (idx < e.shape[0])
+        return torch.where(mine[..., None], e[idx.clamp(0, e.shape[0] - 1)], 0.0)
+
+    fn = local_map(body, out_placements=(out,), in_placements=(tok, rows),
+                   in_grad_placements=(tok, grad), device_mesh=mesh, redistribute_inputs=True)
+    return fn(tokens, table)
 
 
 def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
@@ -317,7 +354,8 @@ def _attn_train(x, p, cfg: TransformerConfig, positions, is_global: bool):
         q, k, v = _gqa_qkv(x, p, cfg, positions)
     out = fa.flash_attention(q, k, v, causal=True, window=None if is_global else cfg.window,
                              chunk=cfg.kv_chunk)
-    return maybe_shard(out.reshape(B, S, -1), DP, None, "model") @ p["wo"].to(x.dtype)
+    out = maybe_shard(out.reshape(B, S, -1), DP, None, "model") @ p["wo"].to(x.dtype)
+    return maybe_shard(out, DP, None, None)  # the residual stream whole over 'model'
 
 
 def _mlp(x, p, cfg: TransformerConfig, mesh=None):
@@ -333,7 +371,8 @@ def _mlp(x, p, cfg: TransformerConfig, mesh=None):
         return out.view(B, S, D), aux
     a = x @ p["w1"].to(x.dtype)
     h = maybe_shard(a * torch.sigmoid(a) * (x @ p["w3"].to(x.dtype)), DP, None, "model")
-    return h @ p["w2"].to(x.dtype), torch.zeros((), dtype=torch.float32, device=x.device)
+    return (maybe_shard(h @ p["w2"].to(x.dtype), DP, None, None),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _layer(x, p, cfg: TransformerConfig, positions, is_global: bool, mesh=None):
@@ -465,11 +504,25 @@ def _decode_attn_gqa(x, p, cfg: TransformerConfig, cache_k, cache_v, cur_len: in
     q = apply_rope(q, pos[None, :], cfg.rope_theta)
     k = apply_rope(k, pos[None, :], cfg.rope_theta)
     at = min(cur_len, Smax - 1)  # as dynamic_update_slice clamps its start
-    cache_k[:, at] = k[:, 0]
-    cache_v[:, at] = v[:, 0]
     lo = 0 if is_global else max(0, cur_len - cfg.window + 1)
     hi = min(cur_len + 1, Smax)
     G = cfg.n_heads // cfg.n_kv_heads
+    if is_dtensor(cache_k):
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+
+        def scores(qs, rows):
+            qg = qs[0][:, 0].reshape(qs[0].shape[0], cfg.n_kv_heads, G, cfg.head_dim)
+            return torch.einsum("bhgd,bkhd->bhgk", qg.float(), rows[0].float()) * scale
+
+        def values(a, rows):
+            return torch.einsum("bhgk,bkhd->bhgd", a, rows[1].float())
+
+        out = _split_sequence_attend((q,), (k[:, 0], v[:, 0]), (cache_k, cache_v), at, lo, hi,
+                                     scores, values)
+        out = out.to(x.dtype).reshape(B, 1, cfg.q_dim) @ p["wo"]
+        return maybe_shard(out, DP, None, None)
+    cache_k[:, at] = k[:, 0]
+    cache_v[:, at] = v[:, 0]
     if lo >= hi:
         # Past the cache end a local layer's window keeps no row.  The reference then
         # masks every row, each score rounds to the mask's -1e30, and its softmax weighs
@@ -499,18 +552,92 @@ def _decode_attn_mla(x, p, cfg: TransformerConfig, cache_ckv, cache_krope, cur_l
     q = split_heads(x @ p["wq"], H, nd + rd)
     q_rope = apply_rope(q[..., nd:], pos[None, :], cfg.rope_theta)[:, 0]  # (B, H, rd)
     at = min(cur_len, Smax - 1)
-    cache_ckv[:, at] = (x @ p["w_dkv"])[:, 0]
-    cache_krope[:, at] = apply_rope((x @ p["w_krope"])[:, :, None, :], pos[None, :],
-                                    cfg.rope_theta)[:, 0, 0]
+    c_new = (x @ p["w_dkv"])[:, 0]
+    kr_new = apply_rope((x @ p["w_krope"])[:, :, None, :], pos[None, :], cfg.rope_theta)[:, 0, 0]
     hi = min(cur_len + 1, Smax)
-    ckv = cache_ckv[:, :hi].float()
     q_lat = torch.einsum("bhn,hrn->bhr", q[:, 0, :, :nd], p["w_uk"])
+    if is_dtensor(cache_ckv):
+        scale = 1.0 / math.sqrt(nd + rd)
+
+        def scores(qs, rows):
+            return (torch.einsum("bhr,bsr->bhs", qs[0].float(), rows[0].float())
+                    + torch.einsum("bhr,bsr->bhs", qs[1].float(), rows[1].float())) * scale
+
+        def values(a, rows):
+            return torch.einsum("bhs,bsr->bhr", a, rows[0].float())
+
+        ctx = _split_sequence_attend((q_lat, q_rope), (c_new, kr_new), (cache_ckv, cache_krope),
+                                     at, 0, hi, scores, values).to(x.dtype)
+        out = torch.einsum("bhr,hrn->bhn", ctx, p["w_uv"])
+        return maybe_shard(out.reshape(B, 1, H * cfg.v_head_dim) @ p["wo"], DP, None, None)
+    cache_ckv[:, at] = c_new
+    cache_krope[:, at] = kr_new
+    ckv = cache_ckv[:, :hi].float()
     s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
     s = s + torch.einsum("bhr,bsr->bhs", q_rope.float(), cache_krope[:, :hi].float())
     a = torch.softmax(s * (1.0 / math.sqrt(nd + rd)), dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", a, ckv).to(x.dtype)
     out = torch.einsum("bhr,hrn->bhn", ctx, p["w_uv"])
     return out.reshape(B, 1, H * cfg.v_head_dim) @ p["wo"]
+
+
+def _split_sequence_attend(queries: tuple, new_rows: tuple, caches: tuple, at: int, lo: int,
+                           hi: int, scores, values):
+    """One decode step's attention over caches (B, Smax, …) held as DTensors
+    split by sequence over some mesh dims (by batch over others), each rank
+    on its own block of rows under ``local_map``: it writes ``new_rows``
+    (B, …) into row ``at`` where that row is its own, scores its rows in
+    [lo, hi) (``scores(queries, rows)`` → (…, n) float32, ``values(p,
+    rows)`` → (…, dv)), and keeps a partial softmax: its max, its Σ exp
+    and its weighted values.  The partial softmaxes combine by log-sum-exp
+    over the mesh dims that split the sequence (a max and two sums of
+    (B, …) each, so no cache row moves) → (…, dv) float32, split by batch
+    as the caches.  With ``lo ≥ hi`` (past the cache end, a local layer's
+    window keeps no row) every row weighs alike, as the plain path's mean."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..dist import collectives as coll
+
+    mesh = caches[0].device_mesh
+    seq = [i for i, p in enumerate(caches[0].placements) if isinstance(p, Shard) and p.dim == 1]
+    batch = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in caches[0].placements]
+    rows = [Shard(1) if i in seq else p for i, p in enumerate(batch)]
+    groups = [mesh.get_group(i) for i in seq]
+    nq, nn = len(queries), len(new_rows)
+
+    def body(*args):
+        qs, news, cs = args[:nq], args[nq:nq + nn], args[nq + nn:]
+        n = cs[0].shape[1]
+        block = 0
+        for i in seq:
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        s0 = block * n
+        if s0 <= at < s0 + n:
+            for c, r in zip(cs, news):
+                c[:, at - s0] = r
+        a, b = (0, n) if lo >= hi else (min(max(lo - s0, 0), n), min(max(hi - s0, 0), n))
+        kept = [c[:, a:b] for c in cs]
+        s = scores(qs, kept)
+        if lo >= hi:
+            s = torch.zeros_like(s)
+        m = s.amax(-1) if s.shape[-1] else s.new_full(s.shape[:-1], -1e30)
+        e = torch.exp(s - m[..., None])
+        l, acc = e.sum(-1), values(e, kept)
+        top = m
+        for g in groups:
+            top = coll.all_reduce_max(top, g)
+        w = torch.exp(m - top)
+        l, acc = l * w, acc * w[..., None]
+        for g in groups:
+            l, acc = coll.all_reduce_sum(l, g), coll.all_reduce_sum(acc, g)
+        return acc / l[..., None]
+
+    fn = local_map(body, out_placements=(batch,),
+                   in_placements=(batch,) * (nq + nn) + (rows,) * len(caches),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*queries, *new_rows, *caches)
 
 
 def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=None):

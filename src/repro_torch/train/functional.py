@@ -39,13 +39,25 @@ def tree_to_device(tree, device):
     return tree_map(one, tree)
 
 
+def _live(p: torch.Tensor) -> torch.Tensor:
+    """``p`` detached, requiring a gradient.  A DTensor's gradient is
+    redistributed to ``p``'s placements as soon as it is made (a partial
+    sum over the ranks that split the batch reduced into ``p``'s blocks),
+    as the JAX package's plan keeps each gradient in its param's sharding."""
+    live = p.detach().requires_grad_(True)
+    if type(p) is not torch.Tensor and hasattr(p, "placements"):
+        placements = p.placements
+        live.register_hook(lambda g: g.redistribute(g.device_mesh, placements))
+    return live
+
+
 def value_and_grad(loss_fn, params, batch):
     """``loss_fn(params, batch) → (loss, metrics)`` → ``((loss, metrics),
     grads)``: the loss and metrics detached, ``grads`` a tree of ``params``'
     structure, each leaf the gradient in its param's dtype (zeros where the
     loss does not reach it, as ``jax.grad`` gives them)."""
     with torch.enable_grad():
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        live = tree_map(_live, params)
         loss, metrics = loss_fn(live, batch)
         leaves = tree_leaves(live)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)

@@ -6,7 +6,7 @@ from typing import Callable
 
 import torch
 
-from ..dist.context import is_dtensor
+from ..dist.context import contiguous_strides, is_dtensor
 from .functional import tree_leaves, tree_map, tree_unflatten, value_and_grad
 from .optimizer import OptConfig, adamw_update
 
@@ -27,7 +27,7 @@ def _microbatch(x, n: int, i: int):
     shape = torch.Size((x.shape[0] // n,) + tuple(x.shape[1:]))
     return DTensor.from_local(local[i * b:(i + 1) * b], x.device_mesh, x.placements,
                               run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_strides(shape))
 
 
 def train_wrap(loss_fn, opt_cfg: OptConfig, grad_accum: int = 1,

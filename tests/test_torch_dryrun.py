@@ -18,15 +18,17 @@ the children start together (the ``children`` fixture) and each test reads its o
     all-gather and its backward count one all-gather and one reduce-scatter
     and no all-reduce (the fake group stands for NCCL); a shard-to-shard
     reshard on a mesh of the card's type counts one all-to-all on this
-    CPU-only host (the dry-run's meshes are of that type); K6, K5 and K4 on
-    fake tensors give their formulas' flops;
+    CPU-only host (the dry-run's meshes are of that type); a collective
+    whose group resolves to no process group raises, naming the op; K6, K5
+    and K4 on fake tensors give their formulas' flops;
   * ``roofline.model_flops`` equals the JAX function on every (arch, shape)
     of ``all_cells(include_skipped=True, include_extra=True)``, and
     ``terms`` the JAX formula on the same record with the card's constants
     (the memory term on ``bytes``, ``bytes_fused`` the lower bound);
   * ``run_cell`` on smoke configs (bf16, the card's K6 dtype) of gemma3-1b
     ``train_4k``, deepseek-v2-lite-16b ``prefill_32k`` (MoE), dcn-v2
-    ``serve_bulk`` and graphsage-reddit ``minibatch_lg`` on a (2, 2) fake
+    ``serve_bulk``, graphsage-reddit ``minibatch_lg`` and gin-tu
+    ``full_graph_sm`` (the edge sums on DTensors) on a (2, 2) fake
     mesh, and of the dcn-v2 and graphsage cells on a (2, 2, 2) one: status
     ``ok`` on a mesh of the card's type, the JAX record's keys less the
     XLA-only ones, ``model_params``
@@ -62,7 +64,8 @@ from repro_torch.launch.op_cost import analyze_step  # noqa: E402
 SRC = Path(__file__).resolve().parents[1] / "src"
 M, K, N = 64, 128, 32
 CELLS = {(2, 2): [("gemma3-1b", "train_4k"), ("deepseek-v2-lite-16b", "prefill_32k"),
-                  ("dcn-v2", "serve_bulk"), ("graphsage-reddit", "minibatch_lg")],
+                  ("dcn-v2", "serve_bulk"), ("graphsage-reddit", "minibatch_lg"),
+                  ("gin-tu", "full_graph_sm")],
          (2, 2, 2): [("dcn-v2", "serve_bulk"), ("graphsage-reddit", "minibatch_lg")]}
 # the JAX record's keys, and those only XLA has (its compile: lower_s / compile_s
 # are trace_s here; the raw cost analysis; the HLO text's size)
@@ -260,6 +263,13 @@ def test_shard_to_shard_reshard_is_counted_as_an_all_to_all_on_any_host(children
     device_type, got = children["torch"].result()["reshard"]
     assert device_type == "cuda"
     assert got == {"all-to-all": 16 * 2 * 4}  # this rank's (16, 2) float32 block
+
+
+def test_a_collective_whose_group_cannot_be_resolved_raises_naming_the_op():
+    # its ranks, and so its bytes, are unknown: counting it as some size would guess
+    x = torch.empty(4, 4, device="meta")
+    with pytest.raises(RuntimeError, match=r"_c10d_functional\.all_reduce.*cannot be resolved"):
+        analyze_step(lambda t: torch.ops._c10d_functional.all_reduce(t, "sum", "no-such-group"), x)
 
 
 @pytest.mark.parametrize("window", [None, 24])
