@@ -315,14 +315,20 @@ Phases, each printing its seconds:
 
  16. the tools that describe a mesh: 16a the dry-run of gemma3-1b
      ``train_4k`` on the (16, 16) mesh, qwen3-moe-235b-a22b ``train_4k`` on
-     the (2, 16, 16) mesh, and dcn-v2 ``serve_bulk``, gin-tu
-     ``full_graph_sm`` and graphsage-reddit ``minibatch_lg`` on the (16, 16)
-     mesh (``repro_torch.launch.dryrun``: one step on DTensors over a fake
+     the (2, 16, 16) mesh, dcn-v2 ``serve_bulk``, gin-tu ``full_graph_sm``
+     and graphsage-reddit ``minibatch_lg`` on the (16, 16) mesh,
+     command-r-plus-104b ``train_4k`` on the (2, 16, 16) mesh at 2 of its
+     64 layers (``DRYRUN_CUT``, for time; 8 rows a rank, fewer than its 16
+     microbatches), and mace ``ogb_products`` on both meshes
+     (``repro_torch.launch.dryrun``: one step on DTensors over a fake
      process group, counted per rank), in a CPU-only child started at the
      top of the script on one host thread pinned to one core at a lower
      priority, collected here: each ``ok``, its per-device flops, bytes,
      collective bytes and peak beside 80 GB, a peak within 80 GB wherever
-     the JAX package's plan of the cell fits (``REF_MEMORY_GB``); 16b
+     the JAX package's plan of the cell fits (``REF_MEMORY_GB``) and for
+     the cut cell, and mace's collective bytes on (2, 16, 16) within its
+     own on (16, 16) × max(1.05, the JAX package's ratio) + 64 MB
+     (``DRYRUN_SCALING``: adding a pod adds no traffic to a device); 16b
      gemma3-1b ``prefill_32k`` at B = 2, one warm step on the card counted by
      ``launch/op_cost.py`` (K6 26 times), its flops and bytes equal to the
      child's dry-run of the same cell on a (1, 1) mesh, and an uncounted step
@@ -6622,7 +6628,15 @@ def phase15_meshes(smi: str) -> dict:
 # 16a's production cells (arch, shape, mesh kind) and 16b's (the same cell on a (1, 1) mesh)
 DRYRUN_CELLS = [("gemma3-1b", "train_4k", "single"), ("qwen3-moe-235b-a22b", "train_4k", "multi"),
                 ("dcn-v2", "serve_bulk", "single"), ("gin-tu", "full_graph_sm", "single"),
-                ("graphsage-reddit", "minibatch_lg", "single")]
+                ("graphsage-reddit", "minibatch_lg", "single"),
+                ("command-r-plus-104b", "train_4k", "multi"), ("mace", "ogb_products", "single"),
+                ("mace", "ogb_products", "multi")]
+# 16a's cells cut for time (REPRO_OVERRIDES): command-r's 64 layers trace in minutes, 2 in seconds
+DRYRUN_CUT = {("command-r-plus-104b", "train_4k", "multi"): "n_layers=2"}
+# 16a's scaling bound: a cell's collective bytes a device on (2, 16, 16) at most its own on
+# (16, 16) × max(1.05, the JAX package's multi/single ratio) + 64 MB; the ratio from the JAX
+# package's dry-run of mace ogb_products (12.623 / 20.540 GB a device)
+DRYRUN_SCALING = {("mace", "ogb_products"): 12.623 / 20.540}
 # the JAX package's memory figure a device (argument + output - alias + temp) for each 16a
 # cell it lowers, from its dry-run on the CPU (`python -m repro.launch.dryrun`, 512 host
 # devices); dcn-v2's raises on its own `tables` spec.  A cell whose figure fits the card
@@ -6631,7 +6645,10 @@ REF_MEMORY_GB = {("gemma3-1b", "train_4k", "single"): 14.224,
                  ("qwen3-moe-235b-a22b", "train_4k", "multi"): 30.158,
                  ("dcn-v2", "serve_bulk", "single"): None,
                  ("gin-tu", "full_graph_sm", "single"): 0.004,
-                 ("graphsage-reddit", "minibatch_lg", "single"): 0.053}
+                 ("graphsage-reddit", "minibatch_lg", "single"): 0.053,
+                 ("command-r-plus-104b", "train_4k", "multi"): 20.471,  # at 2 layers
+                 ("mace", "ogb_products", "single"): 153.685,
+                 ("mace", "ogb_products", "multi"): 76.923}
 PREFILL_B = 2  # phase 7's prefill_32k batch, 16b's
 HBM_BYTES = 80e9  # an H100's memory
 
@@ -6653,7 +6670,13 @@ def dryrun_worker(out: str) -> int:
     torch.set_num_threads(1)
     from repro_torch.launch.dryrun import run_cell
 
-    recs = [run_cell(a, s, m, None) for a, s, m in DRYRUN_CELLS]
+    recs = []
+    for a, s, m in DRYRUN_CELLS:
+        cut = DRYRUN_CUT.get((a, s, m))
+        if cut:
+            os.environ["REPRO_OVERRIDES"] = cut
+        recs.append({**run_cell(a, s, m, None), "overrides": cut})
+        os.environ.pop("REPRO_OVERRIDES", None)
     recs.append(run_cell("gemma3-1b", "prefill_32k", "single", None,
                          mesh_shape=((1, 1), ("data", "model")), batch=PREFILL_B))
     Path(out).write_text(json.dumps(recs))
@@ -6697,7 +6720,8 @@ def phase16a_dryrun(child: dict, smi: str, timeout: float) -> list:
             f"16a: the dry-run child exited {rc}: {child['err'].read_text()[-3000:]}")
     recs = json.loads(child["out"].read_text())
     for rec in recs:
-        what = f"{rec['arch']} {rec['shape']} on the {rec['mesh']} mesh"
+        what = (f"{rec['arch']} {rec['shape']} on the {rec['mesh']} mesh"
+                + (f" ({rec['overrides']})" if rec.get("overrides") else ""))
         require(rec["status"] == "ok", f"16a {what}: {rec['status']}: {rec.get('error')}\n"
                 f"{rec.get('traceback', '')}")
         require(rec["mesh_device"] == "cuda",
@@ -6707,7 +6731,7 @@ def phase16a_dryrun(child: dict, smi: str, timeout: float) -> list:
         ref = REF_MEMORY_GB.get(key)
         ref_txt = ("" if key not in REF_MEMORY_GB else " (the JAX package's plan raises)"
                    if ref is None else f" (the JAX package's plan {ref:.3f} GB)")
-        if ref is not None and ref * 1e9 <= HBM_BYTES:
+        if ref is not None and ref * 1e9 <= HBM_BYTES or key in DRYRUN_CUT:
             require(peak <= HBM_BYTES, f"16a {what}: a peak of {peak / 1e9:.3f} GB a device does "
                     f"not fit the card's {HBM_BYTES / 1e9:.0f} GB; the JAX package's plan takes "
                     f"{ref:.3f} GB")
@@ -6719,6 +6743,18 @@ def phase16a_dryrun(child: dict, smi: str, timeout: float) -> list:
             f"{'' if peak <= HBM_BYTES else ' (does not fit)'}{ref_txt}, args "
             f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB; {rec['n_ops']} ops; "
             f"traced in {rec['trace_s']} s; card: {smi}")
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    for (arch, shape), ratio in DRYRUN_SCALING.items():
+        one, pod = (by[(arch, shape, m)]["collective_bytes_total"] for m in ("single", "multi"))
+        bound = one * max(1.05, ratio) + 64e6
+        require(pod <= bound, f"16a {arch} {shape}: {pod / 1e9:.3f} GB of collectives a device on "
+                f"(2, 16, 16), past {bound / 1e9:.3f} GB (its {one / 1e9:.3f} GB on (16, 16) × "
+                f"max(1.05, the JAX package's {ratio:.3f}) + 64 MB)")
+        log(f"16a {arch} {shape}: collectives a device {one / 1e9:.3f} GB on (16, 16), "
+            f"{pod / 1e9:.3f} GB on (2, 16, 16) ({pod / one:.3f}×, the JAX package's "
+            f"{ratio:.3f}×), within {bound / 1e9:.3f} GB; counts "
+            f"{by[(arch, shape, 'single')]['collective_count']} and "
+            f"{by[(arch, shape, 'multi')]['collective_count']}")
     log(f"16a the dry-run child's cells traced in {sum(r['trace_s'] for r in recs):.2f} s in all, "
         f"beside phases 2 to 15")
     return recs

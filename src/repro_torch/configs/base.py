@@ -46,7 +46,7 @@ from ..models import (
     lm_loss,
     retrieval_scores,
 )
-from ..models.transformer import data_mean
+from ..models.transformer import data_mean, data_size
 from ..train.optimizer import OptConfig, adamw_init
 from ..train.step import train_wrap
 
@@ -653,7 +653,8 @@ def build_step(arch: ArchDef, cell: ShapeCell, cfg, opt_cfg: OptConfig = OptConf
                 return train_wrap(lambda p, b: lm_loss(p, b, cfg), opt_cfg, cfg.grad_accum), True
             step = train_wrap(lambda p, b: lm_loss(p, b, cfg, mesh), opt_cfg, cfg.grad_accum,
                               grads_fn=lambda g: lm_grad_sync(g, cfg, mesh),
-                              norm_fn=lambda g: lm_grad_norm(g, cfg, mesh))
+                              norm_fn=lambda g: lm_grad_norm(g, cfg, mesh),
+                              data_ranks=data_size(mesh))
 
             def mesh_step(params, opt_state, batch):
                 params, opt_state, metrics = step(params, opt_state, batch)

@@ -46,6 +46,8 @@ __all__ = [
     "build_index",
     "query_index",
     "leaf_scan",
+    "leaf_scan_batch",
+    "query_index_batch",
     "query_index_batch_multi",
     "quantize_data",
     "quantize_query",
@@ -677,3 +679,82 @@ def query_index_batch_multi(
     if return_stats:
         return results, stats
     return results
+
+
+def _check_route(use_pallas: bool | None, device: torch.device) -> None:
+    """``use_pallas`` as the engine's ``use_pallas_scan`` takes it: None, K1
+    on a card and its plain version on the CPU; True forces K1, which needs
+    a card; False asks for the plain verdict, which runs only on the CPU."""
+    if use_pallas and device.type != "cuda":
+        raise ValueError(f"use_pallas=True forces the kernel K1, which needs a CUDA device, "
+                         f"not {device}")
+    if use_pallas is False and device.type == "cuda":
+        raise ValueError("use_pallas=False asks for the plain verdict, which runs only on the "
+                         "CPU: on a CUDA device the kernel K1 decides it")
+
+
+def _on(index: PackedIndex, *xs):
+    """Each of ``xs`` (NumPy arrays or tensors, or None) as a tensor on the
+    index's device."""
+    dev = index.emb.device
+    return [None if x is None else torch.as_tensor(x, device=dev) for x in xs]
+
+
+def leaf_scan_batch(
+    index: PackedIndex,
+    block_ids,
+    alive,
+    q_emb,
+    q_emb0,
+    q_multi,
+    eps: float,
+    q_label_hash=None,
+    use_pallas: bool | None = None,
+) -> list:
+    """Fused Lemmas 4.1 + 4.2 for a query batch (the JAX package's
+    ``leaf_scan_batch``): each query's rows of its own surviving blocks
+    (``alive`` (Q, C) over the leaf blocks ``block_ids`` (C,)) pack into
+    (query, row) pairs, through the sidecar's prefilter where the index has
+    one, and ONE K1 verdict decides them all → a list of Q int64 row
+    tensors.  On the index's device: K1 on a card, its plain version on the
+    CPU (``use_pallas``: ``_check_route``)."""
+    block_ids, alive, q_emb, q_emb0, q_multi, q_label_hash = _on(
+        index, block_ids, alive, q_emb, q_emb0, q_multi, q_label_hash)
+    _check_route(use_pallas, q_emb.device)
+    Q = q_emb.shape[0]
+    if index.n_paths == 0 or block_ids.numel() == 0 or Q == 0:
+        return [torch.zeros((0,), dtype=torch.int64, device=q_emb.device) for _ in range(Q)]
+    rows, q_ids = _pack_leaf_pairs(index, block_ids, alive, q_emb, q_multi, q_label_hash)
+    if rows.numel():
+        keep = _pairs_keep_mask([_pair_segment(index, rows, q_ids, q_emb, q_emb0, q_multi)], eps)
+    else:
+        keep = torch.zeros((0,), dtype=torch.bool, device=rows.device)
+    return _split_rows(rows, q_ids, keep, Q)
+
+
+def query_index_batch(
+    index: PackedIndex,
+    q_emb,
+    q_emb0,
+    q_multi=None,
+    eps: float = 1e-6,
+    return_stats: bool = False,
+    q_label_hash=None,
+    use_pallas: bool | None = None,
+    use_groups: bool = False,
+):
+    """Alg. 3 traversal for a BATCH of Q query paths over one index (the JAX
+    package's ``query_index_batch``): ``query_index_batch_multi`` of one
+    partition, its leaf scan one K1 verdict (``leaf_scan_batch``'s).  Each
+    query's rows equal a ``query_index`` call's; ``use_groups=True`` takes
+    the GNN-PGE two-level probe (the sidecar needed), the same rows.
+    Inputs may be NumPy arrays or tensors, taken to the index's device →
+    a list of Q int64 row tensors (and per-query stats dicts with
+    ``return_stats``)."""
+    q_emb, q_emb0, q_multi, q_label_hash = _on(index, q_emb, q_emb0, q_multi, q_label_hash)
+    _check_route(use_pallas, q_emb.device)
+    out = query_index_batch_multi([(index, q_emb, q_emb0, q_multi, q_label_hash)], eps=eps,
+                                  return_stats=return_stats, use_groups=use_groups)
+    if return_stats:
+        return out[0][0], out[1][0]
+    return out[0]

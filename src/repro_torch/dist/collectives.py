@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 __all__ = [
     "world", "all_reduce_sum", "all_reduce_max", "broadcast", "all_gather", "sum_over", "copy_to",
-    "send", "recv",
+    "gather_blocks", "reduce_scatter_blocks", "send", "recv",
 ]
 
 
@@ -136,6 +136,89 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (JAX's
     tiled ``all_gather``), differentiable: the backward is a reduce-scatter."""
     return _AllGather.apply(x, group, dim)
+
+
+def _padded(x: torch.Tensor, sizes: list, width: int) -> torch.Tensor:
+    """``x``'s rows cut into consecutive blocks of ``sizes`` rows, each
+    padded with zero rows to ``width`` → (len(sizes) · width, …); ``x``
+    itself where every block is ``width`` rows already."""
+    if all(n == width for n in sizes):
+        return x
+    out = x.new_zeros((len(sizes), width) + tuple(x.shape[1:]))
+    at = 0
+    for i, n in enumerate(sizes):
+        out[i, :n] = x[at:at + n]
+        at += n
+    return out.reshape((len(sizes) * width,) + tuple(x.shape[1:]))
+
+
+def _unpadded(x: torch.Tensor, sizes: list, width: int) -> torch.Tensor:
+    """The inverse of ``_padded``: each block's first rows, concatenated."""
+    if all(n == width for n in sizes):
+        return x
+    return torch.cat([x[i * width:i * width + n] for i, n in enumerate(sizes)])
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Forward: every rank's block of rows, blocks of ``sizes`` rows (one a
+    group rank, in rank order), concatenated: one all-gather of blocks
+    padded to the largest.  Backward: this rank's block of the gradient
+    summed over ranks, one reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group, sizes):
+        rank, size = world(group)
+        ctx.group, ctx.rank, ctx.size, ctx.sizes = group, rank, size, sizes
+        width = max(sizes)
+        pad = x if x.shape[0] == width else torch.cat(
+            [x, x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))])
+        return _unpadded(_gather(pad, group, size), sizes, width)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        width = max(ctx.sizes)
+        g = _reduce_scatter(_padded(grad, ctx.sizes, width), ctx.group, ctx.rank, ctx.size)
+        return g[:ctx.sizes[ctx.rank]], None, None
+
+
+class _ReduceScatterBlocks(torch.autograd.Function):
+    """Forward: this rank's block (of ``sizes`` rows, one a group rank) of Σ
+    over ranks of ``x``, one reduce-scatter of blocks padded to the
+    largest.  Backward: every rank's block of the gradient concatenated,
+    one all-gather (each rank's sum read every rank's ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, sizes):
+        rank, size = world(group)
+        ctx.group, ctx.rank, ctx.size, ctx.sizes = group, rank, size, sizes
+        width = max(sizes)
+        return _reduce_scatter(_padded(x, sizes, width), group, rank, size)[:sizes[rank]]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return _GatherBlocks.apply(grad, ctx.group, ctx.sizes), None, None
+
+
+def gather_blocks(x: torch.Tensor, group, sizes: list) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order, where group
+    rank r holds ``sizes[r]`` rows (uneven blocks, as a DTensor's uneven
+    ``Shard(0)`` leaves them): one all-gather however uneven;
+    differentiable, the backward one reduce-scatter."""
+    if world(group)[1] == 1:
+        return x
+    return _GatherBlocks.apply(x, group, list(sizes))
+
+
+def reduce_scatter_blocks(x: torch.Tensor, group, sizes: list) -> torch.Tensor:
+    """This rank's block of Σ over the group's ranks of ``x`` (Σ ``sizes``
+    rows), group rank r's block the ``sizes[r]`` rows after the blocks
+    before it: one reduce-scatter however uneven; differentiable, the
+    backward one all-gather."""
+    if world(group)[1] == 1:
+        return x
+    return _ReduceScatterBlocks.apply(x, group, list(sizes))
 
 
 class _SumOver(torch.autograd.Function):

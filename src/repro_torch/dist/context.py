@@ -19,6 +19,19 @@ its DTensor operands: the kernels of the port have no rule of their own
 in DTensor's dispatch, so K5's and K6's wrappers and the model's
 ``embedding_bag`` (K4) call it.
 
+``group_over(mesh, dims)`` is the process group of several mesh dims
+taken as one (pod × data, say), where DTensor issues one collective a
+mesh dim.  ``row_blocks(n, mesh, dims)`` are the rows each rank of that
+group holds of ``n`` rows split by ``Shard(0)`` over ``dims``, uneven
+splits included: with ``collectives.gather_blocks`` and
+``reduce_scatter_blocks`` the models gather and reduce such rows in one
+collective over pod × data, as the JAX package's plan does, and
+``reduce_partial`` reduces a gradient's partial sums over several dims in
+one all-reduce.  (DTensor can issue one collective itself once a
+flattened sub-mesh is registered on the mesh, but its all-gather over one
+then misplaces rows split unevenly over several dims, so none is
+registered.)
+
 ``use_devices(axis, devices)`` scopes the device list of an in-process
 mesh: ``"part"``, the stacked probe's partition slots
 (``dist/probe.py``), and ``"join"``, the device join's query batch
@@ -32,14 +45,16 @@ else ``[device]``; so one card behaves as one device.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
 
 from .sharding import P, filter_spec, to_placements
 
-__all__ = ["use_mesh", "current_mesh", "maybe_shard", "split_heads", "is_dtensor", "per_shard",
-           "contiguous_strides",
+__all__ = ["use_mesh", "current_mesh", "maybe_shard", "constrain", "split_heads", "is_dtensor",
+           "per_shard", "on_blocks", "contiguous_strides", "group_over", "reduce_partial",
+           "row_blocks", "row_split_dims",
            "use_devices", "current_devices", "mesh_devices"]
 
 _state = threading.local()
@@ -71,7 +86,17 @@ def maybe_shard(x, *entries):
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    return _Constrain.apply(x, tuple(to_placements(mesh, filter_spec(P(*entries), mesh))))
+    return constrain(x, to_placements(mesh, filter_spec(P(*entries), mesh)))
+
+
+def constrain(x, placements):
+    """DTensor ``x`` redistributed to ``placements``, its gradient first to
+    the same placements, then to ``x``'s own (``maybe_shard``'s backward):
+    a gradient partial over some mesh dims is so reduced on the blocks of
+    ``placements`` before it is gathered into ``x``'s, where DTensor's own
+    backward of a redistribution may gather first, and over several mesh
+    dims in one all-reduce (``reduce_partial``)."""
+    return _Constrain.apply(x, tuple(placements))
 
 
 class _Constrain(torch.autograd.Function):
@@ -87,8 +112,7 @@ class _Constrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        mesh = grad.device_mesh
-        return grad.redistribute(mesh, ctx.placements).redistribute(mesh, ctx.back), None
+        return reduce_partial(reduce_partial(grad, ctx.placements), ctx.back), None
 
 
 def split_heads(x, heads: int, width: int, dim: int = -1):
@@ -160,6 +184,29 @@ def per_shard(fn, sharded: tuple, whole: tuple, dims: tuple, out_shape, even: tu
                               stride=contiguous_strides(shape))
 
 
+def on_blocks(fn, mesh, inputs, outputs):
+    """``fn`` on this rank's blocks, as DTensor's ``local_map`` runs it, but
+    with each output's global row count given: ``local_map`` infers a
+    DTensor's shape from the rank's block, which an uneven split of dim 0
+    makes wrong.  ``inputs``: (DTensor or plain tensor, placements,
+    gradient placements) each, a DTensor first placed by ``constrain``
+    (where it is not so placed already); ``outputs``: (placements, rows)
+    each → ``fn``'s outputs (a tuple) as DTensors of those placements,
+    ``rows`` rows and the blocks' other dims."""
+    from torch.distributed.tensor import DTensor
+
+    local = [(t if tuple(t.placements) == tuple(pl) else constrain(t, pl)).to_local(
+        grad_placements=gp) if is_dtensor(t) else t for t, pl, gp in inputs]
+    res = fn(*local)
+    res = res if isinstance(res, tuple) else (res,)
+    out = []
+    for r, (pl, rows) in zip(res, outputs):
+        shape = torch.Size((rows,) + tuple(r.shape[1:]))
+        out.append(DTensor.from_local(r, mesh, pl, run_check=False, shape=shape,
+                                      stride=contiguous_strides(shape)))
+    return tuple(out)
+
+
 def contiguous_strides(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape`` (what a DTensor made
     from local blocks declares), with nothing allocated."""
@@ -168,6 +215,102 @@ def contiguous_strides(shape) -> tuple:
         out.append(acc)
         acc *= max(int(n), 1)
     return tuple(reversed(out))
+
+
+def _dims(mesh, dims) -> list:
+    names = mesh.mesh_dim_names or ()
+    return sorted(names.index(d) if isinstance(d, str) else int(d) for d in dims)
+
+
+# (device type, mesh ranks, dims) → this rank's group of those dims as one; a group of a process
+# group since destroyed (the dry-run makes one a cell) is made again
+_GROUPS: dict = {}
+
+
+def group_over(mesh, dims):
+    """The process group of ``mesh``'s dims ``dims`` (names or indices) as
+    one, its ranks in row-major order over them: a dim's own group, or for
+    several a group of their ranks made on first use (every rank makes
+    every such group, as ``new_group`` asks) and kept; no mesh is made or
+    registered for it.  None where they hold one rank."""
+    import torch.distributed as dist
+
+    dims = [i for i in _dims(mesh, dims) if mesh.size(i) > 1]
+    if not dims:
+        return None
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    key = (mesh.device_type, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist()),
+           tuple(dims))
+    group = _GROUPS.get(key)
+    if group is None or not _registered(group):
+        rest = [i for i in range(mesh.ndim) if i not in dims]
+        members = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(mesh.size(i)
+                                                                           for i in dims))
+        me = dist.get_rank()
+        for ranks in members.tolist():
+            if ranks != sorted(ranks):  # a group's ranks take the order of their global ranks
+                raise ValueError(f"mesh dims {dims} of {mesh} are not in the order of their ranks")
+            g = dist.new_group(ranks=ranks)
+            if me in ranks:
+                group = g
+        _GROUPS[key] = group
+    return group
+
+
+def _registered(group) -> bool:
+    """Whether ``group`` belongs to the current process group (one destroyed
+    since is not)."""
+    import torch.distributed as dist
+
+    try:
+        dist.get_rank(group)
+    except ValueError:
+        return False
+    return True
+
+
+def reduce_partial(x, placements):
+    """DTensor ``x`` redistributed to ``placements``, its partial sums over
+    the mesh dims that ``placements`` replicate first reduced in one
+    all-reduce over those dims as one group (DTensor's own redistribution
+    issues one a dim)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from . import collectives as coll
+
+    mesh = x.device_mesh
+    dims = [i for i, (a, b) in enumerate(zip(x.placements, placements))
+            if a.is_partial("sum") and b.is_replicate() and mesh.size(i) > 1]
+    if len(dims) > 1:
+        local = coll.all_reduce_sum(x.to_local(), group_over(mesh, dims))
+        x = DTensor.from_local(local, mesh, [Replicate() if i in dims else p
+                                             for i, p in enumerate(x.placements)],
+                               run_check=False, shape=x.shape, stride=x.stride())
+    return x.redistribute(mesh, placements)
+
+
+def row_split_dims(x) -> list:
+    """The mesh dims over which DTensor ``x``'s dim 0 is split."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == 0]
+
+
+def row_blocks(n: int, mesh, dims) -> list:
+    """The row counts of ``n`` rows split by ``Shard(0)`` on each of
+    ``mesh``'s dims ``dims`` in mesh order (DTensor's layout: each dim cuts
+    every block so far into chunks of ⌈rows / size⌉, the last ones short or
+    empty), one a rank of ``group_over(mesh, dims)`` in its rank order."""
+    blocks = [n]
+    for i in _dims(mesh, dims):
+        k = mesh.size(i)
+        nxt = []
+        for m in blocks:
+            c = -(-m // k)
+            nxt += [max(0, min(c, m - j * c)) for j in range(k)]
+        blocks = nxt
+    return blocks
 
 
 def current_devices(axis: str):

@@ -79,7 +79,8 @@ _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
 
 def fake_group(world: int) -> None:
     """A fake process group of ``world`` ranks in this process, as rank 0
-    (the one there was replaced if it was fake; a real one raises)."""
+    (the one there was replaced if it was fake, with DTensor's sharding
+    caches; a real one raises)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -89,6 +90,11 @@ def fake_group(world: int) -> None:
         if dist.get_world_size() == world:
             return
         dist.destroy_process_group()
+        # DTensor caches op shardings with the meshes they name: a mesh of the group just
+        # destroyed, equal to a later cell's, would hand that cell groups that no longer exist
+        from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+
+        _clear_sharding_prop_cache()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 

@@ -3,7 +3,14 @@ tensors: the recsys family (DCN-v2), the LM family (dense GQA, the
 local:global mix, MLA and MoE), for serving and training, and the GNN zoo
 (gin, sage, schnet, mace; full graph, ELL blocks, molecules, and the
 partition-parallel halo exchange)."""
-from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm, rope_freqs
+from .common import (
+    apply_rope,
+    count_params,
+    cross_entropy_loss,
+    dense_init,
+    rms_norm,
+    rope_freqs,
+)
 from .gnn import (
     GNNConfig,
     gnn_blocks_loss,
@@ -73,6 +80,7 @@ __all__ = [
     "expert_parallel_specs",
     "chunked_lm_head_loss",
     "cross_entropy_loss",
+    "count_params",
     "init_cache",
     "decode_step",
     "dense_init",

@@ -8,7 +8,8 @@ import torch
 from ..dist.context import is_dtensor
 from ..dist.sharding import DP, P, to_placements
 
-__all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope", "cross_entropy_loss"]
+__all__ = ["dense_init", "rms_norm", "rope_freqs", "apply_rope", "cross_entropy_loss",
+           "count_params"]
 
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None) -> torch.Tensor:
@@ -105,3 +106,13 @@ def _vocab_parallel_nll(logits, labels):
     fn = local_map(body, out_placements=(lead,), in_placements=(split, lead),
                    in_grad_placements=(split, lead), device_mesh=mesh, redistribute_inputs=True)
     return fn(logits, labels)
+
+
+def count_params(params) -> int:
+    """The elements of every leaf of a params tree (dicts, lists and tuples
+    of tensors or arrays; None is no leaf), as the JAX package counts them."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return 0 if params is None else math.prod(params.shape)

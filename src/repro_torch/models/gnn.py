@@ -37,8 +37,10 @@ On DTensors (the dry-run's production mesh: nodes and edges split over the
 data axes) the full-graph forward adds each rank's edges into partial node
 sums reduced into the nodes' placement (``_edge_sums``), and the sampled
 blocks' row gathers and the molecule readout run per rank
-(``_gather_rows``, ``_scatter_sum``), all under ``local_map``, as the JAX
-package's plan of ``segment_sum`` runs; plain tensors take the paths above.
+(``_gather_rows``, ``_scatter_sum``), all on each rank's blocks, as the JAX
+package's plan of ``segment_sum`` runs; each gather and reduction is one
+collective over the data axes as one group (pod × data at once, uneven
+splits included), not one a mesh dim.  Plain tensors take the paths above.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.context import is_dtensor
+from ..dist import collectives as coll
+from ..dist.context import group_over, is_dtensor, on_blocks, row_blocks, row_split_dims
 from .common import dense_init
 
 __all__ = [
@@ -377,31 +380,61 @@ def _ones_messages(p, h, pos, src, dst, cfg):
     yield h.new_ones((src.shape[0], 1))
 
 
-def _split_dims(t) -> list:
-    """The mesh dims over which DTensor ``t``'s dim 0 is split."""
-    from torch.distributed.tensor import Shard
+def _rows_placement(mesh, dims) -> list:
+    """Rows split by ``Shard(0)`` over mesh dims ``dims``, whole on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == 0]
+    return [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+
+
+def _same_split(a, b, what: str) -> list:
+    """The mesh dims that split both ``a``'s and ``b``'s rows (DTensors on one
+    mesh); they must be the same dims."""
+    da, db = row_split_dims(a), row_split_dims(b)
+    if da != db:
+        raise ValueError(f"{what}: rows split over mesh dims {da} and {db}; the GNN's DTensor "
+                         "path takes both split over the same (configs.input_pspecs: DP)")
+    return da
+
+
+def _whole_rows(x, mesh, dims, n: int):
+    """On a rank's block: the whole (n, …) from this rank's block of rows
+    split over ``dims``, one all-gather over them as one group (pod × data
+    at once); the backward one reduce-scatter."""
+    group = group_over(mesh, dims)
+    return x if group is None else coll.gather_blocks(x, group, row_blocks(n, mesh, dims))
+
+
+def _own_rows(x, mesh, dims, n: int):
+    """On a rank's block: this rank's block of rows (split over ``dims``)
+    of Σ over those ranks of its partial (n, …) ``x``, one reduce-scatter
+    over them as one group; the backward one all-gather."""
+    group = group_over(mesh, dims)
+    return x if group is None else coll.reduce_scatter_blocks(x, group, row_blocks(n, mesh, dims))
 
 
 def _edge_sums(messages, n_sums: int, p, h, pos, edge_index, cfg, chunk: int) -> list:
     """Σ over the edges (src, dst) of ``messages(p, h, pos, src, dst, cfg)``
     (``n_sums`` of them) into rows ``dst`` → one (N, …) DTensor a message,
-    placed as ``h``'s rows.  ``edge_index`` (E, 2) splits over some mesh
-    dims, h's nodes (and ``pos``'s, if given) over some: under ``local_map``
-    each rank gathers its edges' source rows from h whole and adds their
-    messages into partial (N, …) sums, ``chunk`` edges at a time (each
-    chunk's sums checkpointed under autograd, as the card's row ranges are,
-    so its per-edge tensors are recomputed in the backward); the partial
-    sums are then reduced into the nodes' placement.  Nothing is read back
-    to the host.  ``p`` (the layer's params, replicated) may be None."""
+    placed as ``h``'s rows.  ``edge_index`` (E, 2) and h's nodes (and
+    ``pos``'s, if given) split over the same mesh dims: each rank, on its
+    blocks, gathers h whole, adds its edges' messages into partial (N, …)
+    sums, ``chunk`` edges at a time (each chunk's sums checkpointed under
+    autograd, as the card's row ranges are, so its per-edge tensors are
+    recomputed in the backward; where the messages are rows of h, the
+    gather and the sums checkpointed as a whole too, so the backward
+    gathers h again), and reduces the sums into its own nodes.
+    The gather and the reduction are one collective each over the split
+    dims as one group (pod × data at once, DTensor's one a dim), uneven
+    splits included.  Nothing is read back to the host.  ``p`` (the layer's
+    params, replicated) may be None."""
     from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
 
     from ..train.functional import tree_leaves, tree_unflatten
 
     mesh = h.device_mesh
-    split = _split_dims(edge_index)
+    split = _same_split(edge_index, h, "edge sums")
+    nodes = _rows_placement(mesh, split)
     whole = [Replicate()] * mesh.ndim
     partial = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
     edges = [q if i in split else Replicate() for i, q in enumerate(edge_index.placements)]
@@ -416,7 +449,8 @@ def _edge_sums(messages, n_sums: int, p, h, pos, edge_index, cfg, chunk: int) ->
                         cfg)
         return tuple(m.new_zeros((n,) + tuple(m.shape[1:])).index_add(0, dst, m) for m in msgs)
 
-    def body(ei, *rest):
+    def partial_sums(ei, *rest):
+        rest = tuple(_whole_rows(t, mesh, split, n) for t in rest[:len(dense)]) + rest[len(dense):]
         accs = None
         for e0 in range(0, max(ei.shape[0], 1), chunk):
             src, dst = ei[e0:e0 + chunk, 0].long(), ei[e0:e0 + chunk, 1].long()
@@ -427,55 +461,60 @@ def _edge_sums(messages, n_sums: int, p, h, pos, edge_index, cfg, chunk: int) ->
             accs = sums if accs is None else tuple(a + b for a, b in zip(accs, sums))
         return accs
 
-    fn = local_map(body, out_placements=(partial,) * n_sums,
-                   in_placements=(edges,) + (whole,) * (len(dense) + len(leaves)),
-                   in_grad_placements=(edges,) + (partial,) * (len(dense) + len(leaves)),
-                   device_mesh=mesh, redistribute_inputs=True)
-    out = fn(edge_index, *dense, *leaves)
-    out = out if isinstance(out, (tuple, list)) else (out,)
+    def body(ei, *rest):
+        # messages that are rows of h (gin, sage: no params, no per-edge work): the gather and
+        # the sums are checkpointed as a whole too, so that a layer keeps its own rows until the
+        # backward, which gathers them again, not the gathered (N, …) ones; schnet's and mace's
+        # messages compute per edge, and redoing that once more would cost flops (schnet's RBF
+        # MLP) or memory (mace's three wide sums at once)
+        if torch.is_grad_enabled() and p is None:
+            accs = checkpoint(partial_sums, ei, *rest, use_reentrant=False)
+        else:
+            accs = partial_sums(ei, *rest)
+        return tuple(_own_rows(a, mesh, split, n) for a in accs)
+
+    out = on_blocks(body, mesh, [(edge_index, edges, edges)] + [(t, nodes, nodes) for t in dense]
+                    + [(t, whole, partial) for t in leaves], [(nodes, n)] * n_sums)
     return [a.redistribute(mesh, h.placements) for a in out]
 
 
 def _gather_rows(h, idx):
     """``h``'s rows at ``idx`` (int, any shape) → (*idx.shape, *h.shape[1:]).
-    On DTensors under ``local_map``: each rank gathers its own indices' rows
-    from h whole, the output split as ``idx``'s dim 0 (the JAX package's
-    gather, whose rule DTensor lacks on some versions), h's gradient a
-    partial sum over the ranks that split ``idx``."""
+    On DTensors (h's rows and ``idx``'s dim 0 split over the same mesh
+    dims): each rank gathers h whole, one all-gather over
+    those dims as one group, and takes its own indices' rows (the JAX
+    package's gather, whose rule DTensor lacks on some versions); the output
+    split as ``idx``, h's gradient one reduce-scatter of the ranks' shares."""
     if not is_dtensor(idx):
         return h.index_select(0, idx.reshape(-1).long()).reshape(tuple(idx.shape) +
                                                                   tuple(h.shape[1:]))
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Replicate
 
     mesh = idx.device_mesh
-    split = _split_dims(idx)
+    split = _same_split(idx, h, "row gather")
     own = [q if i in split else Replicate() for i, q in enumerate(idx.placements)]
-    fn = local_map(_gather_rows, out_placements=(own,),
-                   in_placements=([Replicate()] * mesh.ndim, own),
-                   in_grad_placements=([Partial() if i in split else Replicate()
-                                        for i in range(mesh.ndim)], own),
-                   device_mesh=mesh, redistribute_inputs=True)
-    return fn(h, idx)
+    rows = _rows_placement(mesh, split)
+    n = h.shape[0]
+    return on_blocks(lambda hh, i: _gather_rows(_whole_rows(hh, mesh, split, n), i), mesh,
+                     [(h, rows, rows), (idx, own, own)], [(own, idx.shape[0])])[0]
 
 
 def _scatter_sum(values, idx, n_out: int, like):
     """(n_out,) Σ of ``values`` into rows ``idx`` (both (M,)).  On DTensors
-    under ``local_map``: each rank adds its own entries into a partial sum,
-    reduced into ``like``'s placements."""
+    each rank adds its own entries into a partial sum,
+    reduced into ``like``'s rows (split over the mesh dims that split
+    ``idx``) by one reduce-scatter over those dims as one group."""
     if not is_dtensor(idx):
         return values.new_zeros(n_out).index_add(0, idx.long(), values)
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Replicate
 
     mesh = idx.device_mesh
-    split = _split_dims(idx)
+    split = _same_split(idx, like, "scatter sum")
     own = [q if i in split else Replicate() for i, q in enumerate(idx.placements)]
-    partial = [Partial() if i in split else Replicate() for i in range(mesh.ndim)]
-    fn = local_map(lambda v, i: v.new_zeros(n_out).index_add(0, i.long(), v),
-                   out_placements=(partial,), in_placements=(own, own),
-                   in_grad_placements=(own, own), device_mesh=mesh, redistribute_inputs=True)
-    return fn(values, idx).redistribute(mesh, like.placements)
+    out = on_blocks(lambda v, i: _own_rows(v.new_zeros(n_out).index_add(0, i.long(), v), mesh,
+                                           split, n_out), mesh,
+                    [(values, own, own), (idx, own, own)], [(_rows_placement(mesh, split), n_out)])
+    return out[0].redistribute(mesh, like.placements)
 
 
 def _forward_full_on_dtensors(params, cfg: GNNConfig, h, edge_index, positions, chunk: int):

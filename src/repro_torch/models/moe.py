@@ -66,7 +66,7 @@ import math
 import torch
 
 from ..dist import collectives as coll
-from ..dist.context import is_dtensor
+from ..dist.context import constrain, group_over, is_dtensor
 from ..dist.sharding import DP, P, to_placements
 from .common import dense_init
 
@@ -289,7 +289,9 @@ def _on_dtensors(x, params: dict, mcfg: MoEConfig):
                    in_placements=(tok, *[place(k) for k in keys]),
                    in_grad_placements=(tok, *[grad(k) for k in keys]),
                    device_mesh=mesh, redistribute_inputs=True)
-    return fn(x, *[params[k] for k in keys])
+    # each leaf placed first by ``constrain``: a gradient partial over 'pod' is then summed on
+    # its 'data' blocks before they are gathered, not gathered first
+    return fn(x, *[constrain(params[k], place(k)) for k in keys])
 
 
 def moe_grad_sync(grads: dict, mcfg: MoEConfig, mesh) -> dict:
@@ -310,7 +312,6 @@ def moe_grad_sync(grads: dict, mcfg: MoEConfig, mesh) -> dict:
         axes = [a for a in _data_axes(mesh) if name not in EXPERTS or a not in split]
         if name == "router" and _model_axis(mesh) > 1:
             axes.append("model")
-        for a in axes:
-            g = coll.all_reduce_sum(g, mesh.get_group(a))
-        out[name] = g
+        group = group_over(mesh, axes)  # the axes as one group: one all-reduce
+        out[name] = g if group is None else coll.all_reduce_sum(g, group)
     return out

@@ -54,7 +54,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import default_device
-from ..dist.context import is_dtensor, maybe_shard, split_heads
+from ..dist.context import group_over, is_dtensor, maybe_shard, split_heads
 from ..dist.sharding import DP
 from ..kernels.flash_attention import ops as fa
 from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
@@ -664,7 +664,8 @@ def decode_step(params, cache, tokens, cur_len, cfg: TransformerConfig, mesh=Non
     return maybe_shard((x @ _head(params, cfg))[:, 0, :], DP, "model"), cache
 
 
-def _data_size(mesh) -> int:
+def data_size(mesh) -> int:
+    """The ranks of ``mesh``'s data axes (pod × data): the data shards."""
     from .moe import _data_axes
 
     names = mesh.mesh_dim_names
@@ -673,13 +674,15 @@ def _data_size(mesh) -> int:
 
 def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` averaged over ``mesh``'s data axes (pod × data): a rank's value
-    of its own sequences → the mean over every data shard's."""
+    of its own sequences → the mean over every data shard's, one all-reduce
+    over the axes as one group."""
     from ..dist import collectives as coll
     from .moe import _data_axes
 
-    for a in _data_axes(mesh):
-        x = coll.all_reduce_sum(x, mesh.get_group(a))
-    return x / _data_size(mesh)
+    group = group_over(mesh, _data_axes(mesh))
+    if group is not None:
+        x = coll.all_reduce_sum(x, group)
+    return x / data_size(mesh)
 
 
 def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
@@ -691,7 +694,7 @@ def lm_grad_sync(grads: dict, cfg: TransformerConfig, mesh) -> dict:
     shard ran the same sequences, so the other leaves are not summed there."""
     from .moe import moe_grad_sync
 
-    n_data = _data_size(mesh)
+    n_data = data_size(mesh)
     out = {k: data_mean(v, mesh) for k, v in grads.items() if k != "layers"}
     layers = []
     for p in grads["layers"]:
@@ -723,10 +726,8 @@ def lm_grad_norm(grads: dict, cfg: TransformerConfig, mesh) -> torch.Tensor:
 
     total = squares(whole)
     if split:
-        s = squares(split)
-        for a in expert_axes(cfg.moe, mesh):
-            s = coll.all_reduce_sum(s, mesh.get_group(a))
-        total = total + s
+        s, group = squares(split), group_over(mesh, expert_axes(cfg.moe, mesh))
+        total = total + (s if group is None else coll.all_reduce_sum(s, group))
     return torch.sqrt(total)
 
 

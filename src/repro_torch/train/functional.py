@@ -42,12 +42,15 @@ def tree_to_device(tree, device):
 def _live(p: torch.Tensor) -> torch.Tensor:
     """``p`` detached, requiring a gradient.  A DTensor's gradient is
     redistributed to ``p``'s placements as soon as it is made (a partial
-    sum over the ranks that split the batch reduced into ``p``'s blocks),
-    as the JAX package's plan keeps each gradient in its param's sharding."""
+    sum over the ranks that split the batch reduced into ``p``'s blocks,
+    over pod × data in one all-reduce, ``dist.context.reduce_partial``), as
+    the JAX package's plan keeps each gradient in its param's sharding."""
     live = p.detach().requires_grad_(True)
     if type(p) is not torch.Tensor and hasattr(p, "placements"):
+        from ..dist.context import reduce_partial
+
         placements = p.placements
-        live.register_hook(lambda g: g.redistribute(g.device_mesh, placements))
+        live.register_hook(lambda g: reduce_partial(g, placements))
     return live
 
 

@@ -20,7 +20,11 @@ the children start together (the ``children`` fixture) and each test reads its o
     reshard on a mesh of the card's type counts one all-to-all on this
     CPU-only host (the dry-run's meshes are of that type); a collective
     whose group resolves to no process group raises, naming the op; K6, K5
-    and K4 on fake tensors give their formulas' flops;
+    and K4 on fake tensors give their formulas' flops; the GNN's edge sums
+    over 61 nodes split unevenly over (pod 2 × data 2) of an 8-rank fake
+    mesh issue one all-gather and one reduce-scatter forward, and backward
+    two all-gathers (the sums' gradient, the nodes again) and one
+    reduce-scatter, as over (data 4), not one a mesh dim;
   * ``roofline.model_flops`` equals the JAX function on every (arch, shape)
     of ``all_cells(include_skipped=True, include_extra=True)``, and
     ``terms`` the JAX formula on the same record with the card's constants
@@ -119,6 +123,27 @@ TORCH_CHILD = textwrap.dedent(f"""
     y = distribute_tensor(torch.empty(16, 8, device="meta"), card, [Shard(0)])
     out["reshard"] = [card.device_type, analyze_step(
         lambda t: t.redistribute(card, [Shard(1)]).to_local(), y, real=True)["collective_bytes"]]
+
+    from repro_torch.models.gnn import _edge_sums, _gin_messages
+
+    fake_group(8)
+    out["edge_sums"] = {{}}
+    for shape, names in (((4, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model"))):
+        em = make_mesh(shape, names)
+        rows = [Shard(0)] * (len(shape) - 1) + [Replicate()]
+        h = distribute_tensor(torch.empty(61, 8, device="meta"), em, rows)  # 61: uneven blocks
+        ei = distribute_tensor(torch.empty(201, 2, dtype=torch.int32, device="meta"), em, rows)
+
+        def sums_and_back(h, ei):
+            h = h.detach().requires_grad_(True)
+            s = _edge_sums(_gin_messages, 1, None, h, None, ei, None, 64)[0]
+            torch.autograd.grad(s.to_local().sum(), [h])
+
+        fw = analyze_step(lambda h, ei: _edge_sums(_gin_messages, 1, None, h, None, ei, None, 64),
+                          h, ei)
+        bw = analyze_step(sums_and_back, h, ei)
+        out["edge_sums"][str(shape)] = [fw["collective_count"], fw["collective_bytes"],
+                                        bw["collective_count"]]
 
     for world, multi in ((256, False), (512, True)):
         fake_group(world)
@@ -256,6 +281,19 @@ def test_collectives_py_reduce_scatter_is_counted_as_one(children):
     assert set(got) == {"all-gather", "reduce-scatter"}, got
     assert got["all-gather"] == 4 * 8 * 4 * 4  # the gathered (32, 4) float32 rows
     assert got["reduce-scatter"] == 8 * 4 * 4  # this rank's (8, 4) block
+
+
+def test_edge_sums_over_pod_x_data_issue_one_gather_and_one_reduction(children):
+    # nodes split over (pod, data) gather and reduce in one collective each over the 4 ranks
+    # as one group, as over one data dim of 4: not one a mesh dim; 61 nodes split unevenly
+    got = children["torch"].result()["edge_sums"]
+    one, pod = got[str((4, 2))], got[str((2, 2, 2))]
+    assert one[0] == pod[0] == 2, (one, pod)
+    assert one[1] == pod[1] == {"all-gather": 4 * 16 * 8 * 4,  # 4 blocks padded to 16 rows
+                                "reduce-scatter": 16 * 8 * 4}, (one, pod)
+    # with the backward: the sums' gradient gathered, the nodes gathered again (the gather is
+    # checkpointed with the sums) and their gradient reduce-scattered
+    assert one[2] == pod[2] == 5, (one, pod)
 
 
 def test_shard_to_shard_reshard_is_counted_as_an_all_to_all_on_any_host(children):

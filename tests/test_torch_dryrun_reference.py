@@ -1,13 +1,16 @@
 """The port's production-mesh dry-run held to the JAX package's plan, cell
 by cell: ``repro_torch.launch.dryrun.run_cell`` against
-``repro.launch.dryrun.run_cell`` on the single (16, 16) mesh, at published
-width with ``REPRO_OVERRIDES=n_layers=2`` on both sides (every cell's
-plan shows at two layers, and two layers trace in seconds).
+``repro.launch.dryrun.run_cell`` on the single (16, 16) mesh and on the
+multi-pod (2, 16, 16) mesh, at published width with
+``REPRO_OVERRIDES=n_layers=2`` on both sides (every cell's plan shows at
+two layers, and two layers trace in seconds).
 
-Children, started together (a fake process group is process-global, and
-the reference's module asks XLA for 512 host devices before it imports
-JAX; its single mesh takes 256): two JAX children and three torch
-children, each on its share of the cells.  Per cell, per device:
+Children, started together for one mesh (a fake process group is
+process-global, and the reference's module asks XLA for 512 host devices
+before it imports JAX; its single mesh takes 256): two JAX children and
+three torch children, each on its share of the cells; the multi-pod
+mesh's start when its first test runs, after the single mesh's.  Per
+cell, per device, on each mesh:
 
   * both sides ``ok``;
   * the port's flops at most 1.5 × the reference's (``op_cost`` against
@@ -18,7 +21,12 @@ children, each on its share of the cells.  Per cell, per device:
   * for ``decode_32k``, ``long_500k`` and ``online_scan``, the port's
     all-gather bytes at most the reference's all-gather and
     collective-permute bytes + 64 MB: a decode step or an index scan
-    moves no cache or index rows.
+    moves no cache or index rows;
+  * on (2, 16, 16), the port's collective bytes at most its own on
+    (16, 16) × max(1.05, the reference's own multi/single ratio) + 64 MB:
+    adding a pod halves each device's share of the batch, so it adds no
+    traffic to a device unless the reference's plan adds it too (the
+    reduction over pod × data in one collective, not one a mesh dim).
 
 Left out, and named by ``test_the_cells_left_out_are_named``: the cells
 the registry skips, and dcn-v2's, whose reference raises on its own
@@ -57,7 +65,7 @@ JAX_CHILD = textwrap.dedent("""
     out, d = {}, Path(tempfile.mkdtemp())
     for a, s in json.loads(sys.argv[1]):
         try:
-            out[a + "/" + s] = run_cell(a, s, "single", d)
+            out[a + "/" + s] = run_cell(a, s, sys.argv[2], d)
         except Exception as e:
             out[a + "/" + s] = {"status": "error", "error": repr(e)[:1000],
                                 "traceback": traceback.format_exc()[-2000:]}
@@ -68,15 +76,16 @@ TORCH_CHILD = textwrap.dedent("""
     import json, sys
     from repro_torch.launch.dryrun import run_cell
 
-    out = {a + "/" + s: run_cell(a, s, "single", None) for a, s in json.loads(sys.argv[1])}
+    out = {a + "/" + s: run_cell(a, s, sys.argv[2], None) for a, s in json.loads(sys.argv[1])}
     print("RESULT " + json.dumps(out))
 """)
 
 
 class _Child:
-    def __init__(self, code, cells, env):
-        self.proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(cells)], env=env,
-                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    def __init__(self, code, cells, mesh, env):
+        self.proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(cells), mesh],
+                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
         self.out = None
 
     def result(self) -> dict:
@@ -98,21 +107,37 @@ def _share(n: int, k: int) -> list:
     return CELLS[k::n]
 
 
-@pytest.fixture(scope="module")
-def children():
+def _start(mesh: str) -> dict:
     base = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(SRC),
             "OMP_NUM_THREADS": "1", "HOME": os.environ.get("HOME", "/tmp"),
             "REPRO_OVERRIDES": OVERRIDES}
     if "TMPDIR" in os.environ:
         base["TMPDIR"] = os.environ["TMPDIR"]
-    kids = {"jax": [_Child(JAX_CHILD, _share(N_JAX, k), {**base, "JAX_PLATFORMS": "cpu"})
+    return {"jax": [_Child(JAX_CHILD, _share(N_JAX, k), mesh, {**base, "JAX_PLATFORMS": "cpu"})
                     for k in range(N_JAX)],
-            "torch": [_Child(TORCH_CHILD, _share(N_TORCH, k), base) for k in range(N_TORCH)]}
-    yield kids
+            "torch": [_Child(TORCH_CHILD, _share(N_TORCH, k), mesh, base)
+                      for k in range(N_TORCH)]}
+
+
+def _stop(kids: dict) -> None:
     for k in kids["jax"] + kids["torch"]:
         if k.proc.poll() is None:
             k.proc.kill()
             k.proc.wait()
+
+
+@pytest.fixture(scope="module")
+def children():
+    kids = _start("single")
+    yield kids
+    _stop(kids)
+
+
+@pytest.fixture(scope="module")
+def multi_children():
+    kids = _start("multi")
+    yield kids
+    _stop(kids)
 
 
 def _record(kids: list, cell) -> dict:
@@ -134,9 +159,8 @@ def test_the_cells_left_out_are_named():
     assert len(CELLS) == 35
 
 
-@pytest.mark.parametrize("cell", CELLS, ids=["/".join(c) for c in CELLS])
-def test_the_port_holds_to_the_reference_plan(children, cell):
-    got, want = _record(children["torch"], cell), _record(children["jax"], cell)
+def _holds(got: dict, want: dict, cell) -> None:
+    """The three bounds of the port's record against the reference's (the module doc)."""
     assert want["status"] == "ok", (want.get("error"), want.get("traceback"))
     assert got["status"] == "ok", (got.get("error"), got.get("traceback"))
     assert got["flops"] <= 1.5 * want["flops"], (got["flops"], want["flops"])
@@ -147,3 +171,20 @@ def test_the_port_holds_to_the_reference_plan(children, cell):
                      for k in ("all-gather", "collective-permute"))
         ours = got["collective_bytes"].get("all-gather", 0.0)
         assert ours <= theirs + 64e6, (ours / GB, theirs / GB)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=["/".join(c) for c in CELLS])
+def test_the_port_holds_to_the_reference_plan(children, cell):
+    _holds(_record(children["torch"], cell), _record(children["jax"], cell), cell)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=["/".join(c) for c in CELLS])
+def test_the_port_holds_to_the_reference_plan_on_the_multi_pod_mesh(children, multi_children,
+                                                                    cell):
+    got, want = _record(multi_children["torch"], cell), _record(multi_children["jax"], cell)
+    _holds(got, want, cell)
+    single, ref_single = _record(children["torch"], cell), _record(children["jax"], cell)
+    ours = got["collective_bytes_total"]
+    ratio = want["collective_bytes_total"] / max(ref_single["collective_bytes_total"], 1.0)
+    bound = single["collective_bytes_total"] * max(1.05, ratio) + 64e6
+    assert ours <= bound, (ours / GB, single["collective_bytes_total"] / GB, ratio)

@@ -19,10 +19,18 @@ process's plain run of the same params and batch:
     split over ``data``), and deepseek-v2-lite-16b's MLA cache (the MoE
     capacity is per data shard, so its plain run takes each shard's
     sequences apart);
-  * the GNN zoo on a (2 × 2) mesh: the full-graph loss and gradients of
-    gin, sage, schnet and mace (the edge sums: each rank's edges into
-    partial node sums), mace's molecule loss (the readout's sum by graph)
-    and sage's sampled blocks (the rows each rank gathers);
+  * training over the multi-pod mesh's data axes, a (pod 2 × data 2 ×
+    model 1) mesh: gemma3-1b's train step with ``grad_accum`` 4 on a batch
+    of 4, one row a rank (fewer than the microbatches): its loss, gradients
+    and updated params against one process's step over 4 microbatches;
+  * the GNN zoo on a (2 × 2) and a (pod 2 × data 2 × model 1) mesh: the
+    full-graph loss and gradients of gin, sage, schnet and mace (the edge
+    sums: each rank's edges into partial node sums, the nodes gathered and
+    the sums reduced over pod × data as one group, the nodes split
+    unevenly), mace's molecule loss (the readout's sum by graph) and sage's
+    sampled blocks (the rows each rank gathers); and, on the latter mesh,
+    edge sums and their gradient where 61 nodes and 201 edges split
+    unevenly over the 4 ranks;
   * GNN-PE's online scan on a (2 × 2) mesh: each rank scans its own index
     rows, the counts summed.
 
@@ -51,21 +59,25 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import (build_step, get_arch, init_params, input_pspecs, make_batch,
                                  param_pspecs, resolve_config)
 from repro_torch.dist.context import use_mesh
 from repro_torch.dist.sharding import map_specs, to_placements
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models import gnn_blocks_loss, gnn_energy_loss, gnn_node_loss, lm_loss
+from repro_torch.models.gnn import _edge_sums, _gin_messages
 from repro_torch.train.functional import tree_leaves, value_and_grad
+from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.train.step import train_wrap
 
 rank, port = int(sys.argv[1]), sys.argv[2]
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=4, rank=rank)
-meshes = {(2, 2): make_local_mesh(2, 2, device="cpu"), (1, 4): make_local_mesh(1, 4, device="cpu")}
+meshes = {(2, 2): make_local_mesh(2, 2, device="cpu"), (1, 4): make_local_mesh(1, 4, device="cpu"),
+          (2, 2, 1): make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")}
 report = []
 
 
@@ -123,6 +135,34 @@ for hq, hkv in ((6, 2), (3, 1)):
     grads_case(f"{hq} query heads over 4 ranks", (1, 4), arch, cell, cfgh, params, batch,
                lambda p, b, cfgh=cfgh: lm_loss(p, b, cfgh))
 
+# the multi-pod mesh's data axes, pod × data: a batch of 4 over 4 ranks, one row a rank, in 4
+# microbatches (the plain step's, one row each; the mesh's, one of every rank's rows)
+arch, cell, cfg, params, _ = setup("gemma3-1b", "train_4k")
+rows = {k: torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (4, 64)))
+        for k in ("tokens", "labels")}
+cfg4 = dataclasses.replace(cfg, grad_accum=4, n_layers=2)
+params = init_params(arch, cfg4, seed=0, device="cpu", train=True)
+seen = {}
+
+
+def accum_step(p, b, key):
+    step = train_wrap(lambda p, b: lm_loss(p, b, cfg4), OptConfig(), cfg4.grad_accum,
+                      grads_fn=lambda g: seen.setdefault(key, g))
+    return step(p, adamw_init(p), b)
+
+
+p_want, _, m_want = accum_step(params, rows, "want")
+mesh = meshes[(2, 2, 1)]
+with use_mesh(mesh), implicit_replication():
+    p, _, m = accum_step(placed(params, param_pspecs(arch, cfg4, params), mesh),
+                         placed(rows, input_pspecs(arch, cell, cfg4), mesh), "got")
+    close(m["loss"], m_want["loss"], "grad_accum 4 over pod x data: loss")
+    for i, (g, w) in enumerate(zip(tree_leaves(seen["got"]), tree_leaves(seen["want"]))):
+        close(g, w, ("grad_accum 4 over pod x data: gradient", i))
+    for i, (g, w) in enumerate(zip(tree_leaves(p), tree_leaves(p_want))):
+        close(g, w, ("grad_accum 4 over pod x data: params", i))
+report.append("grad_accum 4, one row a rank")
+
 # --- decode ---
 for name, shape, cur in (("gemma3-1b", "decode_32k", 5), ("gemma3-1b", "decode_32k", 70),
                          ("gemma3-1b", "long_500k", 5), ("deepseek-v2-lite-16b", "decode_32k", 5)):
@@ -160,8 +200,30 @@ for name, shape, loss in (("gin-tu", "full_graph_sm", gnn_node_loss),
                           ("mace", "molecule", gnn_energy_loss),
                           ("graphsage-reddit", "minibatch_lg", gnn_blocks_loss)):
     arch, cell, cfg, params, batch = setup(name, shape)
-    grads_case(f"{name} {shape}", (2, 2), arch, cell, cfg, params, batch,
-               lambda p, b, cfg=cfg, loss=loss: loss(p, cfg, b))
+    for mesh_shape in ((2, 2), (2, 2, 1)):  # one data axis; pod x data, gathered and reduced as one
+        grads_case(f"{name} {shape} {mesh_shape}", mesh_shape, arch, cell, cfg, params, batch,
+                   lambda p, b, cfg=cfg, loss=loss: loss(p, cfg, b))
+
+# uneven splits over pod x data: 61 nodes and 201 edges over 4 ranks, the edge sums and their
+# gradient against the plain sum, 64 edges a chunk
+mesh = meshes[(2, 2, 1)]
+rows_pl = [Shard(0), Shard(0), Replicate()]
+g = torch.Generator().manual_seed(0)
+h, w = torch.randn(61, 8, generator=g), torch.randn(61, 8, generator=g)
+ei = torch.randint(0, 61, (201, 2), generator=g, dtype=torch.int32)
+hp = h.clone().requires_grad_(True)
+want = (torch.zeros(61, 8).index_add(0, ei[:, 1].long(), hp[ei[:, 0].long()]) * w).sum()
+want.backward()
+with implicit_replication():
+    hd = distribute_tensor(h, mesh, rows_pl).requires_grad_(True)
+    sums = _edge_sums(_gin_messages, 1, None, hd, None, distribute_tensor(ei, mesh, rows_pl),
+                      None, 64)[0]
+    assert sums.placements == hd.placements
+    got = (sums * distribute_tensor(w, mesh, rows_pl)).sum()
+    got.backward()
+    close(got, want, "uneven edge sums")
+    close(hd.grad, hp.grad, "uneven edge sums: gradient")
+report.append("uneven edge sums over pod x data")
 
 # --- GNN-PE's online scan ---
 arch, cell, cfg, params, batch = setup("gnn-pe-online", "online_scan")
@@ -205,4 +267,4 @@ def test_the_plans_on_dtensors_compute_the_plain_port_in_4_gloo_processes():
                 p.wait()
     for r, (p, (so, se)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and so.strip().endswith("ok"), f"rank {r}: {se[-3000:]}"
-    assert outs[0][0].count(";") == 13, outs[0][0]
+    assert outs[0][0].count(";") == 21, outs[0][0]

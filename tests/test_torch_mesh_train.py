@@ -15,7 +15,13 @@ reference's mesh branch has them).  Held, on every rank:
     ``global_norm``;
   * two train steps of ``build_step(..., mesh=)`` (the clip engaged, so the
     second update depends on the first step's norm): the rank's updated
-    blocks, ``grad_norm`` and the loss against the single-process steps'.
+    blocks, ``grad_norm`` and the loss against the single-process steps';
+  * with ``grad_accum`` 2 on the (4 × 1) mesh, each rank holding one row,
+    fewer than ``grad_accum``: the mesh step's gradients, updated blocks,
+    norm and loss against one process's train step over 2 microbatches
+    (the mean of the microbatch means, each the mean over its rows); and
+    with ``grad_accum`` 3, which a batch of 4 does not divide, the mesh
+    step raises on every rank, as the single-process step does.
 
 Then two ``decode_step(mesh=)`` steps over the (2, 2) mesh give each data
 shard's logits and cache of the local decode of its sequences, and
@@ -109,6 +115,55 @@ for (nd, nm), fsdp in [((2, 2), False), ((2, 2), True), ((4, 1), True), ((4, 1),
         close(m["grad_norm"], m_want["grad_norm"], (what, "step", i, "grad norm"), 1e-5, 0)
         close(m["loss"], m_want["loss"], (what, "step", i, "loss"), 1e-5, 0)
     report.append(f"{what}: grads {worst:.2e}")
+
+# microbatches where a rank holds fewer rows than grad_accum: one row a rank for grad_accum 2
+mesh = meshes[(4, 1)]
+cfg = dataclasses.replace(base, grad_accum=2, moe=dataclasses.replace(base.moe, fsdp=True))
+params = init_params(arch, cfg, seed=0, device="cpu", train=True)
+specs = expert_parallel_specs(params, fsdp=True)
+local = shard_tree(params, specs, mesh)
+mine = {k: local_shard(v, P(DP, None), mesh) for k, v in batch.items()}
+assert mine["tokens"].shape[0] == 1 < cfg.grad_accum
+
+
+def rows_loss(p, b):  # a microbatch's mean over its rows, each row a data shard of its own
+    parts = [lm_loss(p, {k: v[i:i + 1] for k, v in b.items()}, cfg)
+             for i in range(b["tokens"].shape[0])]
+    n = len(parts)
+    return sum(x[0] for x in parts) / n, {"loss": sum(x[1]["loss"] for x in parts) / n}
+
+
+grads = {}
+step_want = train_wrap(rows_loss, opt, cfg.grad_accum,
+                       grads_fn=lambda g: grads.setdefault("want", g))
+# build_step's mesh step, its gradients seen on their way to the update
+step_got = train_wrap(lambda p, b: lm_loss(p, b, cfg, mesh), opt, cfg.grad_accum,
+                      grads_fn=lambda g: grads.setdefault("got", lm_grad_sync(g, cfg, mesh)),
+                      norm_fn=lambda g: lm_grad_norm(g, cfg, mesh), data_ranks=4)
+p_want, _, m_want = step_want(params, adamw_init(params), batch)
+p_got, _, m_got = step_got(local, adamw_init(local), mine)
+for g, w in zip(tree_leaves(grads["got"]), tree_leaves(shard_tree(grads["want"], specs, mesh))):
+    close(g, w, ("fewer rows than grad_accum", "grad"))
+step, _ = build_step(arch, cell, cfg, opt, mesh=mesh)
+p, _, m = step(local, adamw_init(local), mine)
+for got in (p, p_got):
+    for g, w in zip(tree_leaves(got), tree_leaves(shard_tree(p_want, specs, mesh))):
+        close(g, w, ("fewer rows than grad_accum", "params"), rtol=0, atol=1e-6)
+close(m["grad_norm"], m_want["grad_norm"], ("fewer rows than grad_accum", "grad norm"), 1e-5, 0)
+close(m["loss"], m_want["loss"], ("fewer rows than grad_accum", "loss"), 1e-5, 0)
+report.append("fewer rows than grad_accum ok")
+# a global batch of 4 does not split into 3 microbatches: every rank raises, as one process does
+cfg3 = dataclasses.replace(cfg, grad_accum=3)
+step, _ = build_step(arch, cell, cfg3, opt, mesh=mesh)
+for fn, args in ((step, (local, adamw_init(local), mine)),
+                 (train_wrap(rows_loss, opt, 3), (params, adamw_init(params), batch))):
+    try:
+        fn(*args)
+    except ValueError as e:
+        assert "does not split into 3 microbatches" in str(e), e
+    else:
+        raise AssertionError("a batch of 4 split into 3 microbatches")
+report.append("uneven microbatches raise")
 
 mesh = meshes[(2, 2)]
 cfg = resolve_config(arch, arch.cell("decode_32k"), smoke=True)

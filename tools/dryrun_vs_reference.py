@@ -6,6 +6,8 @@ and hold each to the reference's plan: the three bounds of
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single --out PORT
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun --all --mesh single --out REF
     python3 tools/dryrun_vs_reference.py PORT REF [--mesh single] [--markdown]
+    python3 tools/dryrun_vs_reference.py PORT REF --mesh multi \
+        [--port-single PORT1 --ref-single REF1]
 
 Per cell, per device: flops (the port's ``op_cost`` against the reference's
 ``hlo_cost``), the port's peak against the reference's memory figure
@@ -13,9 +15,14 @@ Per cell, per device: flops (the port's ``op_cost`` against the reference's
 all-gather (the reference's with its collective-permutes); then whether
 the port's flops are at most 1.5x the reference's, its peak at most 2x
 that figure + 256 MB, and, for decode and the online scan, its all-gather
-at most the reference's all-gather and collective-permute + 64 MB.
-``--markdown`` prints a table.  Exits 1 if a cell the reference lowers is
-not ``ok`` in the port or breaks a bound.
+at most the reference's all-gather and collective-permute + 64 MB.  With
+``--mesh multi`` and a cell's (16, 16) records of both packages (in
+``--port-single`` and ``--ref-single``, by default beside the multi
+records), also each side's multi/single ratio of collective bytes, and
+the scaling bound: the port's bytes on (2, 16, 16) at most its own on
+(16, 16) × max(1.05, the reference's ratio) + 64 MB.  ``--markdown``
+prints a table.  Exits 1 if a cell the reference lowers is not ``ok`` in
+the port or breaks a bound.
 """
 from __future__ import annotations
 
@@ -34,8 +41,10 @@ def ref_memory(rec: dict) -> int:
             + m["temp_size_in_bytes"])
 
 
-def compare(port: dict, ref: dict) -> dict:
-    """One cell's figures and the bounds it breaks (``bad``)."""
+def compare(port: dict, ref: dict, singles=None) -> dict:
+    """One cell's figures and the bounds it breaks (``bad``); ``singles``,
+    where given, the (port, reference) records of the cell on (16, 16),
+    against which the (2, 16, 16) ones scale."""
     pc, rc = port.get("collective_bytes", {}), ref.get("collective_bytes", {})
     row = {"flops": port["flops"], "ref_flops": ref["flops"],
            "peak": port["memory"]["peak_memory_in_bytes"], "ref_memory": ref_memory(ref),
@@ -50,8 +59,31 @@ def compare(port: dict, ref: dict) -> dict:
         bad.append("peak")
     if port["shape"] in NO_GATHER and row["ag"] > row["ref_ag"] + 64e6:
         bad.append("all-gather")
+    row["ratio"] = row["ref_ratio"] = None
+    if singles is not None:
+        one, ref_one = (r["collective_bytes_total"] for r in singles)
+        row["ratio"] = row["coll"] / one if one else None
+        row["ref_ratio"] = row["ref_coll"] / ref_one if ref_one else None
+        if row["coll"] > one * max(1.05, row["ref_ratio"] or 0.0) + 64e6:
+            bad.append("scaling")
     row["bad"] = bad
     return row
+
+
+def _single(dirs, name: str):
+    """A cell's (port, reference) records on (16, 16), where both are ok."""
+    recs = []
+    for d in dirs:
+        p = d / name.replace("__multi.json", "__single.json")
+        rec = json.loads(p.read_text()) if p.exists() else {}
+        if rec.get("status") != "ok":
+            return None
+        recs.append(rec)
+    return recs
+
+
+def _ratio(x) -> str:
+    return "–" if x is None else f"{x:.2f}"
 
 
 def main(argv=None) -> int:
@@ -59,13 +91,17 @@ def main(argv=None) -> int:
     ap.add_argument("port", type=Path)
     ap.add_argument("ref", type=Path)
     ap.add_argument("--mesh", default="single")
+    ap.add_argument("--port-single", type=Path, help="the port's (16, 16) records (default PORT)")
+    ap.add_argument("--ref-single", type=Path, help="the reference's (default REF)")
     ap.add_argument("--markdown", action="store_true")
     args = ap.parse_args(argv)
+    singles = (args.port_single or args.port, args.ref_single or args.ref)
     failed = 0
     if args.markdown:
         print("| cell | flops port / ref | peak GB port / ref | collectives GB port / ref "
-              "| all-gather GB port / ref (+ permute) | trace s | bounds |")
-        print("|---|---|---|---|---|---|---|")
+              "| multi/single port / ref | all-gather GB port / ref (+ permute) | trace s "
+              "| bounds |")
+        print("|---|---|---|---|---|---|---|---|")
     for p in sorted(args.port.glob(f"*__{args.mesh}.json")):
         port = json.loads(p.read_text())
         rp = args.ref / p.name
@@ -75,25 +111,28 @@ def main(argv=None) -> int:
             note = port["status"] if port["status"] != "ok" else f"port ok, reference {ref.get('status')}"
             if port["status"] not in ("ok", "skipped"):
                 failed += 1
-            print(f"| {cell} | {note} | | | | {port.get('trace_s', '')} | |" if args.markdown
+            print(f"| {cell} | {note} | | | | | {port.get('trace_s', '')} | |" if args.markdown
                   else f"{cell}: {note}")
             continue
         if port["status"] != "ok":
             failed += 1
-            print(f"| {cell} | port {port['status']} | | | | | fails |" if args.markdown
+            print(f"| {cell} | port {port['status']} | | | | | | fails |" if args.markdown
                   else f"{cell}: port {port['status']}: {port.get('error', '')[:200]}")
             continue
-        r = compare(port, ref)
+        r = compare(port, ref, _single(singles, p.name) if args.mesh == "multi" else None)
         failed += bool(r["bad"])
         verdict = "fails " + ", ".join(r["bad"]) if r["bad"] else "within"
+        ratios = f"{_ratio(r['ratio'])} / {_ratio(r['ref_ratio'])}"
         if args.markdown:
             print(f"| {cell} | {r['flops']:.3e} / {r['ref_flops']:.3e} | {r['peak'] / GB:.2f} / "
                   f"{r['ref_memory'] / GB:.2f} | {r['coll'] / GB:.2f} / {r['ref_coll'] / GB:.2f} | "
-                  f"{r['ag'] / GB:.2f} / {r['ref_ag'] / GB:.2f} | {r['trace_s']} | {verdict} |")
+                  f"{ratios} | {r['ag'] / GB:.2f} / {r['ref_ag'] / GB:.2f} | {r['trace_s']} "
+                  f"| {verdict} |")
         else:
             print(f"{cell}: flops {r['flops'] / max(r['ref_flops'], 1):.2f}x, peak "
-                  f"{r['peak'] / GB:.2f} / {r['ref_memory'] / GB:.2f} GB, all-gather "
-                  f"{r['ag'] / GB:.2f} / {r['ref_ag'] / GB:.2f} GB: {verdict}")
+                  f"{r['peak'] / GB:.2f} / {r['ref_memory'] / GB:.2f} GB, collectives "
+                  f"{r['coll'] / GB:.2f} / {r['ref_coll'] / GB:.2f} GB (multi/single {ratios}), "
+                  f"all-gather {r['ag'] / GB:.2f} / {r['ref_ag'] / GB:.2f} GB: {verdict}")
     return 1 if failed else 0
 
 
