@@ -51,11 +51,20 @@ opens the spans ``cache_lookup``, ``embed``, ``plan``, ``probe`` (one
 ``join`` and ``cache_store`` under the thread's current trace, observes
 each stage's seconds (``gnnpe_engine_stage_seconds``) and feeds the
 pruning funnel (group pairs, surviving groups, leaf pairs, candidates,
-matches) to the trace and to ``gnnpe_funnel_total``.  Spans and histograms
-read the host clock only: they add no ``torch.cuda.synchronize``, no
-``.item()`` and no read-back of their own, so on the card a stage's span
-holds its device work only as far as the stage already reads back (the
-probe's per-query row splits, the join's match lists).  With
+matches) to the trace and to ``gnnpe_funnel_total``.  Below the stages an
+open trace also gets ``probe.descent`` (the stacked probe's dense descent
+and group level), ``join.merge`` (the join steps, a query's or a group's,
+and the device join's grouping) and ``join.refine`` (the exact
+verification and the tuples); on the card, the device twins
+``probe.device`` and ``probe.descent.device``, timed by CUDA events that
+the trace reads when it finishes; and the trace's ``counts``: the queries,
+the device join's groups, and every statement that makes the host wait
+for the card (``obs.host_sync`` at each site, counted on any device).  Spans,
+counts and histograms add no ``torch.cuda.synchronize``, no ``.item()``
+and no read-back of their own, so on the card a host span holds its device
+work only as far as the stage already reads back (the probe's per-query
+row splits, the join's match lists).  With no trace open the new sites
+cost a thread-local lookup each and create no event; with
 ``obs.disable()`` every mutation is a no-op.
 
 The serving tier calls ``match_many_isolated`` (bisecting quarantine of
@@ -1325,10 +1334,12 @@ class GnnPeEngine:
         """
         cfg = self.cfg
         enc = self.encoder
-        star_list = [
-            build_star_tensors(device_graph(q, self.device), np.arange(q.n_vertices), cfg.theta)
-            for q in queries
-        ]
+        star_list = []
+        for q in queries:
+            # device_graph copies four arrays in, build_star_tensors the vertex ids
+            with obs_trace.host_sync(5):
+                star_list.append(build_star_tensors(device_graph(q, self.device),
+                                                    np.arange(q.n_vertices), cfg.theta))
         spans = np.concatenate([[0], np.cumsum([q.n_vertices for q in queries])]).astype(np.int64)
         if not self.models:
             return [], spans, None
@@ -1340,7 +1351,8 @@ class GnnPeEngine:
         o_all = enc.embed_stars(main, centers, leaf_labels, leaf_mask)  # (m, n, d)
         o0_all = enc.embed_isolated(main, centers)
         o_all[:, overflow] = 0.0
-        perms = torch.as_tensor(self.label_perms.astype(np.int64), device=self.device)
+        with obs_trace.host_sync():
+            perms = torch.as_tensor(self.label_perms.astype(np.int64), device=self.device)
         om = []
         for i in range(cfg.n_multi):
             oi = enc.embed_stars(
@@ -1365,15 +1377,18 @@ class GnnPeEngine:
         label test is exact and the join refines every match, so no match is
         lost.  ``memo`` keeps each (partition, labels) result for one call."""
         dg = self.dgraph
-        want = torch.as_tensor(labels, dtype=torch.int64, device=dg.device)
+        with obs_trace.host_sync():
+            want = torch.as_tensor(labels, dtype=torch.int64, device=dg.device)
         out = {}
         for mi in range(len(self.models)) if parts is None else sorted(int(m) for m in parts):
             key = (mi, labels)
             if key not in memo:
                 members = self.models[mi].members.astype(np.int64)
                 roots = members[self.graph.labels[members] == labels[0]]
-                paths = enumerate_paths(dg, roots, len(labels) - 1)
-                memo[key] = paths[(dg.labels[paths] == want).all(dim=1)]
+                # the roots' copy in, a read-back and a mask a step, the label mask
+                with obs_trace.host_sync(2 * len(labels)):
+                    paths = enumerate_paths(dg, roots, len(labels) - 1)
+                    memo[key] = paths[(dg.labels[paths] == want).all(dim=1)]
             if memo[key].shape[0]:
                 out[mi] = memo[key]
         return out
@@ -1475,8 +1490,10 @@ class GnnPeEngine:
                     raise ValueError("a quantized index hashes the probes' labels: pass queries")
                 if all_labels is None:
                     all_labels = np.concatenate([q.labels for q in queries]).astype(np.int64)
-                qh = hash_labels(torch.as_tensor(all_labels[rows])).to(dev)
-            layouts[L] = (sel, torch.as_tensor(rows, device=dev), qh)
+                with obs_trace.host_sync():
+                    qh = hash_labels(torch.as_tensor(all_labels[rows])).to(dev)
+            with obs_trace.host_sync():
+                layouts[L] = (sel, torch.as_tensor(rows, device=dev), qh)
 
         def query_tensors(mi, gidx, B):
             """(q_emb, q_emb0, q_multi) of partition ``mi``'s probe batch."""
@@ -1500,7 +1517,8 @@ class GnnPeEngine:
             B, m = len(sel), len(mis)
             o_all, o0_all, om_all = stacked
             if parts is not None:
-                mt = torch.as_tensor(mis, device=dev)
+                with obs_trace.host_sync():
+                    mt = torch.as_tensor(mis, device=dev)
                 o_all, o0_all, om_all = o_all[mt], o0_all[mt], om_all[:, mt]
             q_multi = None
             if cfg.n_multi:
@@ -1618,7 +1636,10 @@ class GnnPeEngine:
             for mi, ents in by_part.items():
                 pieces.append(table(mi)[torch.cat([r for _, r in ents])].to(torch.int32))
                 spans += [(key, src is delta_memo, int(r.numel())) for key, r in ents]
-        flat = torch.cat(pieces).cpu().numpy() if pieces else None
+        flat = None
+        if pieces:
+            with obs_trace.host_sync():
+                flat = torch.cat(pieces).cpu().numpy()
         ends = np.cumsum([n for _, _, n in spans])
         got = {(key, d): flat[end - n : end] for (key, d, n), end in zip(spans, ends) if n}
         out: dict = {}
@@ -1635,7 +1656,8 @@ class GnnPeEngine:
             labels = tuple(int(queries[qi].labels[v]) for v in p)
             ev = np.zeros((0, len(p)), np.int32)
             for mi, rows in self._short_path_candidates(labels, short_memo, parts).items():
-                out[(mi, qi, p)] = (ev, rows.to(torch.int32).cpu().numpy())
+                with obs_trace.host_sync():
+                    out[(mi, qi, p)] = (ev, rows.to(torch.int32).cpu().numpy())
         return (out, stats_memo) if return_stats else out
 
     def match_many(
@@ -1757,9 +1779,10 @@ class GnnPeEngine:
         live-graph candidates, partitions in engine order.
 
         Each stage opens its span (``embed``, ``plan``, ``probe`` with one
-        ``partition`` child per model, ``assemble``, ``join``) under the
-        thread's current trace and observes ``gnnpe_engine_stage_seconds``;
-        the funnel's rungs go to the trace and to ``gnnpe_funnel_total``.
+        ``partition`` child per model and, on the card, its device twin,
+        ``assemble``, ``join``) under the thread's current trace and observes
+        ``gnnpe_engine_stage_seconds``; the funnel's rungs go to the trace and
+        to ``gnnpe_funnel_total``, the batch's queries to the trace's counts.
         """
         cfg = self.cfg
         use_groups = kind == "grouped"
@@ -1768,6 +1791,8 @@ class GnnPeEngine:
         delta = self.delta
         stats = [QueryStats() for _ in range(nq)]
         trace = obs_trace.current_trace()
+        if trace is not None:
+            trace.add_count(queries=nq)
         pairs_before = (index_mod._GROUP_PAIRS.value, index_mod._LEAF_PAIRS.value)
         t0 = time.perf_counter()
         with obs_trace.span("embed", n_queries=nq):
@@ -1853,7 +1878,7 @@ class GnnPeEngine:
         # the grouped probe's traversal stats feed the trace's surviving
         # groups rung, only where a trace is open
         probe_stats: dict | None = {} if (trace is not None and use_groups) else None
-        with obs_trace.span("probe", n_requests=len(todo)):
+        with obs_trace.span("probe", device=self.device, n_requests=len(todo)):
             if todo:
                 self._probe_batch(
                     todo, q_embs, memo, queries, probe_impl, stats_memo=probe_stats, **probe_kw

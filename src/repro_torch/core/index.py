@@ -39,6 +39,7 @@ from ..kernels.dominance_scan.ops import (
     dominance_scan_groups_indexed,
     dominance_scan_pairs_indexed,
 )
+from ..obs import trace as obs_trace
 from ..obs.metrics import REGISTRY
 
 __all__ = [
@@ -130,7 +131,8 @@ def hash_labels(paths_labels: torch.Tensor) -> torch.Tensor:
 
 def _eps(eps: float, device) -> torch.Tensor:
     """``eps`` rounded to float32, as NumPy does against a float32 array."""
-    return torch.tensor(eps, dtype=torch.float32, device=device)
+    with obs_trace.host_sync():
+        return torch.tensor(eps, dtype=torch.float32, device=device)
 
 
 def _nbytes(t: torch.Tensor | None) -> int:
@@ -403,8 +405,9 @@ def _descend_batch(index: PackedIndex, q_emb, q_emb0, q_multi, eps: float):
             fo = index.fanout
             children = (cand[:, None] * fo + torch.arange(fo, device=dev)[None, :]).reshape(-1)
             valid = children < nb
-            cand = children[valid]
-            alive = alive.repeat_interleave(fo, dim=1)[:, valid]
+            with obs_trace.host_sync(2):  # two boolean masks
+                cand = children[valid]
+                alive = alive.repeat_interleave(fo, dim=1)[:, valid]
         if cand.numel() == 0:
             break
         alive &= _block_mask_batch(
@@ -417,8 +420,9 @@ def _descend_batch(index: PackedIndex, q_emb, q_emb0, q_multi, eps: float):
             eps,
         )
         keep_cols = alive.any(dim=0)
-        cand = cand[keep_cols]
-        alive = alive[:, keep_cols]
+        with obs_trace.host_sync(2):  # two boolean masks
+            cand = cand[keep_cols]
+            alive = alive[:, keep_cols]
     if cand is None:
         cand = torch.zeros((0,), dtype=torch.int64, device=dev)
         alive = torch.zeros((Q, 0), dtype=torch.bool, device=dev)
@@ -433,7 +437,8 @@ def _prefilter_pairs(index: PackedIndex, rows, q_ids, q_emb, q_multi, q_label_ha
     pre = (qq[q_ids] <= index.emb_q[rows]).all(dim=1)
     if index.label_hash is not None and q_label_hash is not None:
         pre &= index.label_hash[rows] == q_label_hash[q_ids]
-    return rows[pre], q_ids[pre]
+    with obs_trace.host_sync(2):  # two boolean masks
+        return rows[pre], q_ids[pre]
 
 
 def _pack_leaf_pairs(index: PackedIndex, cand, alive, q_emb, q_multi, q_label_hash):
@@ -441,11 +446,13 @@ def _pack_leaf_pairs(index: PackedIndex, cand, alive, q_emb, q_multi, q_label_ha
     through the sidecar's prefilter where the index has one.  The pair
     counter counts the pairs before the prefilter."""
     bs = index.block_size
-    qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)  # row-major = qi-major
+    with obs_trace.host_sync():
+        qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)  # row-major = qi-major
     row_mat = cand[ci_pair][:, None] * bs + torch.arange(bs, device=cand.device)[None, :]
     valid = row_mat < index.n_paths
-    rows = row_mat[valid]
-    q_ids = qi_pair[:, None].expand(-1, bs)[valid]
+    with obs_trace.host_sync(2):  # two boolean masks
+        rows = row_mat[valid]
+        q_ids = qi_pair[:, None].expand(-1, bs)[valid]
     _LEAF_PAIRS.inc(int(rows.numel()))
     return _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
 
@@ -468,9 +475,12 @@ def _split_rows(rows, q_ids, keep, Q: int, dead=None) -> list:
     drops the tombstoned rows first, one gather over all the queries."""
     if dead is not None:
         keep = keep & ~dead[rows]
-    rows = rows[keep]
-    counts = torch.bincount(q_ids[keep], minlength=Q)
-    return list(torch.split(rows, counts.tolist()))
+    with obs_trace.host_sync(2):  # two boolean masks
+        rows, q_ids = rows[keep], q_ids[keep]
+    with obs_trace.host_sync(2 if q_ids.numel() else 0):  # bincount reads min and max
+        counts = torch.bincount(q_ids, minlength=Q)
+    with obs_trace.host_sync():
+        return list(torch.split(rows, counts.tolist()))
 
 
 # --------------------------------------------------------------------------
@@ -481,7 +491,9 @@ def _split_rows(rows, q_ids, keep, Q: int, dead=None) -> list:
 def _expand_segments(starts: torch.Tensor, counts: torch.Tensor, total: int | None = None):
     """The concatenated ranges [starts[i], starts[i] + counts[i]); ``total``,
     where the caller knows it, is ``counts.sum()`` (no read-back)."""
-    total = int(counts.sum()) if total is None else total
+    if total is None:
+        with obs_trace.host_sync():
+            total = int(counts.sum())
     base = starts - (torch.cumsum(counts, 0) - counts)
     return torch.repeat_interleave(base, counts, output_size=total) + torch.arange(
         total, device=starts.device
@@ -491,11 +503,14 @@ def _expand_segments(starts: torch.Tensor, counts: torch.Tensor, total: int | No
 def _pack_group_pairs(groups: PackedGroupIndex, cand, alive):
     """(query, block) survivors → packed (g_ids, q_ids) group pairs, qi-major:
     each surviving (query, block) cell expands to that block's groups."""
-    qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)
+    with obs_trace.host_sync():
+        qi_pair, ci_pair = torch.nonzero(alive, as_tuple=True)
     blk = cand[ci_pair]
     bgs = groups.block_group_start
     counts = bgs[blk + 1] - bgs[blk]
-    return _expand_segments(bgs[blk], counts), torch.repeat_interleave(qi_pair, counts)
+    g_ids = _expand_segments(bgs[blk], counts)
+    with obs_trace.host_sync():  # repeat_interleave without output_size
+        return g_ids, torch.repeat_interleave(qi_pair, counts)
 
 
 def _group_segment(groups: PackedGroupIndex, g_ids, q_ids, q_emb, q_emb0, q_multi) -> Segment:
@@ -573,20 +588,22 @@ def _query_index_batch_multi_grouped(items: list, eps: float, return_stats: bool
         index = p["index"]
         q_emb, q_emb0, q_multi, q_label_hash = p["query"]
         g_keep = p.get("g_keep", torch.zeros((0,), dtype=torch.bool, device=q_emb.device))
-        g_surv, q_surv = p["g_ids"][g_keep], p["q_ids_g"][g_keep]
+        with obs_trace.host_sync(2):  # two boolean masks
+            g_surv, q_surv = p["g_ids"][g_keep], p["q_ids_g"][g_keep]
         gs = index.groups.group_start
         counts = gs[g_surv + 1] - gs[g_surv]
         rows = _expand_segments(gs[g_surv], counts)
-        q_ids = torch.repeat_interleave(q_surv, counts)
+        with obs_trace.host_sync():  # repeat_interleave without output_size
+            q_ids = torch.repeat_interleave(q_surv, counts)
         _LEAF_PAIRS.inc(int(rows.numel()))
         if return_stats:
             Q = p["Q"]
-            p["stats"] = torch.stack([
-                p["alive"].sum(dim=1),
-                torch.bincount(p["q_ids_g"], minlength=Q),
-                torch.bincount(q_surv, minlength=Q),
-                torch.bincount(q_ids, minlength=Q),
-            ], dim=1).tolist()
+            ids = (p["q_ids_g"], q_surv, q_ids)
+            # each non-empty bincount reads its min and max, then one read-back
+            with obs_trace.host_sync(1 + 2 * sum(1 for t in ids if t.numel())):
+                p["stats"] = torch.stack([p["alive"].sum(dim=1)]
+                                         + [torch.bincount(t, minlength=Q) for t in ids],
+                                         dim=1).tolist()
         rows, q_ids = _prefilter_pairs(index, rows, q_ids, q_emb, q_multi, q_label_hash)
         p["rows"], p["q_ids"] = rows, q_ids
         p["seg"] = _pair_segment(index, rows, q_ids, q_emb, q_emb0, q_multi)
@@ -669,7 +686,8 @@ def query_index_batch_multi(
             keep = torch.zeros((0,), dtype=torch.bool, device=p["rows"].device)
         results.append(_split_rows(p["rows"], p["q_ids"], keep, Q, p["dead"]))
         if return_stats:
-            scanned = p["alive"].sum(dim=1).tolist()
+            with obs_trace.host_sync():
+                scanned = p["alive"].sum(dim=1).tolist()
             stats.append(
                 [
                     {"scanned_blocks": int(s), "scanned_paths": int(s) * p["bs"]}

@@ -36,6 +36,7 @@ import torch
 from ..graphs import DeviceGraph, Graph
 from ..kernels.merge_join import ops as mj
 from ..kernels.merge_join.ops import take_rows
+from ..obs import trace as obs_trace
 
 __all__ = [
     "join_candidates",
@@ -97,7 +98,8 @@ def _unique_rows(a: torch.Tensor, n_values: int) -> torch.Tensor:
     ks = keys[order]
     keep = torch.ones(ks.shape[0], dtype=torch.bool, device=a.device)
     keep[1:] = ks[1:] != ks[:-1]
-    return a[order[keep]]
+    with obs_trace.host_sync():
+        return a[order[keep]]
 
 
 def _join_pair(
@@ -131,14 +133,17 @@ def _join_pair(
         c = torch.arange(cand.shape[0], device=dev).repeat(table.shape[0])
     else:
         # sort-merge join over one key per row
-        tk, ck = _lex_keys([table[:, t_idx], cand[:, c_idx]], n_values)
+        with obs_trace.host_sync(2):  # two list indexes: copies in
+            keyed = [table[:, t_idx], cand[:, c_idx]]
+        tk, ck = _lex_keys(keyed, n_values)
         order_t = torch.argsort(tk, stable=True)
         order_c = torch.argsort(ck, stable=True)
         tk_s, ck_s = tk[order_t], ck[order_c]
         # for each table row, locate the run of equal candidate keys
         lo = torch.searchsorted(ck_s, tk_s, side="left")
         reps = torch.searchsorted(ck_s, tk_s, side="right") - lo
-        total = int(reps.sum())
+        with obs_trace.host_sync():
+            total = int(reps.sum())
         r_s = torch.arange(tk_s.shape[0], device=dev).repeat_interleave(reps, output_size=total)
         starts = torch.cumsum(reps, 0) - reps
         pos = torch.arange(total, device=dev) - starts.repeat_interleave(reps, output_size=total)
@@ -146,7 +151,8 @@ def _join_pair(
         r = order_t[r_s]
         c = order_c[c_s]
 
-    merged = torch.cat([table[r], cand[c][:, n_idx]], dim=1)
+    with obs_trace.host_sync(1 if n_idx else 0):  # a list index: a copy in
+        merged = torch.cat([table[r], cand[c][:, n_idx]], dim=1)
     # injectivity: new columns must not collide with existing assignments
     if n_idx:
         old_part = merged[:, : len(table_cols)]
@@ -156,7 +162,8 @@ def _join_pair(
             ok &= ~(old_part == new_part[:, j : j + 1]).any(dim=1)
             for j2 in range(j + 1, new_part.shape[1]):
                 ok &= new_part[:, j] != new_part[:, j2]
-        merged = merged[ok]
+        with obs_trace.host_sync():
+            merged = merged[ok]
     # dedup rows (different candidate paths can induce the same assignment).
     # With per-path candidates known duplicate-free (assume_unique: the
     # engine's partitions are root-disjoint), a merged row determines its
@@ -183,7 +190,8 @@ def join_candidates(
     by construction and skips every dedup sort.
     """
     if n_values is None:
-        n_values = max([2] + [int(c.max()) + 1 for c in candidates if c.numel()])
+        with obs_trace.host_sync(sum(1 for c in candidates if c.numel())):
+            n_values = max([2] + [int(c.max()) + 1 for c in candidates if c.numel()])
     order = np.argsort([c.shape[0] for c in candidates], kind="stable")
     first = int(order[0])
     table = candidates[first]
@@ -195,7 +203,8 @@ def join_candidates(
     for a in range(table.shape[1]):
         for b in range(a + 1, table.shape[1]):
             ok &= table[:, a] != table[:, b]
-    table = table[ok]
+    with obs_trace.host_sync():
+        table = table[ok]
     remaining = [int(i) for i in order[1:]]
     # prefer joining paths that share columns with the current table
     while remaining:
@@ -230,7 +239,8 @@ def _edge_keys(g: Graph, dg: DeviceGraph) -> torch.Tensor:
         raise ValueError("edge keys need n_vertices ≤ 3,037,000,499")
     cached = _EDGE_KEY_CACHE.get(id(g))
     if cached is None or cached[0] != dg.device:
-        src = torch.arange(g.n_vertices, device=dg.device).repeat_interleave(dg.degrees)
+        with obs_trace.host_sync():  # repeat_interleave without output_size
+            src = torch.arange(g.n_vertices, device=dg.device).repeat_interleave(dg.degrees)
         cached = (dg.device, src * g.n_vertices + dg.nbrs)
         if id(g) not in _EDGE_KEY_CACHE:
             weakref.finalize(g, _EDGE_KEY_CACHE.pop, id(g), None)
@@ -261,8 +271,9 @@ def refine(
     nq = q.n_vertices
     assert sorted(cols) == list(range(nq)), f"join must cover all query vertices, got {cols}"
     inv = np.argsort(np.asarray(cols))
-    rows = table[:, torch.as_tensor(inv, device=table.device)]  # column j ↔ query vertex j
-    q_labels = torch.as_tensor(q.labels.astype(np.int64), device=table.device)
+    with obs_trace.host_sync(2):  # two copies in
+        rows = table[:, torch.as_tensor(inv, device=table.device)]  # column j ↔ query vertex j
+        q_labels = torch.as_tensor(q.labels.astype(np.int64), device=table.device)
     # label check (paths already enforce labels, but be defensive)
     ok = (dg.labels[rows] == q_labels[None, :]).all(dim=1)
     keys = _edge_keys(g, dg)
@@ -276,7 +287,10 @@ def refine(
             for v in range(u + 1, nq):
                 if v not in adj[u]:
                     ok &= ~_has_edges(keys, g.n_vertices, rows[:, u], rows[:, v])
-    return list(map(tuple, rows[ok].tolist()))
+    with obs_trace.host_sync():
+        kept = rows[ok]
+    with obs_trace.host_sync(1 if kept.shape[0] else 0):  # an empty read-back does not wait
+        return list(map(tuple, kept.tolist()))
 
 
 def match_from_candidates(
@@ -296,16 +310,20 @@ def match_from_candidates(
     the host-order join's; list order differs.
     """
     if join_impl == "device":
-        table, count, cols = _join_candidates_device(
-            plan_paths, candidates, g.n_vertices, dg.device, assume_unique=assume_unique
-        )
-        return _refine_device(g, q, table, count, cols, induced=induced)
+        with obs_trace.span("join.merge"):
+            table, count, cols = _join_candidates_device(
+                plan_paths, candidates, g.n_vertices, dg.device, assume_unique=assume_unique
+            )
+        with obs_trace.span("join.refine"):
+            return _refine_device(g, q, table, count, cols, induced=induced)
     if join_impl != "numpy":
         raise ValueError(f"unknown join impl {join_impl!r}; use 'numpy' or 'device'")
-    table, cols = join_candidates(
-        plan_paths, candidates, n_values=g.n_vertices, assume_unique=assume_unique
-    )
-    return refine(g, dg, q, table, cols, induced=induced)
+    with obs_trace.span("join.merge"):
+        table, cols = join_candidates(
+            plan_paths, candidates, n_values=g.n_vertices, assume_unique=assume_unique
+        )
+    with obs_trace.span("join.refine"):
+        return refine(g, dg, q, table, cols, induced=induced)
 
 
 # --------------------------------------------------------------------------
@@ -343,7 +361,8 @@ def _stack_candidates(rows_list: list, cap: int, width: int, device):
     out = torch.zeros((len(rows_list), cap, width), dtype=torch.int32, device=device)
     for b, r in enumerate(rows_list):
         if r.shape[0]:
-            out[b, : r.shape[0]] = torch.as_tensor(r, device=device)
+            with obs_trace.host_sync(0 if torch.is_tensor(r) else 1):  # host rows: a copy in
+                out[b, : r.shape[0]] = torch.as_tensor(r, device=device)
     return out
 
 
@@ -376,7 +395,10 @@ def _valid_first(valid: torch.Tensor) -> torch.Tensor:
 
 def _cols(x: torch.Tensor, idx: tuple) -> torch.Tensor:
     """Columns ``idx`` of (..., C) ``x`` (an empty tuple gives (..., 0))."""
-    return x[..., list(idx)] if idx else x[..., :0]
+    if not idx:
+        return x[..., :0]
+    with obs_trace.host_sync():  # a list index: a copy in
+        return x[..., list(idx)]
 
 
 def _init_body(cand, count, *, bits: int, n_values: int, dedup: bool):
@@ -495,7 +517,8 @@ def _unzip(outs: list) -> tuple:
 def _host_rows(ts: list) -> np.ndarray:
     """Per-shard (…, b_k) device tensors → one host array, shards in order
     along the last dim."""
-    return np.concatenate([t.cpu().numpy() for t in ts], axis=-1)
+    with obs_trace.host_sync(len(ts)):
+        return np.concatenate([t.cpu().numpy() for t in ts], axis=-1)
 
 
 def _join_candidates_device_batch(
@@ -530,8 +553,9 @@ def _join_candidates_device_batch(
             members = range(lo, hi)
             rows = [cand_groups[b][i] if b < B else phantom for b in members]
             counts = [int(cnt[b, i]) if b < B else 0 for b in members]
-            out.append((_stack_candidates(rows, cap, width, dev),
-                        torch.as_tensor(counts, dtype=torch.int64, device=dev)))
+            stacked = _stack_candidates(rows, cap, width, dev)
+            with obs_trace.host_sync():  # a copy in
+                out.append((stacked, torch.as_tensor(counts, dtype=torch.int64, device=dev)))
         return _unzip(out)
 
     tables, valids, counts_dev = _unzip([
@@ -763,14 +787,18 @@ def _refine_device_batch(
     out = []
     for lo, hi, dev in shards:
         t = torch.cat([tables, phantom])[lo:hi] if hi > B else tables[lo:hi]
-        a = {k: v[lo:hi].to(dev) for k, v in host.items()}
+        a = {k: v[lo:hi] for k, v in host.items()}
+        with obs_trace.host_sync(sum(v.numel() > 0 for v in a.values())):  # copies in
+            a = {k: v.to(dev) for k, v in a.items()}
         variant, ops, deg_steps, labels = _edge_tensors_device(g, dev)
         rows, ok = _refine_body(
             t.to(dev), a["counts"], a["qlab"], a["qe"], a["n_qe"], a["qnon"], a["n_qn"],
             a["inv"], ops, labels, variant=variant, deg_steps=deg_steps,
         )
-        per = ok.sum(dim=1).cpu().tolist()
-        out += list(torch.split(rows[ok].cpu(), per))
+        with obs_trace.host_sync():
+            per = ok.sum(dim=1).cpu().tolist()
+        with obs_trace.host_sync(2 if sum(per) else 1):  # an empty read-back does not wait
+            out += list(torch.split(rows[ok].cpu(), per))
     return out[:B]
 
 
@@ -820,31 +848,35 @@ def match_from_candidates_many(
     results: list = [None] * len(queries)
     groups: dict = {}
     invs: list = []
-    for qi, (q, pp) in enumerate(zip(queries, plan_paths_list)):
-        perm, ckey = canonical_form(q)
-        inv = np.empty(q.n_vertices, np.int64)
-        inv[perm] = np.arange(q.n_vertices)
-        invs.append(inv)
-        canon_pp = tuple(tuple(int(inv[v]) for v in p) for p in pp)
-        groups.setdefault((ckey, canon_pp), []).append(qi)
+    with obs_trace.span("join.merge", grouping=True):
+        for qi, (q, pp) in enumerate(zip(queries, plan_paths_list)):
+            perm, ckey = canonical_form(q)
+            inv = np.empty(q.n_vertices, np.int64)
+            inv[perm] = np.arange(q.n_vertices)
+            invs.append(inv)
+            canon_pp = tuple(tuple(int(inv[v]) for v in p) for p in pp)
+            groups.setdefault((ckey, canon_pp), []).append(qi)
+    obs_trace.add_count(join_groups=len(groups))
     for (_, canon_pp), idxs in groups.items():
-        tables, counts, cols = _join_candidates_device_batch(
-            [list(p) for p in canon_pp], [candidates_list[qi] for qi in idxs], g.n_vertices,
-            dg.device, assume_unique=assume_unique,
-        )
-        nq = queries[idxs[0]].n_vertices
-        if counts.max():
-            # member b's vertex v lives at the table column holding
-            # canonical id invs[b][v]; the refine applies the map on device
-            col_pos = np.argsort(np.asarray(cols))
-            colperms = np.stack([col_pos[invs[qi]] for qi in idxs])
-            arrs = [_query_edge_arrays(queries[qi], induced) for qi in idxs]
-            rows = _refine_device_batch(
-                g, np.stack([a[0] for a in arrs]), [a[1] for a in arrs], [a[2] for a in arrs],
-                tables, counts, cols, colperms=colperms,
+        with obs_trace.span("join.merge", members=len(idxs)):
+            tables, counts, cols = _join_candidates_device_batch(
+                [list(p) for p in canon_pp], [candidates_list[qi] for qi in idxs], g.n_vertices,
+                dg.device, assume_unique=assume_unique,
             )
-        else:
-            rows = [torch.zeros((0, nq), dtype=torch.int32) for _ in idxs]
-        for k, qi in enumerate(idxs):
-            results[qi] = list(map(tuple, rows[k].numpy().tolist()))
+        with obs_trace.span("join.refine", members=len(idxs)):
+            nq = queries[idxs[0]].n_vertices
+            if counts.max():
+                # member b's vertex v lives at the table column holding
+                # canonical id invs[b][v]; the refine applies the map on device
+                col_pos = np.argsort(np.asarray(cols))
+                colperms = np.stack([col_pos[invs[qi]] for qi in idxs])
+                arrs = [_query_edge_arrays(queries[qi], induced) for qi in idxs]
+                rows = _refine_device_batch(
+                    g, np.stack([a[0] for a in arrs]), [a[1] for a in arrs],
+                    [a[2] for a in arrs], tables, counts, cols, colperms=colperms,
+                )
+            else:
+                rows = [torch.zeros((0, nq), dtype=torch.int32) for _ in idxs]
+            for k, qi in enumerate(idxs):
+                results[qi] = list(map(tuple, rows[k].numpy().tolist()))
     return results

@@ -48,6 +48,7 @@ from ..core import index as index_mod
 from ..core.index import NO_SIDECAR, _eps, _expand_segments, quantize_query
 from ..core.stacked import build_stacked, restack_slot, stacked_masks_ref
 from ..kernels.dominance_scan.ops import Segment
+from ..obs import trace as obs_trace
 from .context import mesh_devices
 
 __all__ = ["StackedProbe"]
@@ -241,9 +242,11 @@ class StackedProbe:
         ``nonzero``'s row-major order makes them (slot, query)-major."""
         st = self.stacked
         if gkeep is not None:
-            pi, qi, gi = torch.nonzero(gkeep, as_tuple=True)
+            with obs_trace.host_sync():
+                pi, qi, gi = torch.nonzero(gkeep, as_tuple=True)
             return pi, qi, st.groups.start[pi, gi], st.groups.count[pi, gi]
-        pi, qi, bi = torch.nonzero(alive, as_tuple=True)
+        with obs_trace.host_sync():
+            pi, qi, bi = torch.nonzero(alive, as_tuple=True)
         starts = bi * st.block_size
         return pi, qi, starts, torch.clamp(st.n_paths[pi] - starts, 0, st.block_size)
 
@@ -290,7 +293,8 @@ class StackedProbe:
             alive = live.reshape(-1)[rows]
             pre = alive if pre is None else pre & alive
         if pre is not None:
-            sel = torch.nonzero(pre).flatten()
+            with obs_trace.host_sync():
+                sel = torch.nonzero(pre).flatten()
             rows, combo = rows[sel], combo[sel]
         # exact Lemma 4.1 + 4.2 verdicts: one fused pass
         W = Dcat // (1 + st.n_gnn)
@@ -299,7 +303,9 @@ class StackedProbe:
             (*st.emb_cat.reshape(S * P, Dcat).split(W, dim=1), st.emb0.reshape(S * P, -1)),
             (*q_cat.reshape(S * Q, Dcat).split(W, dim=1), q0.reshape(S * Q, -1)),
         )
-        sel = torch.nonzero(index_mod._pairs_keep_mask([seg], eps)).flatten()
+        keep = index_mod._pairs_keep_mask([seg], eps)
+        with obs_trace.host_sync():
+            sel = torch.nonzero(keep).flatten()
         return rows[sel], combo[sel]
 
     def _stats(self, alive, gkeep, checked, pi, qi, counts) -> torch.Tensor:
@@ -362,7 +368,8 @@ class StackedProbe:
             return (results, self._zero_stats(n_parts, Q, use_groups)) if return_stats else results
         S = st.n_slots
         q_cat, q0 = self._slot_queries(q_emb, q_emb0, q_multi)
-        alive, gkeep = self._device_masks(q_cat, q0, eps, device_stage, use_groups)
+        with obs_trace.span("probe.descent", device=dev):
+            alive, gkeep = self._device_masks(q_cat, q0, eps, device_stage, use_groups)
         pi, qi, starts, counts = self._cells(alive, gkeep)
         checked = self._checked_groups(alive) if use_groups else None
         ends = torch.cumsum(counts, 0)
@@ -376,12 +383,14 @@ class StackedProbe:
             chunk_of = cell_start // self.leaf_pair_cap
             first = torch.ones(n_cells, dtype=torch.bool, device=dev)
             first[1:] = chunk_of[1:] != chunk_of[:-1]
-            firsts = torch.nonzero(first).flatten()
+            with obs_trace.host_sync():
+                firsts = torch.nonzero(first).flatten()
             head = [
                 torch.cat([firsts, firsts.new_full((1,), n_cells)]),
                 torch.cat([cell_start[firsts], ends[-1:]]),
             ]
-        host = torch.cat([*head, self._group_pairs(checked)]).cpu().numpy()
+        with obs_trace.host_sync():
+            host = torch.cat([*head, self._group_pairs(checked)]).cpu().numpy()
         host, group_pairs = host[:-1].reshape(2, -1), int(host[-1])
         total_pairs = int(host[1, -1])
         index_mod._LEAF_PAIRS.inc(total_pairs)
@@ -401,13 +410,14 @@ class StackedProbe:
         rows_all = torch.cat(kept_rows) if kept_rows else empty
         combo_all = torch.cat(kept_combo) if kept_combo else empty
         # one read-back: kept rows per (slot, query), pairs per slot, stats
-        small = [
-            torch.bincount(combo_all, minlength=S * Q),
-            torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, pi, counts),
-        ]
+        with obs_trace.host_sync(2 if combo_all.numel() else 0):  # bincount reads min and max
+            combo_counts = torch.bincount(combo_all, minlength=S * Q)
+        small = [combo_counts,
+                 torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, pi, counts)]
         if return_stats:
             small.append(self._stats(alive, gkeep, checked, pi, qi, counts).flatten())
-        small = torch.cat(small).cpu().numpy()
+        with obs_trace.host_sync():
+            small = torch.cat(small).cpu().numpy()
         per_combo, slot_lp = small[: S * Q], small[S * Q : S * Q + S]
         self.part_leaf_pairs += slot_lp[st.slot_of]
         offs = np.concatenate([[0], np.cumsum(per_combo)])
@@ -470,11 +480,13 @@ class StackedProbe:
             return out + (self._zero_stats(n_parts, Q, use_groups),) if return_stats else out
         S = st.n_slots
         q_cat, q0 = self._slot_queries(q_emb, q_emb0, q_multi)
-        alive, gkeep = self._device_masks(q_cat, q0, eps, "batched", use_groups)
+        with obs_trace.span("probe.descent", device=dev):
+            alive, gkeep = self._device_masks(q_cat, q0, eps, "batched", use_groups)
         pi, qi, starts, counts = self._cells(alive, gkeep)
         checked = self._checked_groups(alive) if use_groups else None
         slot_lp = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, pi, counts)
-        head = torch.cat([slot_lp, self._group_pairs(checked)]).cpu().numpy()  # no pairs
+        with obs_trace.host_sync():
+            head = torch.cat([slot_lp, self._group_pairs(checked)]).cpu().numpy()  # no pairs
         total = int(head[:S].sum())
         if total > self.leaf_pair_cap:
             # a fan-out past the cap: probe's chunked leaf stage (which
@@ -496,7 +508,8 @@ class StackedProbe:
             # (slot, probe)-major, so a pair's place is its probe's offset,
             # plus the kept pairs of its probe in earlier slots, plus its rank
             # within its own (slot, probe) run
-            combo_counts = torch.bincount(combo, minlength=S * Q)
+            with obs_trace.host_sync(2 if combo.numel() else 0):  # bincount reads min and max
+                combo_counts = torch.bincount(combo, minlength=S * Q)
             per_sb = combo_counts.view(S, Q)
             per_b = per_sb.sum(dim=0)
             base_sb = (torch.cumsum(per_b, 0) - per_b)[None, :] + torch.cumsum(per_sb, 0) - per_sb
@@ -507,7 +520,8 @@ class StackedProbe:
         small = [combo_counts]
         if return_stats:
             small.append(self._stats(alive, gkeep, checked, pi, qi, counts).flatten())
-        small = torch.cat(small).cpu().numpy()
+        with obs_trace.host_sync():
+            small = torch.cat(small).cpu().numpy()
         cc = small[: S * Q].reshape(S, Q)
         per_probe = list(torch.split(out, cc.sum(axis=0).tolist())) if total else [empty] * Q
         part_counts = cc[st.slot_of]

@@ -8,7 +8,12 @@ One shared surface for every tier (core engine, delta, dist, serve):
   ``Gauge``/``Histogram`` in a process-global :class:`MetricsRegistry`.
 * :mod:`repro_torch.obs.trace` — lightweight per-query span trees with
   the pruning funnel (group pairs → surviving groups → leaf pairs →
-  candidates → matches) as first-class numbers.
+  candidates → matches) as first-class numbers, and per-trace counts:
+  the host's waits on the device (``host_sync`` at each site), the
+  queries and the device join's groups.  Under an open trace a span can
+  carry a device-clocked twin (CUDA events, read when the trace
+  finishes), and while a torch profiler records, each span opens the
+  range ``span:<name>``.  With no trace open none of this runs.
 * :mod:`repro_torch.obs.export` — Prometheus text format, JSON
   snapshots, an optional stdlib ``/metrics`` HTTP endpoint, and
   structured JSON event logging.
@@ -29,7 +34,17 @@ from .metrics import (
     enable,
     is_enabled,
 )
-from .trace import Span, QueryTrace, Tracer, TRACER, current_trace, span, trace_query
+from .trace import (
+    Span,
+    QueryTrace,
+    Tracer,
+    TRACER,
+    add_count,
+    current_trace,
+    host_sync,
+    span,
+    trace_query,
+)
 from .export import (
     EventLog,
     EVENTS,
@@ -55,6 +70,8 @@ __all__ = [
     "current_trace",
     "span",
     "trace_query",
+    "host_sync",
+    "add_count",
     "EventLog",
     "EVENTS",
     "MetricsHTTPServer",

@@ -7,18 +7,38 @@ A trace is a tree of :class:`Span`s covering the serving pipeline::
     ├─ queue_wait
     └─ execute
        └─ match_many (per engine call)
+          ├─ cache_lookup
           ├─ embed
           ├─ plan            (attrs: cache_hits / cache_misses)
-          ├─ probe           (children: one span per partition probed,
-          │                   attrs: main rows vs delta rows)
+          ├─ probe           (attrs: n_requests)
+          │  ├─ probe.descent        the stacked probe's dense descent and
+          │  │  └─ probe.descent.device   group level; its device twin
+          │  ├─ partition    (one per partition probed: main vs delta rows)
+          │  └─ probe.device the probe's device twin
           ├─ assemble
-          ├─ join            (attrs: per-step pair counts live on the
-          │                   engine side; retries on the service side)
+          ├─ join            (attrs: impl, n_queries, matches)
+          │  ├─ join.merge   the multi-way join steps: one a query (host
+          │  │               join) or a group, plus the device join's
+          │  │               grouping by canonical key
+          │  └─ join.refine  the exact verification and the match tuples
           └─ cache_store
 
 plus a ``funnel`` dict on the trace itself carrying the paper's pruning
 ladder: group MBR pairs in → surviving groups → leaf pairs → candidates
-→ matches.
+→ matches, and a ``counts`` dict: ``host_syncs`` and ``host_sync_s`` (the
+statements that made the host wait for the device, and the host seconds
+spent in them, fed by :func:`host_sync`), ``queries`` and ``join_groups``
+(the device join's groups of same-plan queries).
+
+A span opened with ``device=`` on a CUDA device gets a *device twin*, a
+child ``<name>.device`` whose duration is the current stream's time from
+reaching the span's first queued operation to finishing its last: two
+timing events recorded when the span opens and closes, read when the
+trace finishes (no synchronize inside the span; the engine's batches end
+in a read-back, so by then both events have passed).  While a torch
+profiler records, every span of an open trace also opens the profiler
+range ``span:<name>``, so a device trace puts its idle gaps down to the
+program's spans.
 
 Tracing is sampled (``trace_rate``) with a deterministic counter-based
 sampler — no RNG, so tests are exactly reproducible — and finished
@@ -30,6 +50,7 @@ thread has no active trace (or obs is disabled).
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from collections import deque
@@ -45,6 +66,8 @@ __all__ = [
     "current_trace",
     "span",
     "trace_query",
+    "host_sync",
+    "add_count",
 ]
 
 #: Stage names in pipeline order, used by exporters and tests.
@@ -55,6 +78,9 @@ FUNNEL_KEYS = (
     "candidates",
     "matches",
 )
+
+#: Prefix of the profiler range each span opens while a profiler records.
+SPAN_RANGE = "span:"
 
 
 class Span:
@@ -97,15 +123,19 @@ class Span:
 
 
 class QueryTrace:
-    """A root span plus the pruning-funnel counters for one request."""
+    """A root span plus the pruning-funnel counters and the per-trace
+    counts (``host_syncs``, ``host_sync_s``, ``queries``, ``join_groups``)
+    for one request."""
 
-    __slots__ = ("qid", "root", "funnel", "_stack")
+    __slots__ = ("qid", "root", "funnel", "counts", "_stack", "_twins")
 
     def __init__(self, qid: object) -> None:
         self.qid = qid
         self.root = Span("request")
         self.funnel: Dict[str, int] = {k: 0 for k in FUNNEL_KEYS}
+        self.counts: Dict[str, float] = {}
         self._stack: List[Span] = [self.root]
+        self._twins: list = []  # (twin span, start event, end event), read at finish()
 
     @property
     def current(self) -> Span:
@@ -132,6 +162,10 @@ class QueryTrace:
         for k, v in counts.items():
             self.funnel[k] = self.funnel.get(k, 0) + int(v)
 
+    def add_count(self, **counts: float) -> None:
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
     def add_span(self, name: str, t0: float, t1: float, **attrs: object) -> Span:
         """Append a pre-timed child to the root — for stages measured
         outside a lexical ``span()`` block (queue wait, admission)."""
@@ -152,11 +186,16 @@ class QueryTrace:
         while len(self._stack) > 1:
             self._stack.pop().finish()
         self.root.finish()
+        for twin, start, end in self._twins:
+            end.synchronize()  # passed already where the batch ended in a read-back
+            twin.t1 = twin.t0 + start.elapsed_time(end) / 1e3
+        self._twins.clear()
 
     def as_dict(self) -> dict:
         return {
             "qid": self.qid,
             "funnel": dict(self.funnel),
+            "counts": dict(self.counts),
             "pruning_power": self.pruning_power(),
             "spans": self.root.as_dict(),
         }
@@ -230,19 +269,42 @@ class Tracer:
             self.ring.append(tr)
 
     @contextlib.contextmanager
-    def span(self, name: str, **attrs: object) -> Iterator[Optional[Span]]:
-        """Child span under the thread's current trace; no-op otherwise."""
+    def span(self, name: str, *, device=None, **attrs: object) -> Iterator[Optional[Span]]:
+        """Child span under the thread's current trace; no-op otherwise.
+
+        ``device`` (a ``torch.device``): on a CUDA device the span also
+        gets its device twin ``<name>.device`` (see the module doc).  While
+        a torch profiler records, the span opens the range ``span:<name>``.
+        """
         tr = self.current()
         if tr is None:
             yield None
             return
+        torch = sys.modules.get("torch")  # no profiler or card without it
+        rf = ev0 = None
+        if torch is not None and torch.autograd._profiler_enabled():  # the C++ state
+            rf = torch.autograd.profiler.record_function(SPAN_RANGE + name)
+            rf.__enter__()
         s = tr.push(name)
         if attrs:
             s.attrs.update(attrs)
+        # the events inside the host interval: an idle stream's twin is no longer
+        if torch is not None and device is not None and torch.device(device).type == "cuda":
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
         try:
             yield s
         finally:
+            if ev0 is not None:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                twin = Span(name + ".device")
+                twin.t0 = twin.t1 = s.t0
+                s.children.append(twin)
+                tr._twins.append((twin, ev0, ev1))
             tr.pop(s)
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def adopt(self, tr: Optional[QueryTrace]) -> "contextlib.AbstractContextManager":
         """Make an existing trace current on *this* thread for a block —
@@ -276,6 +338,26 @@ class Tracer:
 TRACER = Tracer()
 
 
+class _HostSync:
+    """Times one host-sync site into a trace's ``counts``."""
+
+    __slots__ = ("tr", "n", "t0")
+
+    def __init__(self, tr: QueryTrace, n: int) -> None:
+        self.tr, self.n = tr, n
+
+    def __enter__(self) -> None:
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        counts = self.tr.counts
+        counts["host_syncs"] = counts.get("host_syncs", 0) + self.n
+        counts["host_sync_s"] = counts.get("host_sync_s", 0.0) + time.perf_counter() - self.t0
+
+
+_NO_SYNC = contextlib.nullcontext()
+
+
 def current_trace() -> Optional[QueryTrace]:
     return TRACER.current()
 
@@ -286,3 +368,29 @@ def span(name: str, **attrs: object):
 
 def trace_query(qid: object):
     return TRACER.trace_query(qid)
+
+
+def host_sync(n: int = 1):
+    """Context manager around a statement that makes the host wait for the
+    device ``n`` times: a read-back (``.cpu()``, ``.item()``,
+    ``.tolist()``, ``.numpy()``, ``int()`` or ``bool()`` of a device
+    tensor), an operation whose output size the host must learn (a
+    boolean-mask index, ``nonzero``, ``bincount``, ``repeat_interleave``
+    without ``output_size``, ``torch.unique``), or a copy of host data to
+    the device (``torch.as_tensor(..., device=)``, ``.to(device)`` of a
+    host tensor, a Python list as an index), which PyTorch ends in a
+    stream synchronize.  Under an open trace it adds ``n`` to the trace's
+    ``host_syncs`` and the block's host seconds to ``host_sync_s``,
+    whatever the device, so a CPU run counts what the card waits for;
+    otherwise it is a shared null context."""
+    tr = TRACER.current()
+    if tr is None or n <= 0:
+        return _NO_SYNC
+    return _HostSync(tr, n)
+
+
+def add_count(**counts: float) -> None:
+    """Add to the current trace's ``counts``; no-op without one."""
+    tr = TRACER.current()
+    if tr is not None:
+        tr.add_count(**counts)

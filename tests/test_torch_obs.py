@@ -10,7 +10,12 @@ instrumentation, held against the JAX package's on the CPU.
   per-partition row attributions equal the reference's traced funnel on
   the same graph and queries, for the path and grouped kinds under both
   probes and for the stacked probe's hand-off to the device join, also
-  under pending updates; its stage tree and stage sums;
+  under pending updates; its stage tree and stage sums; the port's own
+  spans below the stages (``probe.descent``, ``join.merge``,
+  ``join.refine``), its ``host_syncs`` count against a hand count, its
+  ``join_groups`` against the distinct keys and plans, the device twins
+  (on stand-in events), the profiler ranges, and nothing made without a
+  trace;
 - export: the Prometheus round trip, the JSON snapshot, ``/metrics`` on
   loopback and the event log;
 - the engine, server, service, standing and admission metrics carry the
@@ -493,3 +498,219 @@ def test_service_traces_metrics_endpoint_and_events(grouped_pair):
     kinds = [e["event"] for e in events]
     assert kinds.count("request") == len(qs)
     assert {e["status"] for e in events if e["event"] == "request"} == {"ok", "error"}
+
+
+# ------------------------------------------- spans and counts below stages --
+
+
+def path_query(g, n: int, start: int):
+    """The path of ``n`` vertices that walks ``g`` from ``start`` to its
+    first unvisited neighbour each step, as a query with ``g``'s labels: a
+    query with at least one match."""
+    from repro_torch.graphs import from_edge_list as port_from_edge_list
+
+    vs = [start]
+    while len(vs) < n:
+        v = vs[-1]
+        vs.append(next(int(u) for u in g.nbrs[g.offsets[v]: g.offsets[v + 1]] if int(u) not in vs))
+    return port_from_edge_list(n, [(i, i + 1) for i in range(n - 1)], np.asarray(g.labels)[vs])
+
+
+def path_batch(g) -> list:
+    """A 3-vertex path (one plan path, no join step) and a 4-vertex path
+    (two plan paths sharing two vertices: one step adding one column)."""
+    starts = [v for v in range(g.n_vertices) if g.offsets[v + 1] - g.offsets[v] >= 2]
+    for s in starts:
+        try:
+            return [path_query(g, 3, s), path_query(g, 4, s)]
+        except StopIteration:
+            continue
+    raise AssertionError("no start with a 4-vertex path")
+
+
+def tree_names(span) -> list:
+    return [c.name for c in span.children]
+
+
+@pytest.mark.parametrize("join", ["numpy", "device"])
+def test_spans_below_the_stages(grouped_pair, join):
+    """``probe.descent`` once under ``probe``; ``join.merge`` and
+    ``join.refine`` under ``join``, one a query (host join) or a group plus
+    the grouping (device join); no device twin on the CPU; the top-level
+    stages as before."""
+    from repro_torch.core.planner import canonical_form
+
+    _, eng = grouped_pair
+    qs = queries(eng.graph) + queries(eng.graph, n=2)
+    kw = dict(index_kind="path", probe_impl="stacked", join_impl=join)
+    eng.match_many(qs, **kw)
+    tr = traced(TRACER, lambda: eng.match_many(qs, **kw))
+    assert tree_names(tr.root) == ["embed", "plan", "probe", "assemble", "join"]
+    (probe,) = tr.root.find("probe")
+    assert [s.name for s in probe.children if s.name != "partition"] == ["probe.descent"]
+    assert tree_names(probe.find("probe.descent")[0]) == []
+    (join_span,) = tr.root.find("join")
+    names = tree_names(join_span)
+    assert set(names) == {"join.merge", "join.refine"}
+    if join == "numpy":
+        assert names == ["join.merge", "join.refine"] * len(qs)
+    else:
+        groups = {canonical_form(q)[1] for q in qs}
+        assert len(groups) < len(qs)  # the repeated queries share a group
+        assert names.count("join.refine") == tr.counts["join_groups"] >= len(groups)
+        assert names[0] == "join.merge" and join_span.children[0].attrs == {"grouping": True}
+    assert not tr.root.find("probe.device") and not tr.root.find("probe.descent.device")
+    assert tr.counts["queries"] == len(qs)
+    assert sum(s.duration_s for s in join_span.children) <= join_span.duration_s
+    assert json.loads(json.dumps(tr.as_dict()))["counts"] == tr.counts
+
+
+@pytest.mark.parametrize("join", ["numpy", "device"])
+def test_host_sync_count_equals_a_hand_count(grouped_pair, join):
+    """The two path queries of ``path_batch`` through the stacked probe:
+    the sites counted, by hand."""
+    _, eng = grouped_pair
+    qs = path_batch(eng.graph)
+    kw = dict(index_kind="path", probe_impl="stacked", join_impl=join)
+    lists, stats = eng.match_many(qs, return_stats=True, **kw)  # warms the pair-bucket guesses
+    assert all(lists) and [len(s.plan.paths) for s in stats] == [1, 2]
+    tr = traced(TRACER, lambda: eng.match_many(qs, **kw))
+    # embed: a query's device graph (4 copies in) and star vertex ids (1),
+    # the label permutations (1)
+    embed = 5 * len(qs) + 1
+    if join == "numpy":
+        # rows copy in, eps, cells nonzero, chunk starts nonzero, the head's
+        # read-back, the chunk's kept nonzero, bincount (2), the read-back
+        probe = 1 + 1 + 1 + 1 + 1 + 1 + 2 + 1
+        # a query: the first table's mask; a step: two list indexes, the
+        # pair total, the new columns' list index, the injectivity mask; the
+        # refine: two copies in, the verdict's mask, the tuples' read-back
+        join_syncs = (1 + 4) + (1 + (2 + 1 + 1 + 1) + 4)
+    else:
+        # rows copy in, eps, cells nonzero, the head's read-back, the kept
+        # nonzero, bincount (2), the read-back
+        probe = 1 + 1 + 1 + 1 + 1 + 2 + 1
+        # a group: the first stack's counts, its row counts, the compaction's
+        # counts; a step: the stack's counts, the two-column key's two list
+        # indexes, the new column's list index, totals and counts; the refine:
+        # six non-empty copies in, the row counts, the verdict's mask and read-back
+        group = 1 + 1 + 1 + 6 + 1 + 2
+        join_syncs = group + (group + 1 + 2 + 1 + 1)
+        assert tr.counts["join_groups"] == 2
+    assert tr.counts["host_syncs"] == embed + probe + join_syncs
+    assert 0 < tr.counts["host_sync_s"] < tr.root.duration_s
+
+
+def test_join_groups_are_the_distinct_keys_and_plans(grouped_pair):
+    from repro_torch.core.planner import canonical_form
+
+    _, eng = grouped_pair
+    qs = queries(eng.graph, n=5) + queries(eng.graph, n=3) + path_batch(eng.graph)
+    kw = dict(index_kind="grouped", probe_impl="stacked", join_impl="device")
+    _, stats = eng.match_many(qs, return_stats=True, **kw)
+    want = set()
+    for q, st in zip(qs, stats):
+        perm, key = canonical_form(q)
+        inv = np.empty(q.n_vertices, np.int64)
+        inv[perm] = np.arange(q.n_vertices)
+        want.add((key, tuple(tuple(int(inv[v]) for v in p) for p in st.plan.paths)))
+    tr = traced(TRACER, lambda: eng.match_many(qs, **kw))
+    assert tr.counts["join_groups"] == len(want) < len(qs)
+    assert tr.counts["queries"] == len(qs)
+
+
+def test_no_trace_creates_no_event_and_no_range(grouped_pair, monkeypatch):
+    """Without a trace (and on the CPU with one), nothing of the device
+    twins or the profiler ranges is made, and ``host_sync`` is one shared
+    null context."""
+    from repro_torch.obs import trace as obs_trace
+
+    def refuse(*a, **k):
+        raise AssertionError("made without a trace")
+
+    _, eng = grouped_pair
+    qs = path_batch(eng.graph)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    for join in ("numpy", "device"):
+        kw = dict(index_kind="path", probe_impl="stacked", join_impl=join)
+        assert eng.match_many(qs, **kw)
+        tr = traced(TRACER, lambda: eng.match_many(qs, **kw))  # a trace, but no card
+        assert tr.counts["host_syncs"] > 0
+    assert obs_trace.current_trace() is None
+    assert obs_trace.host_sync() is obs_trace.host_sync(3) is obs_trace._NO_SYNC
+
+
+def test_span_ranges_under_a_recording_profiler(grouped_pair):
+    """While a CPU profiler records, each span of an open trace opens the
+    range ``span:<name>``; with no trace open, none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, eng = grouped_pair
+    qs = path_batch(eng.graph)
+    kw = dict(index_kind="path", probe_impl="stacked", join_impl="numpy")
+    eng.match_many(qs, **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced(TRACER, lambda: eng.match_many(qs, **kw))
+    names = {e.name for e in prof.events() if e.name.startswith("span:")}
+    assert {"span:embed", "span:plan", "span:probe", "span:probe.descent", "span:assemble",
+            "span:join", "span:join.merge", "span:join.refine", "span:partition"} == names
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.match_many(qs, **kw)
+    assert not [e for e in prof.events() if e.name.startswith("span:")]
+
+
+def test_device_twin_is_read_when_the_trace_finishes(monkeypatch):
+    """A span opened with a CUDA ``device`` gets the child
+    ``<name>.device``, whose duration is its two events' elapsed time, read
+    at ``finish()``; a CPU device gets none."""
+    clock = iter(range(10, 1000, 10))
+
+    class FakeEvent:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.at = None
+
+        def record(self):
+            self.at = next(clock)
+
+        def synchronize(self):
+            assert self.at is not None
+
+        def elapsed_time(self, end):
+            return float(end.at - self.at)  # ms
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    with TRACER.trace_query("twin") as tr:
+        with TRACER.span("probe", device=torch.device("cuda"), n_requests=3) as s:
+            with TRACER.span("probe.descent", device="cuda"):
+                pass
+        with TRACER.span("join", device=torch.device("cpu")):
+            pass
+    assert s.attrs == {"n_requests": 3}
+    assert tree_names(s) == ["probe.descent", "probe.device"]
+    assert tree_names(s.children[0]) == ["probe.descent.device"]
+    assert s.find("probe.device")[0].duration_s == pytest.approx(0.030)  # events 10 and 40
+    assert s.find("probe.descent.device")[0].duration_s == pytest.approx(0.010)  # 20 and 30
+    assert tree_names(tr.root.find("join")[0]) == []
+    assert not tr._twins
+
+
+def test_host_sync_counts_only_under_a_trace():
+    from repro_torch.obs import add_count, host_sync
+
+    with host_sync(2):
+        pass
+    add_count(queries=4)  # no trace: nothing to add to
+    with TRACER.trace_query("syncs") as tr:
+        with host_sync(2):
+            pass
+        with host_sync(0):
+            pass
+        with host_sync():
+            pass
+        add_count(queries=4, join_groups=1)
+        add_count(queries=2)
+    assert tr.counts["host_syncs"] == 3 and tr.counts["host_sync_s"] >= 0
+    assert tr.counts["queries"] == 6 and tr.counts["join_groups"] == 1
+    assert tr.as_dict()["counts"] == tr.counts
